@@ -7,17 +7,24 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
 
 1. The card: the ``nvidia-smi`` name/power-limit line; build the CUDA kernels
    from ``trino_tpu_torch/csrc`` (one ``nvcc`` per source, all at once).
-2. The slice end to end at SF1 (``TpchConnector(sf=1, split_rows=1<<21)``,
-   the scale and split size of ``bench.py``): TPC-H Q1, Q3 and Q9 through
-   ``Engine(device="cuda").execute_sql``, cold and warm.  Every kernel launch
-   counter is set to 0 just before and read just after; Q9 must launch the
-   insert, probe and compaction kernels and Q3 the insert kernel.  Each result
-   is held against the same query run by the port on the CPU.
-3. Each kernel against its plain PyTorch version on the card, at the largest
-   shape it launched at in phase 2: insert on observables (placed set, slot
-   words, the set of table words, probe results), probe and compaction bit
-   for bit.  Times are CUDA-event medians after warm-up.
-4. The slice at SF10 on the card alone: warm wall time and lineitem rows/s.
+2. TPC-H end to end at SF1 (``TpchConnector(sf=1, split_rows=1<<21)``, the
+   scale and split size of ``bench.py``): bench.py's five queries and the 16
+   other queries of tests/test_sql_tpch*.py (all but Q15) through
+   ``Engine(device="cuda").execute_sql``, cold and warm, with host reads and
+   peak device memory per query.  Every kernel launch counter is set to 0
+   just before and read just after; each query must launch the kernels that
+   ``REQUIRED`` names (the kernels the JAX reference's SF1 path reaches), and
+   every kernel but ``fused_segment_agg`` (which has no caller in the engine,
+   as in the reference) must launch.  Each result is held against the same
+   query run by the port on the CPU.
+3. Each kernel against its plain PyTorch version on the card: insert, probe
+   and compaction at the largest shape they launched at in phase 2 (insert on
+   observables, probe and compaction bit for bit); ``fused_segment_agg`` at
+   Q1's group-by shape over the first SF1 lineitem split and at its 128-slot
+   ceiling (counts exactly, sums against a float64 sum of the same inputs).
+   Times are CUDA-event medians after warm-up.
+4. bench.py's five queries at SF10 on the card alone: warm wall time and
+   lineitem rows/s.
 
 It prints the card line, then one JSON line with every kernel's numbers, and
 last ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -33,7 +40,7 @@ import subprocess
 import sys
 import time
 
-# the three queries of this slice, as bench.py's QUERIES states them
+# bench.py's QUERIES, as bench.py states them
 QUERIES = {
     "q1": """
     select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty,
@@ -53,6 +60,13 @@ QUERIES = {
       and l_shipdate > date '1995-03-15'
     group by l_orderkey, o_orderdate, o_shippriority
     order by revenue desc, o_orderdate limit 10""",
+    "q4": """
+    select o_orderpriority, count(*) as order_count from orders
+    where o_orderdate >= date '1993-07-01'
+      and o_orderdate < date '1993-07-01' + interval '3' month
+      and exists (select 1 from lineitem where l_orderkey = o_orderkey
+                  and l_commitdate < l_receiptdate)
+    group by o_orderpriority order by o_orderpriority""",
     "q9": """
     select nation, o_year, sum(amount) as sum_profit from (
       select n_name as nation, extract(year from o_orderdate) as o_year,
@@ -62,9 +76,231 @@ QUERIES = {
         and p_partkey = l_partkey and o_orderkey = l_orderkey
         and s_nationkey = n_nationkey and p_name like '%green%') as profit
     group by nation, o_year order by nation, o_year desc""",
+    "q18": """
+    select c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice, sum(l_quantity)
+    from customer, orders, lineitem
+    where o_orderkey in (select l_orderkey from lineitem group by l_orderkey
+                         having sum(l_quantity) > 300)
+      and c_custkey = o_custkey and o_orderkey = l_orderkey
+    group by c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice
+    order by o_totalprice desc, o_orderdate limit 100""",
 }
-# the kernels each query must launch on the main path
-REQUIRED = {"q9": ("hash_insert", "hash_probe", "compact_rows"), "q3": ("hash_insert",)}
+
+# the rest of TPC-H but Q15 (which needs CREATE VIEW), as tests/test_sql_tpch*.py
+# state them
+TPCH_QUERIES = {
+    "q2": """
+        select s_acctbal, s_name, n_name, p_partkey, p_mfgr, s_address, s_phone, s_comment
+        from part, supplier, partsupp, nation, region
+        where p_partkey = ps_partkey and s_suppkey = ps_suppkey and p_size = 15
+          and p_type like '%BRASS' and s_nationkey = n_nationkey
+          and n_regionkey = r_regionkey and r_name = 'EUROPE'
+          and ps_supplycost = (
+              select min(ps_supplycost) from partsupp, supplier, nation, region
+              where p_partkey = ps_partkey and s_suppkey = ps_suppkey
+                and s_nationkey = n_nationkey and n_regionkey = r_regionkey
+                and r_name = 'EUROPE')
+        order by s_acctbal desc, n_name, s_name, p_partkey
+        limit 100""",
+    "q5": """
+        select n_name, sum(l_extendedprice * (1 - l_discount)) as revenue
+        from customer, orders, lineitem, supplier, nation, region
+        where c_custkey = o_custkey and l_orderkey = o_orderkey
+          and l_suppkey = s_suppkey and c_nationkey = s_nationkey
+          and s_nationkey = n_nationkey and n_regionkey = r_regionkey
+          and r_name = 'ASIA' and o_orderdate >= date '1994-01-01'
+          and o_orderdate < date '1994-01-01' + interval '1' year
+        group by n_name order by revenue desc""",
+    "q6": """
+        select sum(l_extendedprice * l_discount) as revenue
+        from lineitem
+        where l_shipdate >= date '1994-01-01'
+          and l_shipdate < date '1994-01-01' + interval '1' year
+          and l_discount between 0.05 and 0.07
+          and l_quantity < 24""",
+    "q7": """
+        select supp_nation, cust_nation, l_year, sum(volume) as revenue
+        from (select n1.n_name as supp_nation, n2.n_name as cust_nation,
+                     extract(year from l_shipdate) as l_year,
+                     l_extendedprice * (1 - l_discount) as volume
+              from supplier, lineitem, orders, customer, nation n1, nation n2
+              where s_suppkey = l_suppkey and o_orderkey = l_orderkey
+                and c_custkey = o_custkey and s_nationkey = n1.n_nationkey
+                and c_nationkey = n2.n_nationkey
+                and ((n1.n_name = 'FRANCE' and n2.n_name = 'GERMANY')
+                     or (n1.n_name = 'GERMANY' and n2.n_name = 'FRANCE'))
+                and l_shipdate between date '1995-01-01' and date '1996-12-31'
+             ) as shipping
+        group by supp_nation, cust_nation, l_year
+        order by supp_nation, cust_nation, l_year""",
+    "q8": """
+        select o_year,
+               sum(case when nation = 'BRAZIL' then volume else 0 end) / sum(volume)
+                   as mkt_share
+        from (select extract(year from o_orderdate) as o_year,
+                     l_extendedprice * (1 - l_discount) as volume, n2.n_name as nation
+              from part, supplier, lineitem, orders, customer, nation n1, nation n2, region
+              where p_partkey = l_partkey and s_suppkey = l_suppkey
+                and l_orderkey = o_orderkey and o_custkey = c_custkey
+                and c_nationkey = n1.n_nationkey and n1.n_regionkey = r_regionkey
+                and r_name = 'AMERICA' and s_nationkey = n2.n_nationkey
+                and o_orderdate between date '1995-01-01' and date '1996-12-31'
+                and p_type = 'ECONOMY ANODIZED STEEL'
+             ) as all_nations
+        group by o_year order by o_year""",
+    "q10": """
+        select c_custkey, c_name, sum(l_extendedprice * (1 - l_discount)) as revenue,
+               c_acctbal, n_name
+        from customer, orders, lineitem, nation
+        where c_custkey = o_custkey and l_orderkey = o_orderkey
+          and o_orderdate >= date '1993-10-01'
+          and o_orderdate < date '1993-10-01' + interval '3' month
+          and l_returnflag = 'R' and c_nationkey = n_nationkey
+        group by c_custkey, c_name, c_acctbal, n_name
+        order by revenue desc
+        limit 20""",
+    "q11": """
+        select ps_partkey, sum(ps_supplycost * ps_availqty) as value
+        from partsupp, supplier, nation
+        where ps_suppkey = s_suppkey and s_nationkey = n_nationkey
+          and n_name = 'GERMANY'
+        group by ps_partkey
+        having sum(ps_supplycost * ps_availqty) >
+               (select sum(ps_supplycost * ps_availqty) * 0.0001
+                from partsupp, supplier, nation
+                where ps_suppkey = s_suppkey and s_nationkey = n_nationkey
+                  and n_name = 'GERMANY')
+        order by value desc limit 100""",
+    "q12": """
+        select l_shipmode,
+               sum(case when o_orderpriority = '1-URGENT' or o_orderpriority = '2-HIGH'
+                        then 1 else 0 end) as high_line_count,
+               sum(case when o_orderpriority <> '1-URGENT' and o_orderpriority <> '2-HIGH'
+                        then 1 else 0 end) as low_line_count
+        from orders, lineitem
+        where o_orderkey = l_orderkey and l_shipmode in ('MAIL', 'SHIP')
+          and l_commitdate < l_receiptdate and l_shipdate < l_commitdate
+          and l_receiptdate >= date '1994-01-01'
+          and l_receiptdate < date '1994-01-01' + interval '1' year
+        group by l_shipmode order by l_shipmode""",
+    "q13": """
+        select c_count, count(*) as custdist
+        from (select c_custkey, count(o_orderkey) as c_count
+              from customer left outer join orders on c_custkey = o_custkey
+                   and o_comment not like '%special%requests%'
+              group by c_custkey) as c_orders (c_custkey, c_count)
+        group by c_count
+        order by custdist desc, c_count desc""",
+    "q14": """
+        select 100.00 * sum(case when p_type like 'PROMO%'
+                                 then l_extendedprice * (1 - l_discount) else 0 end)
+               / sum(l_extendedprice * (1 - l_discount)) as promo_revenue
+        from lineitem, part
+        where l_partkey = p_partkey and l_shipdate >= date '1995-09-01'
+          and l_shipdate < date '1995-09-01' + interval '1' month""",
+    "q16": """
+        select p_brand, p_type, p_size, count(distinct ps_suppkey) as supplier_cnt
+        from partsupp, part
+        where p_partkey = ps_partkey and p_brand <> 'Brand#45'
+          and p_type not like 'MEDIUM POLISHED%'
+          and p_size in (49, 14, 23, 45, 19, 3, 36, 9)
+          and ps_suppkey not in (select s_suppkey from supplier
+                                 where s_comment like '%Customer%Complaints%')
+        group by p_brand, p_type, p_size
+        order by supplier_cnt desc, p_brand, p_type, p_size""",
+    "q17": """
+        select sum(l_extendedprice) / 7.0 as avg_yearly
+        from lineitem, part
+        where p_partkey = l_partkey and p_brand = 'Brand#23' and p_container = 'MED BOX'
+          and l_quantity < (select 0.2 * avg(l_quantity) from lineitem
+                            where l_partkey = p_partkey)""",
+    "q19": """
+        select sum(l_extendedprice * (1 - l_discount)) as revenue
+        from lineitem, part
+        where (p_partkey = l_partkey and p_brand = 'Brand#12'
+               and p_container in ('SM CASE', 'SM BOX', 'SM PACK', 'SM PKG')
+               and l_quantity >= 1 and l_quantity <= 11 and p_size between 1 and 5
+               and l_shipmode in ('AIR', 'AIR REG')
+               and l_shipinstruct = 'DELIVER IN PERSON')
+           or (p_partkey = l_partkey and p_brand = 'Brand#23'
+               and p_container in ('MED BAG', 'MED BOX', 'MED PKG', 'MED PACK')
+               and l_quantity >= 10 and l_quantity <= 20 and p_size between 1 and 10
+               and l_shipmode in ('AIR', 'AIR REG')
+               and l_shipinstruct = 'DELIVER IN PERSON')
+           or (p_partkey = l_partkey and p_brand = 'Brand#34'
+               and p_container in ('LG CASE', 'LG BOX', 'LG PACK', 'LG PKG')
+               and l_quantity >= 20 and l_quantity <= 30 and p_size between 1 and 15
+               and l_shipmode in ('AIR', 'AIR REG')
+               and l_shipinstruct = 'DELIVER IN PERSON')""",
+    "q20": """
+        select s_name, s_address
+        from supplier, nation
+        where s_suppkey in (
+              select ps_suppkey from partsupp
+              where ps_partkey in (select p_partkey from part
+                                   where p_name like 'forest%')
+                and ps_availqty > (
+                    select 0.5 * sum(l_quantity) from lineitem
+                    where l_partkey = ps_partkey and l_suppkey = ps_suppkey
+                      and l_shipdate >= date '1994-01-01'
+                      and l_shipdate < date '1994-01-01' + interval '1' year))
+          and s_nationkey = n_nationkey and n_name = 'CANADA'
+        order by s_name""",
+    "q21": """
+        select s_name, count(*) as numwait
+        from supplier, lineitem l1, orders, nation
+        where s_suppkey = l1.l_suppkey and o_orderkey = l1.l_orderkey
+          and o_orderstatus = 'F' and l1.l_receiptdate > l1.l_commitdate
+          and exists (select * from lineitem l2
+                      where l2.l_orderkey = l1.l_orderkey
+                        and l2.l_suppkey <> l1.l_suppkey)
+          and not exists (select * from lineitem l3
+                          where l3.l_orderkey = l1.l_orderkey
+                            and l3.l_suppkey <> l1.l_suppkey
+                            and l3.l_receiptdate > l3.l_commitdate)
+          and s_nationkey = n_nationkey and n_name = 'SAUDI ARABIA'
+        group by s_name
+        order by numwait desc, s_name
+        limit 100""",
+    "q22": """
+        select cntrycode, count(*) as numcust, sum(c_acctbal) as totacctbal
+        from (select substring(c_phone, 1, 2) as cntrycode, c_acctbal
+              from customer
+              where substring(c_phone, 1, 2) in ('13', '31', '23', '29', '30', '18', '17')
+                and c_acctbal > (select avg(c_acctbal) from customer
+                                 where c_acctbal > 0.00
+                                   and substring(c_phone, 1, 2) in
+                                       ('13', '31', '23', '29', '30', '18', '17'))
+                and not exists (select * from orders
+                                where o_custkey = c_custkey)) as custsale
+        group by cntrycode
+        order by cntrycode""",
+}
+ALL_QUERIES = dict(sorted({**QUERIES, **TPCH_QUERIES}.items(),
+                          key=lambda kv: int(kv[0][1:])))
+# the kernels each query must launch on the main path: those the JAX
+# reference's SF1 path reaches (a call recording of trino_tpu at SF1, PERF.md)
+REQUIRED = {
+    "q2": ("compact_rows",),
+    "q3": ("hash_insert",),
+    "q5": ("hash_insert", "hash_probe", "compact_rows"),
+    "q7": ("hash_insert",),
+    "q8": ("hash_insert", "compact_rows"),
+    "q9": ("hash_insert", "hash_probe", "compact_rows"),
+    "q10": ("hash_insert", "compact_rows"),
+    "q13": ("hash_insert",),
+    "q16": ("hash_insert",),
+    "q17": ("compact_rows",),
+    "q18": ("hash_insert",),
+    "q20": ("hash_insert", "hash_probe", "compact_rows"),
+    "q21": ("hash_insert", "compact_rows"),
+}
+# the one kernel with no caller in the engine (nor in the reference's)
+NO_ENGINE_CALLER = ("fused_segment_agg",)
+# float32 sums of ~260K rows per slot against float64: a sequential float32
+# sum of Q1's discounts drifts by ~1.6e-3 relative on the CPU; a wrong slot
+# or a lost row is off by far more (and the counts are held exactly)
+SEGMENT_RTOL = 1e-2
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, and the
 # non-tensor-core rate used as the ceiling for the kernels' integer work
@@ -108,23 +344,26 @@ def same_result(a, b, what):
         check(ok, f"{what}: column {name} differs")
 
 
-def run_queries(engine, conn_rows, label):
-    """Cold and warm run of each query; per-query launches from the cold run."""
+def run_queries(engine, queries, conn_rows, label):
+    """Cold and warm run of each query; per-query launches, host reads (plan-
+    time subqueries included) and peak device memory from the cold run."""
     import torch
 
     from trino_tpu_torch.ops import cuda_kernels as ck
 
     out = {}
-    for q, sql in QUERIES.items():
+    for q, sql in queries.items():
         sess = engine.create_session("tpch")
         before = {k: s.launches for k, s in ck.STATS.items()}
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = engine.execute_sql(sql, sess)
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
         launches = {k: s.launches - before[k] for k, s in ck.STATS.items()}
         reads = dict(engine.last_query_counters)
+        peak = torch.cuda.max_memory_allocated()
         warm = []
         for _ in range(2):
             torch.cuda.synchronize()
@@ -136,11 +375,12 @@ def run_queries(engine, conn_rows, label):
         out[q] = {"result": res, "rows": len(res), "cold_s": cold,
                   "warm_s": min(warm), "launches": launches,
                   "host_reads": reads.get("host_reads"),
-                  "host_bytes": reads.get("host_bytes"),
+                  "host_bytes": reads.get("host_bytes"), "peak_bytes": peak,
                   "lineitem_rows_per_s": conn_rows / min(warm)}
-        print(f"{label} {q}: rows={len(res)} cold_s={cold:.4f} warm_s={min(warm):.4f} "
-              f"launches={launches} host_reads={reads.get('host_reads')} "
-              f"lineitem_rows_per_s={conn_rows / min(warm):.4g}", flush=True)
+        print(f"{label} {q}: rows={len(res)} cold_s={cold} warm_s={min(warm)} "
+              f"launches={ {k: v for k, v in launches.items() if v} } "
+              f"host_reads={reads.get('host_reads')} peak_bytes={peak} "
+              f"lineitem_rows_per_s={conn_rows / min(warm)}", flush=True)
     return out
 
 
@@ -202,9 +442,97 @@ def probe_chains(table, packed, h0, stp, valid):
     return torch.cat(seen), torch.cat(hits)
 
 
-def kernel_checks(shapes, launches):
+def segment_agg_checks(q1_page):
+    """fused_segment_agg against its plain version at two shapes: Q1's
+    group-by over one lineitem split (8 slots = returnflag x linestatus,
+    valid = Q1's shipdate filter, the four summed columns as float32), and
+    the contract's ceiling (128 random slots, 8 columns).  Counts must be
+    exact; sums of both versions are held against a float64 sum of the same
+    float32 inputs, and max_abs_err is the largest relative error."""
+    import numpy as np
+    import torch
+
+    from trino_tpu_torch.ops import cuda_kernels as ck
+
+    dev = torch.device(DEVICE)
+    cols = dict(zip(q1_page.schema.names, q1_page.columns))
+    types = {f.name: f.type for f in q1_page.schema.fields}
+    cutoff = int((np.datetime64("1998-09-02") - np.datetime64("1970-01-01")).astype(int))
+    q1 = {
+        "slot": (cols["l_returnflag"].to(torch.int32) * 2
+                 + cols["l_linestatus"].to(torch.int32)),
+        "valid": q1_page.valid_mask() & (cols["l_shipdate"].to(torch.int64) <= cutoff),
+        "values": tuple((cols[c].to(torch.float64) / 10 ** types[c].scale).to(torch.float32)
+                        for c in ("l_quantity", "l_extendedprice", "l_discount", "l_tax")),
+        "n_slots": 8,
+    }
+    gen = np.random.default_rng(11)
+    n = q1["slot"].shape[0]
+    ceiling = {
+        "slot": torch.as_tensor(gen.integers(0, 128, n).astype(np.int32), device=dev),
+        "valid": torch.as_tensor(gen.random(n) < 0.9, device=dev),
+        "values": tuple(torch.as_tensor(gen.random(n).astype(np.float32) * 10 ** j,
+                                        device=dev) for j in range(8)),
+        "n_slots": 128,
+    }
+    shapes = []
+    for label, case in (("q1_groupby", q1), ("ceiling", ceiling)):
+        slot, valid, values, n_slots = (case[k] for k in ("slot", "valid", "values",
+                                                          "n_slots"))
+        k = len(values)
+        live = valid & (slot >= 0) & (slot < n_slots)
+        idx = torch.where(live, slot.to(torch.int64), n_slots)
+        want_counts = torch.bincount(idx, minlength=n_slots + 1)[:n_slots]
+        want = torch.zeros((n_slots + 1, k), dtype=torch.float64, device=dev)
+        want.index_add_(0, idx, torch.stack(values, 1).to(torch.float64))
+        want = want[:n_slots]
+        err = {}
+        for impl, fn in (("kernel", ck.fused_segment_agg),
+                         ("plain", ck.fused_segment_agg_plain)):
+            counts, sums = fn(slot, valid, values, n_slots)
+            torch.cuda.synchronize()
+            check(bool((counts.to(torch.int64) == want_counts).all()),
+                  f"fused_segment_agg {label}: {impl} counts differ from bincount")
+            got = torch.stack(sums, 1).to(torch.float64) if k else want
+            scale = torch.clamp(want.abs(), min=1e-30)
+            err[impl] = float(((got - want).abs() / scale).max()) if k else 0.0
+            check(err[impl] <= SEGMENT_RTOL, f"fused_segment_agg {label}: {impl} sums off "
+                  f"by {err[impl]:.3g} relative to float64")
+        stacked = torch.stack(values, 1)
+        ms = time_ms(lambda: ck.fused_segment_agg(slot, valid, values, n_slots))
+        plain_ms = time_ms(lambda: ck.fused_segment_agg_plain(slot, valid, values, n_slots))
+
+        def library():
+            acc = torch.zeros((n_slots + 1, k), dtype=torch.float32, device=dev)
+            acc.index_add_(0, idx, stacked)
+            torch.bincount(idx, minlength=n_slots + 1)
+
+        library_ms = time_ms(library)
+        # each row read once (slot, valid, k float32 values); the outputs
+        # written once; one add per live value
+        b_ms, b_by = bound(n * (4 + 1 + 4 * k) + n_slots * 4 * (k + 1),
+                           int(live.sum()) * (k + 1))
+        shapes.append({"case": label, "shape": [n, n_slots, k], "live": int(live.sum()),
+                       "max_abs_err": max(err.values()), "rel_err_kernel": err["kernel"],
+                       "rel_err_plain": err["plain"], "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms})
+        print(f"kernel fused_segment_agg {label}: shape={[n, n_slots, k]} "
+              f"rel_err kernel={err['kernel']:.3g} plain={err['plain']:.3g} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.6g} "
+              f"library_ms={library_ms:.4f}", flush=True)
+    first = shapes[0]
+    return {"name": "fused_segment_agg", "shape": first["shape"],
+            "max_abs_err": max(x["max_abs_err"] for x in shapes),
+            **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")},
+            "shapes": shapes}
+
+
+def kernel_checks(shapes, launches, q1_page):
     """Phase 3: each kernel against its plain version at the main path's
-    largest launch shape.  Returns the kernels' JSON records."""
+    largest launch shape (fused_segment_agg, which the main path does not
+    launch, at Q1's group-by shape and its ceiling).  Returns the kernels'
+    JSON records."""
     import numpy as np
     import torch
 
@@ -334,6 +662,8 @@ def kernel_checks(shapes, launches):
                     "live": live_n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms})
 
+    records.append(segment_agg_checks(q1_page))
+
     out = []
     for r in records:
         s = ck.STATS[r["name"]]
@@ -383,35 +713,46 @@ def main() -> int:
         engine.register_catalog("tpch", conn)
         li_rows = conn.exact_row_count("lineitem")
         ck.reset_stats()
-        main = run_queries(engine, li_rows, f"sf{SF_MAIN:g}")
+        main = run_queries(engine, ALL_QUERIES, li_rows, f"sf{SF_MAIN:g}")
         launches = {k: s.launches for k, s in ck.STATS.items()}
         shapes = {k: list(s.shapes) for k, s in ck.STATS.items()}
         for q, kernels in REQUIRED.items():
             for k in kernels:
                 check(main[q]["launches"][k] > 0, f"{q} launched no {k} kernel")
         for k, n in launches.items():
-            check(n > 0, f"main path launched no {k} kernel")
+            if k in NO_ENGINE_CALLER:
+                print(f"main path: {k} launched {n} times (no engine caller)", flush=True)
+            else:
+                check(n > 0, f"main path launched no {k} kernel")
 
         cpu = Engine(device="cpu")
         cpu.register_catalog("tpch", TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS))
-        for q, sql in QUERIES.items():
+        t_cpu = time.perf_counter()
+        for q, sql in ALL_QUERIES.items():
             t0 = time.perf_counter()
             ref = cpu.execute_sql(sql, cpu.create_session("tpch"))
             same_result(main[q]["result"], ref, f"sf{SF_MAIN:g} {q} card vs CPU")
             check(len(ref) > 0, f"{q} returned no rows")
             print(f"sf{SF_MAIN:g} {q}: equal to the port's CPU result "
                   f"({len(ref)} rows, CPU {time.perf_counter() - t0:.2f} s)", flush=True)
+        print(f"CPU pass: {time.perf_counter() - t_cpu:.1f} s", flush=True)
+        del cpu
 
         # -- phase 3: kernels against their plain versions ---------------------
-        kernels = kernel_checks(shapes, launches)
+        q1_page = conn.generate(conn.splits("lineitem")[0],
+                                ["l_returnflag", "l_linestatus", "l_shipdate", "l_quantity",
+                                 "l_extendedprice", "l_discount", "l_tax"])
+        kernels = kernel_checks(shapes, launches, q1_page)
+        del q1_page
 
         # -- phase 4: SF10 on the card alone -----------------------------------
-        del engine, main
+        del engine, main, conn
         torch.cuda.empty_cache()
         big = TpchConnector(sf=SF_BIG, split_rows=SPLIT_ROWS)
         engine = Engine(device=DEVICE)
         engine.register_catalog("tpch", big)
-        big_res = run_queries(engine, big.exact_row_count("lineitem"), f"sf{SF_BIG:g}")
+        big_res = run_queries(engine, QUERIES, big.exact_row_count("lineitem"),
+                              f"sf{SF_BIG:g}")
         for q, r in big_res.items():
             check(r["rows"] > 0, f"sf{SF_BIG:g} {q} returned no rows")
         print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port: one warm run of each TPC-H
-query of the slice under ``torch.profiler`` on the card.
+query (``chip_smoke.ALL_QUERIES``: every query but Q15) under
+``torch.profiler`` on the card.
 
     python3 scripts/torch_profile.py [--sf 1] [--out profile_sf1.json]
 
@@ -27,7 +28,8 @@ TOP = 8  # kernels listed per query
 PORT_KERNELS = {"hash_insert": ("hash_insert_kernel",),
                 "hash_probe": ("hash_probe_kernel",),
                 "compact_rows": ("block_counts_kernel", "scan_offsets_kernel",
-                                 "scatter_kernel")}
+                                 "scatter_kernel"),
+                "fused_segment_agg": ("segment_agg_kernel",)}
 
 
 def main(argv=None) -> int:
@@ -42,7 +44,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device available", file=sys.stderr)
         return 2
-    from chip_smoke import QUERIES, card_line
+    from chip_smoke import ALL_QUERIES, card_line
     from trino_tpu_torch import Engine
     from trino_tpu_torch.connectors.tpch import TpchConnector
     from trino_tpu_torch.ops import cuda_kernels as ck
@@ -51,7 +53,7 @@ def main(argv=None) -> int:
     engine = Engine(device="cuda")
     engine.register_catalog("tpch", TpchConnector(sf=args.sf, split_rows=1 << 21))
     report = {"card": card_line(), "sf": args.sf, "queries": {}}
-    for q, sql in QUERIES.items():
+    for q, sql in ALL_QUERIES.items():
         sess = engine.create_session("tpch")
         engine.execute_sql(sql, sess)  # cold run: CUDA context, allocator, caches
         torch.cuda.synchronize()

@@ -1,4 +1,4 @@
-"""The three kernels' plain versions (what the wrappers run for CPU tensors)
+"""The four kernels' plain versions (what the wrappers run for CPU tensors)
 against the JAX package: its XLA path, and its Pallas body in interpret mode.
 
 - hash_insert: observables only (the slot layout depends on the claim order):
@@ -6,7 +6,9 @@ against the JAX package: its XLA path, and its Pallas body in interpret mode.
   ``table[slot] == packed`` for placed rows, and probe results over either
   table;
 - hash_probe: bit for bit;
-- compact_rows: byte for byte, values and live count.
+- compact_rows: byte for byte, values and live count;
+- fused_segment_agg: counts exactly, float32 sums within rtol 1e-5 (the
+  one-hot product and the scatter-add sum in different orders).
 
 Inputs come from numpy with a seed.  Pallas bodies run with
 ``interpret=True``, as tests/test_pallas_kernels.py runs them on the CPU.
@@ -262,12 +264,48 @@ def test_compact_rows_all_none_passes_through():
     assert packed == (None, None) and int(total) == 2
 
 
+SEGMENT_CASES = {
+    # name: (n, n_slots, k value columns, valid fraction)
+    "reference_case": (10000, 8, 2, 0.8),   # tests/test_pallas_kernels.py's shape
+    "no_values": (3000, 4, 0, 0.8),
+    "n_not_a_multiple_of_2048": (2049 + 777, 16, 3, 0.7),
+    "slot_ceiling": (5000, 128, 3, 0.9),
+    "all_invalid": (2500, 8, 2, 0.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+def test_fused_segment_agg_plain_vs_pallas_interpret(case):
+    n, n_slots, k, frac = SEGMENT_CASES[case]
+    rng = np.random.default_rng(n + n_slots)
+    slot = rng.integers(0, n_slots, n).astype(np.int32)
+    valid = rng.random(n) < frac
+    vals = [rng.random(n) * 10 ** j - 0.5 for j in range(k)]
+    jc, js = pk.fused_segment_agg(jnp.asarray(slot), jnp.asarray(valid),
+                                  tuple(jnp.asarray(v) for v in vals), n_slots=n_slots,
+                                  interpret=True)
+    tc, ts = ck.fused_segment_agg(T(slot), T(valid), tuple(T(v) for v in vals), n_slots)
+    assert tc.dtype == torch.int32 and len(ts) == len(js) == k
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    for a, b in zip(js, ts):
+        assert b.dtype == torch.float32 and b.shape == (n_slots,)
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-5, atol=1e-5)
+
+
+def test_fused_segment_agg_slot_ceiling_raises():
+    with pytest.raises(ValueError, match="n_slots=129"):
+        ck.fused_segment_agg(torch.zeros(4, dtype=torch.int32),
+                             torch.ones(4, dtype=torch.bool), (), 129)
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     ck.reset_stats()
     rng = np.random.default_rng(9)
     ck.hash_insert(T(np.full(65, EMPTY_KEY, np.int64)), T(_keys(rng, 10, 5)),
                    torch.ones(10, dtype=torch.bool))
     ck.compact_rows((torch.arange(4),), T(np.array([1, 0, 1, 1], bool)), 4)
+    ck.fused_segment_agg(T(np.array([0, 1, 1, 0], np.int32)),
+                         T(np.array([1, 0, 1, 1], bool)), (torch.ones(4),), 2)
     assert all(s.launches == 0 for s in ck.STATS.values())
 
 

@@ -236,3 +236,112 @@ def test_join_table_carried_across():
     tr, tm = tjoin.probe(tt, (_t(probe),), (TT.BIGINT,), torch.ones(1000, dtype=torch.bool))
     np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
     np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+
+
+# ------------------------------------------------------------------ multi-match joins
+def _dup_build_pages(rng, nb, distinct, keys2=False):
+    """Build pages whose keys repeat (the multi-match layouts' input)."""
+    pool = rng.permutation(np.arange(1, 4 * distinct + 1, dtype=np.int64))[:distinct] * 3
+    k = pool[rng.integers(0, distinct, size=nb)] if nb else np.zeros(0, np.int64)
+    k2 = rng.integers(0, 3, size=nb).astype(np.int32)
+    knull = rng.random(nb) < 0.05
+    valid = rng.random(nb) < 0.9
+    cols = [k, k2] if keys2 else [k]
+    jf = [JField("k", JT.BIGINT)] + ([JField("k2", JT.INTEGER)] if keys2 else [])
+    tf = [TField("k", TT.BIGINT)] + ([TField("k2", TT.INTEGER)] if keys2 else [])
+    nulls = [knull] + [None] * (len(cols) - 1)
+    jp = JPage(JSchema(tuple(jf)), tuple(jnp.asarray(c) for c in cols),
+               tuple(None if m is None else jnp.asarray(m) for m in nulls),
+               jnp.asarray(valid))
+    tp = page_from_numpy(TSchema(tuple(tf)), cols, nulls, valid=valid)
+    return jp, tp, cols, pool
+
+
+def _matched_rows(mt, slot, matched):
+    """Per probe row: the set of build rows its slot holds (None: no match)."""
+    counts, starts = np.asarray(mt.counts), np.asarray(mt.starts)
+    order = np.asarray(mt.order)
+    slot, matched = np.asarray(slot), np.asarray(matched)
+    return [frozenset(order[starts[s]:starts[s] + counts[s]].tolist()) if m else None
+            for s, m in zip(slot, matched)]
+
+
+def _torch_np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def test_direct_multi_build_and_probe_slots():
+    rng = np.random.default_rng(21)
+    jp, tp, cols, pool = _dup_build_pages(rng, 3000, 400)
+    lo, span = int(pool.min()), int(pool.max() - pool.min()) + 1
+    jm = jjoin.direct_multi_build(lo, span, jp, 0)
+    tm = tjoin.direct_multi_build(lo, span, tp, 0)
+    for name in ("counts", "starts", "order"):  # both sort stably: identical layouts
+        np.testing.assert_array_equal(_torch_np(getattr(tm, name)),
+                                      np.asarray(getattr(jm, name)), err_msg=name)
+    probe = np.concatenate([pool, pool + 1, [lo - 5, lo + span + 5]])
+    probe = probe[rng.integers(0, len(probe), size=5000)]
+    pv = rng.random(5000) < 0.9
+    js, jmat = jjoin.direct_probe_slots(jm, jnp.asarray(probe), jnp.asarray(pv))
+    ts, tmat = tjoin.direct_probe_slots(tm, _t(probe), _t(pv))
+    np.testing.assert_array_equal(tmat.numpy(), np.asarray(jmat))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert _matched_rows(tm, ts, tmat) == _matched_rows(jm, js, jmat)
+
+
+@pytest.mark.parametrize("nb,distinct,keys2", [(0, 1, False), (2500, 300, False),
+                                               (4000, 900, True)])
+def test_multi_build_and_probe_slots(nb, distinct, keys2):
+    """Hash layouts differ between the packages; per probe row the matched
+    build rows must be the same set."""
+    rng = np.random.default_rng(nb + distinct)
+    jp, tp, cols, pool = _dup_build_pages(rng, nb, distinct, keys2)
+    nk = 2 if keys2 else 1
+    jtypes, ttypes = (JT.BIGINT, JT.INTEGER)[:nk], (TT.BIGINT, TT.INTEGER)[:nk]
+    C = max(1 << max(nb - 1, 1).bit_length(), 16) * 4
+    jm = jjoin.multi_build(C, jp, tuple(range(nk)), jtypes)
+    reads = []
+    tm = tjoin.multi_build(C, tp, tuple(range(nk)), ttypes,
+                           lambda arrays: reads.append(1) or [a.numpy() for a in arrays])
+    assert len(reads) == 1 and not bool(tm.overflow) and not bool(jm.overflow)
+    np.testing.assert_array_equal(np.sort(_torch_np(tm.counts)), np.sort(np.asarray(jm.counts)))
+    n = 4000
+    pk = np.concatenate([pool, pool + 1])[rng.integers(0, 2 * len(pool), size=n)]
+    pk2 = rng.integers(0, 3, size=n).astype(np.int32)
+    pv = rng.random(n) < 0.95
+    pkeys = (pk, pk2)[:nk]
+    js, jmat = jjoin.probe_slots(jm.table, tuple(jnp.asarray(k) for k in pkeys), jtypes,
+                                 jnp.asarray(pv))
+    ts, tmat = tjoin.probe_slots(tm.table, tuple(_t(k) for k in pkeys), ttypes, _t(pv))
+    np.testing.assert_array_equal(tmat.numpy(), np.asarray(jmat))
+    assert _matched_rows(tm, ts, tmat) == _matched_rows(jm, js, jmat)
+
+
+def test_multi_build_grows_past_a_full_table():
+    """A capacity below the distinct key count overflows and grows by 4x."""
+    rng = np.random.default_rng(23)
+    jp, tp, cols, pool = _dup_build_pages(rng, 600, 200)
+    jm = jjoin.multi_build(16, jp, (0,), (JT.BIGINT,))
+    reads = []
+    tm = tjoin.multi_build(16, tp, (0,), (TT.BIGINT,),
+                           lambda arrays: reads.append(1) or [a.numpy() for a in arrays])
+    assert len(reads) > 1 and tm.capacity == jm.capacity
+    probe = pool[rng.integers(0, len(pool), size=1000)]
+    ones = np.ones(1000, bool)
+    js, jmat = jjoin.probe_slots(jm.table, (jnp.asarray(probe),), (JT.BIGINT,),
+                                 jnp.asarray(ones))
+    ts, tmat = tjoin.probe_slots(tm.table, (_t(probe),), (TT.BIGINT,), _t(ones))
+    assert _matched_rows(tm, ts, tmat) == _matched_rows(jm, js, jmat)
+
+
+@pytest.mark.parametrize("n,size", [(1, 1024), (700, 1024), (3000, 8192)])
+def test_expand_counts(n, size):
+    rng = np.random.default_rng(n)
+    out_counts = rng.integers(0, 4, size=n).astype(np.int32)
+    incl = np.cumsum(out_counts, dtype=np.int32)
+    size = max(size, int(incl[-1]))
+    jp, jk, jr = jjoin.expand_counts(jnp.asarray(incl), jnp.asarray(out_counts), size)
+    tp, tk, tr = tjoin.expand_counts(_t(incl), _t(out_counts), size)
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))

@@ -46,8 +46,10 @@ class Engine:
         self.device = _resolve_device(device)
         self.catalogs: dict = {}
         self.memory_pool = MemoryPool(device=self.device)
-        # device -> host reads and bytes of the most recent execute_plan
+        # device -> host reads and bytes of the most recent execute_sql (its
+        # plan-time subqueries included) or bare execute_plan
         self.last_query_counters: dict = {}
+        self._sql_totals: Optional[dict] = None
 
     def register_catalog(self, name: str, connector) -> None:
         """Register a connector; one without a device generates on the engine's."""
@@ -71,6 +73,9 @@ class Engine:
         finally:
             self.last_query_counters = {"host_reads": ex.host_reads,
                                         "host_bytes": ex.host_bytes}
+            if self._sql_totals is not None:
+                for k, v in self.last_query_counters.items():
+                    self._sql_totals[k] += v
 
     def execute_sql(self, sql: str, session: Optional[Session] = None):
         """SELECT entry point: parse -> plan -> execute."""
@@ -82,5 +87,11 @@ class Engine:
         if not isinstance(ast, (A.Select, A.SetOp)):
             raise NotImplementedError(
                 f"{type(ast).__name__} statements are not ported to trino_tpu_torch")
-        plan = Planner(self, sess).plan_query(ast)
-        return self.execute_plan(plan)
+        self._sql_totals = totals = {"host_reads": 0, "host_bytes": 0}
+        try:
+            # scalar and EXISTS subqueries execute while the query plans
+            plan = Planner(self, sess).plan_query(ast)
+            return self.execute_plan(plan)
+        finally:
+            self._sql_totals = None
+            self.last_query_counters = totals

@@ -26,8 +26,11 @@ import torch
 from ..ops import hashagg
 from ..ops.arrays import compact_rows
 from ..ops.hashing import ceil_pow2
-from ..ops.hashjoin import (DIRECT_JOIN_RANGE_MAX, DirectJoinTable, build_insert,
-                            build_table_init, direct_build, direct_probe, probe)
+from ..ops.hashjoin import (DIRECT_JOIN_RANGE_MAX, DirectJoinTable,
+                            DirectMultiJoinTable, build_insert, build_table_init,
+                            direct_build, direct_multi_build, direct_probe,
+                            direct_probe_slots, expand_counts, multi_build, probe,
+                            probe_slots)
 from ..page import Page, Schema
 from ..sql import plan as P
 from ..sql.ir import FieldRef, evaluate, evaluate_predicate
@@ -158,13 +161,13 @@ class LocalExecutor:
             return Page(node.schema, child.columns, child.null_masks, child.valid), dicts
         if isinstance(node, P.Sort):
             child, dicts = self._execute_to_page(node.child)
-            return self._topn_page_device(child, node.keys, None, dicts), dicts
+            return self._sort_or_topn(child, node.keys, None, dicts), dicts
         if isinstance(node, P.Limit):
             if isinstance(node.child, P.Sort):
                 # TopN: select the top rows before pulling them
                 child, dicts = self._execute_to_page(node.child.child)
-                return self._topn_page_device(child, node.child.keys, node.count,
-                                              dicts), dicts
+                return self._sort_or_topn(child, node.child.keys, node.count,
+                                          dicts), dicts
             raise _not_ported(f"Limit over {type(node.child).__name__} (the limit "
                               "page and short-circuit scan paths)")
         if isinstance(node, P.Aggregate):
@@ -356,7 +359,7 @@ class LocalExecutor:
             raise _not_ported("sort-based aggregation (Aggregate with "
                               + ", ".join(sorted({s.kind for s in node.aggs})) + ")")
         if not node.keys:
-            raise _not_ported("global (ungrouped) aggregation")
+            return self._run_global_aggregate(node)
         stream = self._compile_stream(node.child)
         key_types = tuple(stream.schema.fields[i].type for i in node.keys)
         acc_specs, acc_exprs, acc_kinds = [], [], []
@@ -441,6 +444,29 @@ class LocalExecutor:
             return self._finalize_groups(node, stream, state)
         finally:
             self.memory_pool.free(resv["bytes"])
+
+    def _run_global_aggregate(self, node: P.Aggregate):
+        """Ungrouped aggregation: every page folds into one accumulator per
+        aggregate by masked reductions; one read checks the exact-int64
+        envelope of wide decimal sums.  The one-row result stays on the
+        device."""
+        stream = self._compile_stream(node.child)
+        acc_specs, acc_exprs, acc_kinds = [], [], []
+        for spec in node.aggs:
+            for kind, dtype, init in _accumulators_for(spec):
+                acc_specs.append((dtype, init))
+                acc_exprs.append(spec.arg)
+                acc_kinds.append(kind)
+        state = _global_init_state(acc_specs, self.device)
+        for page in stream.pages():
+            cols, nulls, valid = stream.run(page)
+            state = _global_agg_update(state, cols, nulls, valid, acc_exprs, acc_kinds)
+        fin_cols, fin_nulls, bad = _finalize_aggs_device(
+            node.aggs, tuple(a.reshape(1) for a in state))
+        if bool(self._host([bad], "agg.global.envelope")[0]):
+            raise _not_ported("exact decimal sums past 2^62 (the host-exact "
+                              "finalization, _finalize_aggs)")
+        return Page(node.schema, fin_cols, fin_nulls, None), tuple(None for _ in node.aggs)
 
     def _run_hash_inserts(self, node, key_types, acc_exprs, acc_kinds, state, outs,
                           state_bytes, resv):
@@ -528,54 +554,56 @@ class LocalExecutor:
 
     # -- joins ----------------------------------------------------------------
     def _compile_join(self, node: P.Join) -> _Stream:
-        if node.kind != "inner":
+        if node.kind not in ("inner", "left", "semi", "anti", "mark"):
             raise _not_ported(f"{node.kind} join")
-        if node.filter is not None:
-            raise _not_ported("join with a residual filter (the multi-match strategy)")
         build_page, build_dicts = self._execute_to_page_streamed(node.right)
         probe_stream = self._compile_stream(node.left)
         build_key_types = tuple(node.right.schema.fields[i].type for i in node.right_keys)
-        # dynamic filtering: prune probe splits outside the build keys' domain
-        pruned = self._dynamic_pruned_pages(probe_stream, node, build_page)
-        if pruned is not None:
-            pages_fn, kept = pruned
-            repl = {"pages": pages_fn}
-            if probe_stream.scan_info is not None:
-                repl["scan_info"] = dataclasses.replace(probe_stream.scan_info,
-                                                        splits=list(kept))
-            probe_stream = dataclasses.replace(probe_stream, **repl)
+        if node.kind in ("inner", "semi") and node.filter is None:
+            # dynamic filtering: prune probe splits outside the build keys' domain
+            pruned = self._dynamic_pruned_pages(probe_stream, node, build_page)
+            if pruned is not None:
+                pages_fn, kept = pruned
+                repl = {"pages": pages_fn}
+                if probe_stream.scan_info is not None:
+                    repl["scan_info"] = dataclasses.replace(probe_stream.scan_info,
+                                                            splits=list(kept))
+                probe_stream = dataclasses.replace(probe_stream, **repl)
         if not probe_stream.compacted and self._compactable_fraction(node.left):
             # probe cost scales with lanes: do not drag dead rows through the probe
             probe_stream = self._compacted_stream(probe_stream)
-        # memory gate: build columns (+ compaction copies) and the 4x-pow2 table
+        # memory gate: build columns (+ compaction copies) and the 4x-pow2 table.
+        # Shapes the reference would Grace-partition raise; the others proceed
+        # unreserved, as the reference's do
         need = _page_bytes(build_page) * 2 + 12 * 4 * ceil_pow2(max(build_page.capacity, 16))
-        if not self.memory_pool.try_reserve(need):
+        if self.memory_pool.try_reserve(need):
+            self._reserved.append(need)
+        elif node.kind in ("inner", "left", "semi") and node.left_keys \
+                and node.filter is None:
             raise _not_ported("Grace-partitioned join (build side does not fit "
                               "the memory pool)")
-        self._reserved.append(need)
         return self._join_with_build(node, build_page, build_dicts, probe_stream,
                                      build_key_types)
 
     def _join_with_build(self, node: P.Join, build_page, build_dicts, probe_stream,
                          build_key_types) -> _Stream:
+        # "mark": the probe channels plus one boolean matched channel, no
+        # lane filtering (EXISTS in expression position)
+        semi = node.kind in ("semi", "anti", "mark")
+        null_stats = self._build_null_stats(build_page, node.right_keys)
         span = self._direct_join_span(build_page, node.right_keys, build_key_types)
         table = None
-        if build_page.capacity > 0:
+        if node.filter is None and build_page.capacity > 0:
             table = self._build_join_table(build_page, node.right_keys, build_key_types,
                                            span)
-            if table is None:
-                raise _not_ported("join with duplicate build keys (multi-match "
-                                  "strategy: multi_build / probe_slots)")
-        build_dtypes = tuple(c.dtype for c in build_page.columns)
+        if table is None or node.filter is not None:
+            # an empty build, duplicate build keys or a residual filter
+            return self._compile_multi_join(node, build_page, build_dicts, probe_stream,
+                                            build_key_types, span, null_stats)
 
         def transform(cols, nulls, valid, aux, up=probe_stream, node=node):
             up_aux, table = aux
             cols, nulls, valid = up.transform(cols, nulls, valid, up_aux)
-            if table is None:  # empty build side: no probe row matches
-                bcols = tuple(torch.zeros(valid.shape, dtype=dt, device=valid.device)
-                              for dt in build_dtypes)
-                return (tuple(cols) + bcols, tuple(nulls) + (None,) * len(bcols),
-                        torch.zeros_like(valid))
             keys = tuple(cols[i] for i in node.left_keys)
             if isinstance(table, DirectJoinTable):
                 row_ids, matched = direct_probe(table, keys[0], valid)
@@ -584,17 +612,132 @@ class LocalExecutor:
             for i in node.left_keys:  # NULL keys never match
                 if nulls[i] is not None:
                     matched = matched & ~nulls[i]
-            bcols, bnulls = _gather_build(table, row_ids, matched)
-            return tuple(cols) + bcols, tuple(nulls) + bnulls, valid & matched
+            if node.kind in ("inner", "semi"):
+                valid = valid & matched
+            elif node.kind == "anti":
+                valid = _null_aware_anti(node, valid & ~matched, nulls, *null_stats)
+            if node.kind == "mark":
+                return tuple(cols) + (matched & valid,), tuple(nulls) + (None,), valid
+            if semi:
+                return cols, nulls, valid
+            bcols, bnulls = _gather_build(table, row_ids, matched, node.kind)
+            return tuple(cols) + bcols, tuple(nulls) + bnulls, valid
 
         si = None
         if probe_stream.scan_info is not None:
+            n_build = 1 if node.kind == "mark" else 0 if semi else len(build_page.columns)
             si = dataclasses.replace(
                 probe_stream.scan_info,
-                columns=tuple(probe_stream.scan_info.columns) + (None,) * len(build_page.columns))
-        return _Stream(node.schema, probe_stream.dicts + build_dicts, probe_stream.pages,
-                       transform, si,
+                columns=tuple(probe_stream.scan_info.columns) + (None,) * n_build)
+        return _Stream(node.schema, _join_dicts(node, probe_stream, build_dicts),
+                       probe_stream.pages, transform, si,
                        aux=(probe_stream.aux, table), compacted=probe_stream.compacted)
+
+    def _compile_multi_join(self, node: P.Join, build_page, build_dicts, probe_stream,
+                            build_key_types, span, null_stats) -> _Stream:
+        """Join with duplicate build keys and/or a residual match filter: build
+        rows grouped by slot, a count step per probe page, and an expand step
+        that emits one lane per candidate match.  The expanded page's size is
+        data-dependent: one host read per page sizes it to a power of two."""
+        semi = node.kind in ("semi", "anti", "mark")
+        if build_page.capacity == 0:
+            # empty build: one never-matching dummy row keeps the gathers defined
+            cols = tuple(torch.zeros((1,), dtype=torch_dtype(f.type), device=self.device)
+                         for f in node.right.schema.fields)
+            build_page = Page(node.right.schema, cols, tuple(None for _ in cols),
+                              torch.zeros((1,), dtype=torch.bool, device=self.device))
+        if span is not None:
+            mt = direct_multi_build(span[0], span[1], build_page, node.right_keys[0])
+        else:
+            capacity = max(1 << max(build_page.capacity - 1, 1).bit_length(), 16) * 4
+            mt = multi_build(capacity, build_page, node.right_keys, build_key_types,
+                             lambda arrays: self._host(arrays, site="join.multi.overflow"))
+
+        def count_step(page):
+            cols, nulls, valid = probe_stream.run(page)
+            keys = tuple(cols[i] for i in node.left_keys)
+            kvalid = valid
+            for i in node.left_keys:
+                if nulls[i] is not None:
+                    kvalid = kvalid & ~nulls[i]
+            if isinstance(mt, DirectMultiJoinTable):
+                slot, matched = direct_probe_slots(mt, keys[0], kvalid)
+            else:
+                slot, matched = probe_slots(mt.table, keys, build_key_types, kvalid)
+            matched = matched & kvalid
+            cnt = torch.where(matched, mt.counts[slot.to(torch.int64)], 0)
+            out_cnt = torch.where(valid, torch.clamp(cnt, min=1), 0) \
+                if node.kind == "left" else cnt
+            incl = torch.cumsum(out_cnt, 0, dtype=torch.int32)
+            return cols, nulls, valid, slot, matched, cnt, out_cnt, incl
+
+        def expand_step(size, cols, nulls, valid, slot, matched, cnt, out_cnt, incl):
+            pidx, k, in_range = expand_counts(incl, out_cnt, size)
+            pl = pidx.to(torch.int64)
+            is_match = matched[pl] & (k < cnt[pl]) & in_range
+            pos = torch.clamp(mt.starts[slot[pl].to(torch.int64)] + k, 0,
+                              mt.order.shape[0] - 1)
+            brow = torch.where(is_match, mt.order[pos.to(torch.int64)], 0).to(torch.int64)
+            ocols = tuple(c[pl] for c in cols) + tuple(c[brow] for c in mt.build_columns)
+            onulls = tuple(None if n is None else n[pl] for n in nulls) + tuple(
+                None if n is None else n[brow] for n in mt.build_null_masks)
+            passed = evaluate_predicate(node.filter, ocols, onulls, is_match) \
+                if node.filter is not None else is_match
+            if semi or node.kind == "left":
+                # per probe row: did any candidate pass?  Out-of-range lanes
+                # have passed = False, so they mark nothing
+                any_pass = torch.zeros(valid.shape, dtype=torch.int32,
+                                       device=valid.device).scatter_reduce_(
+                    0, pl, passed.to(torch.int32), "amax", include_self=True).to(torch.bool)
+                if semi:
+                    return any_pass
+                keep = passed | ((k == 0) & ~any_pass[pl] & in_range & valid[pl])
+                onulls = onulls[:len(cols)] + tuple(
+                    (torch.zeros_like(passed) if n is None else n) | ~passed
+                    for n in onulls[len(cols):])
+                return ocols, onulls, keep
+            return ocols, onulls, passed  # inner
+
+        def pages():
+            for page in probe_stream.pages():
+                cols, nulls, valid, slot, matched, cnt, out_cnt, incl = count_step(page)
+                if semi and node.filter is None:
+                    mark = matched
+                elif incl.shape[0] == 0:
+                    continue
+                else:
+                    total = int(self._host([incl[-1]], site="join.multi.total")[0])
+                    size = max(1 << max(total - 1, 1).bit_length(), 1024)
+                    out = expand_step(size, cols, nulls, valid, slot, matched, cnt,
+                                      out_cnt, incl)
+                    if not semi:
+                        yield Page(node.schema, *out)
+                        continue
+                    mark = out
+                if node.kind == "mark":
+                    yield Page(node.schema, tuple(cols) + (mark & valid,),
+                               tuple(nulls) + (None,), valid)
+                    continue
+                v = valid & mark if node.kind == "semi" \
+                    else _null_aware_anti(node, valid & ~mark, nulls, *null_stats)
+                yield Page(probe_stream.schema, cols, nulls, v)
+
+        return _Stream(node.schema, _join_dicts(node, probe_stream, build_dicts), pages,
+                       _identity)
+
+    def _build_null_stats(self, build_page: Page, key_channels):
+        """(build has a NULL key, build is non-empty) for null-aware anti
+        joins, in one read."""
+        if build_page.capacity == 0:
+            return False, False
+        valid = build_page.valid_mask()
+        stats = [torch.any(valid)]
+        for ch in key_channels:
+            nm = build_page.null_masks[ch]
+            if nm is not None:
+                stats.append(torch.any(nm & valid))
+        got = self._host(stats, site="join.build.nulls")
+        return any(bool(x) for x in got[1:]), bool(got[0])
 
     def _execute_to_page_streamed(self, node):
         """Materialize a sub-plan into one device page (join build side)."""
@@ -763,6 +906,50 @@ class LocalExecutor:
         valid = torch.cat([p[2] for p in parts])
         return Page(stream.schema, tuple(cols_out), tuple(nulls_out), valid)
 
+    def _sort_or_topn(self, page: Page, keys, count, dicts) -> Page:
+        """Sort (count=None) or TopN on the device; on the host where a key is
+        a string whose dictionary cannot rank ids on the device (a formatter
+        dictionary: names derived from keys)."""
+        rankable = all(
+            not page.schema.fields[k.channel].type.is_string
+            or getattr(dicts[k.channel], "values", None) is not None for k in keys)
+        if rankable:
+            return self._topn_page_device(page, keys, count, dicts)
+        return self._sort_page_host(page, keys, count, dicts)
+
+    def _sort_page_host(self, page: Page, keys, count, dicts) -> Page:
+        """Host-side lexicographic sort of the pulled live rows; string keys
+        sort by their decoded values."""
+        valid, pcols, pnulls = self._host_page(page, site="sort.host")
+        cols = [c[valid] for c in pcols]
+        nulls = [None if n is None else n[valid] for n in pnulls]
+        sort_cols = list(cols)
+        for k in keys:
+            d = dicts[k.channel]
+            if d is not None and page.schema.fields[k.channel].type.is_string:
+                sort_cols[k.channel] = d.decode(cols[k.channel]).astype(str)
+        order = np.arange(len(cols[0]) if cols else 0)
+        for k in reversed(keys):
+            c = sort_cols[k.channel][order]
+            nm_k = nulls[k.channel]
+            if nm_k is not None and len(c):
+                # NULL rows hold arbitrary fill values: pin them to one value
+                c = c.copy()
+                c[nm_k[order]] = c[0]
+            if not np.issubdtype(c.dtype, np.number):
+                _, c = np.unique(c, return_inverse=True)  # string -> collation rank
+            if not k.ascending:
+                c = -c.astype(np.int64 if np.issubdtype(c.dtype, np.integer)
+                              else np.float64)
+            order = order[np.argsort(c, kind="stable")]
+            if nm_k is not None:
+                # null placement outranks the value ordering for this key
+                ind = nm_k[order].astype(np.int8)
+                order = order[np.argsort(-ind if k.nulls_first else ind, kind="stable")]
+        order = order[:count] if count is not None else order
+        return Page(page.schema, tuple(c[order] for c in cols),
+                    tuple(None if n is None else n[order] for n in nulls), None)
+
     def _topn_page_device(self, page: Page, keys, count, dicts=None) -> Page:
         """Device-side sort (count=None) or TopN: one lexicographic sort over
         collation-ranked keys, then pull only the selected rows."""
@@ -773,8 +960,6 @@ class LocalExecutor:
             t = page.schema.fields[k.channel].type
             d = dicts[k.channel] if dicts is not None else None
             if t.is_string:
-                if d is None or getattr(d, "values", None) is None:
-                    raise _not_ported("ORDER BY over a formatter-dictionary string")
                 rank = torch.as_tensor(_collation_rank_lut(d), device=c.device)
                 c = rank[torch.clamp(c, 0, max(len(rank) - 1, 0)).to(torch.int64)]
             if c.dtype == torch.bool:
@@ -887,12 +1072,40 @@ def _static_pruned_stream(up: _Stream, pred):
     return _scan_pages(si.conn, kept, si.scan_columns), dataclasses.replace(si, splits=kept)
 
 
-def _gather_build(table, row_ids, matched):
-    """Build-side columns for the probe rows (inner join: unmatched rows are
-    invalid, so they read row 0)."""
+def _gather_build(table, row_ids, matched, kind):
+    """Build-side columns for the probe rows; unmatched rows read row 0, and
+    a left join marks them NULL."""
     safe = torch.where(matched, row_ids, 0).to(torch.int64)
-    return (tuple(c[safe] for c in table.build_columns),
-            tuple(None if m is None else m[safe] for m in table.build_null_masks))
+    cols, nulls = [], []
+    for c, nmask in zip(table.build_columns, table.build_null_masks):
+        cols.append(c[safe])
+        base = torch.zeros_like(matched) if nmask is None else nmask[safe]
+        nulls.append((base | ~matched) if kind == "left"
+                     else (None if nmask is None else base))
+    return tuple(cols), tuple(nulls)
+
+
+def _join_dicts(node: P.Join, probe_stream, build_dicts) -> tuple:
+    if node.kind == "mark":
+        return probe_stream.dicts + (None,)
+    if node.kind in ("semi", "anti"):
+        return probe_stream.dicts
+    return probe_stream.dicts + build_dicts
+
+
+def _null_aware_anti(node, anti_valid, nulls, build_has_null, build_nonempty):
+    """NOT IN three-valued logic: a NULL among the build keys, or a NULL probe
+    key against a non-empty build, makes the predicate UNKNOWN (row rejected).
+    NOT EXISTS anti joins (``null_aware`` False) skip this."""
+    if not node.null_aware:
+        return anti_valid
+    if build_has_null:
+        return torch.zeros_like(anti_valid)
+    if build_nonempty:
+        for i in node.left_keys:
+            if nulls[i] is not None:
+                anti_valid = anti_valid & ~nulls[i]
+    return anti_valid
 
 
 def _page_bytes(page: Page) -> int:
@@ -919,6 +1132,43 @@ def _accumulators_for(spec: P.AggSpec):
         dtype = spec.arg.type.dtype
         return [(spec.kind, dtype, hashagg._extreme(dtype, 1 if spec.kind == "min" else -1))]
     raise _not_ported(f"aggregate {spec.kind}")
+
+
+def _global_init_state(acc_specs, device) -> tuple:
+    """One 0-d accumulator per (dtype, init) spec of an ungrouped aggregation."""
+    return tuple(torch.tensor(init, dtype=torch_dtype(dt), device=device)
+                 for dt, init in acc_specs)
+
+
+def _global_agg_update(state, cols, nulls, valid, acc_exprs, acc_kinds) -> tuple:
+    """One page folded into the ungrouped-aggregation accumulators."""
+    out = []
+    for st, e, kind in zip(state, acc_exprs, acc_kinds):
+        if kind == "count_star":
+            out.append(st + torch.sum(valid, dtype=st.dtype))
+            continue
+        v, nu = _broadcast(evaluate(e, cols, nulls), valid)
+        mask = valid if nu is None else (valid & ~nu)
+        if kind == "count":
+            out.append(st + torch.sum(mask, dtype=st.dtype))
+        elif kind == "sum":
+            out.append(st + torch.sum(torch.where(mask, v, torch.zeros_like(v)),
+                                      dtype=st.dtype))
+        elif kind in ("sum_hi32", "sum_lo32"):
+            v64 = v.to(torch.int64)
+            h = (v64 >> 32) if kind == "sum_hi32" else (v64 & 0xFFFFFFFF)
+            out.append(st + torch.sum(torch.where(mask, h, 0), dtype=st.dtype))
+        elif kind in ("min", "max"):
+            if v.numel() == 0:
+                out.append(st)
+                continue
+            ident = hashagg._extreme(st.dtype, 1 if kind == "min" else -1)
+            fill = torch.where(mask, v.to(st.dtype), torch.full_like(st, ident))
+            red = torch.min(fill) if kind == "min" else torch.max(fill)
+            out.append(torch.minimum(st, red) if kind == "min" else torch.maximum(st, red))
+        else:
+            raise _not_ported(f"ungrouped accumulator {kind}")
+    return tuple(out)
 
 
 def _limbs_device(hi, lo):

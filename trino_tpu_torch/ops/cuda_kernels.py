@@ -2,14 +2,17 @@
 one chokepoint that picks between them (counterpart of
 ``trino_tpu/ops/pallas_kernels.py``).
 
-Three kernels serve the slice's path, each in its own source under
+Four kernels, each in its own source under
 ``trino_tpu_torch/csrc/`` (the source note at the top of each file says which
 TPU kernel it replaces, what bounds it on the card and what its design does
 about that):
 
 - ``hash_insert``  (``csrc/hash_insert.cu``)  open-addressing insert;
 - ``hash_probe``   (``csrc/hash_probe.cu``)   open-addressing probe;
-- ``compact_rows`` (``csrc/compact_rows.cu``) order-preserving compaction.
+- ``compact_rows`` (``csrc/compact_rows.cu``) order-preserving compaction;
+- ``fused_segment_agg`` (``csrc/segment_agg.cu``) per-slot counts and
+  float32 sums in one pass.  Like its TPU counterpart it has no caller in
+  the engine; it is held to its own contract.
 
 The choice follows the tensors' device and nothing else: CPU tensors take the
 plain version, CUDA tensors launch the kernel or raise.  There is no fallback
@@ -42,11 +45,13 @@ import torch
 
 from .hashing import EMPTY_KEY, probe_step, splitmix64
 
-__all__ = ["hash_insert", "hash_probe", "compact_rows", "hash_insert_plain",
-           "hash_probe_plain", "compact_rows_plain", "build_kernels", "STATS",
-           "reset_stats", "MAX_PROBES"]
+__all__ = ["hash_insert", "hash_probe", "compact_rows", "fused_segment_agg",
+           "hash_insert_plain", "hash_probe_plain", "compact_rows_plain",
+           "fused_segment_agg_plain", "build_kernels", "STATS", "reset_stats",
+           "MAX_PROBES", "SEGMENT_SLOTS_MAX"]
 
 MAX_PROBES = 64  # must match ops/hashagg.py / ops/hashjoin.py
+SEGMENT_SLOTS_MAX = 128  # fused_segment_agg's slot ceiling (the reference's)
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -81,6 +86,9 @@ STATS = {
                               "trino_tpu/ops/pallas_kernels.py:221"),
     "compact_rows": KernelStats("compact_rows", "trino_tpu_torch/csrc/compact_rows.cu",
                                 "trino_tpu/ops/pallas_kernels.py:467"),
+    "fused_segment_agg": KernelStats("fused_segment_agg",
+                                     "trino_tpu_torch/csrc/segment_agg.cu",
+                                     "trino_tpu/ops/pallas_kernels.py:579"),
 }
 
 _SIGNATURES = {
@@ -97,6 +105,10 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p]),
+    "trino_segment_agg": ("segment_agg.cu", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p]),
 }
 
 _lock = threading.Lock()
@@ -376,3 +388,51 @@ def compact_rows_plain(arrays, valid, out_len: int):
         buf[dst] = a  # unique destinations except the sink
         packed.append(buf[:out_len])
     return tuple(packed), valid.sum()
+
+
+# ------------------------------------------------------------ fused segment agg
+def fused_segment_agg(slot, valid, value_cols, n_slots: int):
+    """Per-slot count of live rows and float32 sum of each value column, in
+    one pass (the contract of ``pallas_kernels.fused_segment_agg``).
+
+    slot: [n] integer slot per row (< n_slots <= 128), valid: [n] bool,
+    value_cols: k [n] numeric columns (cast to float32).  Returns
+    ([n_slots] int32 counts, tuple of k [n_slots] float32 sums).  Rows whose
+    slot lies outside [0, n_slots) count nowhere."""
+    if not 1 <= n_slots <= SEGMENT_SLOTS_MAX:
+        raise ValueError(f"fused_segment_agg: n_slots={n_slots} outside "
+                         f"[1, {SEGMENT_SLOTS_MAX}]")
+    n = slot.shape[0]
+    if valid.shape[0] != n or any(v.dim() != 1 or v.shape[0] != n for v in value_cols):
+        raise ValueError(f"fused_segment_agg: columns do not all have {n} rows")
+    if not _on_card(slot, valid, *value_cols):
+        return fused_segment_agg_plain(slot, valid, value_cols, n_slots)
+    slot = _require(slot.to(torch.int32), torch.int32, "fused_segment_agg slot")
+    valid = _require(valid, torch.bool, "fused_segment_agg valid")
+    cols = [v.to(torch.float32).contiguous() for v in value_cols]
+    k = len(cols)
+    dev = slot.device
+    counts = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
+    sums = torch.zeros((k, n_slots), dtype=torch.float32, device=dev)
+    if n:
+        ptrs = (ctypes.c_void_p * max(k, 1))(*[c.data_ptr() for c in cols])
+        rc = _entry("trino_segment_agg")(slot.data_ptr(), valid.data_ptr(), ptrs, k, n,
+                                         int(n_slots), counts.data_ptr(), sums.data_ptr(),
+                                         _stream())
+        _check(rc, "fused_segment_agg")
+        STATS["fused_segment_agg"].record((n, int(n_slots), k))
+    return counts, tuple(sums[j] for j in range(k))
+
+
+def fused_segment_agg_plain(slot, valid, value_cols, n_slots: int):
+    """A bincount for the counts and a float32 ``index_add_`` per column for
+    the sums; dead and out-of-range rows go to a dropped sink slot."""
+    live = valid & (slot >= 0) & (slot < n_slots)
+    idx = torch.where(live, slot.to(torch.int64), n_slots)
+    counts = torch.bincount(idx, minlength=n_slots + 1)[:n_slots].to(torch.int32)
+    sums = []
+    for v in value_cols:
+        acc = torch.zeros((n_slots + 1,), dtype=torch.float32, device=slot.device)
+        acc.index_add_(0, idx, v.to(torch.float32))
+        sums.append(acc[:n_slots])
+    return counts, tuple(sums)

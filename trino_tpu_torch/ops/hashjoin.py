@@ -6,9 +6,11 @@ array mapping slot -> build row id; the probe walks each row's chain with the
 ``hash_probe`` kernel; matches gather the build columns by row id.  Dense
 single integer keys skip hashing (direct mode: slot = key - lo).
 
-The slice ports unique-key joins.  Duplicate build keys (``dup_count > 0``)
-need the multi-match layout (``multi_build`` / ``probe_slots``), which is not
-ported yet; the executor raises for them.
+Duplicate build keys (``dup_count > 0``) take the multi-match layout: build
+rows grouped by slot (``multi_build`` through the ``hash_insert`` kernel, or
+``direct_multi_build`` for dense keys), probed for the slot
+(``probe_slots``, the ``hash_probe`` kernel with an iota payload) and
+expanded into one output row per candidate match (``expand_counts``).
 """
 
 from __future__ import annotations
@@ -21,7 +23,9 @@ from . import cuda_kernels
 from .hashing import EMPTY_KEY, ceil_pow2, pack_keys, probe_step, splitmix64
 
 __all__ = ["JoinTable", "build_table_init", "build_insert", "probe", "MAX_PROBES",
-           "DirectJoinTable", "direct_build", "direct_probe", "DIRECT_JOIN_RANGE_MAX"]
+           "MultiJoinTable", "multi_build", "probe_slots", "expand_counts",
+           "DirectJoinTable", "direct_build", "direct_probe", "DirectMultiJoinTable",
+           "direct_multi_build", "direct_probe_slots", "DIRECT_JOIN_RANGE_MAX"]
 
 MAX_PROBES = 64
 _ROW_MAX = 2**31 - 1
@@ -144,3 +148,135 @@ def direct_probe(dt: DirectJoinTable, key_col, valid):
     matched = valid & inr & dt.occ[cslot]
     row_ids = torch.where(matched, dt.rows[cslot], 0)
     return row_ids, matched
+
+
+@dataclasses.dataclass
+class DirectMultiJoinTable:
+    """Duplicate-capable direct-address layout: slot = key - lo; counts,
+    starts and order as in MultiJoinTable (the same expansion serves both)."""
+
+    counts: torch.Tensor  # [span+1] int32 (sink = 0)
+    starts: torch.Tensor  # [span+1] int32 exclusive prefix sum
+    order: torch.Tensor  # [n_rows] int32 build rows grouped by slot
+    build_columns: tuple
+    build_null_masks: tuple
+    lo: int
+
+
+def _slot_layout(slot_v, live, n_slots: int):
+    """(counts, starts, order) of build rows grouped by ``slot_v`` (dead rows
+    carry the sink ``n_slots``, the largest value, so they sort to the tail
+    and no count addresses them)."""
+    counts = torch.zeros((n_slots + 1,), dtype=torch.int32, device=slot_v.device)
+    counts.index_add_(0, slot_v, live.to(torch.int32))
+    counts[n_slots] = 0
+    starts = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    order = torch.argsort(slot_v, stable=True).to(torch.int32)
+    return counts, starts, order
+
+
+def direct_multi_build(lo: int, span: int, build_page,
+                       key_channel: int) -> DirectMultiJoinTable:
+    key = build_page.columns[key_channel]
+    valid = build_page.valid_mask()
+    nm = build_page.null_masks[key_channel]
+    if nm is not None:
+        valid = valid & ~nm
+    slot = (key.to(torch.int64) - lo).to(torch.int32)
+    live = valid & (slot >= 0) & (slot < span)
+    slot_v = torch.where(live, slot, span).to(torch.int64)
+    counts, starts, order = _slot_layout(slot_v, live, span)
+    return DirectMultiJoinTable(counts, starts, order, build_page.columns,
+                                build_page.null_masks, lo)
+
+
+def direct_probe_slots(dt: DirectMultiJoinTable, key_col, valid):
+    """(slot, matched), compatible with the MultiJoinTable expansion."""
+    span = dt.counts.shape[0] - 1
+    slot = (key_col.to(torch.int64) - dt.lo).to(torch.int32)
+    inr = (slot >= 0) & (slot < span)
+    cslot = torch.clamp(slot, 0, span - 1)
+    matched = valid & inr & (dt.counts[cslot.to(torch.int64)] > 0)
+    return torch.where(matched, cslot, 0), matched
+
+
+# ---------------------------------------------------------------------------- multi-match
+# Duplicate build keys: build rows grouped contiguously by hash slot (an argsort
+# by slot), slot -> (start, count) into a row-order array.  The probe finds the
+# slot; expansion is a searchsorted over the per-probe-row cumulative counts.
+
+
+@dataclasses.dataclass
+class MultiJoinTable:
+    table: torch.Tensor  # [capacity+1] packed keys
+    counts: torch.Tensor  # [capacity+1] int32 build rows per slot (sink = 0)
+    starts: torch.Tensor  # [capacity+1] int32 exclusive prefix sum over slots
+    order: torch.Tensor  # [n_rows] int32 build row ids grouped by slot
+    build_columns: tuple
+    build_null_masks: tuple
+    overflow: torch.Tensor  # bool scalar
+
+    @property
+    def capacity(self):
+        return self.table.shape[0] - 1
+
+
+def _multi_build_step(table0, key_cols, key_types, valid):
+    packed, _ = pack_keys(key_cols, key_types)
+    packed = torch.where(valid, packed, torch.full_like(packed, EMPTY_KEY - 1))
+    table, slot, placed = cuda_kernels.hash_insert(table0, packed, valid,
+                                                   max_probes=MAX_PROBES)
+    C = table.shape[0] - 1
+    live = valid & placed
+    slot_v = torch.where(live, slot, C).to(torch.int64)
+    counts, starts, order = _slot_layout(slot_v, live, C)
+    overflow = torch.any(valid & ~placed)
+    return table, counts, starts, order, overflow
+
+
+def multi_build(capacity: int, build_page, key_channels, key_types,
+                host) -> MultiJoinTable:
+    """Build with capacity growth (x4 while a row fails to place).  ``host``
+    reads device scalars to the host (the executor's counted chokepoint)."""
+    key_cols = tuple(build_page.columns[i] for i in key_channels)
+    valid = build_page.valid_mask()
+    for ch in key_channels:
+        nm = build_page.null_masks[ch]
+        if nm is not None:
+            valid = valid & ~nm
+    capacity = ceil_pow2(capacity)  # double-hash coverage needs a pow2 table
+    while True:
+        table0 = torch.full((capacity + 1,), EMPTY_KEY, dtype=torch.int64,
+                            device=valid.device)
+        table, counts, starts, order, overflow = _multi_build_step(table0, key_cols,
+                                                                   key_types, valid)
+        if not bool(host([overflow])[0]):
+            break
+        capacity *= 4
+    return MultiJoinTable(table, counts, starts, order, build_page.columns,
+                          build_page.null_masks, overflow)
+
+
+def probe_slots(table, key_cols, key_types, valid):
+    """(slot[int32], matched[bool]) per probe row: the ``hash_probe`` kernel
+    with the slot index itself as the payload."""
+    packed, _ = pack_keys(key_cols, key_types)
+    C = table.shape[0] - 1
+    h0 = splitmix64(packed)
+    stp = probe_step(h0)
+    iota = torch.arange(C, dtype=torch.int32, device=table.device)
+    return cuda_kernels.hash_probe(table[:C], iota, packed, h0, stp, valid,
+                                   max_probes=MAX_PROBES)
+
+
+def expand_counts(incl, out_counts, size: int):
+    """Expanded row index -> (probe row index, ordinal k within the row's
+    matches, in-range flag).  ``incl`` is the inclusive cumsum of per-probe-row
+    output counts; ``size`` (>= incl[-1]) the output capacity."""
+    n = incl.shape[0]
+    i = torch.arange(size, dtype=incl.dtype, device=incl.device)
+    pidx = torch.clamp(torch.searchsorted(incl, i, right=True), 0, n - 1)
+    excl = incl[pidx] - out_counts[pidx]
+    k = i - excl
+    in_range = i < incl[n - 1]
+    return pidx.to(torch.int32), k, in_range

@@ -14,8 +14,8 @@ computing.  Torch would otherwise let a 0-d operand take the dtype of the
 column (an int32 column times an int64 constant would compute in int32);
 explicit promotion gives the reference's x64 results.
 
-Only the calls that TPC-H Q1, Q3 and Q9 reach are ported; any other call
-raises ``NotImplementedError`` naming it.
+Only the calls that TPC-H (every query but Q15) reaches are ported; any
+other call raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -230,6 +230,19 @@ def _eval_call(expr: Call, columns, null_masks, device):
         if factor >= 0:
             return v * (10**factor), nulls[0]
         return _div_round_half_up(v, 10 ** (-factor)), nulls[0]
+    if op == "if":
+        c, t, f = vals
+        cond = c if nulls[0] is None else (c & ~nulls[0])
+        t, f = _promote(t, f)
+        nt, nf = nulls[1], nulls[2]
+        outn = None
+        if nt is not None or nf is not None:
+            # nullness follows the selected branch: a NULL in the branch not
+            # taken must not poison the row
+            nt_ = torch.zeros_like(cond) if nt is None else nt.expand(cond.shape)
+            nf_ = torch.zeros_like(cond) if nf is None else nf.expand(cond.shape)
+            outn = torch.where(cond, nt_, nf_)
+        return torch.where(cond, t, f).to(out_dt), outn
     if op == "cast":
         return _eval_cast(expr, vals[0], nulls[0])
     if op == "extract_year":
