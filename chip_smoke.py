@@ -18,11 +18,15 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    as in the reference) must launch.  Each result is held against the same
    query run by the port on the CPU.
 3. Each kernel against its plain PyTorch version on the card: insert, probe
-   and compaction at the largest shape they launched at in phase 2 (insert on
-   observables, probe and compaction bit for bit); ``fused_segment_agg`` at
-   Q1's group-by shape over the first SF1 lineitem split and at its 128-slot
-   ceiling (counts exactly, sums against a float64 sum of the same inputs).
-   Times are CUDA-event medians after warm-up.
+   and compaction at the largest shape they launched at in phase 2, insert
+   and compaction also at the most frequent one, and insert also on the main
+   path's own keys (``l_orderkey`` of the first SF1 lineitem split), in both
+   its forms (in place and functional); insert on observables, probe and
+   compaction bit for bit.  ``fused_segment_agg`` at Q1's group-by shape over
+   the first SF1 lineitem split and at its 128-slot ceiling (counts exactly,
+   sums against a float64 sum of the same inputs).  Times are CUDA-event
+   medians after warm-up; insert and compaction also split each call into
+   kernel-only device time, other device work and idle (``device_split``).
 4. bench.py's five queries at SF10 on the card alone: warm wall time and
    lineitem rows/s.
 
@@ -384,15 +388,22 @@ def run_queries(engine, queries, conn_rows, label):
     return out
 
 
-def time_ms(fn, reps=20, warmup=3):
-    """Median per-call milliseconds by CUDA events around each call."""
+def time_ms(fn, reps=20, warmup=3, setup=None):
+    """Median per-call milliseconds by CUDA events around each call.
+    ``setup`` (untimed, finished before the first event) runs before every
+    call, for example to refill a table that the call fills in place."""
     import torch
 
     for _ in range(warmup):
+        if setup is not None:
+            setup()
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if setup is not None:
+            setup()
+            torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -401,6 +412,132 @@ def time_ms(fn, reps=20, warmup=3):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def kernel_names(name):
+    """The ``__global__`` functions of kernel wrapper ``name``'s CUDA source,
+    read from the package that is imported."""
+    import re
+
+    from trino_tpu_torch.ops import cuda_kernels as ck
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(ck.__file__))),
+                        "csrc", os.path.basename(ck.STATS[name].source))
+    with open(path) as f:
+        return tuple(re.findall(r"__global__\s+(?:void\s+)?(?:__launch_bounds__\([^)]*\)\s+)?"
+                                r"(?:void\s+)?(\w+)\s*\(", f.read()))
+
+
+def is_port_kernel(event_name, names):
+    """Whether a profiler device event is one of the kernels ``names``."""
+    import re
+
+    return bool(names) and re.search(r"(?:^|[\s:])(?:%s)[<(]" % "|".join(names),
+                                     event_name) is not None
+
+
+def device_events(prof):
+    """The device activity of a profile, without the ranges that
+    ``record_function`` mirrors onto the device timeline."""
+    import torch
+
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def device_split(fn, names, setup=None, reps=20):
+    """One wrapper call's time split three ways, per call: ``wall_ms`` (CUDA
+    events around the call), ``kernel_ms`` (device time of the port's own
+    kernels ``names``, from ``torch.profiler``), ``other_device_ms`` (every
+    other device operation the call made: fills, copies, memsets), and
+    ``idle_ms`` = wall - both, the device waiting on the host between the
+    call's launches.  ``host_ms`` is the host's enqueue time of one call
+    (host clock, from an idle device).  ``setup`` runs before every call and
+    its device work is measured alone and taken out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    wall = time_ms(fn, reps=reps, setup=setup)
+    host = []
+    for _ in range(reps):
+        if setup is not None:
+            setup()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+
+    def ops(body):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                body()
+            torch.cuda.synchronize()
+        return device_events(prof)
+
+    def call():
+        if setup is not None:
+            setup()
+        fn()
+
+    got = ops(call)
+    setup_ops = ops(setup) if setup is not None else []
+    if not got:
+        return {"wall_ms": wall, "host_ms": statistics.median(host), "kernel_ms": None,
+                "note": "the profiler recorded no device activity"}
+    kern = [e for e in got if is_port_kernel(e.name, names)]
+    rest = [e for e in got if not is_port_kernel(e.name, names)]
+    kernel_ms = sum(e.time_range.elapsed_us() for e in kern) / reps / 1e3
+    other_ms = (sum(e.time_range.elapsed_us() for e in rest)
+                - sum(e.time_range.elapsed_us() for e in setup_ops)) / reps / 1e3
+    counts = {}
+    for e in rest:
+        counts[e.name[:80]] = counts.get(e.name[:80], 0) + 1
+    for e in setup_ops:
+        counts[e.name[:80]] = counts.get(e.name[:80], 0) - 1
+    return {"wall_ms": wall, "host_ms": statistics.median(host), "kernel_ms": kernel_ms,
+            "kernel_launches": len(kern) / reps, "other_device_ms": other_ms,
+            "other_ops": {k: v / reps for k, v in counts.items() if v},
+            "idle_ms": wall - kernel_ms - other_ms}
+
+
+def insert_case(gen, n, C):
+    """Synthetic insert input at (n, C): keys drawn uniformly with
+    duplicates from at most C/2 distinct ones (every row places well inside
+    64 rounds), 90 % of rows valid."""
+    import numpy as np
+    import torch
+
+    distinct = max(min(n, C // 2), 1)
+    keys = gen.integers(0, 1 << 62, size=distinct, dtype=np.int64)
+    packed = torch.as_tensor(keys[gen.integers(0, distinct, size=n)], device=DEVICE)
+    valid = torch.as_tensor(gen.random(n) < 0.9, device=DEVICE)
+    return packed, valid
+
+
+def lineitem_keys(conn):
+    """The main path's own insert keys: ``l_orderkey`` of the first lineitem
+    split, packed as a one-key hash group-by packs it (the lineitem rows of
+    one order are adjacent, 1-7 of them), and the split's valid lanes."""
+    from trino_tpu_torch.ops.hashing import pack_keys
+
+    page = conn.generate(conn.splits("lineitem")[0], ["l_orderkey"])
+    packed, _ = pack_keys((page.columns[0],), (page.schema.fields[0].type,))
+    return packed, page.valid_mask()
+
+
+def compact_case(gen, n, out_len, widths):
+    """Synthetic compaction input: one column per width, and a mask keeping
+    about half of out_len, so nothing is dropped."""
+    import torch
+
+    by_width = {1: torch.bool, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    cols = []
+    for w in widths:
+        raw = torch.as_tensor(gen.integers(-(1 << 30), 1 << 30, size=n), device=DEVICE)
+        cols.append(raw.to(by_width[w]) if w != 1 else raw > 0)
+    keep = min(0.5 * out_len / max(n, 1), 1.0)
+    return tuple(cols), torch.as_tensor(gen.random(n) < keep, device=DEVICE)
 
 
 def bound(nbytes, ops):
@@ -528,12 +665,190 @@ def segment_agg_checks(q1_page):
                                      "library_ms")},
             "shapes": shapes}
 
+def main_path_shapes(seen):
+    """(label, shape) of the largest and the most frequent launch shape."""
+    import collections
 
-def kernel_checks(shapes, launches, q1_page):
+    seen = [tuple(x) for x in seen]
+    largest = max(seen, key=lambda x: (x[0], x[1]))
+    frequent = collections.Counter(seen).most_common(1)[0][0]
+    return [("largest", largest), ("most_frequent", frequent)]
+
+
+def insert_observables(table, slot, placed, ref_table, ref_placed, packed, valid):
+    """{what: count} of the observables on which an insert's result
+    disagrees with the plain version's (layouts legitimately differ)."""
+    import torch
+
+    from trino_tpu_torch.ops import cuda_kernels as ck
+    from trino_tpu_torch.ops.hashing import EMPTY_KEY, probe_step, splitmix64
+
+    C = table.shape[0] - 1
+    live = valid & placed
+    words = torch.unique(table[:C][table[:C] != EMPTY_KEY])
+    ref_words = torch.unique(ref_table[:C][ref_table[:C] != EMPTY_KEY])
+    h0 = splitmix64(packed)
+    stp = probe_step(h0)
+    vals = torch.arange(C, dtype=torch.int32, device=table.device)
+    got = ck.hash_probe_plain(table[:C], vals, packed, h0, stp, valid)
+    ref = ck.hash_probe_plain(ref_table[:C], vals, packed, h0, stp, valid)
+    return {
+        "placed sets differ": int((placed != ref_placed).sum()),
+        "valid rows not placed": int((valid & ~placed).sum()),
+        "table[slot] != packed for placed rows":
+            int((table[slot.long()[live]] != packed[live]).sum()),
+        "invalid rows not at the sink": int((slot[~valid] != C).sum()),
+        "sink word written": int(int(table[C]) != EMPTY_KEY),
+        "table word sets differ": words.numel() + ref_words.numel()
+            - 2 * int(torch.isin(words, ref_words).sum()),
+        "probe results over the two tables differ":
+            int((got[1] != ref[1]).sum()) + int((got[1] != valid).sum()),
+    }
+
+
+def insert_checks(seen, li_keys, gen):
+    """hash_insert in both forms (functional ``hash_insert``, in-place
+    ``hash_insert_``) against the plain version, on uniform synthetic keys at
+    the largest and the most frequent main-path shape, and on the main path's
+    own keys (``lineitem_keys``, table sized as the group-by sizes it: the
+    next power of two at or above twice the distinct keys).  The error is
+    the count of disagreeing observables; the top-level numbers are the
+    in-place form's at the largest shape."""
+    import torch
+
+    from trino_tpu_torch.ops import cuda_kernels as ck
+    from trino_tpu_torch.ops.hashing import EMPTY_KEY, probe_step, splitmix64
+
+    names = kernel_names("hash_insert")
+    cases = []
+    for label, (n, C) in main_path_shapes(seen):
+        cases.append((label, *insert_case(gen, n, C), C))
+    packed, valid = li_keys
+    distinct = int(torch.unique(packed[valid]).numel())
+    cases.append(("lineitem_orderkey", packed, valid, 1 << (2 * distinct - 1).bit_length()))
+    out, wrong_total = [], 0
+    for label, packed, valid, C in cases:
+        n = packed.shape[0]
+        table0 = torch.full((C + 1,), EMPTY_KEY, dtype=torch.int64, device=DEVICE)
+        ref_t, _, ref_p = ck.hash_insert_plain(table0, packed, valid)
+        t_f, s_f, p_f = ck.hash_insert(table0, packed, valid)
+        t_i = table0.clone()
+        s_i, p_i = ck.hash_insert_(t_i, packed, valid)
+        torch.cuda.synchronize()
+        wrong = {"functional": insert_observables(t_f, s_f, p_f, ref_t, ref_p, packed, valid),
+                 "in_place": insert_observables(t_i, s_i, p_i, ref_t, ref_p, packed, valid)}
+        wrong["functional"]["input table modified"] = int((table0 != EMPTY_KEY).sum())
+        for form, w in wrong.items():
+            for what, count in w.items():
+                check(count == 0, f"hash_insert {label} {form}: {what} ({count})")
+        nv = int(valid.sum())
+        # chain walks: one per run of equal keys among a warp's valid rows
+        rows = torch.nonzero(valid).flatten()
+        walks = int(rows.numel() and 1 + ((rows[1:] // 32 != rows[:-1] // 32)
+                                          | (packed[rows][1:] != packed[rows][:-1])).sum())
+        # what the rows need: packed and valid in, slot and placed out; in
+        # place, the distinct table sectors the chains touch (the final
+        # table replays each chain: slots only go from EMPTY to a key); the
+        # functional form reads and writes the whole table besides
+        h0 = splitmix64(packed)
+        chains, _ = probe_chains(t_i[:C], packed, h0, probe_step(h0), valid)
+        table_sectors = sector_bytes(chains, 8)
+        fill = lambda: t_i.fill_(EMPTY_KEY)  # noqa: E731
+        forms = {
+            "in_place": (lambda: ck.hash_insert_(t_i, packed, valid),
+                         lambda: ck.hash_insert_plain_(t_i, packed, valid), fill,
+                         n * (8 + 1 + 4 + 1) + table_sectors),
+            "functional": (lambda: ck.hash_insert(table0, packed, valid),
+                           lambda: ck.hash_insert_plain(table0, packed, valid), None,
+                           8 * (C + 1) * 2 + n * (8 + 1 + 4 + 1)),
+        }
+        for form, (fn, plain, setup, nbytes) in forms.items():
+            split = device_split(fn, names, setup=setup)
+            if split.get("kernel_ms") is not None:
+                check(split["kernel_launches"] == 1,
+                      f"hash_insert {label} {form}: {split['kernel_launches']} launches a call")
+                if form == "in_place":
+                    check(not split["other_ops"], f"hash_insert {label} in place: other "
+                          f"device operations {split['other_ops']}")
+            plain_ms = time_ms(plain, reps=3, warmup=1, setup=setup)
+            b_ms, b_by = bound(nbytes, nv * 27)
+            rec = {"case": label, "form": form, "shape": [n, C], "valid_rows": nv,
+                   "chain_walks": walks, "max_abs_err": float(sum(wrong[form].values())),
+                   "ms": split["wall_ms"], "kernel_ms": split.get("kernel_ms"),
+                   "split": split, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": None}
+            wrong_total += rec["max_abs_err"]
+            out.append(rec)
+            print(f"kernel hash_insert {label} {form}: shape={[n, C]} valid={nv} "
+                  f"walks={walks} ms={rec['ms']:.4f} kernel_ms={rec['kernel_ms']} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.6g} ({b_by})", flush=True)
+    top = out[0]
+    return {"name": "hash_insert", "shape": top["shape"], "form": top["form"],
+            "max_abs_err": wrong_total,
+            **{k: top[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+            "shapes": out}
+
+
+def compact_checks(seen, gen):
+    """compact_rows against its plain version, byte for byte, at the largest
+    and the most frequent main-path shape; the top-level numbers are the
+    largest shape's.  A call of up to 16 columns must make at most two
+    kernel launches and no fill of its outputs."""
+    import torch
+
+    from trino_tpu_torch.ops import cuda_kernels as ck
+
+    names = kernel_names("compact_rows")
+    out = []
+    for label, (n, out_len, widths) in main_path_shapes(seen):
+        cols, valid = compact_case(gen, n, out_len, widths)
+        a, ta = ck.compact_rows(cols, valid, out_len)
+        b, tb = ck.compact_rows_plain(cols, valid, out_len)
+        torch.cuda.synchronize()
+        check(int(ta) == int(tb), f"compact_rows {label}: live counts differ")
+        err = float(abs(int(ta) - int(tb)))
+        for x, y in zip(a, b):
+            check(x.dtype == y.dtype and bool((x == y).all()),
+                  f"compact_rows {label}: kernel and plain version differ")
+            if out_len:
+                err = max(err, float((x.long() - y.long()).abs().max()))
+        split = device_split(lambda: ck.compact_rows(cols, valid, out_len), names)
+        if split.get("kernel_ms") is not None:
+            check(split["kernel_launches"] <= -(-len(cols) // 16),
+                  f"compact_rows {label}: {split['kernel_launches']} launches a call")
+            fills = [k for k in split["other_ops"] if "fill" in k.lower()]
+            check(not fills, f"compact_rows {label}: fills its outputs ({fills})")
+        plain_ms = time_ms(lambda: ck.compact_rows_plain(cols, valid, out_len))
+        library_ms = time_ms(lambda: [c[valid] for c in cols])
+        # what this mask needs: the mask; in each column the sectors holding
+        # live rows that are kept; the outputs in full (the tail is zeros);
+        # the count
+        kept = torch.nonzero(valid).flatten()[:out_len]
+        b_ms, b_by = bound(n + sum(sector_bytes(kept, w) for w in widths)
+                           + out_len * sum(widths) + 8, n * 4)
+        rec = {"case": label, "shape": [n, out_len, list(widths)], "live": int(tb),
+               "max_abs_err": err, "ms": split["wall_ms"], "kernel_ms": split.get("kernel_ms"),
+               "split": split, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": library_ms}
+        out.append(rec)
+        print(f"kernel compact_rows {label}: shape={rec['shape']} live={rec['live']} "
+              f"ms={rec['ms']:.4f} kernel_ms={rec['kernel_ms']} plain_ms={plain_ms:.4f} "
+              f"library_ms={library_ms:.4f} bound_ms={b_ms:.6g}", flush=True)
+    top = out[0]
+    return {"name": "compact_rows", "shape": top["shape"], "live": top["live"],
+            "max_abs_err": max(r["max_abs_err"] for r in out),
+            **{k: top[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+            "shapes": out}
+
+
+def kernel_checks(shapes, launches, q1_page, li_keys):
     """Phase 3: each kernel against its plain version at the main path's
-    largest launch shape (fused_segment_agg, which the main path does not
-    launch, at Q1's group-by shape and its ceiling).  Returns the kernels'
-    JSON records."""
+    largest launch shape (insert and compaction also at the most frequent
+    one, insert also on the main path's own keys; fused_segment_agg, which
+    the main path does not launch, at Q1's group-by shape and its ceiling).
+    Returns the kernels' JSON records."""
     import numpy as np
     import torch
 
@@ -544,52 +859,7 @@ def kernel_checks(shapes, launches, q1_page):
     gen = np.random.default_rng(7)
     records = []
 
-    # -- hash_insert: the largest (n, C) of the run; keys with duplicates,
-    # at most C/2 distinct so every row places well inside 64 rounds
-    n, C = max(shapes["hash_insert"], key=lambda s: (s[0], s[1]))
-    distinct = max(min(n, C // 2), 1)
-    keys = gen.integers(0, 1 << 62, size=distinct, dtype=np.int64)
-    packed = torch.as_tensor(keys[gen.integers(0, distinct, size=n)], device=dev)
-    valid = torch.as_tensor(gen.random(n) < 0.9, device=dev)
-    table0 = torch.full((C + 1,), EMPTY_KEY, dtype=torch.int64, device=dev)
-    t_k, s_k, p_k = ck.hash_insert(table0, packed, valid)
-    t_p, s_p, p_p = ck.hash_insert_plain(table0, packed, valid)
-    torch.cuda.synchronize()
-    # the two layouts legitimately differ, so the error is the number of
-    # observables on which the kernel and the plain version disagree
-    live = valid & p_k
-    words_k = torch.unique(t_k[:C][t_k[:C] != EMPTY_KEY])
-    words_p = torch.unique(t_p[:C][t_p[:C] != EMPTY_KEY])
-    h0 = splitmix64(packed)
-    stp = probe_step(h0)
-    vals = torch.arange(C, dtype=torch.int32, device=dev)
-    r_k = ck.hash_probe_plain(t_k[:C], vals, packed, h0, stp, valid)
-    r_p = ck.hash_probe_plain(t_p[:C], vals, packed, h0, stp, valid)
-    wrong = {
-        "placed sets differ": int((p_k != p_p).sum()),
-        "valid rows not placed": int((valid & ~p_k).sum()),
-        "table[slot] != packed for placed rows":
-            int((t_k[s_k.long()[live]] != packed[live]).sum()),
-        "invalid rows not at the sink": int((s_k[~valid] != C).sum()),
-        "sink word written": int(int(t_k[C]) != EMPTY_KEY),
-        "table word sets differ": words_k.numel() + words_p.numel()
-            - 2 * int(torch.isin(words_k, words_p).sum()),
-        "probe results over the two tables differ":
-            int((r_k[1] != r_p[1]).sum()) + int((r_k[1] != valid).sum()),
-    }
-    for what, count in wrong.items():
-        check(count == 0, f"hash_insert: {what} ({count})")
-    ms = time_ms(lambda: ck.hash_insert(table0, packed, valid))
-    plain_ms = time_ms(lambda: ck.hash_insert_plain(table0, packed, valid), reps=3,
-                       warmup=1)
-    nv = int(valid.sum())
-    # the result is a new table, so the input table is read and the output
-    # table written in full; per row: packed, valid in, slot, placed out
-    b_ms, b_by = bound(8 * (C + 1) * 2 + n * (8 + 1 + 4 + 1), nv * 27)
-    records.append({"name": "hash_insert", "shape": [n, C],
-                    "max_abs_err": float(sum(wrong.values())), "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": None})
+    records.append(insert_checks(shapes["hash_insert"], li_keys, gen))
 
     # -- hash_probe: the largest (n, C); a table built by the plain insert
     # from half the keys, probed by hits and misses
@@ -630,39 +900,7 @@ def kernel_checks(shapes, launches, q1_page):
                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": None})
 
-    # -- compact_rows: the largest (n, out_len, widths); the mask keeps about
-    # half of out_len so nothing is dropped, as at the boundary that chose it
-    n, out_len, widths = max(shapes["compact_rows"], key=lambda s: (s[0], s[1]))
-    by_width = {1: torch.bool, 2: torch.int16, 4: torch.int32, 8: torch.int64}
-    cols = []
-    for w in widths:
-        raw = torch.as_tensor(gen.integers(-(1 << 30), 1 << 30, size=n), device=dev)
-        cols.append(raw.to(by_width[w]) if w != 1 else raw > 0)
-    keep = min(0.5 * out_len / max(n, 1), 1.0)
-    valid = torch.as_tensor(gen.random(n) < keep, device=dev)
-    a, ta = ck.compact_rows(tuple(cols), valid, out_len)
-    b, tb = ck.compact_rows_plain(tuple(cols), valid, out_len)
-    torch.cuda.synchronize()
-    check(int(ta) == int(tb), "compact_rows: live counts differ")
-    err = float(abs(int(ta) - int(tb)))
-    for x, y in zip(a, b):
-        check(x.dtype == y.dtype and bool((x == y).all()),
-              "compact_rows: kernel and plain version differ")
-        if out_len:
-            err = max(err, float((x.long() - y.long()).abs().max()))
-    ms = time_ms(lambda: ck.compact_rows(tuple(cols), valid, out_len))
-    plain_ms = time_ms(lambda: ck.compact_rows_plain(tuple(cols), valid, out_len))
-    library_ms = time_ms(lambda: [c[valid] for c in cols])
-    live_n = int(tb)
-    # what this mask needs: the mask; in each column the sectors holding live
-    # rows that are kept; the outputs in full (the tail is zeros); the count
-    kept = torch.nonzero(valid).flatten()[:out_len]
-    b_ms, b_by = bound(n + sum(sector_bytes(kept, w) for w in widths)
-                       + out_len * sum(widths) + 8, n * 4)
-    records.append({"name": "compact_rows", "shape": [n, out_len, list(widths)],
-                    "live": live_n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms})
-
+    records.append(compact_checks(shapes["compact_rows"], gen))
     records.append(segment_agg_checks(q1_page))
 
     out = []
@@ -743,8 +981,9 @@ def main() -> int:
         q1_page = conn.generate(conn.splits("lineitem")[0],
                                 ["l_returnflag", "l_linestatus", "l_shipdate", "l_quantity",
                                  "l_extendedprice", "l_discount", "l_tax"])
-        kernels = kernel_checks(shapes, launches, q1_page)
-        del q1_page
+        li_keys = lineitem_keys(conn)
+        kernels = kernel_checks(shapes, launches, q1_page, li_keys)
+        del q1_page, li_keys
 
         # -- phase 4: SF10 on the card alone -----------------------------------
         del engine, main, conn

@@ -1,20 +1,39 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port: one warm run of each TPC-H
 query (``chip_smoke.ALL_QUERIES``: every query but Q15) under
-``torch.profiler`` on the card.
+``torch.profiler`` on the card, then the two hottest kernel wrappers split
+into kernel, other device work and host gaps.
 
     python3 scripts/torch_profile.py [--sf 1] [--out profile_sf1.json]
+                                     [--package-root DIR]
 
 Per query it reports the host wall time, the summed device time of every
 kernel the run launched, the device busy share (device time / wall), the
-number of kernel launches, the device time of the port's own CUDA kernels
-(``trino_tpu_torch/csrc``), and the top kernels by device time.  Needs a
-CUDA card; exits non-zero without one.
+number of device operations, the top kernels by device time, and per port
+kernel wrapper: the device time and launch count of its own CUDA kernels
+(``trino_tpu_torch/csrc``, read from the sources by ``port_kernels``), and the
+totals of its ``record_function`` range (calls, host time, and the device
+span the profiler mirrors onto the card's timeline).  Sums over the 21
+queries follow.
+
+Then ``compact_rows`` and ``hash_insert`` are each called at the largest and
+at the most frequent shape the queries launched them at (synthetic inputs,
+``chip_smoke.insert_case`` / ``compact_case``), and ``hash_insert`` also on
+the main path's own keys (``chip_smoke.lineitem_keys``), and each call's time is
+split by ``chip_smoke.device_split``: wall, kernel-only device time, the
+wrapper's other device operations, device idle between launches, and host
+enqueue time.  ``hash_insert`` is split in its functional form and, where
+the package has it, its in-place form ``hash_insert_``.
+
+``--package-root DIR`` profiles the ``trino_tpu_torch`` found under DIR (for
+example an unpacked parent commit) with this script's own measurement code.
+Needs a CUDA card; exits non-zero without one.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import sys
@@ -24,36 +43,24 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
 
 TOP = 8  # kernels listed per query
-# device kernel names of trino_tpu_torch/csrc, by the wrapper that launches them
-PORT_KERNELS = {"hash_insert": ("hash_insert_kernel",),
-                "hash_probe": ("hash_probe_kernel",),
-                "compact_rows": ("block_counts_kernel", "scan_offsets_kernel",
-                                 "scatter_kernel"),
-                "fused_segment_agg": ("segment_agg_kernel",)}
+SPLIT_KERNELS = ("compact_rows", "hash_insert")
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--sf", type=float, default=1.0)
-    ap.add_argument("--out", default=None, help="write the JSON report here too")
-    args = ap.parse_args(argv)
+def port_kernels(ck):
+    """{wrapper: the __global__ kernels of its source}."""
+    from chip_smoke import kernel_names
 
+    return {w: kernel_names(w) for w in ck.STATS}
+
+
+def profile_queries(engine, queries, ck, kernels):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    if not torch.cuda.is_available():
-        print("torch_profile: no CUDA device available", file=sys.stderr)
-        return 2
-    from chip_smoke import ALL_QUERIES, card_line
-    from trino_tpu_torch import Engine
-    from trino_tpu_torch.connectors.tpch import TpchConnector
-    from trino_tpu_torch.ops import cuda_kernels as ck
+    from chip_smoke import device_events, is_port_kernel
 
-    ck.build_kernels()
-    engine = Engine(device="cuda")
-    engine.register_catalog("tpch", TpchConnector(sf=args.sf, split_rows=1 << 21))
-    report = {"card": card_line(), "sf": args.sf, "queries": {}}
-    for q, sql in ALL_QUERIES.items():
+    report = {}
+    for q, sql in queries.items():
         sess = engine.create_session("tpch")
         engine.execute_sql(sql, sess)  # cold run: CUDA context, allocator, caches
         torch.cuda.synchronize()
@@ -63,39 +70,163 @@ def main(argv=None) -> int:
             engine.execute_sql(sql, sess)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        device_us = sum(e.time_range.elapsed_us() for e in kernels)
-        port_us = {w: sum(e.time_range.elapsed_us() for e in kernels
-                          if any(k in e.name for k in names))
-                   for w, names in PORT_KERNELS.items()}
+        events = prof.events()
+        dev = device_events(prof)
+        device_us = sum(e.time_range.elapsed_us() for e in dev)
+        wrappers = {}
+        for w, names in kernels.items():
+            mine = [e for e in dev if is_port_kernel(e.name, names)]
+            ranges = [e for e in events if e.name == w]
+            host_r = [e for e in ranges
+                      if e.device_type == torch.autograd.DeviceType.CPU]
+            dev_r = [e for e in ranges
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            wrappers[w] = {
+                "kernel_ms": sum(e.time_range.elapsed_us() for e in mine) / 1e3,
+                "kernel_launches": len(mine),
+                "range_calls": len(host_r),
+                "range_host_ms": sum(e.time_range.elapsed_us() for e in host_r) / 1e3,
+                "range_device_span_ms":
+                    sum(e.time_range.elapsed_us() for e in dev_r) / 1e3 if dev_r else None,
+            }
         rows = []
         for ev in prof.key_averages():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue  # host-side operator rows repeat their kernels' time
+            if ev.device_type != torch.autograd.DeviceType.CUDA or ev.key in kernels:
+                continue  # host operator rows repeat their kernels' time; ranges too
             dt = getattr(ev, "self_device_time_total", None)
             if dt is None:
                 dt = getattr(ev, "self_cuda_time_total", 0)
             if dt > 0:
                 rows.append((dt, ev.key, ev.count))
         rows.sort(reverse=True)
-        report["queries"][q] = {
+        report[q] = {
             "wall_ms": wall * 1e3,
             "device_ms": device_us / 1e3,
             "device_busy_share": (device_us / 1e6) / wall if wall else None,
-            "kernel_launches": len(kernels),
-            "port_kernels_ms": {w: us / 1e3 for w, us in port_us.items()},
+            "device_ops": len(dev),
+            "port_kernels": wrappers,
             "host_reads": engine.last_query_counters.get("host_reads"),
             "top_kernels": [{"kernel": k, "device_ms": dt / 1e3, "calls": c}
                             for dt, k, c in rows[:TOP]],
         }
-        r = report["queries"][q]
+        r = report[q]
+        port = {w: round(x["kernel_ms"], 4) for w, x in wrappers.items() if x["kernel_launches"]}
         print(f"{q}: wall_ms={r['wall_ms']:.3f} device_ms={r['device_ms']:.3f} "
-              f"busy={r['device_busy_share']:.3f} launches={r['kernel_launches']} "
-              f"host_reads={r['host_reads']} port_kernels_ms={r['port_kernels_ms']}",
-              flush=True)
+              f"busy={r['device_busy_share']:.3f} device_ops={r['device_ops']} "
+              f"host_reads={r['host_reads']} port_kernel_ms={port}", flush=True)
         for t in r["top_kernels"]:
             print(f"    {t['device_ms']:9.3f} ms  {t['calls']:6d}  {t['kernel'][:90]}")
+    return report
+
+
+def totals(report, kernels):
+    """Sums over the queries: wall, device time, and per wrapper."""
+    out = {"wall_ms": sum(r["wall_ms"] for r in report.values()),
+           "device_ms": sum(r["device_ms"] for r in report.values()), "port_kernels": {}}
+    out["device_busy_share"] = out["device_ms"] / out["wall_ms"] if out["wall_ms"] else None
+    for w in kernels:
+        rs = [r["port_kernels"][w] for r in report.values()]
+        spans = [x["range_device_span_ms"] for x in rs if x["range_device_span_ms"] is not None]
+        out["port_kernels"][w] = {
+            "kernel_ms": sum(x["kernel_ms"] for x in rs),
+            "kernel_launches": sum(x["kernel_launches"] for x in rs),
+            "range_calls": sum(x["range_calls"] for x in rs),
+            "range_host_ms": sum(x["range_host_ms"] for x in rs),
+            "range_device_span_ms": sum(spans) if spans else None,
+        }
+    return out
+
+
+def split_kernels(ck, shapes, kernels, conn, seed=7):
+    """device_split of compact_rows and hash_insert at the largest and the
+    most frequent shape of the queries' run, and of hash_insert on the main
+    path's own keys (``chip_smoke.lineitem_keys``)."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import compact_case, device_split, insert_case, lineitem_keys
+    from trino_tpu_torch.ops.hashing import EMPTY_KEY
+
+    gen = np.random.default_rng(seed)
+    out = []
+    for w in SPLIT_KERNELS:
+        seen = [tuple(s) for s in shapes[w]]
+        if not seen:
+            continue
+        largest = max(seen, key=lambda s: (s[0], s[1]))
+        frequent = collections.Counter(seen).most_common(1)[0][0]
+        cases = [("largest", largest), ("most_frequent", frequent)]
+        if w == "hash_insert":
+            cases.append(("lineitem_orderkey", None))
+        for which, shape in cases:
+            if w == "compact_rows":
+                n, out_len, widths = shape
+                cols, valid = compact_case(gen, n, out_len, widths)
+                forms = {"compact_rows": (lambda: ck.compact_rows(cols, valid, out_len),
+                                          None)}
+            else:
+                if shape is None:
+                    packed, valid = lineitem_keys(conn)
+                    distinct = int(torch.unique(packed[valid]).numel())
+                    shape = (packed.shape[0], 1 << (2 * distinct - 1).bit_length())
+                else:
+                    packed, valid = insert_case(gen, *shape)
+                n, C = shape
+                table0 = torch.full((C + 1,), EMPTY_KEY, dtype=torch.int64,
+                                    device=packed.device)
+                forms = {"hash_insert": (lambda: ck.hash_insert(table0, packed, valid), None)}
+                if hasattr(ck, "hash_insert_"):
+                    table = table0.clone()
+                    forms["hash_insert_"] = (lambda: ck.hash_insert_(table, packed, valid),
+                                             lambda: table.fill_(EMPTY_KEY))
+            for form, (fn, setup) in forms.items():
+                got = device_split(fn, kernels[w], setup=setup)
+                rec = {"kernel": w, "form": form, "which": which,
+                       "shape": list(shape) if w != "compact_rows"
+                       else [shape[0], shape[1], list(shape[2])], **got}
+                out.append(rec)
+                print(f"split {form} {which} {rec['shape']}: "
+                      + " ".join(f"{k}={v}" for k, v in got.items()), flush=True)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sf", type=float, default=1.0)
+    ap.add_argument("--out", default=None, help="write the JSON report here too")
+    ap.add_argument("--package-root", default=None,
+                    help="profile the trino_tpu_torch under this directory")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_profile: no CUDA device available", file=sys.stderr)
+        return 2
+    from chip_smoke import ALL_QUERIES, card_line
+
+    if args.package_root:
+        sys.path.insert(0, os.path.abspath(args.package_root))
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.ops import cuda_kernels as ck
+
+    ck.build_kernels()
+    kernels = port_kernels(ck)
+    engine = Engine(device="cuda")
+    conn = TpchConnector(sf=args.sf, split_rows=1 << 21)
+    engine.register_catalog("tpch", conn)
+    report = {"card": card_line(), "sf": args.sf, "package": os.path.dirname(
+        os.path.dirname(os.path.abspath(ck.__file__))), "port_kernels": kernels}
+    print(f"card: {report['card']}  package: {report['package']}", flush=True)
+    ck.reset_stats()
+    report["queries"] = profile_queries(engine, ALL_QUERIES, ck, kernels)
+    report["totals"] = totals(report["queries"], kernels)
+    print("totals: " + json.dumps(report["totals"]), flush=True)
+    shapes = {k: list(s.shapes) for k, s in ck.STATS.items()}
+    del engine
+    torch.cuda.empty_cache()
+    report["split"] = split_kernels(ck, shapes, kernels, conn)
     text = json.dumps(report)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

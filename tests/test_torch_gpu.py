@@ -86,6 +86,137 @@ def test_compact_rows_kernel_byte_identical(dev, n, out_len, frac):
         assert x.dtype == y.dtype and torch.equal(x, y)
 
 
+TILE = 4096  # rows per tile of csrc/compact_rows.cu
+_WIDTH_DTYPES = (torch.bool, torch.int8, torch.int16, torch.float16, torch.int32,
+                 torch.float32, torch.int64, torch.float64)
+COMPACT_EDGES = {
+    # name: (n, out_len, live fraction, columns)
+    "tile_minus_one": (TILE - 1, TILE - 1, 0.5, 8),
+    "one_tile": (TILE, TILE, 0.5, 8),
+    "tile_plus_one": (TILE + 1, TILE + 1, 0.5, 8),
+    "many_tiles": ((1 << 22) + 13, (1 << 22) + 13, 0.3, 8),
+    "all_dead": (3 * TILE + 5, 1024, 0.0, 8),
+    "all_live": (3 * TILE + 5, 3 * TILE + 5, 1.0, 8),
+    "drops_past_out_len": (5 * TILE + 7, 3000, 0.6, 8),
+    "seventeen_columns": (2 * TILE + 99, 2 * TILE + 99, 0.5, 17),
+    "thirty_three_columns": (TILE + 1, 1000, 0.7, 33),
+    "empty_input": (0, 64, 0.5, 8),
+    "empty_output": (TILE + 3, 0, 0.5, 8),
+}
+
+
+def _compact_columns(rng, n, k, dev):
+    cols = []
+    for j in range(k):
+        dt = _WIDTH_DTYPES[j % len(_WIDTH_DTYPES)]
+        raw = rng.integers(0, 256, size=n * torch.empty((), dtype=dt).element_size(),
+                           dtype=np.uint8)
+        if dt == torch.bool:
+            cols.append(torch.as_tensor(raw % 2 == 1, device=dev))
+        else:
+            cols.append(torch.as_tensor(raw, device=dev).view(dt) if n
+                        else torch.empty((0,), dtype=dt, device=dev))
+    return tuple(cols)
+
+
+def _same_bytes(x, y):
+    return x.dtype == y.dtype and torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+
+
+@pytest.mark.parametrize("case", sorted(COMPACT_EDGES))
+def test_compact_rows_kernel_tile_edges(dev, case):
+    """Byte-identical to the plain version at tile edges, over many tiles,
+    all-dead and all-live masks, drops past out_len, more than one column
+    chunk, and every width (outputs arrive from torch.empty)."""
+    n, out_len, frac, k = COMPACT_EDGES[case]
+    rng = np.random.default_rng(n + k)
+    cols = _compact_columns(rng, n, k, dev)
+    valid = torch.as_tensor(rng.random(n) < frac, device=dev)
+    for junk in range(2):  # reuse allocator blocks full of garbage
+        torch.full((out_len * 8 * k + 64,), 0x5A, dtype=torch.uint8, device=dev)
+        before = ck.STATS["compact_rows"].launches
+        a, at = ck.compact_rows(cols, valid, out_len)
+        b, bt = ck.compact_rows_plain(cols, valid, out_len)
+        assert ck.STATS["compact_rows"].launches == before + 1
+        assert int(at) == int(bt) == int(valid.sum())
+        for x, y in zip(a, b):
+            assert _same_bytes(x, y)
+
+
+def test_compact_rows_kernel_unaligned_inputs(dev):
+    """A mask and columns that start off a 16-byte boundary (slices)."""
+    rng = np.random.default_rng(5)
+    n = 3 * TILE + 17
+    cols = tuple(c[3:] for c in _compact_columns(rng, n + 3, 8, dev))
+    valid = torch.as_tensor(rng.random(n + 1) < 0.5, device=dev)[1:]
+    a, at = ck.compact_rows(cols, valid, n - 5)
+    b, bt = ck.compact_rows_plain(cols, valid, n - 5)
+    assert int(at) == int(bt)
+    for x, y in zip(a, b):
+        assert _same_bytes(x, y)
+
+
+def _adjacent_duplicates(rng, n, distinct):
+    """Keys in runs of 1-7 equal rows, as lineitem rows of one order arrive."""
+    pool = np.unique(rng.integers(1, 1 << 40, size=2 * distinct + 8, dtype=np.int64))
+    runs = rng.integers(1, 8, size=n)
+    keys = np.repeat(rng.permutation(pool)[:distinct][rng.integers(0, distinct, size=n)],
+                     runs)[:n]
+    return keys
+
+
+@pytest.mark.parametrize("n,C,distinct,prefill", [(20000, 16384, 3000, 0),
+                                                   (70000, 65536, 20000, 5000),
+                                                   (4096, 1024, 900, 100)])
+def test_hash_insert_in_place_adjacent_duplicates(dev, n, C, distinct, prefill):
+    """hash_insert_ writes the caller's table; its observables equal the
+    plain version's on runs of equal keys, and every word outside the slots
+    it claimed is unchanged (a prefilled part of the table included)."""
+    rng = np.random.default_rng(n + prefill)
+    table = torch.full((C + 1,), EMPTY_KEY, dtype=torch.int64, device=dev)
+    if prefill:
+        pre = torch.as_tensor(_keys(rng, prefill, prefill), device=dev)
+        ck.hash_insert_plain_(table, pre, torch.ones_like(pre, dtype=torch.bool))
+    packed = torch.as_tensor(_adjacent_duplicates(rng, n, distinct), device=dev)
+    valid = torch.as_tensor(rng.random(n) < 0.9, device=dev)
+    before = table.clone()
+    ref = table.clone()
+    sk, pk = ck.hash_insert_(table, packed, valid)
+    sp, pp = ck.hash_insert_plain_(ref, packed, valid)
+    assert torch.equal(pk, pp) and bool(pk[valid].all())
+    assert bool((sk[~valid] == C).all()) and int(table[C]) == EMPTY_KEY
+    live = valid & pk
+    assert bool((table[sk.long()[live]] == packed[live]).all())
+    changed = torch.nonzero(table != before).flatten()
+    assert bool(torch.isin(changed, sk.long()[live]).all())
+    assert bool((before[changed] == EMPTY_KEY).all())
+    wk, wp = table[:C][table[:C] != EMPTY_KEY], ref[:C][ref[:C] != EMPTY_KEY]
+    assert torch.equal(torch.unique(wk), torch.unique(wp))
+    # equal keys got one slot
+    order = torch.argsort(packed[live])
+    ks, ss = packed[live][order], sk[live][order]
+    same = ks[1:] == ks[:-1]
+    assert bool((ss[1:][same] == ss[:-1][same]).all())
+
+
+def test_hash_insert_in_place_exhausts_max_probes(dev):
+    """More distinct keys than slots: the table fills, the rest exhaust their
+    64 rounds unplaced (slot C), and unplaced keys are absent."""
+    rng = np.random.default_rng(12)
+    C, n = 64, 4000
+    packed = torch.as_tensor(_adjacent_duplicates(rng, n, 300), device=dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    table = torch.full((C + 1,), EMPTY_KEY, dtype=torch.int64, device=dev)
+    ref = table.clone()
+    sk, pk = ck.hash_insert_(table, packed, valid)
+    sp, pp = ck.hash_insert_plain_(ref, packed, valid)
+    assert not bool(pk.all()) and not bool(pp.all())
+    assert int((table[:C] != EMPTY_KEY).sum()) == int((ref[:C] != EMPTY_KEY).sum()) == C
+    assert int(table[C]) == EMPTY_KEY and bool((sk[~pk] == C).all())
+    assert not bool(torch.isin(packed[~pk], table[:C]).any())
+    assert bool((table[sk.long()[pk]] == packed[pk]).all())
+
+
 @pytest.mark.parametrize("n,n_slots,k", [(10000, 8, 2), (3000, 4, 0), (2049 + 777, 16, 3),
                                          (5000, 128, 3), (70000, 128, 40), (1, 1, 1)])
 def test_fused_segment_agg_kernel_vs_plain(dev, n, n_slots, k):

@@ -153,6 +153,43 @@ def test_hash_insert_leaves_its_input_table_unchanged():
     assert torch.equal(table0, before)
 
 
+def test_hash_insert_in_place_writes_its_input_and_matches_the_functional_form():
+    """hash_insert_ (plain version on the CPU) writes into the table it is
+    given and returns what hash_insert returns beside its new table."""
+    rng = np.random.default_rng(14)
+    table0 = np.full(1025, EMPTY_KEY, np.int64)
+    packed, valid = T(_keys(rng, 700, 300)), T(rng.random(700) < 0.9)
+    tf, sf, pf = ck.hash_insert(T(table0), packed, valid)
+    table = T(table0)
+    slot, placed = ck.hash_insert_(table, packed, valid)
+    assert not torch.equal(table, T(table0))
+    assert torch.equal(table, tf) and torch.equal(slot, sf) and torch.equal(placed, pf)
+    _observables_equal(tf.numpy(), sf.numpy(), pf.numpy(), table.numpy(), slot.numpy(),
+                       placed.numpy(), packed.numpy(), valid.numpy())
+
+
+def test_hash_insert_in_place_pages_threaded_vs_xla():
+    """Four pages inserted in place into one table, each page's observables
+    against trino_tpu's _probe_insert threaded through its own table."""
+    rng = np.random.default_rng(15)
+    C = 2048
+    jt = jnp.full((C + 1,), EMPTY_KEY, jnp.int64)
+    table = T(np.full(C + 1, EMPTY_KEY, np.int64))
+    for _ in range(4):
+        packed, valid = _keys(rng, 600, 300, hi=5000), rng.random(600) < 0.85
+        jt, js, jp = jagg._probe_insert(jt, jnp.asarray(packed), jnp.asarray(valid))
+        ts, tp = ck.hash_insert_(table, T(packed), T(valid))
+        _observables_equal(np.asarray(jt), np.asarray(js), np.asarray(jp),
+                           table.numpy(), ts.numpy(), tp.numpy(), packed, valid)
+
+
+def test_hash_insert_in_place_refuses_a_strided_table():
+    table = torch.full((130,), EMPTY_KEY, dtype=torch.int64)[::2]
+    with pytest.raises(TypeError, match="contiguous"):
+        ck.hash_insert_(table, torch.zeros(3, dtype=torch.int64),
+                        torch.ones(3, dtype=torch.bool))
+
+
 def _jax_table(bkeys, C):
     table0 = jnp.full((C + 1,), EMPTY_KEY, jnp.int64)
     valid = jnp.ones(bkeys.shape, bool)
@@ -303,6 +340,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     rng = np.random.default_rng(9)
     ck.hash_insert(T(np.full(65, EMPTY_KEY, np.int64)), T(_keys(rng, 10, 5)),
                    torch.ones(10, dtype=torch.bool))
+    ck.hash_insert_(T(np.full(65, EMPTY_KEY, np.int64)), T(_keys(rng, 10, 5)),
+                    torch.ones(10, dtype=torch.bool))
     ck.compact_rows((torch.arange(4),), T(np.array([1, 0, 1, 1], bool)), 4)
     ck.fused_segment_agg(T(np.array([0, 1, 1, 0], np.int32)),
                          T(np.array([1, 0, 1, 1], bool)), (torch.ones(4),), 2)

@@ -345,3 +345,114 @@ def test_expand_counts(n, size):
     np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
     np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+
+
+# ------------------------------------------------------- in-place inserts in the executor
+GROWTH_SQL = """
+    select l_partkey, count(*) as c, sum(l_quantity) as q, min(l_shipdate) as d,
+           max(l_extendedprice) as p
+    from lineitem group by l_partkey order by l_partkey"""
+
+
+def _same_result(ref, got):
+    assert tuple(ref.names) == tuple(got.names) and len(ref) == len(got) > 0
+    for t, a, b in zip(ref.types, ref.raw_columns, got.raw_columns):
+        if t.is_floating:
+            np.testing.assert_allclose(np.asarray(b), np.asarray(a), rtol=1e-9)
+        else:
+            np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
+
+
+def test_groupby_replays_an_overflowing_chunk_from_its_snapshot(engine, monkeypatch):
+    """The port alone starts its hash group-by at 16 slots (no direct mode,
+    no estimate), so its first chunk of pages overflows and replays from the
+    per-chunk snapshot after each 4x rehash; groups and aggregates equal
+    trino_tpu's ordinary run.  The table is copied at most once per chunk."""
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.exec import local_executor as le
+
+    monkeypatch.setattr(le, "DEFAULT_GROUP_CAPACITY", 16)
+    monkeypatch.setattr(le.LocalExecutor, "_agg_capacity_estimate", lambda *a: None)
+    monkeypatch.setattr(tagg, "direct_config", lambda *a, **k: None)
+    grown, clones = [], [0]
+    rehash = tagg.rehash
+    monkeypatch.setattr(tagg, "rehash",
+                        lambda state, cap, kinds=(): grown.append(cap) or rehash(state, cap, kinds))
+    clone = torch.Tensor.clone
+    monkeypatch.setattr(torch.Tensor, "clone",
+                        lambda self, *a, **k: clones.__setitem__(0, clones[0] + 1)
+                        or clone(self, *a, **k))
+    conn = TpchConnector(sf=0.01, split_rows=4096)
+    e = Engine(device="cpu")
+    e.register_catalog("tpch", conn)
+    got = e.execute_sql(GROWTH_SQL, e.create_session("tpch"))
+    monkeypatch.undo()
+    ref = engine.execute_sql(GROWTH_SQL, engine.create_session("tpch"))
+    _same_result(ref, got)
+    assert grown[:3] == [64, 256, 1024]  # the first chunk replayed, 4x each time
+    chunks = -(-len(conn.splits("lineitem")) // 4)
+    assert chunks > 1 and clones[0] <= chunks
+
+
+JOIN_BUILD_SQL = {
+    "unique_hashed_build": """
+        select ps_partkey, sum(l_quantity) as q from lineitem, partsupp
+        where ps_partkey = l_partkey and ps_suppkey = l_suppkey and ps_availqty < 2000
+        group by ps_partkey order by ps_partkey""",
+    "multi_match_hashed_build": """
+        select p1.p_partkey, count(*) as c from part p1, part p2
+        where p1.p_size = p2.p_size and p1.p_brand = p2.p_brand and p2.p_partkey < 400
+        group by p1.p_partkey order by p1.p_partkey""",
+}
+
+
+@pytest.mark.parametrize("name", sorted(JOIN_BUILD_SQL))
+def test_join_builds_insert_in_place_without_copying_a_table(engine, monkeypatch, name):
+    """Join builds hand hash_insert_ a table made for that build alone:
+    every table it gets is still all EMPTY, nothing is cloned while a build
+    runs, and the functional insert is never called."""
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.exec import local_executor as le
+    from trino_tpu_torch.ops import cuda_kernels as ck
+
+    seen = {"depth": 0, "clones": 0, "inserts": 0, "fresh": 0}
+
+    def scoped(fn):
+        def inner(*a, **k):
+            seen["depth"] += 1
+            try:
+                return fn(*a, **k)
+            finally:
+                seen["depth"] -= 1
+        return inner
+
+    monkeypatch.setattr(le.LocalExecutor, "_build_join_table",
+                        scoped(le.LocalExecutor._build_join_table))
+    monkeypatch.setattr(le, "multi_build", scoped(le.multi_build))
+    clone = torch.Tensor.clone
+
+    def counted_clone(self, *a, **k):
+        seen["clones"] += seen["depth"] > 0
+        return clone(self, *a, **k)
+
+    monkeypatch.setattr(torch.Tensor, "clone", counted_clone)
+    insert_ = ck.hash_insert_
+
+    def watched(table, *a, **k):
+        if seen["depth"]:
+            seen["inserts"] += 1
+            seen["fresh"] += bool((table == EMPTY).all())
+        return insert_(table, *a, **k)
+
+    monkeypatch.setattr(ck, "hash_insert_", watched)
+    monkeypatch.setattr(ck, "hash_insert",
+                        lambda *a, **k: pytest.fail("a functional insert on the main path"))
+    e = Engine(device="cpu")
+    e.register_catalog("tpch", TpchConnector(sf=0.01))
+    got = e.execute_sql(JOIN_BUILD_SQL[name], e.create_session("tpch"))
+    monkeypatch.undo()
+    assert seen["inserts"] > 0 and seen["fresh"] == seen["inserts"]
+    assert seen["clones"] == 0
+    _same_result(engine.execute_sql(JOIN_BUILD_SQL[name], engine.create_session("tpch")), got)

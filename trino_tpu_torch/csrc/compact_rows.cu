@@ -7,28 +7,50 @@
 //
 // Contract (arrays.compact_rows, byte-identical to the XLA cumsum-scatter):
 // live row r goes to position (number of live rows before r); positions at or
-// past out_len are dropped; the outputs arrive zero-filled from the caller, so
-// the tail stays zero; total = number of live rows, including dropped ones.
-// Each column moves in its own width (1, 2, 4 or 8 bytes).
+// past out_len are dropped; the tail [total, out_len) is zero; total = number
+// of live rows, including dropped ones.  Each column moves in its own width
+// (1, 2, 4 or 8 bytes).  The outputs arrive uninitialised.
 //
-// What bounds it on an H100: memory bandwidth.  It reads the mask twice
-// (count pass and scatter pass) and each column once, and writes each live
-// row once; no arithmetic to speak of.  Three launches:
-//   1. per-block live counts (__syncthreads_count);
-//   2. one block scans the block totals into block offsets and the total;
-//   3. each block recomputes its local prefix with warp ballots and a
-//      shuffle scan of the warp totals, then scatters every column.
-// Reads are coalesced; writes are coalesced runs because live rows of a warp
-// land at consecutive positions.
+// What bounds it on an H100: memory bandwidth.  The least it can move is the
+// mask once, the sectors of the kept rows, and each output once.  The design
+// moves about that in one launch (per 16 columns) after one memset of a
+// small scratch; no output is filled twice and the host never reads total.
+// compact_kernel is a single-pass scan with decoupled look-back (Merrill and
+// Garland):
+//   - each block takes the next tile of 4096 rows from an atomic counter (so
+//     it never waits on a tile no running block holds), reads its 4096 mask
+//     bytes once as one 16-byte load per thread, and ranks the rows with
+//     popcounts and a shuffle scan;
+//   - it publishes its tile aggregate, then its inclusive prefix, as one
+//     64-bit status word (2-bit flag + 62-bit count), and finds its own
+//     prefix by reading up to 32 predecessors' words per step with one warp;
+//   - it scatters every column (up to 16 per launch) itself, row-striped so
+//     each load is coalesced, only live kept rows loaded, 16 loads in flight
+//     per thread, and each warp's live rows landing as one run; a later
+//     launch for columns 17+ reads the prefixes the first one stored;
+//   - when no tile is left, every block waits for the last tile's prefix
+//     (the total) and zeroes its share of [total, out_len), 16 bytes a
+//     store.  The grid is at most what the card holds at once, so the
+//     blocks spread over the whole card for the tail as for the tiles.
+// The scratch (tile status words, the tile counter, total) is one int64
+// tensor of ceil(n / 4096) + 2 words, cleared by one cudaMemsetAsync.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 256;
+constexpr int kItems = 16;  // rows per thread: one 16-byte mask load
+constexpr int kTile = kThreads * kItems;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCols = 16;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// tile status word: flag in the top two bits, live count below
+constexpr unsigned long long kFlagAggregate = 1ull << 62;
+constexpr unsigned long long kFlagPrefix = 2ull << 62;
+constexpr unsigned long long kCountMask = (1ull << 62) - 1;
 
 struct Columns {
     const void* src[kMaxCols];
@@ -37,107 +59,238 @@ struct Columns {
     int count;
 };
 
-__global__ void block_counts_kernel(const unsigned char* __restrict__ valid, long long n,
-                                    long long* __restrict__ counts) {
-    long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-    int live = (i < n) ? (valid[i] != 0) : 0;
-    int c = __syncthreads_count(live);
-    if (threadIdx.x == 0) counts[blockIdx.x] = c;
+__device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
+    return *reinterpret_cast<const volatile unsigned long long*>(p);
 }
 
-// Exclusive scan of nblocks counts in place, by one block; writes the total.
-__global__ void scan_offsets_kernel(long long* __restrict__ counts, long long nblocks,
-                                    long long* __restrict__ total) {
-    __shared__ long long warp_sums[kWarps];
-    const long long per = (nblocks + kThreads - 1) / kThreads;
-    const long long lo = threadIdx.x * per;
-    const long long hi = min(lo + per, nblocks);
-    long long local = 0;
-    for (long long b = lo; b < hi; ++b) local += counts[b];
-    // inclusive warp scan of the per-thread sums
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    long long x = local;
-    for (int d = 1; d < 32; d <<= 1) {
-        long long y = __shfl_up_sync(0xFFFFFFFFu, x, d);
-        if (lane >= d) x += y;
-    }
-    if (lane == 31) warp_sums[warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-        long long w = warp_sums[lane];
-        for (int d = 1; d < 32; d <<= 1) {
-            long long y = __shfl_up_sync(0xFFFFFFFFu, w, d);
-            if (lane >= d) w += y;
+__device__ __forceinline__ void store_status(unsigned long long* p, unsigned long long v) {
+    *reinterpret_cast<volatile unsigned long long*>(p) = v;
+}
+
+// 16 mask bits of rows [row, row + 16): one 16-byte load where the tile is
+// whole and the address aligned, byte loads at the ragged end.
+__device__ __forceinline__ unsigned mask_bits(const unsigned char* __restrict__ valid,
+                                              long long row, long long n) {
+    unsigned bits = 0;
+    if (row + kItems <= n && (reinterpret_cast<uintptr_t>(valid + row) & 15) == 0) {
+        const uint4 v = *reinterpret_cast<const uint4*>(valid + row);
+        const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const unsigned nz = __vcmpne4(w[j], 0u);  // 0xff in each nonzero byte
+            bits |= ((nz & 1u) | ((nz >> 7) & 2u) | ((nz >> 14) & 4u) | ((nz >> 21) & 8u))
+                    << (4 * j);
         }
-        warp_sums[lane] = w;  // inclusive over warps
+    } else {
+        for (int j = 0; j < kItems; ++j)
+            if (row + j < n && valid[row + j]) bits |= 1u << j;
     }
-    __syncthreads();
-    long long run = x - local + (warp > 0 ? warp_sums[warp - 1] : 0);
-    for (long long b = lo; b < hi; ++b) {
-        long long c = counts[b];
-        counts[b] = run;
-        run += c;
-    }
-    if (threadIdx.x == kThreads - 1) *total = warp_sums[kWarps - 1];
+    return bits;
 }
 
-__global__ void scatter_kernel(const unsigned char* __restrict__ valid, long long n,
-                               long long out_len, const long long* __restrict__ offsets,
-                               Columns cols) {
-    __shared__ int warp_base[kWarps];
-    const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const bool live = (i < n) && valid[i];
-    const unsigned ballot = __ballot_sync(0xFFFFFFFFu, live);
-    const int before = __popc(ballot & ((1u << lane) - 1u));
-    if (lane == 0) warp_base[warp] = __popc(ballot);
-    __syncthreads();
-    if (warp == 0) {
-        int w = warp_base[lane];
-        int incl = w;
+// Striped scatter of one column: step j moves row row0 + 256 j + tid to
+// base + local[j] (local[j] < 0: not moved).  All 16 loads are issued before
+// the stores, so each thread keeps 16 independent loads in flight.
+template <typename T>
+__device__ __forceinline__ void scatter_column(const void* src_, void* dst_, long long row0,
+                                               long long base, const int (&local)[kItems]) {
+    const T* __restrict__ src = static_cast<const T*>(src_) + row0 + threadIdx.x;
+    T* __restrict__ dst = static_cast<T*>(dst_) + base;
+    T v[kItems];
+#pragma unroll
+    for (int j = 0; j < kItems; ++j)
+        if (local[j] >= 0) v[j] = src[j * kThreads];
+#pragma unroll
+    for (int j = 0; j < kItems; ++j)
+        if (local[j] >= 0) dst[local[j]] = v[j];
+}
+
+// Zero bytes [lo, hi) of buf: single bytes up to the first 16-byte boundary
+// and after the last, 16-byte stores between.
+__device__ __forceinline__ void zero_bytes(unsigned char* buf, long long lo, long long hi,
+                                           long long t, long long stride) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(buf);
+    long long mlo = (long long)(((a + lo + 15) & ~(uintptr_t)15) - a);
+    long long mhi = (long long)(((a + hi) & ~(uintptr_t)15) - a);
+    if (mhi <= mlo) mlo = mhi = hi;  // no whole 16-byte word inside
+    for (long long b = lo + t; b < mlo; b += stride) buf[b] = 0;
+    uint4* mid = reinterpret_cast<uint4*>(buf + mlo);
+    const long long words = (mhi - mlo) / 16;
+    for (long long q = t; q < words; q += stride) mid[q] = make_uint4(0u, 0u, 0u, 0u);
+    for (long long b = mhi + t; b < hi; b += stride) buf[b] = 0;
+}
+
+// One launch per chunk of up to 16 columns.  Each block loops over tiles:
+// chunk 0 takes them from the counter, scans (look-back) and writes total
+// from the last tile; a later chunk walks them by blockIdx and reads the
+// prefixes chunk 0 stored.  Then every block waits for the last tile's
+// prefix (the total) and zeroes its share of the tail.  The wait never
+// deadlocks, whatever the grid: a block only ever waits on tiles that
+// running blocks hold, and a block not yet scheduled holds none.
+__global__ void __launch_bounds__(kThreads)
+compact_kernel(const unsigned char* __restrict__ valid, long long n, long long out_len,
+               Columns cols, unsigned long long* status, unsigned long long* counter,
+               long long* total, long long ntiles, int chunk) {
+    __shared__ unsigned short s_bits[kThreads];
+    __shared__ int s_excl[kThreads];
+    __shared__ int s_warp[kWarps];
+    __shared__ long long s_tile, s_base;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+    for (long long step = 0;; ++step) {
+        if (tid == 0)
+            s_tile = chunk == 0 ? (long long)atomicAdd(counter, 1ull)
+                                : (long long)blockIdx.x + step * gridDim.x;
+        __syncthreads();
+        const long long tile = s_tile;
+        if (tile >= ntiles) break;
+        const long long row0 = tile * kTile;
+
+        // rank: blocked layout, thread tid owns rows [row0 + 16 tid, +16)
+        const unsigned bits = mask_bits(valid, row0 + (long long)tid * kItems, n);
+        const int cnt = __popc(bits);
+        int incl = cnt;
+#pragma unroll
         for (int d = 1; d < 32; d <<= 1) {
-            int y = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+            const int y = __shfl_up_sync(kFull, incl, d);
             if (lane >= d) incl += y;
         }
-        warp_base[lane] = incl - w;  // exclusive
+        if (lane == 31) s_warp[warp] = incl;
+        __syncthreads();
+        if (warp == 0) {
+            const int w = lane < kWarps ? s_warp[lane] : 0;
+            int wi = w;
+#pragma unroll
+            for (int d = 1; d < kWarps; d <<= 1) {
+                const int y = __shfl_up_sync(kFull, wi, d);
+                if (lane >= d) wi += y;
+            }
+            if (lane < kWarps) s_warp[lane] = wi - w;  // exclusive over warps
+            const int agg = __shfl_sync(kFull, wi, kWarps - 1);  // the tile's live count
+
+            long long base = 0;
+            if (chunk != 0) {
+                base = (long long)(load_status(status + tile) & kCountMask) - agg;
+            } else if (tile == 0) {
+                if (lane == 0) store_status(status, kFlagPrefix | (unsigned long long)agg);
+            } else {
+                if (lane == 0)
+                    store_status(status + tile, kFlagAggregate | (unsigned long long)agg);
+                // decoupled look-back: lane l reads tile (look - l); sum back to
+                // the nearest published inclusive prefix
+                long long look = tile - 1;
+                while (true) {
+                    const long long idx = look - lane;
+                    const unsigned long long s =
+                        idx >= 0 ? load_status(status + idx) : kFlagPrefix;
+                    if (__any_sync(kFull, (s >> 62) == 0)) continue;  // not yet out
+                    const unsigned pmask = __ballot_sync(kFull, (s >> 62) == 2);
+                    const int stop = pmask ? __ffs(pmask) - 1 : 31;
+                    long long v = lane <= stop ? (long long)(s & kCountMask) : 0;
+#pragma unroll
+                    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+                    base += v;
+                    if (pmask) break;
+                    look -= 32;
+                }
+                if (lane == 0)
+                    store_status(status + tile, kFlagPrefix | (unsigned long long)(base + agg));
+            }
+            if (lane == 0) {
+                s_base = base;
+                if (chunk == 0 && tile == ntiles - 1) *total = base + agg;
+            }
+        }
+        __syncthreads();
+        s_bits[tid] = (unsigned short)bits;
+        s_excl[tid] = s_warp[warp] + incl - cnt;
+        __syncthreads();
+        const long long base = s_base;
+
+        // striped layout: step j moves row row0 + 256 j + tid, owned in the
+        // blocked layout by thread 16 j + tid / 16 at bit tid % 16
+        const int b = tid % kItems;
+        const long long room = out_len - base;
+        int local[kItems];
+#pragma unroll
+        for (int j = 0; j < kItems; ++j) {
+            const int owner = j * (kThreads / kItems) + tid / kItems;
+            const unsigned m = s_bits[owner];
+            const int r = s_excl[owner] + __popc(m & ((1u << b) - 1u));
+            local[j] = ((m >> b) & 1u) && r < room ? r : -1;
+        }
+        for (int c = 0; c < cols.count; ++c) {
+            switch (cols.width[c]) {
+                case 1: scatter_column<uint8_t>(cols.src[c], cols.dst[c], row0, base, local); break;
+                case 2: scatter_column<uint16_t>(cols.src[c], cols.dst[c], row0, base, local); break;
+                case 4: scatter_column<uint32_t>(cols.src[c], cols.dst[c], row0, base, local); break;
+                default: scatter_column<uint64_t>(cols.src[c], cols.dst[c], row0, base, local); break;
+            }
+        }
+        __syncthreads();  // shared memory is reused by the next tile
+    }
+
+    // the tail [total, out_len): total is the last tile's inclusive prefix
+    __shared__ long long s_total;
+    if (tid == 0) {
+        unsigned long long s = kFlagPrefix;  // no tiles: total 0
+        if (ntiles > 0)
+            while (((s = load_status(status + ntiles - 1)) >> 62) != 2) __nanosleep(64);
+        s_total = (long long)(s & kCountMask);
     }
     __syncthreads();
-    if (!live) return;
-    const long long pos = offsets[blockIdx.x] + warp_base[warp] + before;
-    if (pos >= out_len) return;
+    const long long start = s_total < out_len ? s_total : out_len;
+    const long long t = (long long)blockIdx.x * kThreads + tid;
+    const long long stride = (long long)gridDim.x * kThreads;
     for (int c = 0; c < cols.count; ++c) {
-        switch (cols.width[c]) {
-            case 1:
-                ((uint8_t*)cols.dst[c])[pos] = ((const uint8_t*)cols.src[c])[i];
-                break;
-            case 2:
-                ((uint16_t*)cols.dst[c])[pos] = ((const uint16_t*)cols.src[c])[i];
-                break;
-            case 4:
-                ((uint32_t*)cols.dst[c])[pos] = ((const uint32_t*)cols.src[c])[i];
-                break;
-            default:
-                ((uint64_t*)cols.dst[c])[pos] = ((const uint64_t*)cols.src[c])[i];
-                break;
-        }
+        const long long w = cols.width[c];
+        zero_bytes(static_cast<unsigned char*>(cols.dst[c]), start * w, out_len * w, t, stride);
     }
 }
 
 }  // namespace
 
-// offsets: scratch of nblocks = ceil(n / 1024) int64; total: one int64.
-// srcs/dsts/widths are host arrays of ncols entries.
+namespace {
+
+// Blocks of compact_kernel the card holds at once (cached per device).
+int resident_blocks() {
+    static int cached[64] = {0};
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+    if (cached[dev] == 0) {
+        int sms = 0, per_sm = 0;
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, compact_kernel, kThreads, 0);
+        cached[dev] = sms * per_sm > 0 ? sms * per_sm : 132;
+    }
+    return cached[dev];
+}
+
+}  // namespace
+
+// scratch: ceil(n / 4096) + 2 int64 words (tile status, tile counter, total);
+// total = scratch + ceil(n / 4096) + 1.  srcs/dsts/widths are host arrays of
+// ncols entries.  One memset, then one launch per 16 columns.
 extern "C" int trino_compact_rows(const void* valid, long long n, long long out_len,
                                   int ncols, const void* const* srcs, void* const* dsts,
-                                  const int* widths, void* offsets, void* total,
-                                  void* stream) {
+                                  const int* widths, void* scratch, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    const long long nblocks = (n + kThreads - 1) / kThreads;
-    if (n <= 0) return (int)cudaGetLastError();
-    block_counts_kernel<<<(unsigned)nblocks, kThreads, 0, s>>>(
-        (const unsigned char*)valid, n, (long long*)offsets);
-    scan_offsets_kernel<<<1, kThreads, 0, s>>>((long long*)offsets, nblocks,
-                                               (long long*)total);
+    if (n < 0 || out_len < 0 || ncols <= 0) return (int)cudaErrorInvalidValue;
+    const long long ntiles = (n + kTile - 1) / kTile;
+    unsigned long long* status = (unsigned long long*)scratch;
+    unsigned long long* counter = status + ntiles;
+    long long* total = (long long*)(status + ntiles + 1);
+    cudaError_t err = cudaMemsetAsync(scratch, 0, (size_t)(ntiles + 2) * 8, s);
+    if (err != cudaSuccess) return (int)err;
+    int max_width = 1;
+    for (int c = 0; c < ncols; ++c) max_width = widths[c] > max_width ? widths[c] : max_width;
+    // enough blocks for the tiles, or for the tail at four 16-byte stores a
+    // thread, and no more than the card holds at once
+    const long long tail_units = (out_len * max_width + 16LL * kThreads * 4 - 1)
+                                 / (16LL * kThreads * 4);
+    long long grid = ntiles > tail_units ? ntiles : tail_units;
+    const long long resident = resident_blocks();
+    grid = grid < 1 ? 1 : grid > resident ? resident : grid;
     for (int c0 = 0; c0 < ncols; c0 += kMaxCols) {
         Columns cols;
         cols.count = ncols - c0 < kMaxCols ? ncols - c0 : kMaxCols;
@@ -146,8 +299,9 @@ extern "C" int trino_compact_rows(const void* valid, long long n, long long out_
             cols.dst[c] = dsts[c0 + c];
             cols.width[c] = widths[c0 + c];
         }
-        scatter_kernel<<<(unsigned)nblocks, kThreads, 0, s>>>(
-            (const unsigned char*)valid, n, out_len, (const long long*)offsets, cols);
+        compact_kernel<<<(unsigned)grid, kThreads, 0, s>>>(
+            (const unsigned char*)valid, n, out_len, cols, status, counter, total, ntiles,
+            c0 / kMaxCols);
     }
     return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// Open-addressing hash insert with double hashing, one thread per row.
+// Open-addressing hash insert with double hashing, in place, one thread per
+// row, runs of equal keys in a warp deduplicated before they walk.
 //
 // Replaces: trino_tpu/ops/pallas_kernels.py hash_insert (the TPU claim loop
 // that carries the whole table through VMEM and gathers by one-hot compares).
@@ -10,7 +11,8 @@
 // row there; an EMPTY slot is claimed with a 64-bit atomicCAS, and the row is
 // placed when the old word was EMPTY or already its own key.  Rows with
 // valid = 0 get slot = C and placed = 1; rows that exhaust max_probes get
-// slot = C and placed = 0.
+// slot = C and placed = 0.  The kernel writes the caller's table: the
+// wrapper's functional form hands it a copy.
 //
 // What bounds it on an H100: memory latency, not bandwidth or arithmetic.
 // Each probe round is one dependent 8-byte load (plus at most one CAS) at a
@@ -19,6 +21,16 @@
 // L2 latency.  The design keeps as many independent rows in flight as the
 // card holds (one thread per row, no shared memory, few registers), so the
 // scheduler hides each thread's chain of dependent loads behind other warps.
+// Rows with equal keys arrive together on the main path (the lineitem rows
+// of one order are adjacent, and l_orderkey leads the hash group-bys), so a
+// warp's valid lanes form runs of equal keys (each lane compares its key with
+// the previous valid lane's, by one ballot and one shuffle): only the first
+// lane of each run walks the chain and claims, and the rest of the run takes
+// its slot and placed flag by shuffle.  That removes repeated walks of one
+// chain and the same-address CAS storms between them.  __match_any_sync
+// would also group equal keys that are not adjacent, but it cost 50 % more
+// kernel time on uniform keys on an H100 (PERF.md); runs cost uniform
+// keys almost nothing.
 // Slots only ever go from EMPTY to a key inside a launch, so a stale read of
 // EMPTY is harmless: the CAS returns the word that is really there.
 
@@ -28,6 +40,8 @@
 namespace {
 
 constexpr unsigned long long kEmpty = 0x7FFFFFFFFFFFFFFFull;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kThreads = 256;
 
 __device__ __forceinline__ unsigned long long splitmix64(unsigned long long x) {
     x += 0x9E3779B97F4A7C15ull;
@@ -38,38 +52,51 @@ __device__ __forceinline__ unsigned long long splitmix64(unsigned long long x) {
     return x ^ (x >> 31);
 }
 
-__global__ void hash_insert_kernel(unsigned long long* __restrict__ table,
-                                   const unsigned long long* __restrict__ packed,
-                                   const unsigned char* __restrict__ valid,
-                                   long long n, unsigned long long mask,
-                                   long long capacity, int max_probes,
-                                   int* __restrict__ slot,
-                                   unsigned char* __restrict__ placed) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    if (!valid[i]) {
-        slot[i] = (int)capacity;
-        placed[i] = 1;
-        return;
-    }
-    const unsigned long long key = packed[i];
-    const unsigned long long h0 = splitmix64(key);
-    const unsigned long long step = splitmix64(h0) | 1ull;
-    for (int p = 0; p < max_probes; ++p) {
-        const unsigned long long idx = (h0 + (unsigned long long)p * step) & mask;
-        unsigned long long cur = __ldcg(table + idx);
-        if (cur == kEmpty) {
-            cur = atomicCAS(table + idx, kEmpty, key);
-            if (cur == kEmpty) cur = key;  // this thread claimed the slot
+__global__ void __launch_bounds__(kThreads)
+hash_insert_kernel(unsigned long long* __restrict__ table,
+                   const unsigned long long* __restrict__ packed,
+                   const unsigned char* __restrict__ valid, long long n,
+                   unsigned long long mask, long long capacity, int max_probes,
+                   int* __restrict__ slot, unsigned char* __restrict__ placed) {
+    // every lane of the warp takes part in the warp operations: no early exit
+    const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+    const int lane = threadIdx.x & 31;
+    const bool in = i < n;
+    const bool live = in && valid[i];
+    const unsigned long long key = live ? packed[i] : kEmpty;
+    // runs of equal keys among the warp's valid lanes; each run's first
+    // lane is its leader
+    const unsigned lives = __ballot_sync(kFull, live);
+    const unsigned before = lives & ((1u << lane) - 1u);
+    const unsigned long long prev = __shfl_sync(kFull, key, before ? 31 - __clz(before) : lane);
+    const unsigned starts = __ballot_sync(kFull, live && (before == 0 || prev != key));
+    const int leader = live ? 31 - __clz(starts & (kFull >> (31 - lane))) : lane;
+
+    int s = (int)capacity;
+    int ok = live ? 0 : 1;
+    if (live && leader == lane) {
+        const unsigned long long h0 = splitmix64(key);
+        const unsigned long long step = splitmix64(h0) | 1ull;
+        for (int p = 0; p < max_probes; ++p) {
+            const unsigned long long idx = (h0 + (unsigned long long)p * step) & mask;
+            unsigned long long cur = __ldcg(table + idx);
+            if (cur == kEmpty) {
+                cur = atomicCAS(table + idx, kEmpty, key);
+                if (cur == kEmpty) cur = key;  // this thread claimed the slot
+            }
+            if (cur == key) {
+                s = (int)idx;
+                ok = 1;
+                break;
+            }
         }
-        if (cur == key) {
-            slot[i] = (int)idx;
-            placed[i] = 1;
-            return;
-        }
     }
-    slot[i] = (int)capacity;
-    placed[i] = 0;
+    s = __shfl_sync(kFull, s, leader);
+    ok = __shfl_sync(kFull, ok, leader);
+    if (in) {
+        slot[i] = s;
+        placed[i] = (unsigned char)ok;
+    }
 }
 
 }  // namespace
@@ -78,9 +105,8 @@ extern "C" int trino_hash_insert(void* table, const void* packed, const void* va
                                  long long n, long long capacity, int max_probes,
                                  void* slot, void* placed, void* stream) {
     if (n > 0) {
-        const int threads = 256;
-        const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-        hash_insert_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+        hash_insert_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
             (unsigned long long*)table, (const unsigned long long*)packed,
             (const unsigned char*)valid, n, (unsigned long long)(capacity - 1), capacity,
             max_probes, (int*)slot, (unsigned char*)placed);

@@ -473,7 +473,9 @@ class LocalExecutor:
         """Insert transformed pages into hash-mode group-by state, compacting
         live rows first when pages are sparse.  Live-row counts are read in
         chunks of four pages; a chunk that overflows the table is replayed
-        against the pre-chunk state after a 4x rehash."""
+        against the pre-chunk state after a 4x rehash.  Pages claim slots in
+        the state's table in place, so each chunk first keeps a snapshot of
+        the state with its own copy of the table: one table copy per chunk."""
         staged: list = []
 
         def insert(state, keys, knulls, inputs, valid):
@@ -509,19 +511,25 @@ class LocalExecutor:
                 return state, False
             counts = [int(c) for c in self._host([st[-1] for st in staged],
                                                  site="agg.stream.counts")]
+            # inserts update the table in place and leave the key captures
+            # and accumulators of the state they were given untouched
+            snapshot = dataclasses.replace(state, table=state.table.clone())
+            capacity = state.capacity
             while True:
-                start_state = state  # update functions are pure: a free snapshot
                 state = insert_chunk(state, counts)
                 if not bool(self._host([state.overflow], "agg.stream.overflow")[0]):
                     staged.clear()
                     return state, False
-                grown = start_state.capacity * 4
-                delta = state_bytes(grown) - state_bytes(start_state.capacity)
+                grown = capacity * 4
+                delta = state_bytes(grown) - state_bytes(capacity)
                 if grown > MAX_GROUP_CAPACITY or not self.memory_pool.try_reserve(delta):
                     staged.clear()
                     return state, True  # ceiling: the caller raises
                 resv["bytes"] += delta
-                state = hashagg.rehash(start_state, grown, tuple(acc_kinds))
+                # replay from the pre-chunk state; rehash leaves it untouched,
+                # so a further overflow replays from it again
+                state = hashagg.rehash(snapshot, grown, tuple(acc_kinds))
+                capacity = grown
 
         for cols, nulls, valid in outs:
             keys = tuple(cols[i] for i in node.keys)

@@ -7,7 +7,8 @@ Four kernels, each in its own source under
 TPU kernel it replaces, what bounds it on the card and what its design does
 about that):
 
-- ``hash_insert``  (``csrc/hash_insert.cu``)  open-addressing insert;
+- ``hash_insert`` / ``hash_insert_`` (``csrc/hash_insert.cu``)
+  open-addressing insert, into a copy or in place;
 - ``hash_probe``   (``csrc/hash_probe.cu``)   open-addressing probe;
 - ``compact_rows`` (``csrc/compact_rows.cu``) order-preserving compaction;
 - ``fused_segment_agg`` (``csrc/segment_agg.cu``) per-slot counts and
@@ -27,13 +28,17 @@ synchronise, allocate nothing (the wrappers allocate outputs and scratch with
 torch), and each C entry returns ``cudaGetLastError()``.
 
 Each wrapper counts its launches in ``STATS[name].launches`` and records the
-shapes it launched at in ``STATS[name].shapes``.
+shapes it launched at in ``STATS[name].shapes``, and, while a profiler
+records, opens a ``torch.profiler.record_function`` range named after its
+kernel, so a profile attributes the wrapper's host time and every device
+operation it causes (allocations' fills, copies) to it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -42,11 +47,13 @@ import threading
 import time
 
 import torch
+from torch.profiler import record_function
 
 from .hashing import EMPTY_KEY, probe_step, splitmix64
 
-__all__ = ["hash_insert", "hash_probe", "compact_rows", "fused_segment_agg",
-           "hash_insert_plain", "hash_probe_plain", "compact_rows_plain",
+__all__ = ["hash_insert", "hash_insert_", "hash_probe", "compact_rows", "fused_segment_agg",
+           "hash_insert_plain", "hash_insert_plain_", "hash_probe_plain",
+           "compact_rows_plain",
            "fused_segment_agg_plain", "build_kernels", "STATS", "reset_stats",
            "MAX_PROBES", "SEGMENT_SLOTS_MAX"]
 
@@ -56,7 +63,8 @@ SEGMENT_SLOTS_MAX = 128  # fused_segment_agg's slot ceiling (the reference's)
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "build", "trino_tpu_torch")
-_SHAPES_KEPT = 256
+_SHAPES_KEPT = 4096
+_COMPACT_TILE = 4096  # rows per tile of csrc/compact_rows.cu (kThreads * kItems)
 
 
 @dataclasses.dataclass
@@ -104,7 +112,7 @@ _SIGNATURES = {
     "trino_compact_rows": ("compact_rows.cu", [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p]),
+        ctypes.c_void_p]),
     "trino_segment_agg": ("segment_agg.cu", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -204,6 +212,21 @@ def _on_card(*tensors) -> bool:
     raise ValueError(f"tensors on mixed or unsupported devices: {sorted(kinds)}")
 
 
+def _ranged(name: str):
+    """Run the wrapper inside a profiler range named after its kernel while a
+    profiler records (a range costs ~10 us of host time, so it is opened
+    only then)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            if not torch.autograd._profiler_enabled():
+                return fn(*args, **kwargs)
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
 def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
@@ -216,17 +239,36 @@ def _require(t: torch.Tensor, dtype, name: str) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ hash insert
-def hash_insert(table, packed, valid, max_probes: int = MAX_PROBES):
-    """Insert packed keys into an open-addressing table.
+@_ranged("hash_insert")
+def hash_insert_(table, packed, valid, max_probes: int = MAX_PROBES):
+    """Insert packed keys into an open-addressing table, in place.
 
-    table: [C+1] int64 (pow2 C, word C a sink), packed: [n] int64,
-    valid: [n] bool.  Returns (table', slot [n] int32, placed [n] bool) with
-    the contract of ``hashagg._probe_insert``.  The input table is not
-    modified: the kernel inserts into a copy (callers keep the pre-insert
-    table as a snapshot for growth)."""
+    table: [C+1] int64 (pow2 C, word C a sink), contiguous; it is updated in
+    place.  packed: [n] int64, valid: [n] bool.  Returns (slot [n] int32,
+    placed [n] bool) with the contract of ``hashagg._probe_insert``.  The
+    callers that create their table (join builds, rehash) and the group-by
+    page loop (which snapshots once per chunk) use this form."""
+    if table.dtype != torch.int64 or table.dim() != 1 or not table.is_contiguous():
+        raise TypeError(f"hash_insert_: the table must be a contiguous 1-D int64 tensor, "
+                        f"got {table.dtype} of shape {tuple(table.shape)}")
+    if not _on_card(table, packed, valid):
+        return hash_insert_plain_(table, packed, valid, max_probes)
+    return _insert_into(table, packed, valid, max_probes)
+
+
+@_ranged("hash_insert")
+def hash_insert(table, packed, valid, max_probes: int = MAX_PROBES):
+    """The functional form of ``hash_insert_``: inserts into a copy of
+    ``table`` and returns (table', slot, placed); the input table is not
+    modified."""
     if not _on_card(table, packed, valid):
         return hash_insert_plain(table, packed, valid, max_probes)
-    table = _require(table, torch.int64, "hash_insert table")
+    out = _require(table, torch.int64, "hash_insert table").clone()
+    slot, placed = _insert_into(out, packed, valid, max_probes)
+    return out, slot, placed
+
+
+def _insert_into(table, packed, valid, max_probes):
     packed = _require(packed, torch.int64, "hash_insert packed")
     valid = _require(valid, torch.bool, "hash_insert valid")
     C = table.shape[0] - 1
@@ -234,28 +276,27 @@ def hash_insert(table, packed, valid, max_probes: int = MAX_PROBES):
     if C < 2 or C & (C - 1) or valid.shape[0] != n:
         raise ValueError(f"hash_insert: bad shapes table={C + 1} packed={n} "
                          f"valid={valid.shape[0]}")
-    out = table.clone()
     slot = torch.empty((n,), dtype=torch.int32, device=table.device)
     placed = torch.empty((n,), dtype=torch.bool, device=table.device)
     if n == 0:
-        return out, slot, placed
-    rc = _entry("trino_hash_insert")(out.data_ptr(), packed.data_ptr(), valid.data_ptr(),
+        return slot, placed
+    rc = _entry("trino_hash_insert")(table.data_ptr(), packed.data_ptr(), valid.data_ptr(),
                                      n, C, int(max_probes), slot.data_ptr(),
                                      placed.data_ptr(), _stream())
     _check(rc, "hash_insert")
     STATS["hash_insert"].record((n, C))
-    return out, slot, placed
+    return slot, placed
 
 
-def hash_insert_plain(table, packed, valid, max_probes: int = MAX_PROBES):
+def hash_insert_plain_(table, packed, valid, max_probes: int = MAX_PROBES):
     """Torch form of the reference's XLA claim protocol
-    (``hashagg._probe_insert``): per round, rows gather their slot, matching
-    rows finish, rows seeing EMPTY contend with scatter-min over their keys,
-    and the winners finish."""
+    (``hashagg._probe_insert``), writing into ``table``: per round, rows
+    gather their slot, matching rows finish, rows seeing EMPTY contend with
+    scatter-min over their keys, and the winners finish.  Returns (slot,
+    placed)."""
     C = table.shape[0] - 1
     h0 = splitmix64(packed)
     stp = probe_step(h0)
-    table = table.clone()
     slot = torch.full(packed.shape, C, dtype=torch.int32, device=table.device)
     placed = ~valid
     empty = torch.tensor(EMPTY_KEY, dtype=torch.int64, device=table.device)
@@ -277,10 +318,18 @@ def hash_insert_plain(table, packed, valid, max_probes: int = MAX_PROBES):
         won = (cur2 == packed) & ~placed
         slot = torch.where(won, idx.to(torch.int32), slot)
         placed = placed | won
+    return slot, placed
+
+
+def hash_insert_plain(table, packed, valid, max_probes: int = MAX_PROBES):
+    """``hash_insert_plain_`` into a copy: returns (table', slot, placed)."""
+    table = table.clone()
+    slot, placed = hash_insert_plain_(table, packed, valid, max_probes)
     return table, slot, placed
 
 
 # ------------------------------------------------------------------- hash probe
+@_ranged("hash_probe")
 def hash_probe(table, vals, packed, h0, stp, valid, max_probes: int = MAX_PROBES):
     """Probe an open-addressing table.
 
@@ -334,12 +383,15 @@ def hash_probe_plain(table, vals, packed, h0, stp, valid, max_probes: int = MAX_
 
 
 # ----------------------------------------------------------------- compaction
+@_ranged("compact_rows")
 def compact_rows(arrays, valid, out_len: int):
     """Order-preserving masked-lane pack (the contract of
     ``trino_tpu/ops/arrays.compact_rows``): live lanes of every array move to
     the front of ``out_len``-row outputs, zeros beyond the live count,
     overflow dropped; ``None`` entries pass through.  Returns (packed tuple,
-    live count as a 0-d int64 tensor)."""
+    live count as a 0-d int64 tensor).  On the card the outputs come from
+    ``torch.empty`` and the kernel writes every byte of them; one scratch
+    tensor holds the scan's tile words and the count."""
     arrs = [a for a in arrays if a is not None]
     if not _on_card(valid, *arrs):
         return compact_rows_plain(arrays, valid, out_len)
@@ -354,24 +406,21 @@ def compact_rows(arrays, valid, out_len: int):
         if a.element_size() not in (1, 2, 4, 8):
             raise TypeError(f"compact_rows: unsupported dtype {a.dtype}")
         srcs.append(a.contiguous())
-    outs = [torch.zeros((out_len,), dtype=a.dtype, device=dev) for a in srcs]
-    total = torch.zeros((), dtype=torch.int64, device=dev)
-    if n == 0 or not srcs:
-        total = valid.sum()
-    else:
-        nblocks = (n + 1023) // 1024
-        offsets = torch.empty((nblocks,), dtype=torch.int64, device=dev)
-        k = len(srcs)
-        src_ptrs = (ctypes.c_void_p * k)(*[a.data_ptr() for a in srcs])
-        dst_ptrs = (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs])
-        widths = (ctypes.c_int * k)(*[a.element_size() for a in srcs])
-        rc = _entry("trino_compact_rows")(valid.data_ptr(), n, int(out_len), k,
-                                          src_ptrs, dst_ptrs, widths, offsets.data_ptr(),
-                                          total.data_ptr(), _stream())
-        _check(rc, "compact_rows")
-        STATS["compact_rows"].record((n, int(out_len), tuple(a.element_size() for a in srcs)))
+    if not srcs:
+        return tuple(arrays), valid.sum()
+    outs = [torch.empty((out_len,), dtype=a.dtype, device=dev) for a in srcs]
+    ntiles = (n + _COMPACT_TILE - 1) // _COMPACT_TILE
+    scratch = torch.empty((ntiles + 2,), dtype=torch.int64, device=dev)
+    k = len(srcs)
+    src_ptrs = (ctypes.c_void_p * k)(*[a.data_ptr() for a in srcs])
+    dst_ptrs = (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs])
+    widths = (ctypes.c_int * k)(*[a.element_size() for a in srcs])
+    rc = _entry("trino_compact_rows")(valid.data_ptr(), n, int(out_len), k, src_ptrs,
+                                      dst_ptrs, widths, scratch.data_ptr(), _stream())
+    _check(rc, "compact_rows")
+    STATS["compact_rows"].record((n, int(out_len), tuple(a.element_size() for a in srcs)))
     it = iter(outs)
-    return tuple(None if a is None else next(it) for a in arrays), total
+    return tuple(None if a is None else next(it) for a in arrays), scratch[ntiles + 1]
 
 
 def compact_rows_plain(arrays, valid, out_len: int):
@@ -391,6 +440,7 @@ def compact_rows_plain(arrays, valid, out_len: int):
 
 
 # ------------------------------------------------------------ fused segment agg
+@_ranged("fused_segment_agg")
 def fused_segment_agg(slot, valid, value_cols, n_slots: int):
     """Per-slot count of live rows and float32 sum of each value column, in
     one pass (the contract of ``pallas_kernels.fused_segment_agg``).

@@ -10,9 +10,13 @@ hashing entirely (direct mode: slot = packed key), and direct tables of at
 most 128 slots aggregate by masked reductions over a one-hot instead of
 scatters.
 
-State functions are pure: every update returns new tensors and leaves its
-input state untouched, so a caller can keep a pre-insert state as a snapshot
-(the executor's growth path replays one chunk against it).
+Every update returns a new ``GroupByState`` value.  The hash-mode insert
+(``groupby_insert``) claims slots in the state's table IN PLACE (the
+``hash_insert_`` kernel) and shares that table with the state it returns;
+key captures and accumulators are new tensors.  A caller that needs the
+pre-insert state later keeps a snapshot with its own copy of the table (the
+executor takes one per chunk of pages, for the replay after growth).
+Direct-mode updates and ``rehash`` leave their input state untouched.
 """
 
 from __future__ import annotations
@@ -222,15 +226,17 @@ def _onehot_agg_update(acc, kind, onehot, vals_nulls):
 
 def _probe_insert(table, packed, valid):
     """Assign each valid row a slot whose table word == its packed key,
-    claiming EMPTY slots.  Returns (table, slot[int32], placed[bool]); the
-    ``hash_insert`` kernel on the card, its plain version on the CPU."""
-    return cuda_kernels.hash_insert(table, packed, valid, max_probes=MAX_PROBES)
+    claiming EMPTY slots of ``table`` in place.  Returns (slot[int32],
+    placed[bool]); the ``hash_insert_`` kernel on the card, its plain
+    version on the CPU."""
+    return cuda_kernels.hash_insert_(table, packed, valid, max_probes=MAX_PROBES)
 
 
 def groupby_insert(state: GroupByState, key_vals: Sequence, key_types, valid,
                    agg_inputs: Sequence, agg_updates: Sequence[str],
                    key_nulls: Sequence = None) -> GroupByState:
-    """One page of input -> updated state.
+    """One page of input -> updated state, whose table is ``state.table``
+    updated in place (see the module note).
 
     agg_inputs[i]: (values|None, null_mask|None); agg_updates[i]: update kind;
     key_nulls[i]: null mask of key i or None (SQL GROUP BY: NULLs form ONE
@@ -258,7 +264,8 @@ def groupby_insert(state: GroupByState, key_vals: Sequence, key_types, valid,
             pack_cols.append(mv)
             pack_types.append(kt)
         packed, _ = pack_keys(tuple(pack_cols), tuple(pack_types))
-    table, slot, placed = _probe_insert(state.table, packed, valid)
+    table = state.table
+    slot, placed = _probe_insert(table, packed, valid)
     overflow = state.overflow | torch.any(valid & ~placed)
     live = valid & placed
 
@@ -327,8 +334,9 @@ _REHASH_KIND = {"sum": "sum", "count": "sum", "count_star": "sum",
 
 
 def rehash(state: GroupByState, new_capacity: int, acc_kinds: tuple = ()) -> GroupByState:
-    """Re-insert every occupied entry into a larger table; accumulators
-    re-insert as partial values (count -> sum)."""
+    """Re-insert every occupied entry into a new, larger table (``state`` is
+    left untouched); accumulators re-insert as partial values (count ->
+    sum)."""
     C = state.capacity
     dev = state.device
     occupied = state.table[:C] != EMPTY_KEY

@@ -61,18 +61,21 @@ def build_table_init(capacity: int, build_page) -> JoinTable:
 
 
 def build_insert(jt: JoinTable, key_cols, key_types, valid) -> JoinTable:
-    """Insert build rows (rows with NULL keys are dropped by the caller via ``valid``)."""
+    """Insert build rows (rows with NULL keys are dropped by the caller via
+    ``valid``).  ``jt.table`` and ``jt.rows`` are updated in place (the
+    ``hash_insert_`` kernel; ``build_table_init`` makes them for this build
+    alone) and shared with the returned table."""
     packed, _ = pack_keys(key_cols, key_types)
     packed = torch.where(valid, packed, torch.full_like(packed, EMPTY_KEY - 1))
-    table, slot, placed = cuda_kernels.hash_insert(jt.table, packed, valid,
-                                                   max_probes=MAX_PROBES)
+    table = jt.table
+    slot, placed = cuda_kernels.hash_insert_(table, packed, valid, max_probes=MAX_PROBES)
     live = valid & placed
     C = jt.capacity
     row_idx = torch.arange(packed.shape[0], dtype=torch.int32, device=packed.device)
     sidx = torch.where(live, slot, C).to(torch.int64)
     # min: the first build row wins deterministically for duplicate keys
-    rows = jt.rows.scatter_reduce(0, sidx, torch.where(live, row_idx, _ROW_MAX), "amin",
-                                  include_self=True)
+    rows = jt.rows.scatter_reduce_(0, sidx, torch.where(live, row_idx, _ROW_MAX), "amin",
+                                   include_self=True)
     rows[C] = 0
     n_valid = torch.sum(valid, dtype=torch.int32)
     occupied = torch.sum(table[:C] != EMPTY_KEY, dtype=torch.int32)
@@ -221,17 +224,17 @@ class MultiJoinTable:
         return self.table.shape[0] - 1
 
 
-def _multi_build_step(table0, key_cols, key_types, valid):
+def _multi_build_step(table, key_cols, key_types, valid):
+    """Insert the build keys into the fresh ``table`` in place and lay the
+    rows out by slot."""
     packed, _ = pack_keys(key_cols, key_types)
     packed = torch.where(valid, packed, torch.full_like(packed, EMPTY_KEY - 1))
-    table, slot, placed = cuda_kernels.hash_insert(table0, packed, valid,
-                                                   max_probes=MAX_PROBES)
+    slot, placed = cuda_kernels.hash_insert_(table, packed, valid, max_probes=MAX_PROBES)
     C = table.shape[0] - 1
     live = valid & placed
     slot_v = torch.where(live, slot, C).to(torch.int64)
     counts, starts, order = _slot_layout(slot_v, live, C)
-    overflow = torch.any(valid & ~placed)
-    return table, counts, starts, order, overflow
+    return counts, starts, order, torch.any(valid & ~placed)
 
 
 def multi_build(capacity: int, build_page, key_channels, key_types,
@@ -246,10 +249,10 @@ def multi_build(capacity: int, build_page, key_channels, key_types,
             valid = valid & ~nm
     capacity = ceil_pow2(capacity)  # double-hash coverage needs a pow2 table
     while True:
-        table0 = torch.full((capacity + 1,), EMPTY_KEY, dtype=torch.int64,
-                            device=valid.device)
-        table, counts, starts, order, overflow = _multi_build_step(table0, key_cols,
-                                                                   key_types, valid)
+        table = torch.full((capacity + 1,), EMPTY_KEY, dtype=torch.int64,
+                           device=valid.device)
+        counts, starts, order, overflow = _multi_build_step(table, key_cols, key_types,
+                                                            valid)
         if not bool(host([overflow])[0]):
             break
         capacity *= 4
