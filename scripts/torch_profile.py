@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port: one warm run of each TPC-H
 query (``chip_smoke.ALL_QUERIES``: every query but Q15) under
-``torch.profiler`` on the card, then the two hottest kernel wrappers split
-into kernel, other device work and host gaps.
+``torch.profiler`` on the card, then every kernel wrapper split into kernel,
+other device work, device idle and host time.
 
     python3 scripts/torch_profile.py [--sf 1] [--out profile_sf1.json]
                                      [--package-root DIR]
@@ -16,14 +16,21 @@ totals of its ``record_function`` range (calls, host time, and the device
 span the profiler mirrors onto the card's timeline).  Sums over the 21
 queries follow.
 
-Then ``compact_rows`` and ``hash_insert`` are each called at the largest and
-at the most frequent shape the queries launched them at (synthetic inputs,
-``chip_smoke.insert_case`` / ``compact_case``), and ``hash_insert`` also on
-the main path's own keys (``chip_smoke.lineitem_keys``), and each call's time is
-split by ``chip_smoke.device_split``: wall, kernel-only device time, the
-wrapper's other device operations, device idle between launches, and host
-enqueue time.  ``hash_insert`` is split in its functional form and, where
-the package has it, its in-place form ``hash_insert_``.
+Then ``compact_rows``, ``hash_insert`` and ``hash_probe`` are each called at
+the largest and at the most frequent shape the queries launched them at
+(synthetic inputs, ``chip_smoke.compact_case`` / ``insert_case`` /
+``probe_case``), ``hash_insert`` also on the main path's own keys
+(``chip_smoke.lineitem_keys``), and ``fused_segment_agg``, which no query
+launches, at ``chip_smoke.segment_cases`` (Q1's group-by over one lineitem
+split, and its 128-slot ceiling); each call's time is split by
+``chip_smoke.device_split``: wall, kernel-only device time, the wrapper's
+other device operations, device idle between launches, and host enqueue
+time.  ``hash_insert`` is split in its functional form and, where the
+package has it, its in-place form ``hash_insert_``; ``hash_probe`` with a
+payload array and in slot mode (a package whose probe takes h0 and step gets
+them, and an iota payload, computed outside the timed call), and as
+``hashjoin.probe`` (pack, hash and probe: the same call in every version of
+the package, so the fair comparison of a parent and a change).
 
 ``--package-root DIR`` profiles the ``trino_tpu_torch`` found under DIR (for
 example an unpacked parent commit) with this script's own measurement code.
@@ -43,7 +50,7 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
 
 TOP = 8  # kernels listed per query
-SPLIT_KERNELS = ("compact_rows", "hash_insert")
+SPLIT_KERNELS = ("compact_rows", "hash_insert", "hash_probe", "fused_segment_agg")
 
 
 def port_kernels(ck):
@@ -137,33 +144,73 @@ def totals(report, kernels):
     return out
 
 
+def _probe_forms(ck, table, rows, packed, valid):
+    """{form: (call, setup)} of the probe at one shape: the wrapper with a
+    payload and in slot mode, and hashjoin.probe."""
+    import inspect
+
+    import torch
+
+    from chip_smoke import join_probe_call
+
+    C = table.shape[0] - 1
+    t = table[:C]
+    if "h0" in inspect.signature(ck.hash_probe).parameters:
+        # a package whose probe takes the hashes: computed here, untimed
+        from trino_tpu_torch.ops.hashing import probe_step, splitmix64
+
+        h0 = splitmix64(packed)
+        stp = probe_step(h0)
+        iota = torch.arange(C, dtype=torch.int32, device=table.device)
+        payload = lambda: ck.hash_probe(t, rows[:C], packed, h0, stp, valid)  # noqa: E731
+        slots = lambda: ck.hash_probe(t, iota, packed, h0, stp, valid)  # noqa: E731
+    else:
+        payload = lambda: ck.hash_probe(t, rows[:C], packed, valid)  # noqa: E731
+        slots = lambda: ck.hash_probe(t, None, packed, valid)  # noqa: E731
+    return {"hash_probe": (payload, None), "hash_probe slots": (slots, None),
+            "hashjoin.probe": (join_probe_call(table, rows, packed, valid), None)}
+
+
 def split_kernels(ck, shapes, kernels, conn, seed=7):
-    """device_split of compact_rows and hash_insert at the largest and the
-    most frequent shape of the queries' run, and of hash_insert on the main
-    path's own keys (``chip_smoke.lineitem_keys``)."""
+    """device_split of every kernel wrapper (module docstring): at the
+    largest and the most frequent shape of the queries' run, and at the
+    extra cases each kernel has."""
     import numpy as np
     import torch
 
-    from chip_smoke import compact_case, device_split, insert_case, lineitem_keys
+    from chip_smoke import (Q1_COLUMNS, compact_case, device_split, insert_case,
+                            lineitem_keys, probe_case, segment_cases)
     from trino_tpu_torch.ops.hashing import EMPTY_KEY
 
     gen = np.random.default_rng(seed)
     out = []
     for w in SPLIT_KERNELS:
         seen = [tuple(s) for s in shapes[w]]
-        if not seen:
-            continue
-        largest = max(seen, key=lambda s: (s[0], s[1]))
-        frequent = collections.Counter(seen).most_common(1)[0][0]
-        cases = [("largest", largest), ("most_frequent", frequent)]
+        cases = []
+        if seen:
+            largest = max(seen, key=lambda s: (s[0], s[1]))
+            frequent = collections.Counter(seen).most_common(1)[0][0]
+            cases = [("largest", largest), ("most_frequent", frequent)]
         if w == "hash_insert":
             cases.append(("lineitem_orderkey", None))
+        if w == "fused_segment_agg":
+            page = conn.generate(conn.splits("lineitem")[0], Q1_COLUMNS)
+            cases = [(label, case) for label, case in segment_cases(page)]
         for which, shape in cases:
             if w == "compact_rows":
                 n, out_len, widths = shape
                 cols, valid = compact_case(gen, n, out_len, widths)
                 forms = {"compact_rows": (lambda: ck.compact_rows(cols, valid, out_len),
                                           None)}
+                shape = [n, out_len, list(widths)]
+            elif w == "hash_probe":
+                forms = _probe_forms(ck, *probe_case(gen, *shape))
+            elif w == "fused_segment_agg":
+                case = shape
+                shape = [case["slot"].shape[0], case["n_slots"], len(case["values"])]
+                forms = {"fused_segment_agg": (
+                    lambda: ck.fused_segment_agg(case["slot"], case["valid"],
+                                                 case["values"], case["n_slots"]), None)}
             else:
                 if shape is None:
                     packed, valid = lineitem_keys(conn)
@@ -181,12 +228,11 @@ def split_kernels(ck, shapes, kernels, conn, seed=7):
                                              lambda: table.fill_(EMPTY_KEY))
             for form, (fn, setup) in forms.items():
                 got = device_split(fn, kernels[w], setup=setup)
-                rec = {"kernel": w, "form": form, "which": which,
-                       "shape": list(shape) if w != "compact_rows"
-                       else [shape[0], shape[1], list(shape[2])], **got}
+                rec = {"kernel": w, "form": form, "which": which, "shape": list(shape), **got}
                 out.append(rec)
                 print(f"split {form} {which} {rec['shape']}: "
                       + " ".join(f"{k}={v}" for k, v in got.items()), flush=True)
+            torch.cuda.empty_cache()
     return out
 
 

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from trino_tpu_torch.ops import cuda_kernels as ck
-from trino_tpu_torch.ops.hashing import EMPTY_KEY, probe_step, splitmix64
+from trino_tpu_torch.ops.hashing import EMPTY_KEY
 
 pytestmark = pytest.mark.gpu
 
@@ -48,25 +48,52 @@ def test_hash_insert_kernel_observables(dev, n, C, distinct):
     assert int(table0[0]) == EMPTY_KEY  # the input table is untouched
 
 
-@pytest.mark.parametrize("nb,C,n", [(1000, 4096, 5000), (256, 256, 600), (0, 64, 10)])
-def test_hash_probe_kernel_bit_identical(dev, nb, C, n):
+PROBE_CASES = {
+    # name: (build keys, C, probe rows, the insert that builds the table)
+    "hits_and_misses": (1000, 4096, 5000, "plain"),
+    # no EMPTY slot: a missing key's chain runs to max_probes
+    "full_table_runs_to_max_probes": (256, 256, 600, "plain"),
+    "empty_table": (0, 64, 10, "plain"),
+    # the CUDA insert lays the chains down: both kernels hash alike
+    "kernel_built_table": (30000, 65536, 100003, "kernel"),
+    "kernel_built_large_ragged": (300000, 1 << 20, (1 << 20) + 77, "kernel"),
+}
+
+
+@pytest.mark.parametrize("mode", ["payload", "slots"])
+@pytest.mark.parametrize("case", sorted(PROBE_CASES))
+def test_hash_probe_kernel_bit_identical(dev, case, mode):
+    """The kernel (hashing in registers) equals the plain version bit for
+    bit, with a payload array and in slot mode (vals=None): hits, misses,
+    invalid rows, chains that run to max_probes, n not a multiple of the
+    block, and tables built by the plain or the CUDA insert."""
+    nb, C, n, built_by = PROBE_CASES[case]
     rng = np.random.default_rng(nb + n)
     table = torch.full((C + 1,), EMPTY_KEY, dtype=torch.int64, device=dev)
     if nb:
         bkeys = torch.as_tensor(np.unique(_keys(rng, nb, nb)), device=dev)
-        table, _, _ = ck.hash_insert_plain(table, bkeys,
-                                           torch.ones_like(bkeys, dtype=torch.bool))
+        ones = torch.ones_like(bkeys, dtype=torch.bool)
+        if built_by == "kernel":
+            _, placed = ck.hash_insert_(table, bkeys, ones)
+            assert bool(placed.all())
+        else:
+            table, _, _ = ck.hash_insert_plain(table, bkeys, ones)
         pool = torch.cat([bkeys, bkeys + (1 << 41)])
     else:
         pool = torch.arange(1, 100, device=dev)
     packed = pool[torch.as_tensor(rng.integers(0, len(pool), size=n), device=dev)]
     valid = torch.as_tensor(rng.random(n) < 0.9, device=dev)
-    vals = torch.as_tensor(rng.integers(0, 2**31 - 1, size=C, dtype=np.int32), device=dev)
-    h0 = splitmix64(packed)
-    stp = probe_step(h0)
-    a = ck.hash_probe(table[:C], vals, packed, h0, stp, valid)
-    b = ck.hash_probe_plain(table[:C], vals, packed, h0, stp, valid)
+    vals = (torch.as_tensor(rng.integers(0, 2**31 - 1, size=C, dtype=np.int32), device=dev)
+            if mode == "payload" else None)
+    before = ck.STATS["hash_probe"].launches
+    a = ck.hash_probe(table[:C], vals, packed, valid)
+    b = ck.hash_probe_plain(table[:C], vals, packed, valid)
+    assert ck.STATS["hash_probe"].launches == before + 1
+    assert a[0].dtype == torch.int32 and a[1].dtype == torch.bool
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert bool((a[0][~a[1]] == 0).all()) and not bool(a[1][~valid].any())
+    if nb:
+        assert bool(a[1].any()) and not bool(a[1].all())
 
 
 @pytest.mark.parametrize("n,out_len,frac", [(5000, 2000, 0.3), (3000, 100, 0.5),
@@ -241,6 +268,63 @@ def test_fused_segment_agg_kernel_vs_plain(dev, n, n_slots, k):
             assert got.dtype == torch.float32
             np.testing.assert_allclose(got.double().cpu().numpy(), want.cpu().numpy(),
                                        rtol=1e-4, atol=1e-6)
+
+
+SEGMENT_LAYOUTS = {
+    # name: (offset of slot and valid, offset of the value columns), in rows
+    "aligned": (0, 0),
+    "all_at_offset_1": (1, 1),      # the vector path after a 3-row scalar head
+    "columns_at_offset_1": (0, 1),  # offsets disagree: scalar throughout
+}
+
+
+@pytest.mark.parametrize("layout", sorted(SEGMENT_LAYOUTS))
+@pytest.mark.parametrize("k", [0, 1, 4, 8, 33])
+@pytest.mark.parametrize("n_slots", [1, 8, 33, 128])
+def test_fused_segment_agg_kernel_tiers(dev, n_slots, k, layout):
+    """Both tiers (registers when max(8, pow2(n_slots)) * (k + 1) <= 64,
+    per-warp shared copies otherwise; 33 columns as two chunks) against a
+    float64 sum: counts exactly, sums within rtol 1e-4 (float32 adds in a
+    run-dependent order); n not a multiple of 4, inputs sliced at an odd
+    row."""
+    n = 40009
+    rng = np.random.default_rng(n_slots * 100 + k)
+    lead, col_lead = SEGMENT_LAYOUTS[layout]
+    slot = torch.as_tensor(rng.integers(-1, n_slots + 1, n + lead).astype(np.int32),
+                           device=dev)[lead:]
+    valid = torch.as_tensor(rng.random(n + lead) < 0.8, device=dev)[lead:]
+    vals = tuple(torch.as_tensor(rng.random(n + col_lead).astype(np.float32) * 10 ** (j % 4),
+                                 device=dev)[col_lead:] for j in range(k))
+    before = ck.STATS["fused_segment_agg"].launches
+    kc, ks = ck.fused_segment_agg(slot, valid, vals, n_slots)
+    assert ck.STATS["fused_segment_agg"].launches == before + 1
+    live = valid & (slot >= 0) & (slot < n_slots)
+    want_c = torch.bincount(slot[live].long(), minlength=n_slots)
+    assert kc.dtype == torch.int32 and torch.equal(kc.long(), want_c)
+    assert len(ks) == k
+    for v, got in zip(vals, ks):
+        want = torch.zeros(n_slots, dtype=torch.float64, device=dev).index_add_(
+            0, slot[live].long(), v[live].double())
+        assert got.dtype == torch.float32 and got.shape == (n_slots,)
+        np.testing.assert_allclose(got.double().cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-6)
+
+
+def test_fused_segment_agg_kernel_takes_an_int64_slot_as_int32(dev):
+    """The kernel and the plain version both wrap an int64 slot to int32
+    before the range test, as the reference does."""
+    rng = np.random.default_rng(3)
+    n = 9999
+    slot = rng.integers(0, 8, n).astype(np.int64)
+    slot[::5] += 1 << 32
+    slot[1::7] = (1 << 31) + 2
+    slot = torch.as_tensor(slot, device=dev)
+    valid = torch.as_tensor(rng.random(n) < 0.9, device=dev)
+    vals = (torch.as_tensor(rng.random(n).astype(np.float32), device=dev),)
+    kc, ks = ck.fused_segment_agg(slot, valid, vals, 8)
+    pc, ps = ck.fused_segment_agg_plain(slot, valid, vals, 8)
+    assert torch.equal(kc, pc)
+    np.testing.assert_allclose(ks[0].cpu().numpy(), ps[0].cpu().numpy(), rtol=1e-5)
 
 
 def _same(a, b):

@@ -141,3 +141,73 @@ def test_global_agg_over_empty_input_is_one_row_of_nulls(torch_engine):
     got = torch_engine.execute_sql(CASES["global_agg_empty_input"],
                                    torch_engine.create_session("tpch"))
     assert got.rows() == [(0, 0, None, None, None, None)]
+
+
+PROBE_KEYS = {
+    # name: key types of the probe (packed exactly: <= 62 bits, or one 64-bit key)
+    "one_bigint": ("bigint",),
+    "integer_and_smallint": ("integer", "smallint"),
+}
+
+
+@pytest.mark.parametrize("keys", sorted(PROBE_KEYS))
+def test_hash_join_probes_hand_packed_keys_to_the_kernel(monkeypatch, keys):
+    """``hashjoin.probe`` and ``probe_slots`` hash nothing themselves: they
+    pass the packed keys (and, for the multi-match layout, no payload) to
+    ``hash_probe``, which walks the chains; both equal trino_tpu's probes bit
+    for bit over the same table."""
+    import jax.numpy as jnp
+    import torch
+
+    from trino_tpu import types as JT
+    from trino_tpu.ops import hashagg as jagg, hashing as jhashing, hashjoin as jjoin
+    from trino_tpu_torch import types as TT
+    from trino_tpu_torch.ops import cuda_kernels as ck, hashjoin as tjoin
+
+    rng = np.random.default_rng(len(keys))
+    names = PROBE_KEYS[keys]
+    jtypes = tuple({"bigint": JT.BIGINT, "integer": JT.INTEGER, "smallint": JT.SMALLINT}[t]
+                   for t in names)
+    ttypes = tuple({"bigint": TT.BIGINT, "integer": TT.INTEGER, "smallint": TT.SMALLINT}[t]
+                   for t in names)
+    dtypes = {"bigint": np.int64, "integer": np.int32, "smallint": np.int16}
+    nb, n, C = 600, 3000, 2048
+    build = [rng.integers(-3000, 3000, size=nb).astype(dtypes[t]) for t in names]
+    probe = [np.concatenate([b, b + 1])[rng.integers(0, 2 * nb, size=n)] for b in build]
+    valid = rng.random(n) < 0.9
+    jpacked, _ = jhashing.pack_keys(tuple(jnp.asarray(b) for b in build), jtypes)
+    table0 = jnp.full((C + 1,), jhashing.EMPTY_KEY, jnp.int64)
+    table, slot, placed = jagg._probe_insert(table0, jpacked, jnp.ones(nb, bool))
+    rows = jnp.full((C + 1,), 2**31 - 1, jnp.int32).at[
+        jnp.where(placed, slot, C)].min(jnp.arange(nb, dtype=jnp.int32)).at[C].set(0)
+    jt = jjoin.JoinTable(table, rows, (), (), jnp.int32(nb), jnp.int32(0), jnp.bool_(False))
+    tt = tjoin.JoinTable(torch.as_tensor(np.array(table)), torch.as_tensor(np.array(rows)),
+                         (), (), torch.tensor(nb, dtype=torch.int32),
+                         torch.tensor(0, dtype=torch.int32), torch.tensor(False))
+    calls = []
+    real = ck.hash_probe
+
+    def recording(table, vals, packed, valid, max_probes=ck.MAX_PROBES):
+        calls.append((vals, packed))
+        return real(table, vals, packed, valid, max_probes)
+
+    def boom(*args, **kwargs):
+        raise AssertionError("the probe path hashed its keys outside the kernel")
+
+    monkeypatch.setattr(ck, "hash_probe", recording)
+    # the plain version on the CPU hashes through its own module's names
+    for name in ("splitmix64", "probe_step"):
+        monkeypatch.setattr(tjoin, name, boom, raising=False)
+    tkeys = tuple(torch.as_tensor(p) for p in probe)
+    jkeys = tuple(jnp.asarray(p) for p in probe)
+    tpacked, _ = tjoin.pack_keys(tkeys, ttypes)
+    got = tjoin.probe(tt, tkeys, ttypes, torch.as_tensor(valid))
+    want = jjoin.probe(jt, jkeys, jtypes, jnp.asarray(valid))
+    got_s = tjoin.probe_slots(tt.table, tkeys, ttypes, torch.as_tensor(valid))
+    want_s = jjoin.probe_slots(jt.table, jkeys, jtypes, jnp.asarray(valid))
+    assert len(calls) == 2 and calls[0][0] is not None and calls[1][0] is None
+    assert all(torch.equal(packed, tpacked) for _, packed in calls)
+    assert bool(np.asarray(want[1]).any()) and not bool(np.asarray(want[1]).all())
+    for a, b in ((got, want), (got_s, want_s)):
+        np.testing.assert_array_equal(a[0].numpy(), np.asarray(b[0]))
+        np.testing.assert_array_equal(a[1].numpy(), np.asarray(b[1]))

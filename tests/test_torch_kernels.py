@@ -5,10 +5,13 @@ against the JAX package: its XLA path, and its Pallas body in interpret mode.
   placed sets whenever no row exhausts 64 rounds, the set of table words,
   ``table[slot] == packed`` for placed rows, and probe results over either
   table;
-- hash_probe: bit for bit;
+- hash_probe: bit for bit, with a payload array and in slot mode
+  (``vals=None``; the port's probe hashes its keys itself, the reference's
+  takes h0 and step, computed here on the JAX side from the same keys);
 - compact_rows: byte for byte, values and live count;
 - fused_segment_agg: counts exactly, float32 sums within rtol 1e-5 (the
-  one-hot product and the scatter-add sum in different orders).
+  one-hot product and the scatter-add sum in different orders); an int64
+  slot is taken as int32 first, as the reference takes it.
 
 Inputs come from numpy with a seed.  Pallas bodies run with
 ``interpret=True``, as tests/test_pallas_kernels.py runs them on the CPU.
@@ -22,7 +25,6 @@ import torch
 from trino_tpu.ops import arrays as jarrays, hashagg as jagg, pallas_kernels as pk
 from trino_tpu.ops.hashing import EMPTY_KEY, probe_step, splitmix64
 from trino_tpu_torch.ops import cuda_kernels as ck
-from trino_tpu_torch.ops import hashing as th
 
 def T(a):
     return torch.as_tensor(np.array(a))
@@ -35,12 +37,9 @@ def _keys(rng, n, distinct, lo=1, hi=1 << 40):
 
 
 def _probe_np(table, packed, valid):
-    """(vals, matched) of the port's plain probe over a [C+1] table with iota payload."""
+    """(slot, matched) of the port's plain probe over a [C+1] table, in slot mode."""
     C = table.shape[0] - 1
-    p = T(packed)
-    h0 = th.splitmix64(p)
-    return ck.hash_probe(T(table[:C]), torch.arange(C, dtype=torch.int32), p, h0,
-                         th.probe_step(h0), T(valid))
+    return ck.hash_probe(T(table[:C]), None, T(packed), T(valid))
 
 
 def _observables_equal(t_a, s_a, p_a, t_b, s_b, p_b, packed, valid, exhausts=False):
@@ -212,8 +211,9 @@ PROBE_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(PROBE_CASES))
-def test_hash_probe_plain_bit_identical(case):
+def _probe_case(case):
+    """(table [C+1], rows [C+1], C, packed, valid) of one PROBE_CASES entry:
+    a table the JAX insert built, probed by hits and misses."""
     nb, C, n, frac = PROBE_CASES[case]
     rng = np.random.default_rng(len(case) + 100)
     bkeys = np.unique(_keys(rng, nb, nb)) if nb else np.zeros(0, np.int64)
@@ -221,9 +221,20 @@ def test_hash_probe_plain_bit_identical(case):
         np.full(C + 1, EMPTY_KEY, np.int64), np.zeros(C + 1, np.int32))
     pool = np.concatenate([bkeys, (1 << 41) + np.arange(max(nb, 1), dtype=np.int64)])
     packed = pool[rng.integers(0, len(pool), size=n)] if n else np.zeros(0, np.int64)
-    valid = rng.random(n) < frac
-    h0 = np.asarray(splitmix64(jnp.asarray(packed)))
-    stp = np.asarray(probe_step(jnp.asarray(h0)))
+    return table, rows, C, packed, rng.random(n) < frac
+
+
+def _pallas_probe(table, vals, packed, valid):
+    """The reference's Pallas probe in interpret mode; its h0 and step come
+    from the JAX hashing of the same keys."""
+    h0 = splitmix64(jnp.asarray(packed))
+    return pk.hash_probe(jnp.asarray(table), jnp.asarray(vals), jnp.asarray(packed), h0,
+                         probe_step(h0), jnp.asarray(valid), interpret=True)
+
+
+@pytest.mark.parametrize("case", sorted(PROBE_CASES))
+def test_hash_probe_plain_bit_identical(case):
+    table, rows, C, packed, valid = _probe_case(case)
     # the XLA loop of hashjoin.probe (use_pallas is off on the CPU)
     from trino_tpu.ops.hashjoin import JoinTable, probe as jprobe
     from trino_tpu.types import BIGINT
@@ -231,15 +242,34 @@ def test_hash_probe_plain_bit_identical(case):
     jt = JoinTable(jnp.asarray(table), jnp.asarray(rows), (), (), jnp.int32(0),
                    jnp.int32(0), jnp.bool_(False))
     xr, xm = jprobe(jt, (jnp.asarray(packed),), (BIGINT,), jnp.asarray(valid))
-    tr, tm = ck.hash_probe(T(table[:C]), T(rows[:C]), T(packed), T(h0), T(stp), T(valid))
+    tr, tm = ck.hash_probe(T(table[:C]), T(rows[:C]), T(packed), T(valid))
     assert tr.dtype == torch.int32 and tm.dtype == torch.bool
     np.testing.assert_array_equal(tr.numpy(), np.asarray(xr))
     np.testing.assert_array_equal(tm.numpy(), np.asarray(xm))
     if case in PALLAS_PROBE_CASES:
-        pr, pm = pk.hash_probe(jnp.asarray(table[:C]), jnp.asarray(rows[:C]),
-                               jnp.asarray(packed), jnp.asarray(h0), jnp.asarray(stp),
-                               jnp.asarray(valid), interpret=True)
+        pr, pm = _pallas_probe(table[:C], rows[:C], packed, valid)
         np.testing.assert_array_equal(tr.numpy(), np.asarray(pr))
+        np.testing.assert_array_equal(tm.numpy(), np.asarray(pm))
+
+
+@pytest.mark.parametrize("case", sorted(PROBE_CASES))
+def test_hash_probe_slot_mode_bit_identical(case):
+    """vals=None returns the slot index: equal to the reference's
+    hashjoin.probe_slots and, on the Pallas subset, to its hash_probe with an
+    arange payload (interpret mode)."""
+    from trino_tpu.ops.hashjoin import probe_slots as jprobe_slots
+    from trino_tpu.types import BIGINT
+
+    table, _, C, packed, valid = _probe_case(case)
+    ts, tm = ck.hash_probe(T(table[:C]), None, T(packed), T(valid))
+    assert ts.dtype == torch.int32 and tm.dtype == torch.bool
+    js, jm = jprobe_slots(jnp.asarray(table), (jnp.asarray(packed),), (BIGINT,),
+                          jnp.asarray(valid))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    if case in PALLAS_PROBE_CASES:
+        ps, pm = _pallas_probe(table[:C], np.arange(C, dtype=np.int32), packed, valid)
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(ps))
         np.testing.assert_array_equal(tm.numpy(), np.asarray(pm))
 
 
@@ -329,6 +359,29 @@ def test_fused_segment_agg_plain_vs_pallas_interpret(case):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-5, atol=1e-5)
 
 
+def test_fused_segment_agg_takes_an_int64_slot_as_int32():
+    """An int64 slot at or above 2**31 wraps to int32 before the range test,
+    in the reference (``slot.astype(jnp.int32)``) and in both port forms: 2**32
+    + 3 lands in slot 3, 2**31 becomes negative and drops."""
+    rng = np.random.default_rng(31)
+    n, n_slots = 4000, 8
+    slot = rng.integers(0, n_slots, n).astype(np.int64)
+    slot[::5] += 1 << 32
+    slot[1::7] = (1 << 31) + rng.integers(0, n_slots, len(slot[1::7]))
+    valid = rng.random(n) < 0.9
+    vals = [rng.random(n) * 10 ** j for j in range(2)]
+    jc, js = pk.fused_segment_agg(jnp.asarray(slot), jnp.asarray(valid),
+                                  tuple(jnp.asarray(v) for v in vals), n_slots=n_slots,
+                                  interpret=True)
+    assert int(np.asarray(jc).sum()) == int((valid & (slot % (1 << 31) == slot % (1 << 32))
+                                             ).sum())
+    for fn in (ck.fused_segment_agg, ck.fused_segment_agg_plain):
+        tc, ts = fn(T(slot), T(valid), tuple(T(v) for v in vals), n_slots)
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+        for a, b in zip(js, ts):
+            np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-5, atol=1e-5)
+
+
 def test_fused_segment_agg_slot_ceiling_raises():
     with pytest.raises(ValueError, match="n_slots=129"):
         ck.fused_segment_agg(torch.zeros(4, dtype=torch.int32),
@@ -352,3 +405,24 @@ def test_mixed_devices_raise():
     t = torch.zeros(4, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="mixed or unsupported"):
         ck.hash_insert(t, torch.zeros(4, dtype=torch.int64), torch.ones(4, dtype=torch.bool))
+
+
+def test_build_key_covers_the_shared_hash_header(tmp_path):
+    """Each library's build key hashes its source and every header it
+    includes: editing csrc/hashing.cuh changes the keys of the insert and
+    the probe (so both rebuild) and of nothing else."""
+    import os
+    import shutil
+
+    csrc = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(ck.__file__))),
+                        "csrc")
+    for name in os.listdir(csrc):
+        shutil.copy(os.path.join(csrc, name), tmp_path / name)
+    sources = sorted(n for n in os.listdir(csrc) if n.endswith(".cu"))
+    before = {n: ck.source_digest(str(tmp_path / n)) for n in sources}
+    assert before == {n: ck.source_digest(os.path.join(csrc, n)) for n in sources}
+    with open(tmp_path / "hashing.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: ck.source_digest(str(tmp_path / n)) for n in sources}
+    changed = sorted(n for n in sources if after[n] != before[n])
+    assert changed == ["hash_insert.cu", "hash_probe.cu"]

@@ -7,9 +7,11 @@
 // Contract (hashagg._probe_insert): table is [C+1] int64, C a power of two,
 // word C a sink that is never written; EMPTY = int64 max.  Row i probes
 // idx_p = (h0 + p * step) & (C-1), h0 = splitmix64(key), step =
-// splitmix64(h0) | 1, for p < max_probes.  A slot holding the key places the
-// row there; an EMPTY slot is claimed with a 64-bit atomicCAS, and the row is
-// placed when the old word was EMPTY or already its own key.  Rows with
+// splitmix64(h0) | 1, for p < max_probes (csrc/hashing.cuh, which
+// hash_probe.cu shares, so the probe walks the chains laid down here).  A
+// slot holding the key places the row there; an EMPTY slot is claimed with a
+// 64-bit atomicCAS, and the row is placed when the old word was EMPTY or
+// already its own key.  Rows with
 // valid = 0 get slot = C and placed = 1; rows that exhaust max_probes get
 // slot = C and placed = 0.  The kernel writes the caller's table: the
 // wrapper's functional form hands it a copy.
@@ -37,20 +39,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hashing.cuh"
+
 namespace {
 
-constexpr unsigned long long kEmpty = 0x7FFFFFFFFFFFFFFFull;
+constexpr unsigned long long kEmpty = trino::kEmptyKey;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ unsigned long long splitmix64(unsigned long long x) {
-    x += 0x9E3779B97F4A7C15ull;
-    x ^= x >> 30;
-    x *= 0xBF58476D1CE4E5B9ull;
-    x ^= x >> 27;
-    x *= 0x94D049BB133111EBull;
-    return x ^ (x >> 31);
-}
 
 __global__ void __launch_bounds__(kThreads)
 hash_insert_kernel(unsigned long long* __restrict__ table,
@@ -75,8 +70,8 @@ hash_insert_kernel(unsigned long long* __restrict__ table,
     int s = (int)capacity;
     int ok = live ? 0 : 1;
     if (live && leader == lane) {
-        const unsigned long long h0 = splitmix64(key);
-        const unsigned long long step = splitmix64(h0) | 1ull;
+        unsigned long long h0, step;
+        trino::probe_chain(key, h0, step);
         for (int p = 0; p < max_probes; ++p) {
             const unsigned long long idx = (h0 + (unsigned long long)p * step) & mask;
             unsigned long long cur = __ldcg(table + idx);

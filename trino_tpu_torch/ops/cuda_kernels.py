@@ -9,7 +9,8 @@ about that):
 
 - ``hash_insert`` / ``hash_insert_`` (``csrc/hash_insert.cu``)
   open-addressing insert, into a copy or in place;
-- ``hash_probe``   (``csrc/hash_probe.cu``)   open-addressing probe;
+- ``hash_probe``   (``csrc/hash_probe.cu``)   open-addressing probe, hashing
+  each key in the kernel (``csrc/hashing.cuh``, shared with the insert);
 - ``compact_rows`` (``csrc/compact_rows.cu``) order-preserving compaction;
 - ``fused_segment_agg`` (``csrc/segment_agg.cu``) per-slot counts and
   float32 sums in one pass.  Like its TPU counterpart it has no caller in
@@ -22,10 +23,12 @@ paths; the tests and ``chip_smoke.py`` compare against them.
 
 Build: at first use on the card, ``nvcc`` compiles each source (all started
 together) into a shared library with a plain C interface under
-``build/trino_tpu_torch/`` beside the package, keyed by the source's hash, and
-``ctypes`` loads it.  Kernels launch on ``torch.cuda.current_stream()``, do not
-synchronise, allocate nothing (the wrappers allocate outputs and scratch with
-torch), and each C entry returns ``cudaGetLastError()``.
+``build/trino_tpu_torch/`` beside the package, keyed by the hash of the source
+and of every header it includes (``#include "..."``), and ``ctypes`` loads
+it.  Kernels launch on ``torch.cuda.current_stream()``, do not synchronise,
+allocate nothing (the wrappers allocate outputs and scratch with torch; a C
+entry may zero them with a memset on the stream), and each C entry returns
+``cudaGetLastError()``.
 
 Each wrapper counts its launches in ``STATS[name].launches`` and records the
 shapes it launched at in ``STATS[name].shapes``, and, while a profiler
@@ -41,6 +44,7 @@ import dataclasses
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -107,16 +111,15 @@ _SIGNATURES = {
         ctypes.c_void_p]),
     "trino_hash_probe": ("hash_probe.cu", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p]),
     "trino_compact_rows": ("compact_rows.cu", [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p]),
     "trino_segment_agg": ("segment_agg.cu", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p]),
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
 }
 
 _lock = threading.Lock()
@@ -140,6 +143,27 @@ def _nvcc() -> str:
     return found
 
 
+def source_digest(path: str) -> str:
+    """Hash of a source and, recursively, of every header it includes with
+    ``#include "..."`` (resolved beside the including file): the build key,
+    so an edit of a shared header rebuilds every library that includes it."""
+    h = hashlib.sha256()
+    seen = set()
+
+    def add(p):
+        if p in seen:
+            return
+        seen.add(p)
+        with open(p, "rb") as f:
+            text = f.read()
+        h.update(text)
+        for inc in re.findall(rb'^\s*#\s*include\s+"([^"]+)"', text, re.M):
+            add(os.path.normpath(os.path.join(os.path.dirname(p), inc.decode())))
+
+    add(os.path.normpath(path))
+    return h.hexdigest()[:16]
+
+
 def build_kernels() -> dict:
     """Compile every source not yet built (one nvcc each, all started
     together) and load the C entries.  Returns {"seconds": build wall time,
@@ -153,9 +177,7 @@ def build_kernels() -> dict:
         libs, procs = {}, {}
         for src in sources:
             path = os.path.join(_CSRC, src)
-            with open(path, "rb") as f:
-                digest = hashlib.sha256(f.read()).hexdigest()[:16]
-            out = os.path.join(_BUILD, f"{src[:-3]}_{digest}.so")
+            out = os.path.join(_BUILD, f"{src[:-3]}_{source_digest(path)}.so")
             libs[src] = out
             if os.path.exists(out) and os.path.exists(out[:-3] + ".log"):
                 continue
@@ -227,8 +249,8 @@ def _ranged(name: str):
     return wrap
 
 
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
 
 
 def _require(t: torch.Tensor, dtype, name: str) -> torch.Tensor:
@@ -330,33 +352,36 @@ def hash_insert_plain(table, packed, valid, max_probes: int = MAX_PROBES):
 
 # ------------------------------------------------------------------- hash probe
 @_ranged("hash_probe")
-def hash_probe(table, vals, packed, h0, stp, valid, max_probes: int = MAX_PROBES):
-    """Probe an open-addressing table.
+def hash_probe(table, vals, packed, valid, max_probes: int = MAX_PROBES):
+    """Probe an open-addressing table; each key's chain (splitmix64 and its
+    odd step) is computed inside the probe.
 
-    table: [C] int64 (the [:C] slice), vals: [C] int32 per-slot payload,
-    packed/h0/stp: [n] int64 key word, splitmix64 hash and odd step,
-    valid: [n] bool.  Returns (vals[match] or 0 [n] int32, matched [n] bool),
-    bit-identical to the XLA loop of ``hashjoin.probe``."""
-    if not _on_card(table, vals, packed, h0, stp, valid):
-        return hash_probe_plain(table, vals, packed, h0, stp, valid, max_probes)
+    table: [C] int64 (the [:C] slice of a build table, pow2 C); vals: [C]
+    int32 per-slot payload, or None for the slot index itself (the
+    multi-match layout's ``probe_slots``); packed: [n] int64 key words;
+    valid: [n] bool.  Returns (payload at the match or 0 [n] int32, matched
+    [n] bool), bit-identical to the XLA loop of ``hashjoin.probe``."""
+    if not _on_card(table, vals, packed, valid):
+        return hash_probe_plain(table, vals, packed, valid, max_probes)
     table = _require(table, torch.int64, "hash_probe table")
-    vals = _require(vals, torch.int32, "hash_probe vals")
     packed = _require(packed, torch.int64, "hash_probe packed")
-    h0 = _require(h0, torch.int64, "hash_probe h0")
-    stp = _require(stp, torch.int64, "hash_probe stp")
     valid = _require(valid, torch.bool, "hash_probe valid")
-    C = table.shape[0]
-    n = packed.shape[0]
-    if C < 2 or C & (C - 1) or vals.shape[0] != C or not (
-            h0.shape[0] == stp.shape[0] == valid.shape[0] == n):
-        raise ValueError(f"hash_probe: bad shapes table={C} vals={vals.shape[0]} "
-                         f"rows={n}")
+    C, n = table.shape[0], packed.shape[0]
+    if vals is not None:
+        vals = _require(vals, torch.int32, "hash_probe vals")
+    if C < 2 or C & (C - 1) or valid.shape[0] != n or (vals is not None
+                                                       and vals.shape[0] != C):
+        raise ValueError(f"hash_probe: bad shapes table={C} "
+                         f"vals={None if vals is None else vals.shape[0]} rows={n} "
+                         f"valid={valid.shape[0]}")
+    # two allocations cost the host less than slicing and re-viewing one
     out = torch.empty((n,), dtype=torch.int32, device=table.device)
     matched = torch.empty((n,), dtype=torch.bool, device=table.device)
     if n == 0:
         return out, matched
-    rc = _entry("trino_hash_probe")(table.data_ptr(), vals.data_ptr(), packed.data_ptr(),
-                                    h0.data_ptr(), stp.data_ptr(), valid.data_ptr(), n, C,
+    rc = _entry("trino_hash_probe")(table.data_ptr(),
+                                    None if vals is None else vals.data_ptr(),
+                                    packed.data_ptr(), valid.data_ptr(), n, C,
                                     int(max_probes), out.data_ptr(), matched.data_ptr(),
                                     _stream())
     _check(rc, "hash_probe")
@@ -364,9 +389,12 @@ def hash_probe(table, vals, packed, h0, stp, valid, max_probes: int = MAX_PROBES
     return out, matched
 
 
-def hash_probe_plain(table, vals, packed, h0, stp, valid, max_probes: int = MAX_PROBES):
-    """Torch form of the reference's XLA probe loop (``hashjoin.probe``)."""
+def hash_probe_plain(table, vals, packed, valid, max_probes: int = MAX_PROBES):
+    """Torch form of the reference's XLA probe loop (``hashjoin.probe``),
+    hashing the keys itself; ``vals=None`` returns the slot index."""
     C = table.shape[0]
+    h0 = splitmix64(packed)
+    stp = probe_step(h0)
     row_ids = torch.zeros(packed.shape, dtype=torch.int32, device=table.device)
     matched = torch.zeros(packed.shape, dtype=torch.bool, device=table.device)
     done = ~valid
@@ -376,7 +404,8 @@ def hash_probe_plain(table, vals, packed, h0, stp, valid, max_probes: int = MAX_
         idx = ((h0 + p * stp) & (C - 1)).to(torch.int64)
         cur = table[idx]
         hit = (cur == packed) & ~done
-        row_ids = torch.where(hit, vals[idx], row_ids)
+        row_ids = torch.where(hit, idx.to(torch.int32) if vals is None else vals[idx],
+                              row_ids)
         matched = matched | hit
         done = done | hit | (cur == EMPTY_KEY)
     return row_ids, matched
@@ -447,8 +476,11 @@ def fused_segment_agg(slot, valid, value_cols, n_slots: int):
 
     slot: [n] integer slot per row (< n_slots <= 128), valid: [n] bool,
     value_cols: k [n] numeric columns (cast to float32).  Returns
-    ([n_slots] int32 counts, tuple of k [n_slots] float32 sums).  Rows whose
-    slot lies outside [0, n_slots) count nowhere."""
+    ([n_slots] int32 counts, tuple of k [n_slots] float32 sums).  The slot
+    is taken as int32 first, as the reference takes it (an int64 slot wraps);
+    rows whose slot then lies outside [0, n_slots) count nowhere.  On the
+    card the outputs are views of one buffer that the kernel's C entry
+    zeroes."""
     if not 1 <= n_slots <= SEGMENT_SLOTS_MAX:
         raise ValueError(f"fused_segment_agg: n_slots={n_slots} outside "
                          f"[1, {SEGMENT_SLOTS_MAX}]")
@@ -461,22 +493,23 @@ def fused_segment_agg(slot, valid, value_cols, n_slots: int):
     valid = _require(valid, torch.bool, "fused_segment_agg valid")
     cols = [v.to(torch.float32).contiguous() for v in value_cols]
     k = len(cols)
-    dev = slot.device
-    counts = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
-    sums = torch.zeros((k, n_slots), dtype=torch.float32, device=dev)
+    out = torch.empty((n_slots * (k + 1),), dtype=torch.int32, device=slot.device)
+    ptrs = (ctypes.c_void_p * max(k, 1))(*[c.data_ptr() for c in cols])
+    rc = _entry("trino_segment_agg")(slot.data_ptr(), valid.data_ptr(), ptrs, k, n,
+                                     int(n_slots), out.data_ptr(), _stream())
+    _check(rc, "fused_segment_agg")
     if n:
-        ptrs = (ctypes.c_void_p * max(k, 1))(*[c.data_ptr() for c in cols])
-        rc = _entry("trino_segment_agg")(slot.data_ptr(), valid.data_ptr(), ptrs, k, n,
-                                         int(n_slots), counts.data_ptr(), sums.data_ptr(),
-                                         _stream())
-        _check(rc, "fused_segment_agg")
         STATS["fused_segment_agg"].record((n, int(n_slots), k))
-    return counts, tuple(sums[j] for j in range(k))
+    sums = out[n_slots:].view(torch.float32).view(k, n_slots)
+    return out[:n_slots], tuple(sums[j] for j in range(k))
 
 
 def fused_segment_agg_plain(slot, valid, value_cols, n_slots: int):
     """A bincount for the counts and a float32 ``index_add_`` per column for
-    the sums; dead and out-of-range rows go to a dropped sink slot."""
+    the sums; dead and out-of-range rows go to a dropped sink slot.  The slot
+    is cast to int32 before the range test, as the reference and the kernel
+    take it."""
+    slot = slot.to(torch.int32)
     live = valid & (slot >= 0) & (slot < n_slots)
     idx = torch.where(live, slot.to(torch.int64), n_slots)
     counts = torch.bincount(idx, minlength=n_slots + 1)[:n_slots].to(torch.int32)

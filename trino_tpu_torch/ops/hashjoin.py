@@ -3,13 +3,14 @@
 The build side is a fixed-capacity int64 table of packed keys claimed with the
 ``hash_insert`` kernel (shared with hash aggregation) plus a parallel ``rows``
 array mapping slot -> build row id; the probe walks each row's chain with the
-``hash_probe`` kernel; matches gather the build columns by row id.  Dense
+``hash_probe`` kernel, which hashes the packed keys itself; matches gather the
+build columns by row id.  Dense
 single integer keys skip hashing (direct mode: slot = key - lo).
 
 Duplicate build keys (``dup_count > 0``) take the multi-match layout: build
 rows grouped by slot (``multi_build`` through the ``hash_insert`` kernel, or
 ``direct_multi_build`` for dense keys), probed for the slot
-(``probe_slots``, the ``hash_probe`` kernel with an iota payload) and
+(``probe_slots``, the ``hash_probe`` kernel in slot mode) and
 expanded into one output row per candidate match (``expand_counts``).
 """
 
@@ -20,7 +21,7 @@ import dataclasses
 import torch
 
 from . import cuda_kernels
-from .hashing import EMPTY_KEY, ceil_pow2, pack_keys, probe_step, splitmix64
+from .hashing import EMPTY_KEY, ceil_pow2, pack_keys
 
 __all__ = ["JoinTable", "build_table_init", "build_insert", "probe", "MAX_PROBES",
            "MultiJoinTable", "multi_build", "probe_slots", "expand_counts",
@@ -95,9 +96,7 @@ def probe(jt: JoinTable, key_cols, key_types, valid):
     through the ``hash_probe`` kernel."""
     packed, _ = pack_keys(key_cols, key_types)
     C = jt.capacity
-    h0 = splitmix64(packed)
-    stp = probe_step(h0)
-    return cuda_kernels.hash_probe(jt.table[:C], jt.rows[:C], packed, h0, stp, valid,
+    return cuda_kernels.hash_probe(jt.table[:C], jt.rows[:C], packed, valid,
                                    max_probes=MAX_PROBES)
 
 
@@ -262,14 +261,10 @@ def multi_build(capacity: int, build_page, key_channels, key_types,
 
 def probe_slots(table, key_cols, key_types, valid):
     """(slot[int32], matched[bool]) per probe row: the ``hash_probe`` kernel
-    with the slot index itself as the payload."""
+    in slot mode (the slot index itself is the payload; no payload array)."""
     packed, _ = pack_keys(key_cols, key_types)
     C = table.shape[0] - 1
-    h0 = splitmix64(packed)
-    stp = probe_step(h0)
-    iota = torch.arange(C, dtype=torch.int32, device=table.device)
-    return cuda_kernels.hash_probe(table[:C], iota, packed, h0, stp, valid,
-                                   max_probes=MAX_PROBES)
+    return cuda_kernels.hash_probe(table[:C], None, packed, valid, max_probes=MAX_PROBES)
 
 
 def expand_counts(incl, out_counts, size: int):
