@@ -19,7 +19,8 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    query run by the port on the CPU.
 3. Each kernel against its plain PyTorch version on the card: insert, probe
    and compaction at the largest and the most frequent shape they launched
-   at in phase 2, and insert also on the main path's own keys
+   at in phase 2, compaction also at its most selective shape with rows
+   past out_len dropped, and insert also on the main path's own keys
    (``l_orderkey`` of the first SF1 lineitem split), in both its forms (in
    place and functional); the probe in both payload modes (a payload array,
    and the slot index), over a table the CUDA insert built, and
@@ -31,6 +32,27 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    time, other device work, idle and host time (``device_split``).
 4. bench.py's five queries at SF10 on the card alone: warm wall time and
    lineitem rows/s.
+5. TPC-DS parity: every query of the TPC-DS corpus (the SQL of
+   tests/test_tpcds*.py, read by ``trino_tpu_torch/connectors/tpcds_queries.py``)
+   at SF0.1 on the card and on the CPU; each card result must equal the CPU
+   result.  The plan nodes each query runs (its
+   plan-time subqueries included) are recorded here.
+6. TPC-DS at SF1 (``TpcdsConnector(sf=1, split_rows=1<<21)``, ~2.88M
+   store_sales rows): every corpus query on the card, cold and warm, with
+   host reads, peak device memory and the launches of each kernel; the
+   counters are set to 0 just before the run and read just after, each
+   query must launch the kernels that ``TPCDS_REQUIRED`` names (those the
+   JAX reference's SF1 path reaches), and the run as a whole must launch
+   every one of them.  Queries that run a Window, Union, Values or a Limit
+   over anything but a Sort are also held against the port's CPU run at SF1.
+   Then each kernel the run launched is held against its plain version at
+   this path's own shapes, as in phase 3 (``tpcds_kernel_checks``; the
+   most selective compaction is a streaming LIMIT's; insert also on
+   ``ss_ticket_number``); the kernels line reports each path's launches and
+   checks under ``by_path``.
+7. Five TPC-DS queries at SF10 on the card alone (the star join, cumulative
+   frames, the rollup union and windows over an aggregate): warm wall,
+   store_sales rows/s and peak memory.
 
 It prints the card line, then one JSON line with every kernel's numbers, and
 last ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -301,6 +323,96 @@ REQUIRED = {
     "q20": ("hash_insert", "hash_probe", "compact_rows"),
     "q21": ("hash_insert", "compact_rows"),
 }
+# the TPC-DS corpus: the kernels each query must launch at SF1, those the JAX
+# reference's SF1 path reaches (a call recording of trino_tpu's hash group-by
+# inserts, hash join builds and probes, and compactions at SF1, split_rows
+# 2^21: the table that ``scripts/record_tpcds_kernels.py --sf 1`` prints);
+# queries not named here reach none of them
+TPCDS_REQUIRED = {
+    "q42_category_report": ('compact_rows', 'hash_insert'),
+    "q55_brand_revenue": ('compact_rows', 'hash_insert'),
+    "q3_brand_by_year": ('compact_rows', 'hash_insert'),
+    "q7_demographic_averages": ('compact_rows',),
+    "q89_monthly_category_window": ('compact_rows', 'hash_insert'),
+    "q98_class_revenue_ratio": ('compact_rows',),
+    "catalog_channel_by_year": ('hash_insert',),
+    "cross_channel_union": ('hash_insert',),
+    "q19_brand_revenue_by_geography": ('compact_rows', 'hash_insert'),
+    "q65_store_item_revenue": ('hash_insert',),
+    "q26_catalog_demographics": ('compact_rows',),
+    "q52_brand_revenue_november": ('compact_rows', 'hash_insert'),
+    "q43_store_sales_by_day_name": ('compact_rows', 'hash_insert'),
+    "q96_evening_shoppers": ('compact_rows',),
+    "q77_multichannel_profit_rollup": ('hash_insert',),
+    "q33_multichannel_manufact_revenue": ('compact_rows', 'hash_insert'),
+    "q18_catalog_rollup_averages": ('compact_rows',),
+    "q73_ticket_count_buckets": ('compact_rows', 'hash_insert'),
+    "q42_category_revenue_rollup_by_year": ('compact_rows', 'hash_insert'),
+    "q36_gross_margin_rollup": ('compact_rows',),
+    "q86_web_rollup_counts": ('compact_rows',),
+    "q01_returns_above_store_average": ('hash_insert',),
+    "q30_web_returns_above_state_average": ('compact_rows', 'hash_insert'),
+    "q92_excess_web_discount": ('compact_rows', 'hash_insert'),
+    "q48_disjunctive_quantity_price_sum": ('compact_rows',),
+    "q88_time_bucket_cross_counts": ('compact_rows',),
+    "q34_ticket_dep_count_buckets": ('hash_insert',),
+    "q44_best_worst_items_by_rank": ('hash_insert',),
+    "q51_cumulative_channel_windows": ('hash_insert', 'hash_probe'),
+    "q50_return_lag_buckets": ('compact_rows', 'hash_insert', 'hash_probe'),
+    "q59_weekly_sales_year_over_year": ('hash_insert', 'hash_probe'),
+    "q15_catalog_zip_report": ('compact_rows', 'hash_insert'),
+    "q25_sale_return_catalog_flow": ('compact_rows', 'hash_insert', 'hash_probe'),
+    "q45_zip_list_or_item_subquery": ('hash_insert',),
+    "q46_city_ticket_amounts": ('hash_insert',),
+    "q79_ticket_profit_by_city": ('compact_rows', 'hash_insert'),
+    "q16_catalog_ship_not_exists_returns": ('compact_rows', 'hash_insert'),
+    "q69_demographics_store_only_shoppers": ('hash_insert',),
+    "q97_channel_overlap_counts": ('hash_insert', 'hash_probe'),
+    "q71_brand_revenue_by_hour_channels": ('hash_insert',),
+    "q93_reason_adjusted_sales": ('hash_insert', 'hash_probe'),
+    "q47_monthly_brand_vs_yearly_average": ('compact_rows', 'hash_insert'),
+    "q39_inventory_mean_stdev": ('compact_rows',),
+    "q13_demographic_band_averages": ('compact_rows',),
+    "q28_price_band_buckets": ('hash_insert',),
+    "q32_excess_discount": ('compact_rows', 'hash_insert'),
+    "q37_inventory_price_band": ('compact_rows', 'hash_insert'),
+    "q38_channel_intersect": ('hash_insert',),
+    "q40_returns_adjusted_pivot": ('hash_insert', 'hash_probe'),
+    "q66_warehouse_monthly": ('compact_rows',),
+    "q84_income_band_customers": ('compact_rows',),
+    "q87_channel_except": ('hash_insert',),
+    "q91_call_center_losses": ('compact_rows',),
+    "q94_ship_anti_join": ('hash_insert',),
+    "q95_repeat_ship_sites": ('hash_insert',),
+    "q12_category_revenue_ratio": ('compact_rows',),
+    "q17_sales_returns_stats": ('compact_rows', 'hash_insert', 'hash_probe'),
+    "q31_county_quarter_growth": ('compact_rows', 'hash_insert'),
+    "q35_multi_channel_exists": ('hash_insert',),
+    "q49_ranked_return_ratios": ('hash_insert', 'hash_probe'),
+    "q53_manufact_window_avg": ('compact_rows', 'hash_insert'),
+    "q68_city_pair_tickets": ('compact_rows', 'hash_insert'),
+    "q20_catalog_revenue_ratio": ('compact_rows',),
+    "q27_demographic_rollup": ('compact_rows',),
+    "q29_quantity_flow_three_channels": ('compact_rows', 'hash_insert', 'hash_probe'),
+    "q56_color_items_three_channel_union": ('compact_rows',),
+    "q57_call_center_brand_vs_average": ('compact_rows', 'hash_insert'),
+    "q63_manager_window_avg": ('compact_rows', 'hash_insert'),
+    "q76_channel_union_pivot": ('hash_insert',),
+    "q81_catalog_returns_above_state_average": ('compact_rows', 'hash_insert'),
+    "q82_store_inventory_price_band": ('compact_rows', 'hash_insert'),
+    "q83_return_quantity_ratios": ('compact_rows',),
+    "q8_preferred_zip_prefix_profit": ('compact_rows', 'hash_insert'),
+}
+TPCDS_SF_PARITY = 0.1  # every corpus query on the card and the CPU
+TPCDS_SF_MAIN = 1.0
+TPCDS_SF_BIG = 10.0
+# the star join, cumulative frames, the rollup union, windows over an aggregate
+TPCDS_BIG = ("q3_brand_by_year", "q51_cumulative_channel_windows",
+             "q77_multichannel_profit_rollup", "q89_monthly_category_window",
+             "q98_class_revenue_ratio")
+# plan nodes this slice ported; a query that runs one is also held against the
+# CPU at SF1 ("Limit" is a Limit over anything but a Sort, which is a TopN)
+TPCDS_NEW_NODES = ("Window", "Union", "Values", "Limit")
 # the one kernel with no caller in the engine (nor in the reference's)
 NO_ENGINE_CALLER = ("fused_segment_agg",)
 # the kernel's float32 sums against float64: each thread adds a few dozen
@@ -357,16 +469,17 @@ def same_result(a, b, what):
         check(ok, f"{what}: column {name} differs")
 
 
-def run_queries(engine, queries, conn_rows, label):
+def run_queries(engine, queries, conn_rows, label, catalog="tpch", fact="lineitem"):
     """Cold and warm run of each query; per-query launches, host reads (plan-
-    time subqueries included) and peak device memory from the cold run."""
+    time subqueries included) and peak device memory from the cold run;
+    ``conn_rows`` rows of the ``fact`` table per warm wall."""
     import torch
 
     from trino_tpu_torch.ops import cuda_kernels as ck
 
     out = {}
     for q, sql in queries.items():
-        sess = engine.create_session("tpch")
+        sess = engine.create_session(catalog)
         before = {k: s.launches for k, s in ck.STATS.items()}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -389,11 +502,11 @@ def run_queries(engine, queries, conn_rows, label):
                   "warm_s": min(warm), "launches": launches,
                   "host_reads": reads.get("host_reads"),
                   "host_bytes": reads.get("host_bytes"), "peak_bytes": peak,
-                  "lineitem_rows_per_s": conn_rows / min(warm)}
+                  "rows_per_s": conn_rows / min(warm)}
         print(f"{label} {q}: rows={len(res)} cold_s={cold} warm_s={min(warm)} "
               f"launches={ {k: v for k, v in launches.items() if v} } "
               f"host_reads={reads.get('host_reads')} peak_bytes={peak} "
-              f"lineitem_rows_per_s={conn_rows / min(warm)}", flush=True)
+              f"{fact}_rows_per_s={conn_rows / min(warm)}", flush=True)
     return out
 
 
@@ -479,9 +592,13 @@ def device_split(fn, names, setup=None, reps=20):
 
     def ops(body):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            # the trace loses the first device operation of its window: let
-            # that be a throwaway spin, left out below
-            torch.cuda._sleep(1000)
+            # the trace loses the device operations at the start of its
+            # window: the first one, and up to five of twenty 0.9 ms insert
+            # launches at the TPC-DS path's largest shape (an H100, this
+            # script's own profile, ~5 ms of device time): let those be
+            # throwaway spins of ~1 ms each, left out below
+            for _ in range(16):
+                torch.cuda._sleep(2_000_000)
             for _ in range(reps):
                 body()
             torch.cuda.synchronize()
@@ -527,20 +644,27 @@ def insert_case(gen, n, C):
     return packed, valid
 
 
-def lineitem_keys(conn):
-    """The main path's own insert keys: ``l_orderkey`` of the first lineitem
-    split, packed as a one-key hash group-by packs it (the lineitem rows of
-    one order are adjacent, 1-7 of them), and the split's valid lanes."""
+def split_keys(conn, table, column):
+    """A path's own insert keys: ``column`` of ``table``'s first split,
+    packed as a one-key hash group-by packs it, and the split's valid
+    lanes."""
     from trino_tpu_torch.ops.hashing import pack_keys
 
-    page = conn.generate(conn.splits("lineitem")[0], ["l_orderkey"])
+    page = conn.generate(conn.splits(table)[0], [column])
     packed, _ = pack_keys((page.columns[0],), (page.schema.fields[0].type,))
     return packed, page.valid_mask()
 
 
-def compact_case(gen, n, out_len, widths):
+def lineitem_keys(conn):
+    """The TPC-H path's own insert keys: ``l_orderkey`` of the first
+    lineitem split (the lineitem rows of one order are adjacent, 1-7 of
+    them)."""
+    return split_keys(conn, "lineitem", "l_orderkey")
+
+
+def compact_case(gen, n, out_len, widths, live=None):
     """Synthetic compaction input: one column per width, and a mask keeping
-    about half of out_len, so nothing is dropped."""
+    about ``live`` rows: by default half of out_len, so nothing is dropped."""
     import torch
 
     by_width = {1: torch.bool, 2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -548,7 +672,7 @@ def compact_case(gen, n, out_len, widths):
     for w in widths:
         raw = torch.as_tensor(gen.integers(-(1 << 30), 1 << 30, size=n), device=DEVICE)
         cols.append(raw.to(by_width[w]) if w != 1 else raw > 0)
-    keep = min(0.5 * out_len / max(n, 1), 1.0)
+    keep = min((0.5 * out_len if live is None else live) / max(n, 1), 1.0)
     return tuple(cols), torch.as_tensor(gen.random(n) < keep, device=DEVICE)
 
 
@@ -738,12 +862,13 @@ def insert_observables(table, slot, placed, ref_table, ref_placed, packed, valid
     }
 
 
-def insert_checks(seen, li_keys, gen):
+def insert_checks(seen, own_keys, gen):
     """hash_insert in both forms (functional ``hash_insert``, in-place
     ``hash_insert_``) against the plain version, on uniform synthetic keys at
-    the largest and the most frequent main-path shape, and on the main path's
-    own keys (``lineitem_keys``, table sized as the group-by sizes it: the
-    next power of two at or above twice the distinct keys).  The error is
+    the largest and the most frequent shape of a path, and on the path's
+    own keys (``own_keys`` = (label, packed, valid), for example
+    ``lineitem_keys``; table sized as the group-by sizes it: the next power
+    of two at or above twice the distinct keys).  The error is
     the count of disagreeing observables; the top-level numbers are the
     in-place form's at the largest shape."""
     import torch
@@ -755,9 +880,9 @@ def insert_checks(seen, li_keys, gen):
     cases = []
     for label, (n, C) in main_path_shapes(seen):
         cases.append((label, *insert_case(gen, n, C), C))
-    packed, valid = li_keys
+    own_label, packed, valid = own_keys
     distinct = int(torch.unique(packed[valid]).numel())
-    cases.append(("lineitem_orderkey", packed, valid, 1 << (2 * distinct - 1).bit_length()))
+    cases.append((own_label, packed, valid, 1 << (2 * distinct - 1).bit_length()))
     out, wrong_total = [], 0
     for label, packed, valid, C in cases:
         n = packed.shape[0]
@@ -823,17 +948,25 @@ def insert_checks(seen, li_keys, gen):
 
 def compact_checks(seen, gen):
     """compact_rows against its plain version, byte for byte, at the largest
-    and the most frequent main-path shape; the top-level numbers are the
-    largest shape's.  A call of up to 16 columns must make at most two
-    kernel launches and no fill of its outputs."""
+    and the most frequent shape of a path; the top-level numbers are the
+    largest shape's.  Also at the path's most selective shape (least
+    out_len / n, out_len < n: for example a streaming LIMIT's) with about
+    twice out_len live rows, so the rows past out_len are dropped.  A call
+    of up to 16 columns must make at most two kernel launches and no fill
+    of its outputs."""
     import torch
 
     from trino_tpu_torch.ops import cuda_kernels as ck
 
     names = kernel_names("compact_rows")
+    cases = [(label, shape, None) for label, shape in main_path_shapes(seen)]
+    short = [tuple(x) for x in seen if x[1] < x[0]]
+    if short:
+        n, out_len, widths = min(short, key=lambda x: (x[1] / x[0], -x[0]))
+        cases.append(("dropping", (n, out_len, widths), min(2 * out_len, n)))
     out = []
-    for label, (n, out_len, widths) in main_path_shapes(seen):
-        cols, valid = compact_case(gen, n, out_len, widths)
+    for label, (n, out_len, widths), live in cases:
+        cols, valid = compact_case(gen, n, out_len, widths, live)
         a, ta = ck.compact_rows(cols, valid, out_len)
         b, tb = ck.compact_rows_plain(cols, valid, out_len)
         torch.cuda.synchronize()
@@ -851,7 +984,7 @@ def compact_checks(seen, gen):
             fills = [k for k in split["other_ops"] if "fill" in k.lower()]
             check(not fills, f"compact_rows {label}: fills its outputs ({fills})")
         plain_ms = time_ms(lambda: ck.compact_rows_plain(cols, valid, out_len))
-        library_ms = time_ms(lambda: [c[valid] for c in cols])
+        library_ms = time_ms(lambda: [c[valid][:out_len] for c in cols])
         # what this mask needs: the mask; in each column the sectors holding
         # live rows that are kept; the outputs in full (the tail is zeros);
         # the count
@@ -997,7 +1130,7 @@ def kernel_checks(shapes, launches, q1_page, li_keys):
     from trino_tpu_torch.ops import cuda_kernels as ck
 
     gen = np.random.default_rng(7)
-    records = [insert_checks(shapes["hash_insert"], li_keys, gen),
+    records = [insert_checks(shapes["hash_insert"], ("lineitem_orderkey", *li_keys), gen),
                probe_checks(shapes["hash_probe"], gen),
                compact_checks(shapes["compact_rows"], gen),
                segment_agg_checks(q1_page)]
@@ -1016,6 +1149,101 @@ def kernel_checks(shapes, launches, q1_page, li_keys):
     return out
 
 
+def tpcds_kernel_checks(shapes, ds_conn):
+    """Phase 6's kernels against their plain versions at the TPC-DS path's
+    own shapes: insert and probe at its largest and most frequent launch
+    shapes, insert also on its own keys (``ss_ticket_number`` of the first
+    store_sales split), compaction at its largest and most frequent shapes
+    and, dropping rows past out_len, at its most selective one.  Returns
+    {kernel: {"max_abs_err", "shapes"}} for the kernels the path launched."""
+    import numpy as np
+
+    gen = np.random.default_rng(11)
+    out = {}
+    if shapes["hash_insert"]:
+        own = ("store_sales_ticket", *split_keys(ds_conn, "store_sales", "ss_ticket_number"))
+        out["hash_insert"] = insert_checks(shapes["hash_insert"], own, gen)
+    if shapes["hash_probe"]:
+        out["hash_probe"] = probe_checks(shapes["hash_probe"], gen)
+    if shapes["compact_rows"]:
+        out["compact_rows"] = compact_checks(shapes["compact_rows"], gen)
+    return {k: {"max_abs_err": r["max_abs_err"], "shapes": r["shapes"]}
+            for k, r in out.items()}
+
+
+def node_name(node) -> str:
+    """A plan node's name; a Limit over a Sort is a TopN."""
+    from trino_tpu_torch.sql import plan as P
+
+    if isinstance(node, P.Limit) and isinstance(node.child, P.Sort):
+        return "TopN"
+    return type(node).__name__
+
+
+def tpcds_parity(card, cpu, queries):
+    """Phase 5: every query on the card and on the CPU, results equal.
+    Returns {query: set of plan node names the CPU run executed, plan-time
+    subqueries included}."""
+    from trino_tpu_torch.exec import local_executor as LE
+
+    seen: set = set()
+    execute = LE.LocalExecutor.execute
+
+    def recording(self, node):
+        stack = [node]
+        while stack:
+            nd = stack.pop()
+            name = node_name(nd)
+            seen.add(name)
+            stack.extend(nd.child.children if name == "TopN" else nd.children)
+        return execute(self, node)
+
+    nodes = {}
+    LE.LocalExecutor.execute = recording
+    try:
+        for q, sql in queries.items():
+            seen.clear()
+            ref = cpu.execute_sql(sql, cpu.create_session("tpcds"))
+            nodes[q] = set(seen)
+            got = card.execute_sql(sql, card.create_session("tpcds"))
+            same_result(got, ref, f"tpcds sf{TPCDS_SF_PARITY:g} {q} card vs CPU")
+    finally:
+        LE.LocalExecutor.execute = execute
+    print(f"tpcds sf{TPCDS_SF_PARITY:g}: {len(queries)} queries on the card equal the "
+          f"port's CPU results", flush=True)
+    return nodes
+
+
+def tpcds_main(card, cpu, queries, nodes, fact_rows):
+    """Phase 6: every query at SF1 on the card (cold, warm, launches, host
+    reads, peak memory); the queries that run a node this slice ported are
+    held against the CPU.  Returns (per-query results, launches of the run,
+    launch shapes of the run)."""
+    from trino_tpu_torch.ops import cuda_kernels as ck
+
+    ck.reset_stats()
+    got = run_queries(card, queries, fact_rows, f"tpcds sf{TPCDS_SF_MAIN:g}", "tpcds",
+                      "store_sales")
+    launches = {k: s.launches for k, s in ck.STATS.items()}
+    shapes = {k: list(s.shapes) for k, s in ck.STATS.items()}
+    for q, kernels in TPCDS_REQUIRED.items():
+        for k in kernels:
+            check(got[q]["launches"][k] > 0, f"tpcds {q} launched no {k} kernel")
+    for k in sorted({k for ks in TPCDS_REQUIRED.values() for k in ks}):
+        check(launches[k] > 0, f"the TPC-DS path launched no {k} kernel")
+    held = [q for q in queries if nodes[q] & set(TPCDS_NEW_NODES)]
+    t0 = time.perf_counter()
+    for q in held:
+        ref = cpu.execute_sql(queries[q], cpu.create_session("tpcds"))
+        same_result(got[q]["result"], ref, f"tpcds sf{TPCDS_SF_MAIN:g} {q} card vs CPU")
+    print(f"tpcds sf{TPCDS_SF_MAIN:g}: {len(held)} queries with "
+          f"{'/'.join(TPCDS_NEW_NODES)} equal the port's CPU results "
+          f"(CPU {time.perf_counter() - t0:.1f} s): {' '.join(held)}", flush=True)
+    for q in queries:
+        print(f"tpcds nodes {q}: {' '.join(sorted(nodes[q]))}", flush=True)
+    return got, launches, shapes
+
+
 def main() -> int:
     import torch
 
@@ -1025,6 +1253,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from trino_tpu_torch import Engine
+        from trino_tpu_torch.connectors.tpcds import TpcdsConnector
+        from trino_tpu_torch.connectors.tpcds_queries import corpus
         from trino_tpu_torch.connectors.tpch import TpchConnector
         from trino_tpu_torch.ops import cuda_kernels as ck
     except ImportError as e:
@@ -1032,6 +1262,7 @@ def main() -> int:
               file=sys.stderr)
         return 3
 
+    t_start = time.perf_counter()
     try:
         card = card_line()
         print(f"card: {card}", flush=True)
@@ -1094,6 +1325,55 @@ def main() -> int:
             check(r["rows"] > 0, f"sf{SF_BIG:g} {q} returned no rows")
         print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
               flush=True)
+
+        # -- phase 5: TPC-DS parity at SF0.1 ------------------------------------
+        del engine, big_res, big
+        torch.cuda.empty_cache()
+        gpu = Engine(device=DEVICE)
+        gpu.register_catalog("tpcds", TpcdsConnector(sf=TPCDS_SF_PARITY,
+                                                      split_rows=SPLIT_ROWS))
+        cpu = Engine(device="cpu")
+        cpu.register_catalog("tpcds", TpcdsConnector(sf=TPCDS_SF_PARITY,
+                                                     split_rows=SPLIT_ROWS))
+        tpcds_queries = corpus()
+        nodes = tpcds_parity(gpu, cpu, tpcds_queries)
+
+        # -- phase 6: TPC-DS at SF1 ----------------------------------------------
+        ds = TpcdsConnector(sf=TPCDS_SF_MAIN, split_rows=SPLIT_ROWS)
+        gpu = Engine(device=DEVICE)
+        gpu.register_catalog("tpcds", ds)
+        cpu = Engine(device="cpu")
+        cpu.register_catalog("tpcds", TpcdsConnector(sf=TPCDS_SF_MAIN,
+                                                     split_rows=SPLIT_ROWS))
+        ds_main, ds_launches, ds_shapes = tpcds_main(gpu, cpu, tpcds_queries, nodes,
+                                                     ds.exact_row_count("store_sales"))
+        del cpu, ds_main
+        ds_checks = tpcds_kernel_checks(ds_shapes, ds)
+
+        # -- phase 7: TPC-DS SF10 on the card alone ------------------------------
+        del gpu, ds
+        torch.cuda.empty_cache()
+        ds_big = TpcdsConnector(sf=TPCDS_SF_BIG, split_rows=SPLIT_ROWS)
+        gpu = Engine(device=DEVICE)
+        gpu.register_catalog("tpcds", ds_big)
+        big_res = run_queries(gpu, {q: tpcds_queries[q] for q in TPCDS_BIG},
+                              ds_big.exact_row_count("store_sales"),
+                              f"tpcds sf{TPCDS_SF_BIG:g}", "tpcds", "store_sales")
+        for q, r in big_res.items():
+            check(r["rows"] > 0, f"tpcds sf{TPCDS_SF_BIG:g} {q} returned no rows")
+        # per path: its launches, and the checks at its own shapes (the
+        # top-level times stay the TPC-H path's largest shape's)
+        for r in kernels:
+            name = r["name"]
+            r["by_path"] = {
+                "tpch_sf1": {"launches": r["launches"], "max_abs_err": r["max_abs_err"],
+                             "checked_shapes": [x["shape"] for x in r["shapes"]]},
+                "tpcds_sf1": {"launches": ds_launches[name],
+                              **ds_checks.get(name, {"max_abs_err": None, "shapes": []})}}
+            if name in ds_checks:
+                r["max_abs_err"] = max(r["max_abs_err"], ds_checks[name]["max_abs_err"])
+            r["launches"] += ds_launches[name]
+        print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -32,6 +32,18 @@ them, and an iota payload, computed outside the timed call), and as
 ``hashjoin.probe`` (pack, hash and probe: the same call in every version of
 the package, so the fair comparison of a parent and a change).
 
+``--set tpcds`` profiles, instead, the TPC-DS corpus queries that run a
+window function (``OVER``; the SQL of tests/test_tpcds*.py) at ``--sf`` on
+``TpcdsConnector(split_rows=1<<21)``, with no wrapper splits.  For every
+query, each set also splits the device time by kernel kind (sort, scan,
+gather/scatter, reduce, elementwise, the port's kernels, other) and reports
+the host's share, wall less device time; the ``window`` range (the window
+kernel: sorts, scans and the scatter back) reports its host time and the
+device span the profiler mirrors onto the card.  The set then profiles the
+window queries four more times, in turns with the window module's
+fixed-order floating prefix sum and with ``torch.cumsum`` in its place
+(``compare_cumsum``).
+
 ``--package-root DIR`` profiles the ``trino_tpu_torch`` found under DIR (for
 example an unpacked parent commit) with this script's own measurement code.
 Needs a CUDA card; exits non-zero without one.
@@ -51,6 +63,27 @@ sys.path.insert(0, _ROOT)
 
 TOP = 8  # kernels listed per query
 SPLIT_KERNELS = ("compact_rows", "hash_insert", "hash_probe", "fused_segment_agg")
+# device kernel kinds, by name, first match wins (after the port's kernels)
+KINDS = (("sort", r"(?i)sort|radix"), ("scan", r"(?i)scan|cumsum|cummax|cummin"),
+         ("gather/scatter", r"(?i)index|gather|scatter"), ("reduce", r"(?i)reduce"),
+         ("elementwise", r"(?i)elementwise|vectorized|unrolled"))
+
+
+def kinds_ms(dev, kernels):
+    """Device ms per kernel kind (KINDS, the port's kernels, other)."""
+    import re
+
+    from chip_smoke import is_port_kernel
+
+    out = collections.Counter()
+    ports = [n for names in kernels.values() for n in names]
+    for e in dev:
+        ms = e.time_range.elapsed_us() / 1e3
+        if is_port_kernel(e.name, ports):
+            out["port kernels"] += ms
+            continue
+        out[next((k for k, rx in KINDS if re.search(rx, e.name)), "other")] += ms
+    return dict(out)
 
 
 def port_kernels(ck):
@@ -60,7 +93,7 @@ def port_kernels(ck):
     return {w: kernel_names(w) for w in ck.STATS}
 
 
-def profile_queries(engine, queries, ck, kernels):
+def profile_queries(engine, queries, ck, kernels, catalog="tpch"):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -68,7 +101,7 @@ def profile_queries(engine, queries, ck, kernels):
 
     report = {}
     for q, sql in queries.items():
-        sess = engine.create_session("tpch")
+        sess = engine.create_session(catalog)
         engine.execute_sql(sql, sess)  # cold run: CUDA context, allocator, caches
         torch.cuda.synchronize()
         with profile(acc_events=True,
@@ -96,9 +129,19 @@ def profile_queries(engine, queries, ck, kernels):
                 "range_device_span_ms":
                     sum(e.time_range.elapsed_us() for e in dev_r) / 1e3 if dev_r else None,
             }
+        # the executor's window range (the window kernel), besides the wrappers'
+        win = [e for e in events if e.name == "window"]
+        win_host = [e for e in win if e.device_type == torch.autograd.DeviceType.CPU]
+        win_dev = [e for e in win if e.device_type == torch.autograd.DeviceType.CUDA]
+        ranges = {"window": {
+            "calls": len(win_host),
+            "host_ms": sum(e.time_range.elapsed_us() for e in win_host) / 1e3,
+            "device_span_ms":
+                sum(e.time_range.elapsed_us() for e in win_dev) / 1e3 if win_dev else None}}
         rows = []
         for ev in prof.key_averages():
-            if ev.device_type != torch.autograd.DeviceType.CUDA or ev.key in kernels:
+            if ev.device_type != torch.autograd.DeviceType.CUDA or ev.key in kernels \
+                    or ev.key == "window":
                 continue  # host operator rows repeat their kernels' time; ranges too
             dt = getattr(ev, "self_device_time_total", None)
             if dt is None:
@@ -113,6 +156,9 @@ def profile_queries(engine, queries, ck, kernels):
             "device_ops": len(dev),
             "port_kernels": wrappers,
             "host_reads": engine.last_query_counters.get("host_reads"),
+            "device_ms_by_kind": kinds_ms(dev, kernels),
+            "host_ms": (wall * 1e3 - device_us / 1e3),
+            "ranges": ranges,
             "top_kernels": [{"kernel": k, "device_ms": dt / 1e3, "calls": c}
                             for dt, k, c in rows[:TOP]],
         }
@@ -121,6 +167,9 @@ def profile_queries(engine, queries, ck, kernels):
         print(f"{q}: wall_ms={r['wall_ms']:.3f} device_ms={r['device_ms']:.3f} "
               f"busy={r['device_busy_share']:.3f} device_ops={r['device_ops']} "
               f"host_reads={r['host_reads']} port_kernel_ms={port}", flush=True)
+        print("    by kind: " + " ".join(f"{k}={v:.3f}" for k, v in
+                                      sorted(r["device_ms_by_kind"].items()))
+              + f" host={r['host_ms']:.3f} ranges={r['ranges']}", flush=True)
         for t in r["top_kernels"]:
             print(f"    {t['device_ms']:9.3f} ms  {t['calls']:6d}  {t['kernel'][:90]}")
     return report
@@ -129,7 +178,9 @@ def profile_queries(engine, queries, ck, kernels):
 def totals(report, kernels):
     """Sums over the queries: wall, device time, and per wrapper."""
     out = {"wall_ms": sum(r["wall_ms"] for r in report.values()),
-           "device_ms": sum(r["device_ms"] for r in report.values()), "port_kernels": {}}
+           "device_ms": sum(r["device_ms"] for r in report.values()), "port_kernels": {},
+           "device_ms_by_kind": dict(sum((collections.Counter(r["device_ms_by_kind"])
+                                          for r in report.values()), collections.Counter()))}
     out["device_busy_share"] = out["device_ms"] / out["wall_ms"] if out["wall_ms"] else None
     for w in kernels:
         rs = [r["port_kernels"][w] for r in report.values()]
@@ -236,10 +287,77 @@ def split_kernels(ck, shapes, kernels, conn, seed=7):
     return out
 
 
+def profile_tpcds(args, ck, kernels) -> int:
+    """The TPC-DS window queries under the profiler (module docstring)."""
+    import re
+
+    from chip_smoke import card_line
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpcds import TpcdsConnector
+    from trino_tpu_torch.connectors.tpcds_queries import corpus
+
+    queries = {q: sql for q, sql in corpus().items()
+               if re.search(r"(?i)\bover\s*\(", sql)}
+    engine = Engine(device="cuda")
+    engine.register_catalog("tpcds", TpcdsConnector(sf=args.sf, split_rows=1 << 21))
+    report = {"card": card_line(), "sf": args.sf, "set": "tpcds", "port_kernels": kernels}
+    print(f"card: {report['card']}", flush=True)
+    report["queries"] = profile_queries(engine, queries, ck, kernels, "tpcds")
+    report["totals"] = totals(report["queries"], kernels)
+    print("totals: " + json.dumps(report["totals"]), flush=True)
+    report["cumsum"] = compare_cumsum(engine, queries, ck, kernels)
+    _write(report, args.out)
+    return 0
+
+
+def compare_cumsum(engine, queries, ck, kernels):
+    """The window queries with the window module's floating prefix sum
+    (``ops/window._cumsum``, a fixed-order log-step scan) and with
+    ``torch.cumsum`` in its place, in turns (scan, torch, torch, scan):
+    per round the sums over the queries of wall, device time, device
+    operations, and the ``window`` range's host time and device span."""
+    import torch
+
+    from trino_tpu_torch.ops import window
+
+    scan = window._cumsum
+    variants = {"scan": scan, "torch.cumsum": lambda v: torch.cumsum(v, 0)}
+    rounds = []
+    for name in ("scan", "torch.cumsum", "torch.cumsum", "scan"):
+        window._cumsum = variants[name]
+        try:
+            got = profile_queries(engine, queries, ck, kernels, "tpcds")
+        finally:
+            window._cumsum = scan
+        win = [r["ranges"]["window"] for r in got.values()]
+        rec = {"variant": name,
+               "wall_ms": sum(r["wall_ms"] for r in got.values()),
+               "device_ms": sum(r["device_ms"] for r in got.values()),
+               "device_ops": sum(r["device_ops"] for r in got.values()),
+               "window_calls": sum(w["calls"] for w in win),
+               "window_host_ms": sum(w["host_ms"] for w in win),
+               "window_device_span_ms": sum(w["device_span_ms"] or 0.0 for w in win)}
+        rounds.append(rec)
+        print("cumsum " + json.dumps(rec), flush=True)
+    return rounds
+
+
+def _write(report, path):
+    text = json.dumps(report)
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(text + "\n")
+    print(text)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--out", default=None, help="write the JSON report here too")
+    ap.add_argument("--set", default="tpch", choices=("tpch", "tpcds"),
+                    help="the TPC-H queries and wrapper splits, or the TPC-DS "
+                         "window queries")
     ap.add_argument("--package-root", default=None,
                     help="profile the trino_tpu_torch under this directory")
     args = ap.parse_args(argv)
@@ -259,6 +377,8 @@ def main(argv=None) -> int:
 
     ck.build_kernels()
     kernels = port_kernels(ck)
+    if args.set == "tpcds":
+        return profile_tpcds(args, ck, kernels)
     engine = Engine(device="cuda")
     conn = TpchConnector(sf=args.sf, split_rows=1 << 21)
     engine.register_catalog("tpch", conn)
@@ -273,12 +393,7 @@ def main(argv=None) -> int:
     del engine
     torch.cuda.empty_cache()
     report["split"] = split_kernels(ck, shapes, kernels, conn)
-    text = json.dumps(report)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            f.write(text + "\n")
-    print(text)
+    _write(report, args.out)
     return 0
 
 

@@ -1,6 +1,8 @@
 """Tests of the port that need a CUDA card: each kernel against its plain
-version on the card, and TPC-H, multi-match joins and global aggregates on
-the card against the same SQL on the CPU.
+version on the card; TPC-H, multi-match joins, global aggregates and the
+TPC-DS corpus on the card against the same SQL on the CPU; the window
+primitives and the window kernel on the card against their CPU runs; and
+the streaming LIMIT compacting through the CUDA kernel.
 
 They skip without a card.  This file imports no jax, so on a machine with a
 card (which has no jax) it runs without the repo's conftest:
@@ -388,3 +390,167 @@ def test_multi_match_and_global_aggregate_card_vs_cpu(dev, name):
         assert ck.STATS["hash_probe"].launches > 0
     assert len(results["cuda"][name]) > 0
     _same(results["cuda"][name], results["cpu"][name])
+
+
+# -- windows, streaming LIMIT and TPC-DS --------------------------------------------------
+
+
+def _window_page(rng, n, device):
+    """Partition int32 (NULLs), order int64 (ties, NULLs), decimal raw int64
+    (NULLs), DOUBLE, int64, order int32; valid with pad rows."""
+    cols = [rng.integers(0, 7, n).astype(np.int32), rng.integers(0, 15, n),
+            rng.integers(-10**6, 10**6, n), np.round(rng.normal(size=n) * 50, 3),
+            rng.integers(-50, 50, n), rng.integers(0, 40, n).astype(np.int32)]
+    nulls = [rng.random(n) < 0.1, rng.random(n) < 0.15, rng.random(n) < 0.2,
+             None, None, None]
+    valid = rng.random(n) < 0.85
+    return (tuple(torch.as_tensor(c, device=device) for c in cols),
+            tuple(None if m is None else torch.as_tensor(m, device=device) for m in nulls),
+            torch.as_tensor(valid, device=device))
+
+
+def _window_specs():
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.sql import plan as P
+
+    D = T.DecimalType.of(12, 2)
+    asc, dnf, k5 = P.SortKey(1), P.SortKey(1, False, True), P.SortKey(5)
+
+    def spec(kind, arg, typ, order=(asc,), part=(0,), **kw):
+        return P.WindowSpec(kind, arg, part, order, kind, typ, **kw)
+
+    return [spec("row_number", None, T.BIGINT), spec("rank", None, T.BIGINT, order=(dnf,)),
+            spec("dense_rank", None, T.BIGINT), spec("count_star", None, T.BIGINT),
+            spec("count", 2, T.BIGINT, order=()), spec("sum", 2, D),
+            spec("sum", 3, T.DOUBLE, order=()), spec("avg", 2, D),
+            spec("avg", 3, T.DOUBLE), spec("min", 2, D), spec("max", 4, T.BIGINT, order=()),
+            spec("lag", 2, D), spec("lag", 4, T.BIGINT, offset=2, default=-1),
+            spec("lead", 2, D, ignore_nulls=True), spec("lead", 4, T.BIGINT, offset=3),
+            spec("percent_rank", None, T.DOUBLE), spec("cume_dist", None, T.DOUBLE),
+            spec("ntile", None, T.BIGINT, offset=3), spec("nth_value", 4, T.BIGINT, offset=2),
+            spec("first_value", 2, D, ignore_nulls=True), spec("last_value", 4, T.BIGINT),
+            spec("sum", 2, D, order=(k5,), frame=("rows", "p", 2, "cr", 0)),
+            spec("min", 4, T.BIGINT, order=(k5,), frame=("rows", "f", 1, "f", 2)),
+            spec("max", 2, D, order=(k5,), frame=("rows", "up", 0, "uf", 0)),
+            spec("sum", 4, T.BIGINT, order=(k5,), frame=("range", "p", 10, "cr", 0)),
+            spec("count", 2, T.BIGINT, order=(asc,), frame=("range", "p", 5, "f", 5)),
+            spec("min", 3, T.DOUBLE, order=(dnf,), frame=("range", "p", 3, "f", 2))]
+
+
+def _close(a, b, what):
+    a, b = a.cpu(), b.cpu()
+    assert a.dtype == b.dtype and a.shape == b.shape, what
+    if a.is_floating_point():
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-9, atol=0, err_msg=what)
+    else:
+        assert torch.equal(a, b), what
+
+
+@pytest.mark.parametrize("n", [1, 1000, 300001])
+def test_window_kernel_on_the_card_equals_the_cpu(dev, n):
+    from trino_tpu_torch.exec.local_executor import _window_kernel
+
+    rng = np.random.default_rng(n)
+    page = _window_page(rng, n, dev)
+    specs = _window_specs()
+    gc, gn = _window_kernel(specs, *page)
+    cc, cn = _window_kernel(specs, *(tuple(None if x is None else x.cpu() for x in part)
+                                     if isinstance(part, tuple) else part.cpu()
+                                     for part in page))
+    live = page[2].cpu()
+    for i, s in enumerate(specs):
+        what = f"{s.kind} {s.frame}"
+        assert (gn[i] is None) == (cn[i] is None), what
+        null = torch.zeros(n, dtype=torch.bool) if cn[i] is None else cn[i]
+        if gn[i] is not None:
+            _close(gn[i][page[2]], cn[i][live], what + " nulls")
+        keep = live & ~null
+        _close(gc[i].cpu()[keep], cc[i][keep], what)
+
+
+def test_window_primitives_on_the_card_equal_the_cpu(dev):
+    from trino_tpu_torch.ops import window as W
+
+    rng = np.random.default_rng(9)
+    n = 100003
+    part = np.sort(rng.integers(0, 500, n))
+    key = rng.integers(0, 30, n)
+    order = np.lexsort((key, part))
+    part, key = part[order], key[order]
+    part_new = np.r_[True, part[1:] != part[:-1]]
+    peer_new = part_new | np.r_[True, key[1:] != key[:-1]]
+    vals = rng.integers(-10**9, 10**9, n)
+    dbl = rng.normal(size=n)
+    nonnull = rng.random(n) < 0.7
+
+    def conv(a, device):
+        if isinstance(a, list):
+            return [conv(x, device) for x in a]
+        return torch.as_tensor(a, device=device) if isinstance(a, np.ndarray) else a
+
+    def both(fn, *args, **kw):
+        return (fn(*(conv(a, dev) for a in args), **kw),
+                fn(*(conv(a, "cpu") for a in args), **kw))
+
+    keys = [part.astype(np.int32), rng.random(n) < 0.5, dbl, key]
+    _close(*both(W.window_order, keys, [False, True, True, False]), "window_order")
+    for fn, args in ((W.row_number, (part_new,)), (W.rank, (part_new, peer_new)),
+                     (W.dense_rank, (part_new, peer_new)),
+                     (W.segmented_scan_sum, (vals, part_new, peer_new)),
+                     (W.segmented_scan_sum, (dbl, part_new, peer_new)),
+                     (W.partition_total, (vals, part_new)),
+                     (W.segmented_scan_minmax, (dbl, part_new, peer_new, "min")),
+                     (W.segmented_scan_minmax, (vals, part_new, part_new, "max")),
+                     (W.shift_in_partition, (vals, part_new, 2, -1)),
+                     (W.shift_ignore_nulls, (vals, nonnull, part_new, -3, 0))):
+        g, c = both(fn, *args)
+        for x, y in zip(g if isinstance(g, tuple) else (g,), c if isinstance(c, tuple) else (c,)):
+            _close(x, y, fn.__name__)
+    for frame in (("rows", "p", 2, "cr", 0), ("rows", "f", 3, "f", 4),
+                  ("range", "p", 10, "cr", 0), ("range", "p", 5, "f", 5)):
+        (glo, ghi), (clo, chi) = both(W.frame_bounds, part_new, peer_new, frame, key)
+        _close(glo, clo, f"lo {frame}")
+        _close(ghi, chi, f"hi {frame}")
+        lo, hi = clo.numpy(), chi.numpy()
+        _close(*both(W.framed_sum, dbl, lo, hi), f"framed_sum {frame}")
+        live = torch.as_tensor(hi >= lo)
+        g, c = both(W.framed_minmax, vals, lo, hi, "max")
+        _close(g.cpu()[live], c[live], f"framed_minmax {frame}")
+        for x, y in zip(*both(W.framed_nth_nonnull, vals, nonnull, lo, hi, 2)):
+            _close(x, y, f"framed_nth_nonnull {frame}")
+
+
+def test_streaming_limit_compacts_through_the_kernel(dev):
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    sql = ("select l_orderkey, l_quantity, l_shipdate from lineitem "
+           "where l_quantity < 5 limit 3000")
+    got = {}
+    for device in ("cuda", "cpu"):
+        e = Engine(device=device)
+        e.register_catalog("tpch", TpchConnector(sf=0.01, split_rows=1 << 13))
+        ck.reset_stats()
+        got[device] = e.execute_sql(sql, e.create_session("tpch"))
+        if device == "cuda":
+            assert ck.STATS["compact_rows"].launches > 0
+    assert len(got["cuda"]) == 3000
+    _same(got["cuda"], got["cpu"])
+
+
+def test_tpcds_corpus_on_the_card_equals_the_cpu(dev):
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpcds import TpcdsConnector
+    from trino_tpu_torch.connectors.tpcds_queries import corpus
+
+    engines = {}
+    for device in ("cuda", "cpu"):
+        engines[device] = Engine(device=device)
+        engines[device].register_catalog("tpcds", TpcdsConnector(sf=0.01,
+                                                                 split_rows=1 << 14))
+    ck.reset_stats()
+    for q, sql in corpus().items():
+        a, b = (engines[d].execute_sql(sql, engines[d].create_session("tpcds"))
+                for d in ("cuda", "cpu"))
+        _same(a, b)
+    assert sum(s.launches for s in ck.STATS.values()) > 0

@@ -118,10 +118,14 @@ def test_chip_smoke_copies_the_tests_tpch_sql():
 
 
 def test_plan_outside_the_slice_raises_naming_the_path(torch_engine):
-    with pytest.raises(NotImplementedError, match="Window node"):
+    # windows are ported; MATCH_RECOGNIZE is not yet
+    with pytest.raises(NotImplementedError, match="MatchRecognize node"):
         torch_engine.execute_sql(
-            "select n_name, row_number() over (partition by n_regionkey "
-            "order by n_name) as r from nation", torch_engine.create_session("tpch"))
+            "select * from nation match_recognize (partition by n_regionkey "
+            "order by n_nationkey measures first(a.n_nationkey) as f "
+            "one row per match pattern (a b+) "
+            "define b as b.n_nationkey > a.n_nationkey)",
+            torch_engine.create_session("tpch"))
 
 
 def test_engine_defaults_to_the_card(monkeypatch):

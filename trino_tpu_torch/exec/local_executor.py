@@ -25,6 +25,7 @@ import torch
 
 from ..ops import hashagg
 from ..ops.arrays import compact_rows
+from ..ops.cuda_kernels import _ranged
 from ..ops.hashing import ceil_pow2
 from ..ops.hashjoin import (DIRECT_JOIN_RANGE_MAX, DirectJoinTable,
                             DirectMultiJoinTable, build_insert, build_table_init,
@@ -100,6 +101,10 @@ def _identity(c, n, v, aux):
     return c, n, v
 
 
+# nodes that run to completion before their consumer sees a row
+_BLOCKING = (P.Aggregate, P.Sort, P.Limit, P.Output, P.Window)
+
+
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to trino_tpu_torch")
 
@@ -168,11 +173,16 @@ class LocalExecutor:
                 child, dicts = self._execute_to_page(node.child.child)
                 return self._sort_or_topn(child, node.child.keys, node.count,
                                           dicts), dicts
-            raise _not_ported(f"Limit over {type(node.child).__name__} (the limit "
-                              "page and short-circuit scan paths)")
+            if not isinstance(node.child, _BLOCKING):
+                # streaming child: stop pulling pages once the limit is reached
+                return self._limited_stream_page(node)
+            child, dicts = self._execute_to_page(node.child)
+            return self._limit_page(child, node.count), dicts
         if isinstance(node, P.Aggregate):
             return self._run_aggregate(node)
-        if isinstance(node, (P.Window, P.Unnest, P.MatchRecognize)):
+        if isinstance(node, P.Window):
+            return self._run_window(node)
+        if isinstance(node, (P.Unnest, P.MatchRecognize)):
             raise _not_ported(f"{type(node).__name__} node")
         # streaming leaf reached directly (scan/filter/project/join-probe): materialize
         stream = self._compile_stream(node)
@@ -282,9 +292,27 @@ class LocalExecutor:
         if isinstance(node, P.Join):
             return self._compile_join(node)
 
-        if isinstance(node, (P.Aggregate, P.Sort, P.Limit, P.Output)):
+        if isinstance(node, P.Union):
+            # UNION ALL: each branch's transformed pages in turn; the first
+            # branch's dictionaries label the output, as in the reference
+            subs = [self._compile_stream(c) for c in node.inputs]
+
+            def pages(subs=subs, node=node):
+                for sub in subs:
+                    for page in sub.pages():
+                        yield Page(node.schema, *sub.run(page))
+
+            return _Stream(node.schema, subs[0].dicts, pages, _identity)
+
+        if isinstance(node, P.Values):
+            page = self._values_page(node)
+            return _Stream(node.schema, tuple(None for _ in node.schema.fields),
+                           lambda page=page: iter((page,)), _identity)
+
+        if isinstance(node, _BLOCKING):
             # blocking sub-plan feeding a streaming consumer: run it, emit its page
             page, dicts = self._execute_to_page(node)
+            page = self._device_page(page)
             return _Stream(node.schema, dicts, lambda page=page: iter((page,)), _identity)
 
         raise _not_ported(f"{type(node).__name__} node in a streaming pipeline")
@@ -748,11 +776,97 @@ class LocalExecutor:
         return any(bool(x) for x in got[1:]), bool(got[0])
 
     def _execute_to_page_streamed(self, node):
-        """Materialize a sub-plan into one device page (join build side)."""
-        if isinstance(node, (P.Aggregate, P.Sort, P.Limit, P.Output)):
-            return self._execute_to_page(node)
+        """Materialize a sub-plan into one device page (join build side,
+        window input)."""
+        if isinstance(node, _BLOCKING):
+            page, dicts = self._execute_to_page(node)
+            return self._device_page(page), dicts
         stream = self._compile_stream(node)
         return self._concat_stream(stream), stream.dicts
+
+    def _device_page(self, page: Page) -> Page:
+        """A page whose columns were pulled to the host (sort, TopN, limit)
+        back on the device, every row live."""
+        if all(isinstance(c, torch.Tensor) for c in page.columns):
+            return page
+        cols = tuple(torch.as_tensor(np.asarray(c), dtype=torch_dtype(f.type),
+                                     device=self.device)
+                     for c, f in zip(page.columns, page.schema.fields))
+        nulls = tuple(None if m is None else torch.as_tensor(np.asarray(m), device=self.device)
+                      for m in page.null_masks)
+        return Page(page.schema, cols, nulls, None)
+
+    # -- window, limit, values -------------------------------------------------
+    def _run_window(self, node: P.Window):
+        """Blocking window evaluation: materialize the input, then sort,
+        segmented scans and a scatter back (``_window_kernel``)."""
+        page, dicts = self._execute_to_page_streamed(node.child)
+        spec_dicts = _window_spec_dicts(node.specs, dicts)
+        if page.capacity == 0:
+            cols = tuple(page.columns) + tuple(
+                torch.zeros((0,), dtype=torch_dtype(s.type), device=self.device)
+                for s in node.specs)
+            return (Page(node.schema, cols,
+                         tuple(page.null_masks) + tuple(None for _ in node.specs), None),
+                    tuple(dicts) + spec_dicts)
+        out_cols, out_nulls = _window_kernel(node.specs, page.columns, page.null_masks,
+                                             page.valid)
+        return (Page(node.schema, tuple(page.columns) + out_cols,
+                     tuple(page.null_masks) + out_nulls, page.valid),
+                tuple(dicts) + spec_dicts)
+
+    def _limited_stream_page(self, node: P.Limit):
+        """LIMIT over a streaming child: pull pages only until ``count`` live
+        rows exist, then stop the source.  One read per page counts its live
+        rows; each part's rows pack through the compaction kernel."""
+        stream = self._compile_stream(node.child)
+        nc = len(stream.schema.fields)
+        parts, total = [], 0
+        for page in stream.pages():
+            cols, nulls, valid = stream.run(page)
+            n = int(self._host([torch.sum(valid, dtype=torch.int32)], site="limit.count")[0])
+            if n == 0:
+                continue
+            n = min(n, node.count - total)
+            bucket = max(1 << max(n - 1, 1).bit_length(), 1024)
+            packed, _ = compact_rows(tuple(cols) + tuple(nulls), valid,
+                                     min(bucket, valid.shape[0]))
+            parts.append((packed[:nc], packed[nc:], n))
+            total += n
+            if total >= node.count:
+                break
+        if not parts:
+            cols = tuple(torch.zeros((0,), dtype=torch_dtype(f.type), device=self.device)
+                         for f in stream.schema.fields)
+            return Page(stream.schema, cols, tuple(None for _ in cols), None), stream.dicts
+        cols = tuple(torch.cat([c[ci][:n] for c, _, n in parts]) for ci in range(nc))
+        nulls = []
+        for ci in range(nc):
+            if all(nm[ci] is None for _, nm, _ in parts):
+                nulls.append(None)
+            else:
+                nulls.append(torch.cat([
+                    torch.zeros((n,), dtype=torch.bool, device=self.device)
+                    if nm[ci] is None else nm[ci][:n] for _, nm, n in parts]))
+        return Page(stream.schema, cols, tuple(nulls), None), stream.dicts
+
+    def _limit_page(self, page: Page, count: int) -> Page:
+        """The first ``count`` live rows of a blocking child's page, on the
+        host."""
+        if all(isinstance(c, torch.Tensor) for c in page.columns):
+            valid, pcols, pnulls = self._host_page(page, site="limit.page")
+        else:  # already pulled (sort, TopN): every row live
+            pcols, pnulls = page.columns, page.null_masks
+            valid = np.ones((len(pcols[0]) if pcols else 0,), bool)
+        cols = tuple(np.asarray(c)[valid][:count] for c in pcols)
+        nulls = tuple(None if m is None else np.asarray(m)[valid][:count] for m in pnulls)
+        return Page(page.schema, cols, nulls, None)
+
+    def _values_page(self, node: P.Values) -> Page:
+        cols = tuple(torch.as_tensor(np.array([r[ci] for r in node.rows]),
+                                     device=self.device).to(torch_dtype(f.type))
+                     for ci, f in enumerate(node.schema.fields))
+        return Page(node.schema, cols, tuple(None for _ in cols), None)
 
     def _direct_join_span(self, build_page: Page, key_channels, key_types):
         """(lo, span) when the build keys form one dense integer range small
@@ -1139,7 +1253,14 @@ def _accumulators_for(spec: P.AggSpec):
     if spec.kind in ("min", "max"):
         dtype = spec.arg.type.dtype
         return [(spec.kind, dtype, hashagg._extreme(dtype, 1 if spec.kind == "min" else -1))]
+    if spec.kind in _VARIANCE_KINDS:
+        # (sum, sum of squares, count): the merge-friendly form of the
+        # reference's VarianceState
+        return [("sum", np.float64, 0), ("sum_sq", np.float64, 0), ("count", np.int64, 0)]
     raise _not_ported(f"aggregate {spec.kind}")
+
+
+_VARIANCE_KINDS = ("var_pop", "var_samp", "stddev_pop", "stddev_samp")
 
 
 def _global_init_state(acc_specs, device) -> tuple:
@@ -1166,6 +1287,9 @@ def _global_agg_update(state, cols, nulls, valid, acc_exprs, acc_kinds) -> tuple
             v64 = v.to(torch.int64)
             h = (v64 >> 32) if kind == "sum_hi32" else (v64 & 0xFFFFFFFF)
             out.append(st + torch.sum(torch.where(mask, h, 0), dtype=st.dtype))
+        elif kind == "sum_sq":
+            vv = v.to(st.dtype)
+            out.append(st + torch.sum(torch.where(mask, vv * vv, 0), dtype=st.dtype))
         elif kind in ("min", "max"):
             if v.numel() == 0:
                 out.append(st)
@@ -1211,7 +1335,8 @@ def _finalize_aggs_device(aggs, acc_cols):
         elif spec.kind == "avg":
             s, c = acc_cols[i], acc_cols[i + 1]
             i += 2
-            out.append((s / torch.where(c == 0, torch.ones_like(c), c)).to(torch.float64))
+            # in float64: torch divides two integer tensors in float32
+            out.append(s.to(torch.float64) / torch.where(c == 0, torch.ones_like(c), c))
             nulls.append(c == 0)
         elif spec.kind == "sum" and isinstance(spec.type, DecimalType):
             hi, lo, c = acc_cols[i], acc_cols[i + 1], acc_cols[i + 2]
@@ -1225,6 +1350,19 @@ def _finalize_aggs_device(aggs, acc_cols):
             i += 2
             out.append(s.to(torch_dtype(spec.type)))
             nulls.append(c == 0)
+        elif spec.kind in _VARIANCE_KINDS:
+            s, ssq, c = acc_cols[i], acc_cols[i + 1], acc_cols[i + 2]
+            i += 3
+            c_safe = torch.where(c == 0, 1, c).to(torch.float64)
+            m2 = torch.clamp(ssq - s * s / c_safe, min=0.0)  # fp cancellation
+            if spec.kind.endswith("_pop"):
+                var = m2 / c_safe
+                null = c == 0
+            else:  # undefined below two rows
+                var = torch.where(c < 2, 0.0, m2 / torch.where(c < 2, 1, c - 1))
+                null = c < 2
+            out.append(torch.sqrt(var) if spec.kind.startswith("stddev") else var)
+            nulls.append(null)
         else:
             col = acc_cols[i]
             i += 1
@@ -1271,3 +1409,266 @@ def _materialize_host(schema, valid, pcols, pnulls, dicts) -> MaterializedResult
         types.append(f.type)
         columns.append(dec)
     return MaterializedResult(tuple(names), tuple(types), columns, raw)
+
+
+# -- windows ------------------------------------------------------------------------------
+
+
+def _window_spec_dicts(specs, dicts):
+    """Output dictionaries per window spec: value-passing kinds inherit the
+    argument channel's dictionary."""
+    return tuple(
+        dicts[s.arg] if s.kind in ("min", "max", "lag", "lead", "first_value",
+                                   "last_value") and s.arg is not None else None
+        for s in specs)
+
+
+def _scatter_back(res, perm):
+    """Results in sorted order -> row order (``perm`` is a permutation)."""
+    out = torch.empty_like(res)
+    out[perm] = res
+    return out
+
+
+@_ranged("window")
+def _window_kernel(specs, cols, nulls, valid=None):
+    """Evaluate all window specs over one materialized page (``ops/window``).
+
+    Specs with the same (partition, order) clause share one sort.  ``valid``
+    (optional) marks live rows: invalid (pad) rows form their own partition,
+    sorted last, so they never join a real partition; their outputs are
+    garbage the caller drops."""
+    from ..ops import window as W
+
+    n = cols[0].shape[0]
+    dev = cols[0].device
+    pad = None if valid is None else ~valid
+    cache: dict = {}
+
+    def keyed(ch):
+        """(indicator, value) sort/segment columns of a channel: NULL rows
+        group together and sort by the indicator, not their fill value."""
+        nm = nulls[ch]
+        if nm is None:
+            return [(None, cols[ch])]
+        c = cols[ch]
+        return [(nm, torch.where(nm, torch.zeros((), dtype=c.dtype, device=dev), c))]
+
+    def sorted_order(s):
+        kcols, desc = [], []
+        if pad is not None:
+            kcols.append(pad)  # pads sort after every live row
+            desc.append(False)
+        for c in s.partition:
+            for ind, v in keyed(c):
+                if ind is not None:
+                    kcols.append(ind)
+                    desc.append(False)
+                kcols.append(v)
+                desc.append(False)
+        for k in s.order:
+            for ind, v in keyed(k.channel):
+                if ind is not None:
+                    # nulls_first: the NULL indicator sorts first (descending)
+                    kcols.append(ind)
+                    desc.append(bool(k.nulls_first))
+                kcols.append(v)
+                desc.append(not k.ascending)
+        perm = W.window_order(kcols, desc) if kcols \
+            else torch.arange(n, dtype=torch.int64, device=dev)
+
+        def seg_cols(channels):
+            out = []
+            for c in channels:
+                for ind, v in keyed(c):
+                    if ind is not None:
+                        out.append(ind[perm])
+                    out.append(v[perm])
+            return out
+
+        pad_seg = [] if pad is None else [pad[perm]]
+        if s.partition or pad is not None:
+            part_new = W.segments(pad_seg + seg_cols(s.partition))
+        else:
+            part_new = torch.zeros((n,), dtype=torch.bool, device=dev)
+            part_new[:1] = True
+        peer_new = part_new | W.segments(seg_cols([k.channel for k in s.order])) \
+            if s.order else part_new
+        return perm, part_new, peer_new
+
+    out_cols, out_nulls = [], []
+    for s in specs:
+        ck = (s.partition, s.order)
+        if ck not in cache:
+            cache[ck] = sorted_order(s)
+        perm, part_new, peer_new = cache[ck]
+        framed = bool(s.order)  # ORDER BY -> running frame; else whole partition
+        # explicit ROWS/RANGE BETWEEN frame: per-row [lo, hi] bounds; empty
+        # frames (hi < lo) are legal and NULL
+        frame = s.frame
+        lo_f = hi_f = empty_f = None
+        if frame is not None:
+            order_vals = None
+            if frame[0] == "range" and (frame[1] in ("p", "f") or frame[3] in ("p", "f")):
+                # value-offset RANGE bounds: the single ORDER BY key's sorted
+                # values, ascending-normalized, NULL rows pushed past the
+                # reachable range so they frame only among themselves
+                k0 = s.order[0]
+                ov = cols[k0.channel][perm]
+                if not k0.ascending:
+                    ov = -ov
+                nm0 = nulls[k0.channel]
+                if nm0 is not None:
+                    nmv = nm0[perm]
+                    gap = 2 * (max(frame[2], frame[4]) + 1)
+                    nn_min = torch.min(torch.where(nmv, torch.max(ov), ov))
+                    nn_max = torch.max(torch.where(nmv, torch.min(ov), ov))
+                    sent = nn_min - gap if bool(k0.nulls_first) else nn_max + gap
+                    ov = torch.where(nmv, sent, ov)
+                order_vals = ov
+            lo_f, hi_f = W.frame_bounds(part_new, peer_new, frame, order_vals)
+            empty_f = hi_f < lo_f
+
+        def wsum(v, dt=None):
+            if frame is not None:
+                return W.framed_sum(v, lo_f, hi_f, dt)
+            return (W.segmented_scan_sum(v, part_new, peer_new, dt) if framed
+                    else W.partition_total(v, part_new, dt))
+
+        def wminmax(v, kind):
+            if frame is not None:
+                return W.framed_minmax(v, lo_f, hi_f, kind)
+            return W.segmented_scan_minmax(v, part_new, peer_new if framed else part_new,
+                                           kind)
+
+        def count_of(mask):
+            return wsum(torch.where(mask, 1, 0))
+
+        vals = vmask = None  # vmask: True where the input value counts
+        if s.arg is not None:
+            vals = cols[s.arg][perm]
+            nm = nulls[s.arg]
+            vmask = None if nm is None else ~nm[perm]
+
+        null_out = None
+        if s.kind == "row_number":
+            res = W.row_number(part_new)
+        elif s.kind == "rank":
+            res = W.rank(part_new, peer_new)
+        elif s.kind == "dense_rank":
+            res = W.dense_rank(part_new, peer_new)
+        elif s.kind in ("count", "count_star"):
+            ones = torch.ones((n,), dtype=torch.int64, device=dev)
+            if s.kind == "count" and vmask is not None:
+                ones = torch.where(vmask, 1, 0)
+            res = wsum(ones)  # empty frames count 0
+        elif s.kind in ("sum", "avg"):
+            acc_dt = torch.float64 if s.type.is_floating else torch.int64
+            v = vals if vmask is None else torch.where(vmask, vals, 0)
+            total = wsum(v, acc_dt)
+            nn_cnt = None
+            if vmask is not None:
+                nn_cnt = count_of(vmask)
+                null_out = nn_cnt == 0  # all-NULL (or empty) frame -> NULL
+            elif empty_f is not None:
+                null_out = empty_f
+            if s.kind == "sum":
+                res = total
+            else:
+                cnt = nn_cnt if nn_cnt is not None \
+                    else wsum(torch.ones((n,), dtype=torch.int64, device=dev))
+                cnt_safe = torch.clamp(cnt, min=1)
+                if s.type.is_floating:
+                    res = total / cnt_safe
+                else:  # decimal avg: HALF_UP, as the aggregation path rounds
+                    a = torch.abs(total)
+                    q = torch.div(a, cnt_safe, rounding_mode="floor")
+                    r = a - q * cnt_safe
+                    res = (q + (2 * r >= cnt_safe).to(torch.int64)) * torch.sign(total)
+        elif s.kind in ("min", "max"):
+            v = vals
+            if vmask is not None:
+                ident = hashagg._extreme(vals.dtype, 1 if s.kind == "min" else -1)
+                v = torch.where(vmask, vals, torch.tensor(ident, dtype=vals.dtype,
+                                                          device=dev))
+                null_out = count_of(vmask) == 0  # all-NULL frame -> NULL
+            elif empty_f is not None:
+                null_out = empty_f
+            res = wminmax(v, s.kind)
+        elif s.kind in ("lag", "lead"):
+            off = s.offset if s.kind == "lag" else -s.offset
+            fill = torch.tensor(0 if s.default is None else s.default, dtype=vals.dtype,
+                                device=dev)
+            if s.ignore_nulls and vmask is not None:
+                # navigate over non-NULL rows only (rank arithmetic over a
+                # non-null position index)
+                res, miss = W.shift_ignore_nulls(vals, vmask, part_new, off, fill)
+            else:
+                res, miss = W.shift_in_partition(vals, part_new, off, fill)
+            if s.default is None:
+                null_out = miss
+            else:
+                res = torch.where(miss, fill, res)
+                null_out = torch.zeros((n,), dtype=torch.bool, device=dev)
+            if not (s.ignore_nulls and vmask is not None) and vmask is not None:
+                shifted_null, _ = W.shift_in_partition(
+                    ~vmask, part_new, off, torch.zeros((), dtype=torch.bool, device=dev))
+                null_out = null_out | (shifted_null & ~miss)
+        elif s.kind in ("percent_rank", "cume_dist"):
+            size = W.partition_total(torch.ones((n,), dtype=torch.int64, device=dev),
+                                     part_new)
+            if s.kind == "percent_rank":
+                rk = W.rank(part_new, peer_new)
+                res = torch.where(size > 1, (rk - 1).to(torch.float64)
+                                  / torch.clamp(size - 1, min=1), 0.0)
+            else:
+                pos = W._ends(peer_new) - W._starts(part_new) + 1
+                res = pos.to(torch.float64) / size
+        elif s.kind == "ntile":
+            # the first (size % n) buckets take one extra row
+            nb = s.offset
+            size = W.partition_total(torch.ones((n,), dtype=torch.int64, device=dev),
+                                     part_new)
+            rn = W.row_number(part_new)
+            q, r = size // nb, size % nb
+            boundary = r * (q + 1)
+            res = torch.where(rn <= boundary,
+                              torch.div(rn - 1, torch.clamp(q + 1, min=1),
+                                        rounding_mode="floor"),
+                              r + torch.div(rn - 1 - boundary, torch.clamp(q, min=1),
+                                            rounding_mode="floor")) + 1
+        elif s.kind == "nth_value":
+            # a frame holding fewer than k rows yields NULL; the default
+            # frame is RANGE UNBOUNDED PRECEDING .. CURRENT ROW
+            k = s.offset
+            starts = lo_f if frame is not None else W._starts(part_new)
+            frame_end = hi_f if frame is not None else W._ends(peer_new)
+            if s.ignore_nulls and vmask is not None:
+                res, null_out = W.framed_nth_nonnull(vals, vmask, starts, frame_end, k)
+            else:
+                idx = torch.clamp(starts + (k - 1), 0, n - 1)
+                res = vals[idx]
+                null_out = (frame_end - starts + 1) < k
+                if vmask is not None:
+                    null_out = null_out | ~vmask[idx]
+        elif s.kind in ("first_value", "last_value"):
+            starts = lo_f if frame is not None else W._starts(part_new)
+            frame_end = hi_f if frame is not None \
+                else W._ends(peer_new if framed else part_new)
+            if s.ignore_nulls and vmask is not None:
+                res, null_out = W.framed_nth_nonnull(
+                    vals, vmask, starts, frame_end, 1, from_end=(s.kind == "last_value"))
+            else:
+                idx = torch.clamp(starts if s.kind == "first_value" else frame_end,
+                                  0, n - 1)
+                null_out = empty_f
+                res = vals[idx]
+                if vmask is not None:
+                    miss = ~vmask[idx]
+                    null_out = miss if null_out is None else (null_out | miss)
+        else:
+            raise _not_ported(f"window function {s.kind}")
+
+        out_cols.append(_scatter_back(res, perm).to(torch_dtype(s.type)))
+        out_nulls.append(None if null_out is None else _scatter_back(null_out, perm))
+    return tuple(out_cols), tuple(out_nulls)

@@ -14,8 +14,8 @@ computing.  Torch would otherwise let a 0-d operand take the dtype of the
 column (an int32 column times an int64 constant would compute in int32);
 explicit promotion gives the reference's x64 results.
 
-Only the calls that TPC-H (every query but Q15) reaches are ported; any
-other call raises ``NotImplementedError`` naming it.
+Only the calls that TPC-H (every query but Q15) and the TPC-DS corpus reach
+are ported; any other call raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -210,6 +210,10 @@ def _eval_call(expr: Call, columns, null_masks, device):
         return v | known_true, anynull & ~known_true
     if op == "not":
         return ~vals[0], nulls[0]
+    if op == "is_null":
+        n = nulls[0]
+        return (torch.zeros(vals[0].shape, dtype=torch.bool, device=vals[0].device)
+                if n is None else n), None
     if op == "in":
         # the planner keeps literal IN-lists as constants: vals[1:] are scalars
         acc = None
@@ -217,6 +221,30 @@ def _eval_call(expr: Call, columns, null_masks, device):
             x, y = _promote(vals[0], v)
             acc = (x == y) if acc is None else (acc | (x == y))
         return acc, nulls[0]
+    if op == "in_array":
+        # membership in a sorted unique plan-time table (an uncorrelated IN
+        # subquery run eagerly): one binary search per row
+        table, x = vals[1], vals[0]
+        if table.shape[0] == 0:
+            return torch.zeros(x.shape, dtype=torch.bool, device=x.device), nulls[0]
+        x, table = _promote(x, table)
+        ix = torch.clamp(torch.searchsorted(table.contiguous(), x), 0, table.shape[0] - 1)
+        return table[ix] == x, nulls[0]
+    if op == "coalesce":
+        # the first non-NULL argument; NULL only where every argument is
+        out_dt_ = vals[0].dtype
+        for v in vals[1:]:
+            out_dt_ = torch.promote_types(out_dt_, v.dtype)
+        out, outn = vals[-1].to(out_dt_), nulls[-1]
+        for v, n in zip(reversed(vals[:-1]), reversed(nulls[:-1])):
+            if n is None:
+                out, outn = v.to(out_dt_), None
+            else:
+                out = torch.where(n, out, v.to(out_dt_))
+                outn = (torch.zeros_like(n) if outn is None else outn) & n
+        return out, outn
+    if op == "abs":
+        return torch.abs(vals[0]).to(out_dt), nulls[0]
     if op == "lut":
         # id -> bool/value lookup table (LIKE, dictionary predicates);
         # args: (id_expr, table_const); the planner guarantees ids in range
