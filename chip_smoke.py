@@ -8,8 +8,9 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
 1. The card: the ``nvidia-smi`` name/power-limit line; build the CUDA kernels
    from ``trino_tpu_torch/csrc`` (one ``nvcc`` per source, all at once).
 2. TPC-H end to end at SF1 (``TpchConnector(sf=1, split_rows=1<<21)``, the
-   scale and split size of ``bench.py``): bench.py's five queries and the 16
-   other queries of tests/test_sql_tpch*.py (all but Q15) through
+   scale and split size of ``bench.py``): bench.py's five queries and the 17
+   other queries of tests/test_sql_tpch*.py (Q15 over the view ``Q15_VIEW``
+   creates first) through
    ``Engine(device="cuda").execute_sql``, cold and warm, with host reads and
    peak device memory per query.  Every kernel launch counter is set to 0
    just before and read just after; each query must launch the kernels that
@@ -53,6 +54,24 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
 7. Five TPC-DS queries at SF10 on the card alone (the star join, cumulative
    frames, the rollup union and windows over an aggregate): warm wall,
    store_sales rows/s and peak memory.
+8. The memory catalog at SF1: TPC-H's refresh functions (``refresh_path``)
+   over memory copies of orders and lineitem, with ``tpch`` at SF1 beside
+   them: CTAS of both tables, RF1 (MERGE as an upsert of the last 1500
+   orders, INSERT of their line items), the query block (``MEMORY_QUERIES``,
+   Q15 through its view, cold and warm, between two checksums of the stored
+   tables that must be equal), RF2 (DELETE of the first 1500 orders and
+   their line items, an UPDATE to a constant and one to an expression), the
+   query block again.  Each statement's seconds, host reads, peak device
+   memory, launches per kernel and host RSS; affected rows equal to what
+   ``tpch`` counts in each key band; the results after RF1 equal phase 2's
+   over ``tpch`` (strings by value), those after RF2 equal the port's CPU
+   run of the whole sequence; every kernel ``MEMORY_REQUIRED`` names is
+   launched (the JAX reference's recording), and DELETE compacts the stored
+   lineitem in one ``compact_rows`` launch per 16 arrays.  Then the kernels
+   against their plain versions at this path's shapes (the probe of a
+   memory lineitem page, the insert at the orders build's shape and on
+   ``o_orderkey``, compaction, also on DELETE's own inputs); the kernels
+   line's ``by_path`` gains ``memory_sf1``.
 
 It prints the card line, then one JSON line with every kernel's numbers, and
 last ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -114,8 +133,8 @@ QUERIES = {
     order by o_totalprice desc, o_orderdate limit 100""",
 }
 
-# the rest of TPC-H but Q15 (which needs CREATE VIEW), as tests/test_sql_tpch*.py
-# state them
+# the rest of TPC-H, as tests/test_sql_tpch*.py state them (Q15 reads the
+# view that Q15_VIEW creates)
 TPCH_QUERIES = {
     "q2": """
         select s_acctbal, s_name, n_name, p_partkey, p_mfgr, s_address, s_phone, s_comment
@@ -226,6 +245,12 @@ TPCH_QUERIES = {
         from lineitem, part
         where l_partkey = p_partkey and l_shipdate >= date '1995-09-01'
           and l_shipdate < date '1995-09-01' + interval '1' month""",
+    "q15": """
+            select s_suppkey, s_name, s_address, s_phone, total_revenue
+            from supplier, revenue0
+            where s_suppkey = supplier_no
+              and total_revenue = (select max(total_revenue) from revenue0)
+            order by s_suppkey""",
     "q16": """
         select p_brand, p_type, p_size, count(distinct ps_suppkey) as supplier_cnt
         from partsupp, part
@@ -304,6 +329,14 @@ TPCH_QUERIES = {
         group by cntrycode
         order by cntrycode""",
 }
+# the view Q15 reads, as tests/test_sql_tpch3.py creates it
+Q15_VIEW = """
+        create view revenue0 as
+            select l_suppkey as supplier_no,
+                   sum(l_extendedprice * (1 - l_discount)) as total_revenue
+            from lineitem
+            where l_shipdate >= date '1996-01-01' and l_shipdate < date '1996-04-01'
+            group by l_suppkey"""
 ALL_QUERIES = dict(sorted({**QUERIES, **TPCH_QUERIES}.items(),
                           key=lambda kv: int(kv[0][1:])))
 # the kernels each query must launch on the main path: those the JAX
@@ -403,6 +436,19 @@ TPCDS_REQUIRED = {
     "q83_return_quantity_ratios": ('compact_rows',),
     "q8_preferred_zip_prefix_profit": ('compact_rows', 'hash_insert'),
 }
+# phase 8: the kernels each statement of the refresh path must launch, those
+# the JAX reference reaches over the same statements (a call recording of
+# trino_tpu at SF0.1: the table that ``scripts/record_memory_kernels.py``
+# prints; over memory tables, which report no column ranges, joins and
+# group-bys take the hash paths at every scale); statements not named here
+# reach none of them, nor does Q15 over tpch (phase 2)
+MEMORY_REQUIRED = {
+    "q3": ('hash_insert',),
+    "q4": ('hash_insert',),
+    "q9": ('compact_rows', 'hash_insert', 'hash_probe'),
+    "q15": ('hash_insert',),
+    "q18": ('hash_insert',),
+}
 TPCDS_SF_PARITY = 0.1  # every corpus query on the card and the CPU
 TPCDS_SF_MAIN = 1.0
 TPCDS_SF_BIG = 10.0
@@ -436,6 +482,63 @@ SF_MAIN = 1.0  # bench.py's scale
 SF_BIG = 10.0  # the size users of a single-node engine run
 SPLIT_ROWS = 1 << 21  # bench.py's split size
 
+# -- phase 8: TPC-H's refresh functions (TPC-H Standard Specification 3.0.1,
+# clause 2.5) around the query set, over memory copies of orders and lineitem
+MEMORY_QUERIES = ("q1", "q3", "q4", "q9", "q15", "q18")
+ORDERS_COLUMNS = ("o_orderkey", "o_custkey", "o_orderstatus", "o_totalprice", "o_orderdate",
+                  "o_orderpriority", "o_clerk", "o_shippriority", "o_comment")
+# count and sums of every numeric column: what a query over a stored table
+# must leave as it found it
+CHECKSUMS = {
+    "orders": "select count(*) n, sum(o_orderkey) k, sum(o_custkey) c, "
+              "sum(o_totalprice) p, sum(o_shippriority) s from orders",
+    "lineitem": "select count(*) n, sum(l_orderkey) k, sum(l_partkey) p, sum(l_suppkey) s, "
+                "sum(l_linenumber) ln, sum(l_quantity) q, sum(l_extendedprice) e, "
+                "sum(l_discount) d, sum(l_tax) t from lineitem",
+}
+
+
+def refresh_path(n_orders: int) -> dict:
+    """Phase 8's statements at a scale of ``n_orders`` orders (keys 1 to
+    n_orders): the memory copies first hold every order but the last band of
+    SF x 1500 (n_orders / 1000); RF1 ("new sales") adds that band with its
+    line items, MERGE as an upsert for orders; RF2 ("old sales") deletes the
+    first band, then one UPDATE to a constant and one to an expression over
+    the next band.  ``counts`` are the queries over ``tpch`` whose counts the
+    affected-row counts must equal."""
+    band = n_orders // 1000
+    cut = n_orders - band
+    values = ", ".join(f"s.{c}" for c in ORDERS_COLUMNS)
+    nxt = f"between {band + 1} and {2 * band}"
+    return {
+        "band": band,
+        "load": [
+            ("ctas_orders", f"create table orders as select * from tpch.orders "
+                            f"where o_orderkey <= {cut}"),
+            ("ctas_lineitem", f"create table lineitem as select * from tpch.lineitem "
+                              f"where l_orderkey <= {cut}")],
+        "rf1": [
+            ("merge_orders", f"merge into orders t using (select * from tpch.orders "
+                             f"where o_orderkey > {cut}) s on t.o_orderkey = s.o_orderkey "
+                             f"when not matched then insert values ({values})"),
+            ("insert_lineitem", f"insert into lineitem select * from tpch.lineitem "
+                                f"where l_orderkey > {cut}")],
+        "rf2": [
+            ("delete_lineitem", f"delete from lineitem where l_orderkey <= {band}"),
+            ("delete_orders", f"delete from orders where o_orderkey <= {band}"),
+            ("update_orders", f"update orders set o_orderpriority = '1-URGENT' "
+                              f"where o_orderkey {nxt}"),
+            ("update_lineitem", f"update lineitem set l_discount = l_discount + 0.01 "
+                                f"where l_orderkey {nxt}")],
+        "counts": {
+            "merge_orders": f"select count(*) from tpch.orders where o_orderkey > {cut}",
+            "insert_lineitem": f"select count(*) from tpch.lineitem where l_orderkey > {cut}",
+            "delete_lineitem": f"select count(*) from tpch.lineitem where l_orderkey <= {band}",
+            "delete_orders": f"select count(*) from tpch.orders where o_orderkey <= {band}",
+            "update_orders": f"select count(*) from tpch.orders where o_orderkey {nxt}",
+            "update_lineitem": f"select count(*) from tpch.lineitem where l_orderkey {nxt}"},
+    }
+
 
 class SmokeFailure(Exception):
     pass
@@ -454,15 +557,20 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def same_result(a, b, what):
-    """Exact for integer/decimal/date/bool/string columns, rtol 1e-9 for DOUBLE."""
+def same_result(a, b, what, by_value=False):
+    """Exact for integer/decimal/date/bool/string columns, rtol 1e-9 for DOUBLE.
+    Strings compare as dictionary ids, or as their values with ``by_value``
+    (results over two catalogs, whose dictionaries number them differently)."""
     import numpy as np
 
     check(tuple(a.names) == tuple(b.names), f"{what}: column names differ")
     check(len(a) == len(b), f"{what}: {len(a)} rows vs {len(b)}")
-    for name, t, ca, cb in zip(a.names, a.types, a.raw_columns, b.raw_columns):
+    for name, t, ca, cb, da, db in zip(a.names, a.types, a.raw_columns, b.raw_columns,
+                                       a.columns, b.columns):
         ca, cb = np.asarray(ca), np.asarray(cb)
-        if t.is_floating:
+        if t.is_string and by_value:
+            ok = [str(x) for x in list(da)] == [str(x) for x in list(db)]
+        elif t.is_floating:
             ok = np.allclose(ca, cb, rtol=1e-9, atol=0.0, equal_nan=True)
         else:
             ok = ca.shape == cb.shape and bool((ca == cb).all())
@@ -609,12 +717,25 @@ def device_split(fn, names, setup=None, reps=20):
             setup()
         fn()
 
-    got = ops(call)
+    # every call of a wrapper makes the same number of launches, so a
+    # window whose count of the port's kernels is no whole multiple of reps
+    # lost records (16 of 20 at the memory path's 0.034 ms insert in one
+    # run of this script on an H100; a later run of three windows at that
+    # shape recorded 20 of 20 in each): profile the window again, up to
+    # three times, and keep every window's count (``profile_counts``) so
+    # that each run shows how often a window loses records, and where
+    counts_seen = []
+    for _ in range(3):
+        got = ops(call)
+        kern = [e for e in got if is_port_kernel(e.name, names)]
+        counts_seen.append(len(kern))
+        if len(kern) % reps == 0:
+            break
     setup_ops = ops(setup) if setup is not None else []
     if not got:
         return {"wall_ms": wall, "host_ms": statistics.median(host), "kernel_ms": None,
+                "profile_counts": counts_seen,
                 "note": "the profiler recorded no device activity"}
-    kern = [e for e in got if is_port_kernel(e.name, names)]
     rest = [e for e in got if not is_port_kernel(e.name, names)]
     kernel_ms = sum(e.time_range.elapsed_us() for e in kern) / reps / 1e3
     other_ms = (sum(e.time_range.elapsed_us() for e in rest)
@@ -625,7 +746,8 @@ def device_split(fn, names, setup=None, reps=20):
     for e in setup_ops:
         counts[e.name[:80]] = counts.get(e.name[:80], 0) - 1
     return {"wall_ms": wall, "host_ms": statistics.median(host), "kernel_ms": kernel_ms,
-            "kernel_launches": len(kern) / reps, "other_device_ms": other_ms,
+            "kernel_launches": len(kern) / reps, "profile_counts": counts_seen,
+            "other_device_ms": other_ms,
             "other_ops": {k: v / reps for k, v in counts.items() if v},
             "idle_ms": wall - kernel_ms - other_ms}
 
@@ -816,7 +938,8 @@ def segment_agg_checks(q1_page):
               f"rel_err kernel={err['kernel']:.3g} plain={err['plain']:.3g} "
               f"ms={ms:.4f} kernel_ms={split.get('kernel_ms')} "
               f"host_ms={split['host_ms']:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={b_ms:.6g} library_ms={library_ms:.4f}", flush=True)
+              f"bound_ms={b_ms:.6g} library_ms={library_ms:.4f} "
+              f"profiled={split['profile_counts']}", flush=True)
     first = shapes[0]
     return {"name": "fused_segment_agg", "shape": first["shape"],
             "max_abs_err": max(x["max_abs_err"] for x in shapes),
@@ -937,7 +1060,8 @@ def insert_checks(seen, own_keys, gen):
             out.append(rec)
             print(f"kernel hash_insert {label} {form}: shape={[n, C]} valid={nv} "
                   f"walks={walks} ms={rec['ms']:.4f} kernel_ms={rec['kernel_ms']} "
-                  f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.6g} ({b_by})", flush=True)
+                  f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.6g} ({b_by}) "
+                  f"profiled={split['profile_counts']}", flush=True)
     top = out[0]
     return {"name": "hash_insert", "shape": top["shape"], "form": top["form"],
             "max_abs_err": wrong_total,
@@ -998,7 +1122,8 @@ def compact_checks(seen, gen):
         out.append(rec)
         print(f"kernel compact_rows {label}: shape={rec['shape']} live={rec['live']} "
               f"ms={rec['ms']:.4f} kernel_ms={rec['kernel_ms']} plain_ms={plain_ms:.4f} "
-              f"library_ms={library_ms:.4f} bound_ms={b_ms:.6g}", flush=True)
+              f"library_ms={library_ms:.4f} bound_ms={b_ms:.6g} "
+              f"profiled={split['profile_counts']}", flush=True)
     top = out[0]
     return {"name": "compact_rows", "shape": top["shape"], "live": top["live"],
             "max_abs_err": max(r["max_abs_err"] for r in out),
@@ -1110,7 +1235,8 @@ def probe_checks(seen, gen):
                   f"kernel_ms={rec['kernel_ms']} host_ms={split['host_ms']:.4f} "
                   f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.6g} ({b_by}) "
                   f"old_bound_ms={old_ms:.6g} hashjoin.probe ms={join['wall_ms']:.4f} "
-                  f"kernel_ms={join.get('kernel_ms')}", flush=True)
+                  f"kernel_ms={join.get('kernel_ms')} "
+                  f"profiled={split['profile_counts']}", flush=True)
     top = out[0]
     return {"name": "hash_probe", "shape": top["shape"], "mode": top["mode"],
             "max_abs_err": max(r["max_abs_err"] for r in out),
@@ -1244,6 +1370,226 @@ def tpcds_main(card, cpu, queries, nodes, fact_rows):
     return got, launches, shapes
 
 
+def host_rss_gib() -> float:
+    """This process's resident host memory now, in GiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def memory_engine(device, sf):
+    """An engine with ``tpch`` at ``sf`` and an empty ``memory`` catalog, the
+    session catalog of the refresh path."""
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    e = Engine(device=device)
+    e.register_catalog("tpch", TpchConnector(sf=sf, split_rows=SPLIT_ROWS))
+    e.register_catalog("memory", MemoryConnector())
+    return e, e.create_session("memory")
+
+
+def run_statement(engine, sess, label, sql):
+    """One statement on the card: seconds (and the share of them python's
+    garbage collector took), host reads, peak device memory, launches per
+    kernel, host RSS after it, and its affected-row count."""
+    import gc
+
+    import torch
+
+    from trino_tpu_torch.ops import cuda_kernels as ck
+
+    gc_s, gc_t0 = [0.0], []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_t0.append(time.perf_counter())
+        elif gc_t0:
+            gc_s[0] += time.perf_counter() - gc_t0.pop()
+
+    before = {k: s.launches for k, s in ck.STATS.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gc.callbacks.append(on_gc)
+    t0 = time.perf_counter()
+    try:
+        res = engine.execute_sql(sql, sess)
+        torch.cuda.synchronize()
+    finally:
+        gc.callbacks.remove(on_gc)
+    rec = {"step": label, "seconds": time.perf_counter() - t0, "gc_s": gc_s[0],
+           "host_reads": engine.last_query_counters.get("host_reads"),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": {k: s.launches - before[k] for k, s in ck.STATS.items()},
+           "rss_gib": host_rss_gib(),
+           "rows": None if res is None else int(res.columns[0][0])}
+    print(f"memory {label}: seconds={rec['seconds']} gc_s={rec['gc_s']} rows={rec['rows']} "
+          f"host_reads={rec['host_reads']} peak_bytes={rec['peak_bytes']} "
+          f"launches={ {k: v for k, v in rec['launches'].items() if v} } "
+          f"host_rss_gib={rec['rss_gib']:.2f}", flush=True)
+    return rec
+
+
+def memory_queries(engine, sess, label, fact_rows):
+    """The query block: MEMORY_QUERIES over the memory tables (Q15 through its
+    view), cold and warm, between two checksums of the stored tables that
+    must be equal."""
+    sums = {t: engine.execute_sql(sql, sess) for t, sql in CHECKSUMS.items()}
+    engine.execute_sql(Q15_VIEW, sess)
+    got = run_queries(engine, {q: ALL_QUERIES[q] for q in MEMORY_QUERIES}, fact_rows,
+                      f"memory {label}", "memory")
+    engine.execute_sql("drop view revenue0", sess)
+    for t, sql in CHECKSUMS.items():
+        same_result(sums[t], engine.execute_sql(sql, sess),
+                    f"memory {label}: {t} changed by the queries over it")
+    print(f"memory {label}: checksums of orders and lineitem unchanged by the queries: "
+          f"{ {t: r.rows()[0] for t, r in sums.items()} }", flush=True)
+    return got
+
+
+def delete_compact_check(arrays, keep, kept):
+    """compact_rows against its plain version on DELETE's own inputs: the
+    stored columns of a table and the kept rows' mask, byte for byte."""
+    import torch
+
+    from trino_tpu_torch.ops import cuda_kernels as ck
+
+    names = kernel_names("compact_rows")
+    n = keep.shape[0]
+    a, ta = ck.compact_rows(arrays, keep, kept)
+    b, tb = ck.compact_rows_plain(arrays, keep, kept)
+    torch.cuda.synchronize()
+    check(int(ta) == int(tb) == kept, "compact_rows delete: live counts differ")
+    for x, y in zip(a, b):
+        check(x.dtype == y.dtype and bool((x == y).all()),
+              "compact_rows delete: kernel and plain version differ")
+    split = device_split(lambda: ck.compact_rows(arrays, keep, kept), names)
+    if split.get("kernel_ms") is not None:
+        check(split["kernel_launches"] <= -(-len(arrays) // 16),
+              f"compact_rows delete: {split['kernel_launches']} launches a call")
+    plain_ms = time_ms(lambda: ck.compact_rows_plain(arrays, keep, kept))
+    library_ms = time_ms(lambda: [c[keep] for c in arrays])
+    widths = [c.element_size() for c in arrays]
+    rows = torch.nonzero(keep).flatten()
+    b_ms, b_by = bound(n + sum(sector_bytes(rows, w) for w in widths)
+                       + kept * sum(widths) + 8, n * 4)
+    rec = {"case": "delete", "shape": [n, kept, widths], "live": kept, "max_abs_err": 0.0,
+           "ms": split["wall_ms"], "kernel_ms": split.get("kernel_ms"), "split": split,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+    print(f"kernel compact_rows delete: shape={rec['shape']} ms={rec['ms']:.4f} "
+          f"kernel_ms={rec['kernel_ms']} plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} bound_ms={b_ms:.6g} "
+          f"profiled={split['profile_counts']}", flush=True)
+    return rec
+
+
+def memory_path(tpch_ref):
+    """Phase 8: TPC-H's refresh path at SF1 over the memory catalog on the
+    card, then the same statements on the CPU.  ``tpch_ref`` holds phase 2's
+    results of MEMORY_QUERIES over ``tpch``.  Returns (launches of the run,
+    {kernel: checks at this path's shapes})."""
+    import numpy as np
+    import torch
+
+    from trino_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    print(f"memory path: host RSS before the load {host_rss_gib():.2f} GiB", flush=True)
+    card, sess = memory_engine(DEVICE, SF_MAIN)
+    tpch = card.catalogs["tpch"]
+    mem = card.catalogs["memory"]
+    path = refresh_path(tpch.exact_row_count("orders"))
+    want = {label: int(card.execute_sql(sql, sess).columns[0][0])
+            for label, sql in path["counts"].items()}
+    steps = {}
+    ck.reset_stats()
+    for label, sql in path["load"]:
+        steps[label] = run_statement(card, sess, label, sql)
+    li_rows = mem.row_count("lineitem")
+    n_orders = mem.row_count("orders")
+    for label, sql in path["rf1"]:
+        steps[label] = run_statement(card, sess, label, sql)
+    check(steps["insert_lineitem"]["rows"] == want["insert_lineitem"],
+          f"RF1 inserted {steps['insert_lineitem']['rows']} line items, "
+          f"tpch has {want['insert_lineitem']}")
+    check(mem.row_count("orders") - n_orders == want["merge_orders"] == path["band"],
+          f"RF1's MERGE added {mem.row_count('orders') - n_orders} orders, "
+          f"not {path['band']}")
+    check(mem.row_count("lineitem") == tpch.exact_row_count("lineitem"),
+          "after RF1 the memory lineitem is not TPC-H's")
+    after_rf1 = memory_queries(card, sess, "after RF1", mem.row_count("lineitem"))
+    for q in MEMORY_QUERIES:
+        same_result(tpch_ref[q], after_rf1[q]["result"],
+                    f"memory after RF1 {q} vs tpch (phase 2)", by_value=True)
+    print(f"memory after RF1: {len(MEMORY_QUERIES)} queries equal phase 2's tpch "
+          f"results", flush=True)
+
+    # DELETE's own compaction inputs: the stored lineitem and the kept rows
+    t = mem._tables["lineitem"]
+    del_arrays = list(t.columns) + [m for m in t.nulls if m is not None]
+    del_keep = t.columns[t.schema.index("l_orderkey")] > path["band"]
+    for label, sql in path["rf2"]:
+        steps[label] = run_statement(card, sess, label, sql)
+        check(steps[label]["rows"] == want[label],
+              f"{label} affected {steps[label]['rows']} rows, tpch has {want[label]}")
+    after_rf2 = memory_queries(card, sess, "after RF2", mem.row_count("lineitem"))
+    launches = {k: s.launches for k, s in ck.STATS.items()}
+    shapes = {k: list(s.shapes) for k, s in ck.STATS.items()}
+
+    # which kernels each statement must launch
+    ran = {**{label: r["launches"] for label, r in steps.items()},
+           **{q: after_rf1[q]["launches"] for q in MEMORY_QUERIES}}
+    for label, kernels in MEMORY_REQUIRED.items():
+        for k in kernels:
+            check(ran[label][k] > 0, f"memory {label} launched no {k} kernel")
+    for k in sorted({k for ks in MEMORY_REQUIRED.values() for k in ks}):
+        check(launches[k] > 0, f"the memory path launched no {k} kernel")
+    # DELETE's compaction is the port's own: one launch per 16 stored arrays,
+    # at (rows before, rows kept)
+    n_li, kept = int(del_keep.shape[0]), int(del_keep.sum())
+    per = -(-len(del_arrays) // 16)
+    at = [s for s in shapes["compact_rows"] if s[0] == n_li and s[1] == kept]
+    check(len(at) == per and steps["delete_lineitem"]["launches"]["compact_rows"] >= per,
+          f"DELETE from lineitem made {len(at)} compactions at ({n_li}, {kept}), not {per}")
+    print(f"memory: DELETE compacted {len(del_arrays)} stored arrays of lineitem "
+          f"({n_li} -> {kept} rows) in {len(at)} compact_rows launches", flush=True)
+    card_s = time.perf_counter() - t_phase
+
+    # the same statements on the CPU; its results after RF2 are the oracle
+    t_cpu = time.perf_counter()
+    cpu, csess = memory_engine("cpu", SF_MAIN)
+    for step in ("load", "rf1", "rf2"):
+        for label, sql in path[step]:
+            res = cpu.execute_sql(sql, csess)
+            check((None if res is None else int(res.columns[0][0])) == steps[label]["rows"],
+                  f"{label}: the CPU's affected rows differ from the card's")
+    cpu.execute_sql(Q15_VIEW, csess)
+    for q in MEMORY_QUERIES:
+        same_result(after_rf2[q]["result"], cpu.execute_sql(ALL_QUERIES[q], csess),
+                    f"memory after RF2 {q} card vs CPU")
+    print(f"memory after RF2: {len(MEMORY_QUERIES)} queries equal the port's CPU run of "
+          f"the sequence (CPU {time.perf_counter() - t_cpu:.1f} s)", flush=True)
+    del cpu, csess
+
+    gen = np.random.default_rng(13)
+    checks = {
+        "hash_insert": insert_checks(shapes["hash_insert"], (
+            "memory_orders_orderkey", *split_keys(mem, "orders", "o_orderkey")), gen),
+        "hash_probe": probe_checks(shapes["hash_probe"], gen),
+        "compact_rows": compact_checks(shapes["compact_rows"], gen),
+    }
+    checks["compact_rows"]["shapes"].append(delete_compact_check(del_arrays, del_keep, kept))
+    print(f"memory path: card {card_s:.1f} s, phase {time.perf_counter() - t_phase:.1f} s, "
+          f"launches { {k: v for k, v in launches.items() if v} }", flush=True)
+    del card, sess, mem, t, del_arrays, del_keep
+    torch.cuda.empty_cache()
+    return launches, {k: {"max_abs_err": r["max_abs_err"], "shapes": r["shapes"]}
+                      for k, r in checks.items()}
+
+
 def main() -> int:
     import torch
 
@@ -1280,6 +1626,7 @@ def main() -> int:
         conn = TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS)
         engine = Engine(device=DEVICE)
         engine.register_catalog("tpch", conn)
+        engine.execute_sql(Q15_VIEW, engine.create_session("tpch"))
         li_rows = conn.exact_row_count("lineitem")
         ck.reset_stats()
         main = run_queries(engine, ALL_QUERIES, li_rows, f"sf{SF_MAIN:g}")
@@ -1296,6 +1643,7 @@ def main() -> int:
 
         cpu = Engine(device="cpu")
         cpu.register_catalog("tpch", TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS))
+        cpu.execute_sql(Q15_VIEW, cpu.create_session("tpch"))
         t_cpu = time.perf_counter()
         for q, sql in ALL_QUERIES.items():
             t0 = time.perf_counter()
@@ -1306,6 +1654,8 @@ def main() -> int:
                   f"({len(ref)} rows, CPU {time.perf_counter() - t0:.2f} s)", flush=True)
         print(f"CPU pass: {time.perf_counter() - t_cpu:.1f} s", flush=True)
         del cpu
+        # phase 8's oracle after RF1
+        tpch_ref = {q: main[q]["result"] for q in MEMORY_QUERIES}
 
         # -- phase 3: kernels against their plain versions ---------------------
         q1_page = conn.generate(conn.splits("lineitem")[0], Q1_COLUMNS)
@@ -1361,6 +1711,11 @@ def main() -> int:
                               f"tpcds sf{TPCDS_SF_BIG:g}", "tpcds", "store_sales")
         for q, r in big_res.items():
             check(r["rows"] > 0, f"tpcds sf{TPCDS_SF_BIG:g} {q} returned no rows")
+        # -- phase 8: the memory catalog at SF1, TPC-H's refresh path -----------
+        del gpu, ds_big, big_res
+        torch.cuda.empty_cache()
+        mem_launches, mem_checks = memory_path(tpch_ref)
+
         # per path: its launches, and the checks at its own shapes (the
         # top-level times stay the TPC-H path's largest shape's)
         for r in kernels:
@@ -1369,10 +1724,13 @@ def main() -> int:
                 "tpch_sf1": {"launches": r["launches"], "max_abs_err": r["max_abs_err"],
                              "checked_shapes": [x["shape"] for x in r["shapes"]]},
                 "tpcds_sf1": {"launches": ds_launches[name],
-                              **ds_checks.get(name, {"max_abs_err": None, "shapes": []})}}
-            if name in ds_checks:
-                r["max_abs_err"] = max(r["max_abs_err"], ds_checks[name]["max_abs_err"])
-            r["launches"] += ds_launches[name]
+                              **ds_checks.get(name, {"max_abs_err": None, "shapes": []})},
+                "memory_sf1": {"launches": mem_launches[name],
+                               **mem_checks.get(name, {"max_abs_err": None, "shapes": []})}}
+            for checks in (ds_checks, mem_checks):
+                if name in checks:
+                    r["max_abs_err"] = max(r["max_abs_err"], checks[name]["max_abs_err"])
+            r["launches"] += ds_launches[name] + mem_launches[name]
         print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

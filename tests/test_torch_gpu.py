@@ -346,6 +346,10 @@ def _card_and_cpu(queries, sf=0.01):
     for device in ("cuda", "cpu"):
         e = Engine(device=device)
         e.register_catalog("tpch", TpchConnector(sf=sf))
+        if "q15" in queries:
+            from chip_smoke import Q15_VIEW
+
+            e.execute_sql(Q15_VIEW, e.create_session("tpch"))
         results[device] = {q: e.execute_sql(sql, e.create_session("tpch"))
                            for q, sql in queries.items()}
     return results
@@ -554,3 +558,123 @@ def test_tpcds_corpus_on_the_card_equals_the_cpu(dev):
                 for d in ("cuda", "cpu"))
         _same(a, b)
     assert sum(s.launches for s in ck.STATS.values()) > 0
+
+
+def _memory_table(device, rng, n=70001, k=20):
+    """A memory table of ``k`` columns (bigint, double, decimal, date,
+    varchar, boolean in turn; every third one with NULLs) on ``device``,
+    filled with the same seeded rows."""
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.page import Schema
+    from trino_tpu_torch.types import BIGINT, BOOLEAN, DATE, DOUBLE, DecimalType, VarcharType
+
+    kinds = [BIGINT, DOUBLE, DecimalType.of(12, 2), DATE, VarcharType.of(None), BOOLEAN]
+    types = [kinds[i % len(kinds)] for i in range(k)]
+    conn = MemoryConnector(device=device)
+    conn.create_table("w", Schema.of(*[(f"c{i}", t) for i, t in enumerate(types)]))
+    cols = []
+    for i, t in enumerate(types):
+        if t.is_string:
+            vals = [f"s{v}" for v in rng.integers(0, 500, n)]
+        elif t.is_floating:
+            vals = rng.normal(size=n).tolist()
+        elif t == BOOLEAN:
+            vals = (rng.random(n) < 0.5).tolist()
+        else:
+            vals = rng.integers(-10**6, 10**6, n).tolist()
+        if i % 3 == 0:
+            vals = [None if m else v for v, m in zip(vals, rng.random(n) < 0.1)]
+        cols.append(vals)
+    conn.append("w", cols)
+    return conn
+
+
+def _same_tables(a, b, table):
+    assert a.row_count(table) == b.row_count(table)
+    for sa, sb in zip(a.splits(table), b.splits(table)):
+        pa, pb = a.generate(sa), b.generate(sb)
+        for x, y, nx, ny in zip(pa.columns, pb.columns, pa.null_masks, pb.null_masks):
+            assert x.device.type == "cuda" and y.device.type == "cpu"
+            assert _same_bytes(x.cpu(), y)
+            assert (nx is None) == (ny is None)
+            if nx is not None:
+                assert torch.equal(nx.cpu(), ny)
+
+
+def test_memory_delete_compacts_through_the_kernel_once_per_16_arrays(dev):
+    conns = {d: _memory_table(d, np.random.default_rng(3)) for d in ("cuda", "cpu")}
+    arrays = 20 + sum(m is not None for m in conns["cuda"]._tables["w"].nulls)
+    rng = np.random.default_rng(4)
+    for frac in (0.001, 0.5, 0.999):
+        mask = rng.random(conns["cpu"].row_count("w")) < frac
+        before = ck.STATS["compact_rows"].launches
+        n = conns["cuda"].delete_rows("w", mask)
+        assert ck.STATS["compact_rows"].launches - before == -(-arrays // 16) == 2
+        assert n == conns["cpu"].delete_rows("w", mask) == int(mask.sum())
+        _same_tables(conns["cuda"], conns["cpu"], "w")
+
+
+def _both_engines(sf=None):
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        e = Engine(device=device)
+        if sf is not None:
+            e.register_catalog("tpch", TpchConnector(sf=sf))
+        e.register_catalog("memory", MemoryConnector())
+        out[device] = (e, e.create_session("memory"))
+    return out
+
+
+def _run_on_both(engines, sql):
+    got = {d: e.execute_sql(sql, s) for d, (e, s) in engines.items()}
+    if got["cpu"] is None:
+        assert got["cuda"] is None, sql
+    else:
+        _same(got["cuda"], got["cpu"])
+    return got["cuda"]
+
+
+UPDATE_AND_MERGE = [
+    "create table tgt (id bigint, name varchar, qty bigint, price decimal(10,2))",
+    "insert into tgt values (1, 'a', 10, 1.50), (2, 'b', 20, 2.50), (3, 'c', 30, null), "
+    "(null, 'n', 0, 0.00)",
+    "create table src (id bigint, name varchar, qty bigint)",
+    "insert into src values (2, 'B', 200), (3, 'c', -1), (4, 'd', 40), (null, 'N', 99)",
+    "update tgt set price = price * 2 + 0.01, name = 'zz' where qty >= 20",
+    "update tgt set name = null where id = 1",
+    """merge into tgt t using src s on t.id = s.id
+       when matched and s.qty < 0 then delete
+       when matched then update set name = s.name, qty = t.qty + s.qty
+       when not matched then insert (id, name, qty) values (s.id, s.name, s.qty)""",
+    "select id, name, qty, price from tgt order by id nulls last, name",
+    "delete from tgt where qty > 100",
+    "select id, name, qty, price from tgt order by id nulls last, name",
+]
+
+
+def test_update_and_merge_on_the_card_equal_the_cpu(dev):
+    engines = _both_engines()
+    for sql in UPDATE_AND_MERGE:
+        _run_on_both(engines, sql)
+
+
+def test_refresh_path_on_the_card_equals_the_cpu(dev):
+    import chip_smoke as cs
+
+    engines = _both_engines(sf=0.1)
+    path = cs.refresh_path(engines["cpu"][0].catalogs["tpch"].row_count("orders"))
+    ck.reset_stats()
+    for step in ("load", "rf1", "rf2"):
+        for _, sql in path[step]:
+            _run_on_both(engines, sql)
+        _run_on_both(engines, cs.Q15_VIEW)
+        for q in cs.MEMORY_QUERIES:
+            _run_on_both(engines, cs.ALL_QUERIES[q])
+        for sql in cs.CHECKSUMS.values():
+            _run_on_both(engines, sql)
+        _run_on_both(engines, "drop view revenue0")
+    assert ck.STATS["compact_rows"].launches > 0 and ck.STATS["hash_insert"].launches > 0

@@ -1,5 +1,6 @@
-"""The port end to end: TPC-H (every query but Q15, which needs CREATE
-VIEW) through ``trino_tpu_torch.Engine(device="cpu").execute_sql`` against
+"""The port end to end: all of TPC-H (Q15 through the view it reads,
+created before it and dropped after it in both packages) through
+``trino_tpu_torch.Engine(device="cpu").execute_sql`` against
 ``trino_tpu.Engine`` at SF0.01 -- bench.py's SQL for Q1, Q3, Q4, Q9 and
 Q18, the SQL of tests/test_sql_tpch*.py for the rest, and the tests' Q18 as
 well (bench.py's Q18 returns no rows at SF0.01).
@@ -42,7 +43,7 @@ def _assigned(path, name):
 
 def _tests_tpch_sql():
     """{"q<N>": sql} of tests/test_sql_tpch*.py: the statement each test_q<N>
-    passes to ``run``."""
+    passes to ``run``; "q15_view": the view test_q15 creates first."""
     out = {}
     for fn in ("test_sql_tpch.py", "test_sql_tpch2.py", "test_sql_tpch3.py"):
         tree = ast.parse(open(os.path.join(_ROOT, "tests", fn)).read())
@@ -51,12 +52,18 @@ def _tests_tpch_sql():
                 call = next(c for c in ast.walk(node) if isinstance(c, ast.Call)
                             and isinstance(c.func, ast.Name) and c.func.id == "run")
                 out[node.name[len("test_"):]] = call.args[1].value
+                if node.name == "test_q15":
+                    view = next(c for c in ast.walk(node) if isinstance(c, ast.Call)
+                                and isinstance(c.func, ast.Attribute)
+                                and c.func.attr == "execute_sql")
+                    out["q15_view"] = view.args[0].value
     return out
 
 
 QUERIES = _bench_queries()
 SMOKE = os.path.join(_ROOT, "chip_smoke.py")
 TPCH = _assigned(SMOKE, "TPCH_QUERIES")
+Q15_VIEW = _assigned(SMOKE, "Q15_VIEW")
 ALL = {**QUERIES, **TPCH, "q18_tests": _tests_tpch_sql()["q18"]}
 
 
@@ -85,11 +92,19 @@ def _assert_same(a, b):
 
 @pytest.mark.parametrize("q", sorted(ALL))
 def test_query_equals_reference(engine, torch_engine, q):
-    ref = engine.execute_sql(ALL[q], engine.create_session("tpch"))
-    got = torch_engine.execute_sql(ALL[q], torch_engine.create_session("tpch"))
+    views = [e for e in (engine, torch_engine) if q == "q15"]
+    for e in views:
+        e.execute_sql(Q15_VIEW, e.create_session("tpch"))
+    try:
+        ref = engine.execute_sql(ALL[q], engine.create_session("tpch"))
+        got = torch_engine.execute_sql(ALL[q], torch_engine.create_session("tpch"))
+        reads = torch_engine.last_query_counters["host_reads"]
+    finally:
+        for e in views:
+            e.execute_sql("drop view revenue0", e.create_session("tpch"))
     assert len(got) > 0 or q == "q18"  # bench.py's Q18 is empty at SF0.01
     _assert_same(ref, got)
-    assert torch_engine.last_query_counters["host_reads"] > 0
+    assert reads > 0
 
 
 EMPTY_BUILD = {
@@ -113,8 +128,9 @@ def test_chip_smoke_runs_the_bench_sql():
 
 def test_chip_smoke_copies_the_tests_tpch_sql():
     tests = _tests_tpch_sql()
-    assert set(TPCH) == set(tests) - set(QUERIES) - {"q15"}
+    assert set(TPCH) == set(tests) - set(QUERIES) - {"q15_view"}
     assert TPCH == {q: tests[q] for q in TPCH}
+    assert Q15_VIEW == tests["q15_view"]
 
 
 def test_plan_outside_the_slice_raises_naming_the_path(torch_engine):

@@ -14,7 +14,7 @@ computing.  Torch would otherwise let a 0-d operand take the dtype of the
 column (an int32 column times an int64 constant would compute in int32);
 explicit promotion gives the reference's x64 results.
 
-Only the calls that TPC-H (every query but Q15) and the TPC-DS corpus reach
+Only the calls that TPC-H and the TPC-DS corpus reach
 are ported; any other call raises ``NotImplementedError`` naming it.
 """
 
