@@ -72,6 +72,20 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    memory lineitem page, the insert at the orders build's shape and on
    ``o_orderkey``, compaction, also on DELETE's own inputs); the kernels
    line's ``by_path`` gains ``memory_sf1``.
+9. The function library (``functions_path``): the statements of
+   tests/test_torch_functions.py and tests/test_torch_aggregates.py
+   (``FUNCTION_CASES``, ``AGGREGATE_CASES``, over TPC-H at SF0.01 and memory
+   tables) on the card and the CPU, the same outcome for each; F1-F7
+   (``FUNCTIONS``: percentiles, max_by/min_by, date keys with the new
+   accumulators, checksums, exact sums past 2^63, math and bitwise calls,
+   listagg) at SF1 on the card, cold and warm, with host reads, peak memory
+   and launches, each equal to the port's CPU result, each launching the
+   kernels ``FUNCTIONS_REQUIRED`` names (the JAX reference's recording);
+   the kernels the path launched against their plain versions at its
+   shapes (insert also on F4's ``l_orderkey % 1024``); then F1, F3 and F5
+   at SF10 on the card alone, held by oracles that need no CPU run
+   (``functions_big``).  The kernels line's ``by_path`` gains
+   ``functions_sf1``.
 
 It prints the card line, then one JSON line with every kernel's numbers, and
 last ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -449,6 +463,534 @@ MEMORY_REQUIRED = {
     "q15": ('hash_insert',),
     "q18": ('hash_insert',),
 }
+# phase 9: the function library's path, the reports an analyst runs over
+# TPC-H's fact tables (F1-F7; F4 is two statements)
+FUNCTIONS = {
+    "f1_percentiles": "select l_returnflag, l_linestatus, "
+                      "approx_percentile(l_extendedprice, 0.5) p50, "
+                      "approx_percentile(l_quantity, 0.9) p90, count(*) c from lineitem "
+                      "group by 1, 2 order by 1, 2",
+    "f2_max_by": "select o_custkey, max_by(o_orderkey, o_totalprice), "
+                 "min_by(o_orderdate, o_totalprice) from orders group by o_custkey "
+                 "order by o_custkey",
+    "f3_date_keys": "select date_trunc('month', l_shipdate) m, quarter(l_shipdate) q, "
+                    "day_of_week(l_shipdate) dw, count(*), "
+                    "avg(date_diff('day', l_shipdate, l_receiptdate)), "
+                    "bool_and(l_receiptdate > l_shipdate), bool_or(l_returnflag = 'R'), "
+                    "arbitrary(l_shipmode) from lineitem group by 1, 2, 3 order by 1, 3",
+    "f4_checksums": "select checksum(l_orderkey), checksum(l_extendedprice), "
+                    "checksum(l_comment), count(*) from lineitem",
+    "f4_checksum_buckets": "select l_orderkey % 1024 b, checksum(l_partkey) from lineitem "
+                           "group by 1 order by 1",
+    "f5_wide_sums": "select l_returnflag, l_linestatus, "
+                    "sum(cast(l_extendedprice as decimal(38,12))) from lineitem "
+                    "group by 1, 2 order by 1, 2",
+    "f6_math": "select l_shipmode, stddev(ln(l_extendedprice)), avg(power(l_discount, 2)), "
+               "max(round(sqrt(l_quantity), 3)), max(greatest(l_tax, l_discount)), "
+               "count_if(bitwise_and(l_orderkey, 7) = 0), "
+               "max(width_bucket(l_extendedprice, 0, 100000, 10)) from lineitem "
+               "group by l_shipmode order by 1",
+    "f7_listagg": "select n_regionkey, listagg(n_name, ',') within group (order by n_name) "
+                  "from nation group by n_regionkey order by 1",
+}
+# phase 9a and tests/test_torch_functions.py: the SQL of the reference's
+# scalar function tests, (catalog, statement): "tpch" over TPC-H SF0.01,
+# "mem" over FUNCTION_SETUP's tables
+FUNCTION_CASES = {
+    # tests/test_scalar_functions.py
+    "math": ("tpch", "select power(2, 10) p, mod(10, 3) m, sign(-5) s, trunc(3.9) t, "
+                     "round(2.567, 2) r from region limit 1"),
+    "math_2": ("tpch", "select ln(exp(2.0)) l, log10(1000) lt, sin(0) s, pi() p "
+                       "from region limit 1"),
+    "date_functions": ("tpch", "select o_orderdate d, date_trunc('month', o_orderdate) m, "
+                               "date_trunc('year', o_orderdate) y, quarter(o_orderdate) q, "
+                               "day_of_week(o_orderdate) dw, day_of_year(o_orderdate) dy "
+                               "from orders order by o_orderkey limit 50"),
+    "conditional": ("tpch", "select nullif(n_nationkey, 0) z, nullif(n_nationkey, 9) nz, "
+                            "if(n_nationkey = 0, 'zero', 'other') i "
+                            "from nation where n_nationkey = 0"),
+    "nullif_null_second": ("tpch", "select nullif(n_nationkey, nullif(0, 0)) v from nation "
+                                   "where n_nationkey = 2"),
+    "round_half_away": ("tpch", "select round(0.125, 2) a, round(2.5) b, round(-2.5) c "
+                                "from region limit 1"),
+    "width_bucket": ("tpch", "select width_bucket(5.5, 0, 10, 5) w from region limit 1"),
+    "date_add_month_clamps": ("tpch", "select date_add('month', 2, date '1995-12-31') "
+                                      "= date '1996-02-29'"),
+    "date_add_year_clamps": ("tpch", "select date_add('year', 1, date '1996-02-29') "
+                                     "= date '1997-02-28'"),
+    "date_diff_month": ("tpch", "select date_diff('month', date '1995-01-15', "
+                                "date '1995-03-14')"),
+    "date_diff_week": ("tpch", "select date_diff('week', date '1995-01-01', "
+                               "date '1995-01-15')"),
+    "try_cast_bigint": ("mem", "select try_cast(v as bigint) from tc"),
+    "try_cast_double": ("mem", "select try_cast(v as double) from tc"),
+    "try_cast_count": ("mem", "select count(try_cast(v as bigint)) from tc"),
+    "nullif_string_literal": ("tpch", "select n_name, nullif(n_name, 'FRANCE') v "
+                                      "from nation order by n_name"),
+    "nullif_literal_first": ("tpch", "select n_name, nullif('FRANCE', n_name) v "
+                                     "from nation order by n_name"),
+    "nullif_absent_literal": ("tpch", "select n_name, nullif(n_name, 'banana') v "
+                                      "from nation order by n_name"),
+    # tests/test_functions_ext.py (its memory table t)
+    "hyperbolic_and_log": ("mem", "select sinh(x) a, cosh(x) b, tanh(x) c, log(2, 8) d, "
+                                  "e() e from t order by n"),
+    "float_tests_and_truncate": ("mem", "select is_nan(nan()) a, is_finite(infinity()) b, "
+                                        "is_infinite(infinity()) c, truncate(1.999) d, "
+                                        "truncate(1.987, 2) e, truncate(-1.987, 2) f, "
+                                        "truncate(x, 1) g from t order by n"),
+    "bitwise_family": ("mem", "select bitwise_and(n, 3) a, bitwise_or(n, 3) b, "
+                              "bitwise_xor(n, 3) c, bitwise_not(n) d, "
+                              "bitwise_left_shift(n, 2) e, bitwise_right_shift(n, 1) f, "
+                              "bitwise_right_shift(-8, 1) g, "
+                              "bitwise_right_shift_arithmetic(-8, 1) h, "
+                              "bit_count(n, 64) i, bit_count(-1, 8) j from t order by n"),
+    "bit_count_out_of_range": ("mem", "select n, bit_count(n, 8) c from t order by n"),
+    "datetime_family": ("mem", "select d, day_of_week(d) a, day_of_year(d) b, "
+                               "last_day_of_month(d) c, week_of_year(d) w, "
+                               "year_of_week(d) yw, date_trunc('week', d) tw, "
+                               "date_trunc('quarter', d) tq, month(d) m, day(d) dd "
+                               "from t order by n"),
+    "date_arith": ("mem", "select date_add('day', -3, d) a, date_add('week', 2, d) b, "
+                          "date_add('year', -1, d) c, date_diff('day', d, date '2024-03-31') e, "
+                          "date_diff('year', d, date '2030-01-01') f from t order by n"),
+    # tests/test_functions_ext2.py and test_functions_stats.py
+    "trig_family": ("mem", "select sin(x) a, cos(x) b, tan(x) c, asin(x / 4) d, "
+                           "acos(x / 4) e, atan(x) f, atan2(x, 2.0) g, degrees(x) h, "
+                           "radians(x) i, cbrt(x) j, sqrt(abs(x)) k from t order by n"),
+    "cbrt_exact": ("mem", "select cbrt(27.0) a, cbrt(-8.0) b, cbrt(x * x * x) c "
+                          "from t order by n"),
+    "greatest_least": ("mem", "select greatest(n, 10, 7) a, least(x, 0.0) b, "
+                              "greatest(d, date '2021-06-01') c from t order by n"),
+    "mod_negative": ("mem", "select mod(n - 100, 7) a, mod(x, 0.75) b, n % -4 c "
+                            "from t order by n"),
+    "power_and_exp": ("mem", "select power(x, 2) a, power(2, n / 10) b, exp(x) c, "
+                             "ln(abs(x)) d, log10(n) e, log2(n) f from t order by n"),
+    "sign_and_rounding": ("mem", "select sign(x) a, floor(x) b, ceil(x) c, round(x) d, "
+                                 "round(x, 1) e, trunc(x) f, abs(n - 100) g from t order by n"),
+    "normal_cdf": ("mem", "select normal_cdf(0, 1, x) a, inverse_normal_cdf(1, 2, 0.3) b "
+                          "from t order by n"),
+    "beta_cdf": ("mem", "select beta_cdf(2, 5, 0.3) a, beta_cdf(0.5, 0.5, 0.9) b, "
+                        "beta_cdf(3, 1.5, abs(x) / 4) c from t order by n"),
+    "wilson_interval": ("mem", "select wilson_interval_lower(n, 300, 1.96) lo, "
+                               "wilson_interval_upper(n, 300, 1.96) hi, "
+                               "wilson_interval_lower(20, 100, 0) z from t order by n"),
+    "width_bucket_column": ("mem", "select width_bucket(x, -3, 3, 6) w from t order by n"),
+    # tests/test_spatial.py
+    "st_distance": ("mem", "select st_distance(st_point(x, 1.0), st_point(0.0, n)) v "
+                           "from t order by n"),
+    "spatial_join": ("mem", "select a.n an, b.n bn from t a, t b "
+                            "where st_distance(st_point(a.x, 0.0), st_point(b.x, 0.0)) < 2.0 "
+                            "order by an, bn"),
+    # tests/test_parametric_types.py: timestamps at the result surface
+    "timestamp_columns": ("mem", "select ts, t3 from ev"),
+    "timestamp_order": ("mem", "select ts, t3 from ev order by ts nulls last"),
+    "timestamp_interval": ("mem", "select ts + interval '1' day a, t3 - interval '2' hour b "
+                                  "from ev order by ts nulls last"),
+    "timestamp_compare": ("mem", "select count(*) from ev "
+                                 "where ts > timestamp '2000-01-01 00:00:00'"),
+    "timestamp_extract": ("mem", "select hour(ts) h, minute(ts) mi, second(ts) s, "
+                                 "millisecond(t3) ms, year(ts) y, month(ts) mo, day(ts) d "
+                                 "from ev order by ts nulls last"),
+    "timestamp_casts": ("mem", "select cast(ts as timestamp(3)) a, cast(t3 as timestamp(6)) b, "
+                               "cast(ts as date) c, cast(cast(ts as date) as timestamp(6)) d "
+                               "from ev order by ts nulls last"),
+    "timestamp_literal": ("mem", "select timestamp '2024-03-15 10:30:45.123456' x, "
+                                 "timestamp '1969-12-31 23:59:59.999' y"),
+    "from_unixtime": ("mem", "select from_unixtime(1710498645) x"),
+    "timestamp_group_by": ("mem", "select cast(ts as date) dd, count(*) c from ev "
+                                  "group by 1 order by 1 nulls last"),
+    # tests/test_scalar_functions.py, the rest
+    "string_functions": ("tpch", "select upper(n_name) u, length(n_name) n, reverse(n_name) rv, "
+                                 "strpos(n_name, 'GER') sp, starts_with(n_name, 'ALG') sw, "
+                                 "replace(n_name, 'A', '@') rp, concat('pre-', n_name) c1, "
+                                 "n_name || '-post' c2, lpad(n_name, 10, '.') lp, "
+                                 "rpad(n_name, 3) rp2, lpad(n_name, 12, 'xy') lxy "
+                                 "from nation order by n_nationkey"),
+    "lpad_empty_pad": ("tpch", "select lpad(n_name, 12, '') from nation"),
+    "case_group_by": ("tpch", "select case when n_nationkey < 5 then 'low' when n_nationkey < 15 "
+                              "then 'mid' else 'high' end b, count(*) c from nation "
+                              "group by 1 order by 1"),
+    "string_case_order": ("tpch", "select distinct case when n_nationkey < 5 then 'b-low' "
+                                  "else 'a-high' end v from nation order by v"),
+    "regexp_like_count": ("tpch", "select count(*) from nation where regexp_like(n_name, '^.*IA$')"),
+    "split_part_position": ("tpch", "select split_part(n_name, 'I', 2) a, position('I' in n_name) b "
+                                    "from nation order by n_nationkey"),
+    "codepoint": ("tpch", "select codepoint('A')"),
+    "having_over_formatter_dict": ("tpch", "select c_nationkey, min(c_name) m from customer "
+                                           "group by c_nationkey having min(c_name) = 'nobody'"),
+    # tests/test_functions_ext.py, the rest (its table t)
+    "regexp_family": ("mem", "select regexp_extract(s, '\\d+') a, "
+                             "regexp_extract(s, '([a-z]+)-(\\d+)', 2) b, regexp_extract(s, 'ZZZ') c, "
+                             "regexp_replace(s, '\\d', '#') d, regexp_replace(s, '(\\d+)', '<$1>') e, "
+                             "regexp_count(s, '\\d') f, regexp_position(s, '1') g, "
+                             "regexp_position(s, 'ZZZ') h, regexp_replace(s, '\\d+', '[$0]') i "
+                             "from t order by n"),
+    "regexp_bad_group": ("mem", "select regexp_replace(s, '(\\d)', '$9') v from t where n = 255"),
+    "string_distance": ("mem", "select levenshtein_distance(s, 'abc-124-xyz') a, "
+                               "hamming_distance(s, 'abc-124-xyz') b, ends_with(s, 'xyz') c, "
+                               "translate(s, 'abc', 'AB') d, translate(s, 'aa', 'bc') e "
+                               "from t order by n"),
+    "url_family": ("mem", "select url_extract_protocol(s) a, url_extract_host(s) b, "
+                          "url_extract_port(s) c, url_extract_path(s) d, url_extract_query(s) e, "
+                          "url_extract_fragment(s) f, url_extract_parameter(s, 'r') g, "
+                          "url_encode('a b&c') h, url_decode('a+b%26c') i from t order by n"),
+    "datetime_breadth": ("mem", "select week(d) a, yow(d) b, day_of_month(d) c, "
+                                "from_iso8601_date('2023-07-04') e from t order by n"),
+    "truncate_negative_scale": ("mem", "select truncate(1987.6, -2) v from t where n = 5"),
+    "truncate_bad_literal": ("mem", "select truncate(1.9, 1.5) v from t where n = 5"),
+    # tests/test_functions_ext2.py (its table fx2); test_now is a clock case
+    "digests": ("mem", "select sha1(s) a, sha512(s) b, crc32(s) c, xxhash64(s) d from fx2 "
+                       "order by n"),
+    "hmac": ("mem", "select hmac_md5(s, 'key') a, hmac_sha1(s, 'key') b, "
+                    "hmac_sha256(s, 'key') c, hmac_sha512(s, 'key') d from fx2 order by n"),
+    "base64": ("mem", "select to_base64(s) a, from_base64(s) b, to_base64url(s) c, "
+                      "from_base64url(s) d from fx2 where n = 3"),
+    "base64_encode": ("mem", "select to_base64(s) a, to_base64url(s) c from fx2 order by n"),
+    "from_base": ("mem", "select from_base('ff', 16) a, from_base('101', 2) b, from_base(s, 16) c "
+                         "from fx2 order by n"),
+    "soundex_luhn": ("mem", "select soundex('Robert') a, soundex(s) b, luhn_check(s) c "
+                            "from fx2 order by n"),
+    "concat_ws": ("mem", "select concat_ws('-', s, 'x') a, concat_ws(', ', 'a', 'b', 'c') b "
+                         "from fx2 order by n"),
+    "json_family": ("mem", "select json_parse(j) a, json_format(j) b, is_json_scalar(j) c, "
+                           "json_array_contains(j, 2) d, json_array_get(j, 1) e, "
+                           "json_array_get(j, -1) f, json_array_get(j, 7) g from fx2 order by n"),
+    "iso8601": ("mem", "select to_iso8601(date '2024-02-29') a, "
+                       "from_iso8601_timestamp('2024-02-29T12:30:45') b from fx2 where n = 1"),
+    "cdf_constants": ("mem", "select normal_cdf(0, 1, 0) a, normal_cdf(0, 1, 1.96) b, "
+                             "inverse_normal_cdf(0, 1, 0.975) c, beta_cdf(2, 2, 0.5) d, "
+                             "wilson_interval_lower(20, 100, 1.96) e, "
+                             "wilson_interval_upper(20, 100, 1.96) f from fx2 where n = 1"),
+    "cdf_on_column": ("mem", "select normal_cdf(0, 1, x) v from fx2 order by n"),
+    "datetime_batch3": ("mem", "select parse_datetime('2024-02-29 12:30', 'yyyy-MM-dd HH:mm') a, "
+                               "parse_datetime('junk', 'yyyy-MM-dd') b, current_timezone() c, "
+                               "timezone_hour(now()) d, timezone_minute(now()) e, version() f "
+                               "from fx2 where n = 1"),
+    "base32": ("mem", "select from_base32(to_base32('hello')) a, to_base32(s) b from fx2 "
+                      "order by n"),
+    # tests/test_functions_stats.py (TPC-H SF0.01)
+    "covariance_family": ("tpch", "select covar_pop(l_extendedprice, l_quantity) cp, "
+                                  "covar_samp(l_extendedprice, l_quantity) cs, "
+                                  "corr(l_extendedprice, l_quantity) c, "
+                                  "regr_slope(l_extendedprice, l_quantity) sl, "
+                                  "regr_intercept(l_extendedprice, l_quantity) ic, "
+                                  "regr_count(l_extendedprice, l_quantity) n, "
+                                  "regr_avgx(l_extendedprice, l_quantity) ax, "
+                                  "regr_avgy(l_extendedprice, l_quantity) ay from lineitem"),
+    "moments_family": ("tpch", "select skewness(l_quantity) sk, kurtosis(l_quantity) ku, "
+                               "regr_sxy(l_extendedprice, l_quantity) sxy from lineitem"),
+    "regr_count_grouped": ("tpch", "select l_returnflag, regr_count(l_extendedprice, l_quantity) n, "
+                                   "count(*) c from lineitem group by l_returnflag "
+                                   "order by l_returnflag"),
+    "covar_samp_null_pairs": ("tpch", "select covar_samp(x, y) from (select cast(null as double) x, "
+                                      "1.0 y union all select 2.0, 2.0 union all select 3.0, 4.0)"),
+    "date_format_families": ("tpch", "select date_format(o_orderdate, '%Y-%m') a, "
+                                     "format_datetime(o_orderdate, 'yyyy/MM/dd') b, "
+                                     "date_format(o_orderdate, '%W, %e %M %Y') c, "
+                                     "format_datetime(o_orderdate, 'EEE, dd MMM yyyy') d "
+                                     "from orders order by o_orderkey limit 20"),
+    "date_parse_roundtrip": ("tpch", "select date_parse(date_format(o_orderdate, '%Y-%m-%d'), "
+                                     "'%Y-%m-%d') p, date_parse(date_format(o_orderdate, "
+                                     "'%M %d, %Y'), '%M %d, %Y') q, o_orderdate "
+                                     "from orders order by o_orderkey limit 20"),
+    "date_format_out_of_range": ("tpch", "select date_format(date '1899-12-31', '%Y-%m-%d') v"),
+    "regr_r2_constant": ("tpch", "select regr_r2(y, x) from (select 7.0 y, 1.0 x union all "
+                                 "select 7.0, 2.0 union all select 7.0, 5.0)"),
+    "unixtime_roundtrip": ("tpch", "select to_unixtime(from_unixtime(1700000000.25)) v"),
+    "md5_group_by": ("tpch", "select md5(c_mktsegment) m, c_mktsegment s from customer "
+                             "group by md5(c_mktsegment), c_mktsegment order by s"),
+    "hex_group_by": ("tpch", "select from_hex(to_hex(c_mktsegment)) v, c_mktsegment s "
+                             "from customer group by from_hex(to_hex(c_mktsegment)), "
+                             "c_mktsegment order by s"),
+    # tests/test_spatial.py (its point tables)
+    "st_distance_constants": ("mem", "select st_distance(st_point(0.0, 0.0), st_point(3.0, 4.0)) v"),
+    "st_x_st_y": ("mem", "select st_x(st_point(ax, ay)) x, st_y(st_point(ax, ay)) y from pts_a "
+                         "where aid < 10 order by aid"),
+    **{f"spatial_join_count_{r}": ("mem", "select count(*) c from pts_a, pts_b where "
+                                          "st_distance(st_point(ax, ay), st_point(qx, qy)) "
+                                          f"<= {r}") for r in ("2.0", "5.0", "11.5")},
+    "spatial_join_pairs": ("mem", "select aid, bid from pts_a, pts_b where "
+                                  "st_distance(st_point(ax, ay), st_point(qx, qy)) <= 3.0 "
+                                  "order by aid, bid"),
+    "spatial_join_extra_conjuncts": ("mem", "select count(*) c from pts_a, pts_b where "
+                                            "st_distance(st_point(ax, ay), st_point(qx, qy)) "
+                                            "<= 5.0 and aid < 200 and bid >= 10"),
+    "st_point_standalone": ("mem", "select st_point(1.0, 2.0) p from pts_a limit 1"),
+    "spatial_degenerate_join": ("mem", "select count(*) c from pts_a a join pts_b b on 1 = 2 "
+                                       "where st_distance(st_point(ax, ay), st_point(qx, qy)) "
+                                       "<= 50.0"),
+    "spatial_large_coordinates": ("mem", "select i, j from big_a, big_b where "
+                                         "st_distance(st_point(big_a.x, big_a.y), "
+                                         "st_point(big_b.x, big_b.y)) <= 1.0 order by i, j"),
+    # tests/test_parametric_types.py (its tables pev and ch); the clock case
+    # is test_clock_functions_are_timestamps
+    "pev_literal_storage": ("mem", "select ts from pev order by id"),
+    "pev_compare": ("mem", "select id from pev where ts > timestamp '2023-01-01 00:00:00'"),
+    "pev_extract_parts": ("mem", "select extract(year from ts) y, extract(month from ts) mo, "
+                                 "extract(day from ts) d, extract(hour from ts) h, "
+                                 "extract(minute from ts) mi, extract(second from ts) se, "
+                                 "hour(ts) h2, minute(ts) mi2, second(ts) se2, millisecond(ts) ms "
+                                 "from pev order by id"),
+    "pev_precision_casts": ("mem", "select cast(ts as timestamp(3)) t3, cast(ts3 as timestamp(6)) t6, "
+                                   "cast(ts as timestamp(0)) t0 from pev order by id"),
+    "pev_date_casts": ("mem", "select cast(ts as date) d, cast(date '2024-03-15' as timestamp(6)) t "
+                              "from pev order by id"),
+    "pev_order": ("mem", "select id from pev order by ts desc"),
+    "char_casts": ("mem", "select cast(name as char(8)) c, cast(name as char(3)) c3 from pev "
+                          "order by id"),
+    "char_compare": ("mem", "select id from pev where cast(name as char(8)) = 'beta'"),
+    "char_column": ("mem", "select v from ch where k = 'ab'"),
+    "char_column_order": ("mem", "select k from ch order by v"),
+    "finer_literal": ("mem", "select id from pev where ts3 = '2021-01-01 00:00:00.000500'"),
+    "finer_literal_gt": ("mem", "select id from pev where ts3 > '2020-12-31 23:59:59.999999'"),
+    "pev_interval": ("mem", "select ts + interval '2' hour a, ts - interval '90' second b "
+                            "from pev order by id"),
+    "pev_interval_bounds": ("mem", "select id from pev where ts > timestamp '2021-01-01 00:00:00' "
+                                   "- interval '1' minute and ts < timestamp "
+                                   "'2021-01-01 00:00:00' + interval '1' minute"),
+    # the slice's F3 and F6 at SF0.01 (its aggregates are in test_torch_aggregates.py)
+    "f3_date_keys": ("tpch", "select date_trunc('month', l_shipdate) m, quarter(l_shipdate) q, "
+                             "day_of_week(l_shipdate) dw, count(*) c from lineitem "
+                             "group by 1, 2, 3 order by 1, 3"),
+    "f6_math": ("tpch", "select l_shipmode, max(round(sqrt(l_quantity), 3)) a, "
+                        "max(greatest(l_tax, l_discount)) b, "
+                        "count_if(bitwise_and(l_orderkey, 7) = 0) c, "
+                        "max(width_bucket(l_extendedprice, 0, 100000, 10)) d "
+                        "from lineitem group by l_shipmode order by 1"),
+}
+
+FUNCTION_SETUP = (
+    "create table t (x double, n bigint, s varchar, d date)",
+    "insert into t values (1.5, 5, 'http://example.com:8080/a/b?q=1&r=two#frag', "
+    "date '2024-02-29'), (-2.25, 12, 'https://trino.io/docs', date '2021-01-01'), "
+    "(0.5, 255, 'abc-123-xyz', date '2020-12-31'), (3.75, 128, 'x', date '1969-12-28'), "
+    "(-0.5, 1, 'y', date '2027-01-03')",
+    "create table tc (v varchar)",
+    "insert into tc values ('12'), ('x'), ('3.5'), (''), ('  7 ')",
+    "create table ev (ts timestamp(6), t3 timestamp(3))",
+    "insert into ev values (timestamp '2024-03-15 10:30:45.123456', "
+    "timestamp '2024-03-15 10:30:45.123'), (timestamp '1969-07-20 20:17:40.000001', "
+    "timestamp '1969-12-31 23:59:59.999'), (null, null), "
+    "(timestamp '2000-02-29 23:59:59.999999', timestamp '2000-02-29 23:59:59.9995')",
+    # tests/test_functions_ext2.py's table
+    "create table fx2 (x double, n bigint, s varchar, j varchar)",
+    "insert into fx2 values (0.25, 1, 'hello', '[1, 2, 3]'), "
+    "(0.5, 2, 'world', '{\"a\": {\"b\": 7}}'), (0.75, 3, 'MTIzNDU2', '\"scalar\"'), "
+    "(0.9, 4, '79927398713', 'not json')",
+    # tests/test_parametric_types.py's tables
+    "create table pev (id bigint, ts timestamp(6), ts3 timestamp(3), name varchar)",
+    "insert into pev values (1, timestamp '2024-03-15 10:30:45.123456', "
+    "timestamp '2024-03-15 10:30:45.123', 'alpha'), (2, timestamp '2021-01-01 00:00:00', "
+    "timestamp '2021-01-01 00:00:00', 'beta  '), (3, timestamp '1969-12-31 23:59:59', "
+    "timestamp '1969-12-31 23:59:59', 'gamma')",
+    "create table ch (k char(3), v bigint)",
+    "insert into ch values ('ab', 1), ('xyz', 2)",
+    # tests/test_spatial.py's tables: points from a seeded generator
+    "create table pts_a (aid bigint, ax double, ay double)",
+    "create table pts_b (bid bigint, qx double, qy double)",
+    "insert into pts_a values " + ", ".join(
+        f"({i}, {(i * 7919 % 10007) / 100.07:.6f}, {(i * 104729 % 10009) / 100.09:.6f})"
+        for i in range(400)),
+    "insert into pts_b values " + ", ".join(
+        f"({i}, {(i * 6271 % 10007) / 100.07:.6f}, {(i * 3571 % 10009) / 100.09:.6f})"
+        for i in range(300)),
+    "create table big_a (i bigint, x double, y double)",
+    "create table big_b (j bigint, x double, y double)",
+    "insert into big_a values " + ", ".join(
+        f"({i}, {4.0e6 + i * 0.4:.6f}, {4.0e6 - i * 0.3:.6f})" for i in range(60)),
+    "insert into big_b values " + ", ".join(
+        f"({j}, {4.0e6 + j * 0.4 + 0.05:.6f}, {4.0e6 - j * 0.3 + 0.05:.6f})"
+        for j in range(60)),
+)
+
+_WIDE_ROWS = ", ".join(f"({i % 2}, {8_600_000_000_000_000 + i * 7}.25)" for i in range(40))
+
+AGGREGATE_SETUP = (
+    "create table t (g bigint, n bigint, x double, s varchar)",
+    "insert into t values (1, 10, 1.5, 'a'), (1, 30, 0.5, 'b'), (1, 20, 2.5, 'c'), "
+    "(2, 7, 9.0, 'd'), (2, 5, 8.0, 'd'), (3, null, 1.0, null)",
+    "create table rk (p varchar, s varchar)",
+    "insert into rk values ('pz', 'zebra'), ('pa', 'apple'), ('pm', 'mango')",
+    "create table cg (g bigint, x double, b boolean)",
+    "insert into cg values (1, 2.0, true), (1, 8.0, false), (2, 3.0, true), "
+    "(2, 9.0, true), (2, 1.0, null)",
+    "create table an (g bigint, x bigint, d decimal(10,2))",
+    "insert into an values (1, null, null), (2, 5, 1.50)",
+    "create table md (k bigint, v bigint, w bigint)",
+    "insert into md values (1, 5, 7), (1, 5, 8), (null, 6, 9), (null, 7, 9)",
+    "create table pn (k bigint, v double)",
+    "insert into pn values (1, 10.0), (1, 20.0), (1, 30.0), (2, null), (2, null), (3, 5.0)",
+    "create table la (k bigint, v varchar)",
+    "insert into la values (1, 'b'), (1, null), (1, 'a'), (2, null)",
+    "create table nt (a bigint, b bigint)",
+    "insert into nt values (null, 3), (null, 1), (null, 2), (5, 0), (6, 0)",
+    "create table z (g bigint, x double, y double, s varchar)",
+    "insert into z values (1, -0.0, 1.0, 'p'), (1, 0.0, 2.0, 'q'), (1, 0.0, 3.0, 'r'), "
+    "(2, 1.5, 1.0, 's'), (2, -2.5, 2.0, 't'), (2, 1.5, 3.0, 'u'), (null, 4.0, 1.0, 'v'), "
+    "(null, 4.0, 2.0, 'w')",
+    "create table big (g bigint, v decimal(18,2))",
+    f"insert into big values {_WIDE_ROWS}",
+    "create table w (k bigint, v decimal(38, 4))",
+    "create table d (k bigint, name varchar)",
+    "insert into w values (1, 123456789012345.6789), (1, 876543210987654.3211), "
+    "(2, 500000000000000.5000), (2, 0.0001), (3, 899999999999999.9999)",
+    "insert into d values (1, 'one'), (2, 'two'), (3, 'three')",
+    "create table big38 (v decimal(38, 2))",
+    "insert into big38 values " + ", ".join(["(92233720368547758.07)"] * 40),
+    "create table p (a decimal(20, 2), b decimal(20, 2))",
+    "insert into p values (100000.25, 3.50)",
+    "create table o (v decimal(38, 10))",
+)
+
+# phase 9a and tests/test_torch_aggregates.py: the SQL of the reference's
+# aggregate tests and F1-F7, (catalog, statement): "tpch" is TPC-H SF0.01,
+# "tpchs" the same with splits of 2^13 rows, "mem" the tables of AGGREGATE_SETUP
+AGGREGATE_CASES = {
+    # tests/test_agg_functions.py
+    "variance_global": ("tpch", "select var_pop(l_quantity), var_samp(l_quantity), "
+                                "stddev_pop(l_quantity), stddev(l_quantity), "
+                                "variance(l_quantity) from lineitem"),
+    "variance_grouped": ("tpch", "select l_returnflag, var_pop(l_quantity) from lineitem "
+                                 "group by l_returnflag order by l_returnflag"),
+    "bool_and_or_global": ("tpch", "select bool_and(l_quantity > 0), "
+                                   "bool_or(l_quantity > 4900), every(l_quantity > 2500) "
+                                   "from lineitem"),
+    "bool_and_or_direct": ("tpch", "select l_returnflag, bool_and(l_quantity > 10), "
+                                   "bool_or(l_quantity > 49), arbitrary(l_linestatus) "
+                                   "from lineitem group by 1 order by 1"),
+    "bool_and_or_hash": ("mem", "select g, bool_and(x > 1), bool_or(x > 8.5), "
+                                "bool_and(n > 4), arbitrary(n) from t group by g order by g"),
+    "approx_distinct_global": ("tpch", "select approx_distinct(l_orderkey) from lineitem"),
+    "approx_distinct_grouped": ("tpch", "select l_returnflag, approx_distinct(l_orderkey) "
+                                        "from lineitem group by l_returnflag "
+                                        "order by l_returnflag"),
+    "arbitrary": ("tpch", "select arbitrary(l_orderkey), any_value(l_orderkey) "
+                          "from lineitem where l_orderkey = 7"),
+    "arbitrary_string_global": ("tpch", "select arbitrary(n_name) from nation "
+                                        "where n_nationkey = 3"),
+    "var_samp_single_row": ("tpch", "select var_samp(l_quantity) from lineitem "
+                                    "where l_orderkey = 1 and l_linenumber = 1"),
+    "count_if_geometric_mean": ("mem", "select g, count_if(b) ci, geometric_mean(x) gm "
+                                       "from cg group by g order by g"),
+    "having_count_if": ("mem", "select g from cg group by g having count_if(b) >= 2"),
+    "sqrt_of_var_pop": ("mem", "select g, sqrt(var_pop(x)) sd from cg group by g order by g"),
+    "all_null_groups": ("mem", "select g, sum(x) s, min(x) mn, max(x) mx, avg(x) a, "
+                               "sum(d) sd from an group by g order by g"),
+    "empty_global": ("mem", "select sum(x) s, min(x) mn, count(x) c from an where g = 99"),
+    "count_if_empty": ("mem", "select count_if(x > 0) ci from an where g = 99"),
+    "bool_and_empty": ("mem", "select bool_and(x > 0), bool_or(x > 0), arbitrary(x), "
+                              "checksum(x) from an where g = 99"),
+    "mixed_distinct": ("tpch", "select l_returnflag, count(*) n, count(distinct l_suppkey) ds, "
+                               "count(distinct l_shipmode) dm, sum(l_quantity) q "
+                               "from lineitem group by l_returnflag order by l_returnflag"),
+    "mixed_distinct_global": ("tpch", "select count(*) n, count(distinct l_orderkey) o "
+                                      "from lineitem"),
+    "mixed_distinct_null_keys": ("mem", "select k, count(*) c, count(distinct v) dv, sum(w) sw "
+                                        "from md group by k order by k"),
+    # tests/test_agg_functions2.py
+    "max_by_min_by": ("mem", "select g, max_by(s, n) mx, min_by(s, n) mn from t "
+                             "group by g order by g"),
+    "max_by_numeric_payload": ("mem", "select g, max_by(x, n) v from t group by g order by g"),
+    "max_by_global": ("mem", "select max_by(s, n) v from t"),
+    "checksum": ("mem", "select g, checksum(n) c from t group by g order by g"),
+    "checksum_reordered": ("mem", "select g, checksum(n) c from (select * from t order by n desc) "
+                                  "group by g order by g"),
+    "checksum_global_mixed": ("mem", "select checksum(n) c, count(*) k, sum(n) s from t"),
+    "checksum_strings_and_doubles": ("mem", "select g, checksum(s), checksum(x) from t "
+                                            "group by g order by g"),
+    "bitwise_aggs": ("mem", "select g, bitwise_and_agg(n) a, bitwise_or_agg(n) o, "
+                            "bitwise_xor_agg(n) x from t group by g order by g"),
+    "max_by_string_ranking": ("mem", "select max_by(p, s) mx, min_by(p, s) mn from rk"),
+    "sorted_mix_hash": ("mem", "select g, max_by(s, n) mx, count(*) k, sum(n) t from t "
+                               "group by g order by g"),
+    "sorted_mix_global": ("mem", "select max_by(s, n) mx, count(*) k from t"),
+    "sorted_all_filtered": ("mem", "select g, max_by(s, n) mx from t where n > 100 group by g"),
+    "sorted_all_filtered_percentile": ("mem", "select g, approx_percentile(x, 0.5) p from t "
+                                              "where n > 100 group by g"),
+    "sorted_global_all_filtered": ("mem", "select max_by(s, n) mx from t where n > 100"),
+    "mixed_sorted_distinct_rejected": ("mem", "select g, approx_distinct(n), max_by(s, n) "
+                                              "from t group by g"),
+    "arity_checksum": ("mem", "select checksum() from t"),
+    "arity_histogram": ("mem", "select histogram() from t"),
+    "arity_array_agg": ("mem", "select array_agg() from t"),
+    "wilson_z_zero": ("mem", "select wilson_interval_lower(20, 100, 0) lo, "
+                             "wilson_interval_upper(20, 100, 0) hi from t where n = 5"),
+    "topn_null_ties": ("mem", "select a, b from nt order by a nulls first, b limit 3"),
+    "nan_values_sorted": ("mem", "select g, approx_percentile(v, 0.5) p, max_by(s, v) mx, "
+                                 "min_by(s, v) mn from (select g, s, if(n > 15, nan(), x) v "
+                                 "from t) group by g order by g nulls last"),
+    # NaN group keys: each NaN row is a group of its own, as in the reference
+    # (ROADMAP C)
+    "nan_keys_sorted": ("mem", "select k, max_by(n, n) m from (select if(n > 15, nan(), x) k, "
+                               "n from t) group by k"),
+    "zero_and_null_keys": ("mem", "select g, approx_percentile(x, 0.5) p, max_by(s, x) mx, "
+                                  "min_by(s, x) mn, min_by(y, x) my from z group by g "
+                                  "order by g nulls last"),
+    # tests/test_percentile.py
+    "global_percentiles": ("tpchs", "select approx_percentile(l_quantity, 0.5) p50, "
+                                    "approx_percentile(l_quantity, 0.95) p95, "
+                                    "approx_percentile(l_extendedprice, 0.99) p99 "
+                                    "from lineitem"),
+    "grouped_percentile": ("tpchs", "select l_returnflag, approx_percentile(l_extendedprice, "
+                                    "0.5) med from lineitem group by l_returnflag "
+                                    "order by l_returnflag"),
+    "percentile_filter_join": ("tpch", "select o_orderpriority, approx_percentile(l_quantity, "
+                                        "0.9) q90 from lineitem, orders "
+                                        "where l_orderkey = o_orderkey "
+                                        "and l_shipdate > date '1995-01-01' "
+                                        "group by o_orderpriority order by o_orderpriority"),
+    "percentile_nulls_empty_groups": ("mem", "select k, approx_percentile(v, 0.5) m from pn "
+                                             "group by k order by k"),
+    "percentile_mixes_hash": ("tpch", "select approx_percentile(l_quantity, 0.5) p, "
+                                       "count(*) c from lineitem"),
+    "listagg_grouped_ordered": ("tpch", "select r_name, listagg(n_name, ', ') within group "
+                                         "(order by n_name) nations from nation, region "
+                                         "where n_regionkey = r_regionkey group by r_name "
+                                         "order by r_name"),
+    "listagg_global_desc": ("tpch", "select listagg(r_name, '|') within group "
+                                     "(order by r_name desc) x from region"),
+    "listagg_null_values": ("mem", "select k, listagg(v, '+') within group (order by v) x "
+                                   "from la group by k order by k"),
+    # tests/test_decimal128.py (exact sums past 2^63)
+    "wide_sum_global": ("mem", "select sum(v) s from big"),
+    "wide_sum_group_by": ("mem", "select g, sum(v) s from big group by g order by g"),
+    "wide_avg": ("mem", "select g, avg(v) a, count(*) c from big group by g order by g"),
+    "wide_sum_small_values": ("tpch", "select l_returnflag, sum(l_quantity) q, "
+                                       "sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) ch "
+                                       "from lineitem group by l_returnflag "
+                                       "order by l_returnflag"),
+    "wide_sum_expression_raises": ("mem", "select sum(v) + 1 x from big"),
+    "wide_sum_in_subquery": ("mem", "select s from (select g, sum(v) s from big group by g) "
+                                    "order by g"),
+    "wide_sum_union": ("mem", "select s from (select sum(v) s from big union all "
+                              "select sum(v) s from big where g = 0)"),
+    # tests/test_decimal38.py
+    "decimal38_agg_join_sort": ("mem", "select name, sum(v) sv, min(v) mn, max(v) mx, "
+                                       "count(*) c from w, d where w.k = d.k group by name "
+                                       "order by sv desc"),
+    "decimal38_sum_beyond_int64": ("mem", "select sum(v) from big38"),
+    "decimal38_arithmetic": ("mem", "select a + b, a * b, a - b from p"),
+    "decimal38_ingest_overflow": ("mem", "insert into o values (99999999999999999999999999.0)"),
+    # the slice's queries, F1-F7 (chip_smoke.FUNCTIONS), at SF0.01
+    **{f"f_{q}": ("tpchs" if q == "f1_percentiles" else "tpch", sql)
+       for q, sql in FUNCTIONS.items()},
+}
+
+# phase 9: the kernels each query must launch, those the JAX reference
+# reaches over the same queries (a call recording of trino_tpu at SF0.1: the
+# table that ``scripts/record_function_kernels.py`` prints); F1's count(*)
+# beside its percentiles is planned as a join of two aggregations on the
+# group keys, and F3 and F4 group by computed keys, which have no column
+# range; queries not named here reach none of them
+FUNCTIONS_REQUIRED = {
+    "f1_percentiles": ('hash_insert', 'hash_probe'),
+    "f3_date_keys": ('hash_insert',),
+    "f4_checksum_buckets": ('hash_insert',),
+}
+# phase 9c: 60M lineitem rows on the card alone, held by oracles that need no
+# CPU run
+FUNCTIONS_BIG = ("f1_percentiles", "f3_date_keys", "f5_wide_sums")
+FUNCTIONS_SF_PARITY = 0.01  # the parity corpora's scale, as the CPU tests run them
 TPCDS_SF_PARITY = 0.1  # every corpus query on the card and the CPU
 TPCDS_SF_MAIN = 1.0
 TPCDS_SF_BIG = 10.0
@@ -698,14 +1240,15 @@ def device_split(fn, names, setup=None, reps=20):
         host.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
 
-    def ops(body):
+    def ops(body, attempt=0):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             # the trace loses the device operations at the start of its
             # window: the first one, and up to five of twenty 0.9 ms insert
             # launches at the TPC-DS path's largest shape (an H100, this
             # script's own profile, ~5 ms of device time): let those be
-            # throwaway spins of ~1 ms each, left out below
-            for _ in range(16):
+            # throwaway spins of ~1 ms each, left out below, twice as many
+            # on each profile of a window again
+            for _ in range(16 << attempt):
                 torch.cuda._sleep(2_000_000)
             for _ in range(reps):
                 body()
@@ -717,21 +1260,37 @@ def device_split(fn, names, setup=None, reps=20):
             setup()
         fn()
 
-    # every call of a wrapper makes the same number of launches, so a
-    # window whose count of the port's kernels is no whole multiple of reps
-    # lost records (16 of 20 at the memory path's 0.034 ms insert in one
-    # run of this script on an H100; a later run of three windows at that
-    # shape recorded 20 of 20 in each): profile the window again, up to
-    # three times, and keep every window's count (``profile_counts``) so
-    # that each run shows how often a window loses records, and where
+    def complete(events):
+        """Whether the window holds device operations and each kind occurs a
+        whole multiple of reps times: every call makes the same launches."""
+        seen: dict = {}
+        for e in events:
+            seen[e.name] = seen.get(e.name, 0) + 1
+        return bool(seen) and all(c % reps == 0 for c in seen.values())
+
+    # a window with a count that is no whole multiple of reps lost records
+    # (16 of 20 at the memory path's 0.034 ms insert in one run of this
+    # script on an H100; in two runs of phase 9, 1 of 20 table fills of the
+    # setup in the call's window and 2 of 20 in the setup's own, which read
+    # as fills the call made or did not make; in a third, the setup's whole
+    # window): profile the window again, up
+    # to three times, and keep every window's count of the port's kernels
+    # (``profile_counts``) and of the setup's operations
+    # (``setup_profile_counts``), so that each run shows how often a window
+    # loses records, and where
     counts_seen = []
-    for _ in range(3):
-        got = ops(call)
+    for attempt in range(3):
+        got = ops(call, attempt)
         kern = [e for e in got if is_port_kernel(e.name, names)]
         counts_seen.append(len(kern))
-        if len(kern) % reps == 0:
+        if kern and complete(got):
             break
-    setup_ops = ops(setup) if setup is not None else []
+    setup_ops, setup_counts = [], []
+    for attempt in range(3 if setup is not None else 0):
+        setup_ops = ops(setup, attempt)
+        setup_counts.append(len(setup_ops))
+        if complete(setup_ops):
+            break
     if not got:
         return {"wall_ms": wall, "host_ms": statistics.median(host), "kernel_ms": None,
                 "profile_counts": counts_seen,
@@ -747,6 +1306,7 @@ def device_split(fn, names, setup=None, reps=20):
         counts[e.name[:80]] = counts.get(e.name[:80], 0) - 1
     return {"wall_ms": wall, "host_ms": statistics.median(host), "kernel_ms": kernel_ms,
             "kernel_launches": len(kern) / reps, "profile_counts": counts_seen,
+            "setup_profile_counts": setup_counts,
             "other_device_ms": other_ms,
             "other_ops": {k: v / reps for k, v in counts.items() if v},
             "idle_ms": wall - kernel_ms - other_ms}
@@ -1061,7 +1621,8 @@ def insert_checks(seen, own_keys, gen):
             print(f"kernel hash_insert {label} {form}: shape={[n, C]} valid={nv} "
                   f"walks={walks} ms={rec['ms']:.4f} kernel_ms={rec['kernel_ms']} "
                   f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.6g} ({b_by}) "
-                  f"profiled={split['profile_counts']}", flush=True)
+                  f"profiled={split['profile_counts']} "
+                  f"setup_profiled={split.get('setup_profile_counts')}", flush=True)
     top = out[0]
     return {"name": "hash_insert", "shape": top["shape"], "form": top["form"],
             "max_abs_err": wrong_total,
@@ -1590,6 +2151,230 @@ def memory_path(tpch_ref):
                       for k, r in checks.items()}
 
 
+def ordered_sql(sql: str) -> bool:
+    """Whether a statement's outermost query orders its rows."""
+    import re
+
+    return re.search(r"order\s+by[^()]*$", sql.strip(), re.I) is not None
+
+
+def rows_sorted(res):
+    """(names, types, raw columns, row count) of a result with its rows in one
+    canonical order, for statements that do not order their rows: by the
+    non-DOUBLE columns, then the DOUBLE ones."""
+    import numpy as np
+
+    raw = [np.asarray(c) for c in res.raw_columns]
+    flt = [t.is_floating for t in res.types]
+
+    def key(i):
+        return tuple(repr(c[i]) for c, f in zip(raw, flt) if not f) + tuple(
+            float(c[i]) for c, f in zip(raw, flt) if f)
+
+    order = np.array(sorted(range(len(res)), key=key), dtype=np.int64)
+    return res.names, res.types, [c[order] for c in raw], len(res)
+
+
+def same_outcome(card, cpu, sql, card_sess, cpu_sess, what):
+    """One statement on the card and on the CPU: the same error, or equal
+    results (rows compared in order only where the statement orders them)."""
+    outs = []
+    for e, sess in ((card, card_sess), (cpu, cpu_sess)):
+        try:
+            outs.append(("ok", e.execute_sql(sql, sess)))
+        except Exception as ex:  # noqa: BLE001 - both sides' errors are compared
+            outs.append(("error", ex))
+    (kc, a), (kp, b) = outs
+    check(kc == kp, f"{what}: the card gave {a!r}, the CPU {b!r}")
+    if kc == "error":
+        check(type(a) is type(b) and str(a) == str(b), f"{what}: errors differ: {a!r} {b!r}")
+        return
+    if a is None or b is None:
+        check(a is None and b is None, f"{what}: one side returned no result")
+        return
+    if not ordered_sql(sql):
+        import numpy as np
+
+        (names, types, ra, na), (_, _, rb, nb) = rows_sorted(a), rows_sorted(b)
+        check(tuple(a.names) == tuple(b.names) and na == nb,
+              f"{what}: {na} rows vs {nb}, or the names differ")
+        for name, t, ca, cb in zip(names, types, ra, rb):
+            ok = np.allclose(ca.astype(np.float64), cb.astype(np.float64), rtol=1e-9, atol=0.0,
+                             equal_nan=True) if t.is_floating else bool((ca == cb).all())
+            check(ok, f"{what}: column {name} differs")
+        return
+    same_result(a, b, what)
+
+
+def corpus_engines(device, setup):
+    """An engine over TPC-H at FUNCTIONS_SF_PARITY (``tpch``; ``tpchs`` with
+    splits of 2^13 rows) and a memory catalog holding ``setup``'s tables."""
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    e = Engine(device=device)
+    e.register_catalog("tpch", TpchConnector(sf=FUNCTIONS_SF_PARITY))
+    e.register_catalog("tpchs", TpchConnector(sf=FUNCTIONS_SF_PARITY, split_rows=1 << 13))
+    e.register_catalog("mem", MemoryConnector())
+    sessions = {c: e.create_session(c) for c in ("tpch", "tpchs", "mem")}
+    for sql in setup:
+        e.execute_sql(sql, sessions["mem"])
+    return e, sessions
+
+
+def functions_parity():
+    """Phase 9a: the statements of tests/test_torch_functions.py and
+    tests/test_torch_aggregates.py on the card and on the CPU, equal."""
+    t0 = time.perf_counter()
+    n = 0
+    for label, cases, setup in (("functions", FUNCTION_CASES, FUNCTION_SETUP),
+                                ("aggregates", AGGREGATE_CASES, AGGREGATE_SETUP)):
+        card, card_s = corpus_engines(DEVICE, setup)
+        cpu, cpu_s = corpus_engines("cpu", setup)
+        for case, (catalog, sql) in cases.items():
+            same_outcome(card, cpu, sql, card_s[catalog], cpu_s[catalog],
+                         f"{label} {case} card vs CPU")
+            n += 1
+        del card, cpu
+    print(f"functions parity: {n} statements on the card equal the port's CPU outcomes "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def functions_keys(conn):
+    """Phase 9's own insert keys: F4's ``l_orderkey % 1024`` over the first
+    lineitem split, packed as a one-key hash group-by packs it."""
+    from trino_tpu_torch.ops.hashing import pack_keys
+    from trino_tpu_torch.types import BIGINT
+
+    page = conn.generate(conn.splits("lineitem")[0], ["l_orderkey"])
+    packed, _ = pack_keys((page.columns[0] % 1024,), (BIGINT,))
+    return packed, page.valid_mask()
+
+
+def functions_main(tpch):
+    """Phase 9b: F1-F7 at SF1 on the card (cold, warm, launches, host reads,
+    peak memory); FUNCTIONS_REQUIRED; each kernel the path launched against
+    its plain version at the path's shapes; then each query held against
+    the port's CPU run.  Returns (launches of the run, {kernel: checks})."""
+    import numpy as np
+
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.ops import cuda_kernels as ck
+
+    card = Engine(device=DEVICE)
+    card.register_catalog("tpch", tpch)
+    ck.reset_stats()
+    got = run_queries(card, FUNCTIONS, tpch.exact_row_count("lineitem"),
+                      f"functions sf{SF_MAIN:g}")
+    launches = {k: s.launches for k, s in ck.STATS.items()}
+    shapes = {k: list(s.shapes) for k, s in ck.STATS.items()}
+    for q, kernels in FUNCTIONS_REQUIRED.items():
+        for k in kernels:
+            check(got[q]["launches"][k] > 0, f"functions {q} launched no {k} kernel")
+    gen = np.random.default_rng(17)
+    checks = {"hash_insert": insert_checks(
+        shapes["hash_insert"], ("lineitem_orderkey_mod_1024", *functions_keys(tpch)), gen)}
+    if shapes["hash_probe"]:
+        checks["hash_probe"] = probe_checks(shapes["hash_probe"], gen)
+    if shapes["compact_rows"]:
+        checks["compact_rows"] = compact_checks(shapes["compact_rows"], gen)
+    cpu = Engine(device="cpu")
+    cpu.register_catalog("tpch", TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS))
+    t0 = time.perf_counter()
+    for q, sql in FUNCTIONS.items():
+        t1 = time.perf_counter()
+        ref = cpu.execute_sql(sql, cpu.create_session("tpch"))
+        same_result(got[q]["result"], ref, f"functions sf{SF_MAIN:g} {q} card vs CPU")
+        check(len(ref) > 0, f"functions {q} returned no rows")
+        print(f"functions sf{SF_MAIN:g} {q}: equal to the port's CPU result ({len(ref)} "
+              f"rows, CPU {time.perf_counter() - t1:.2f} s)", flush=True)
+    print(f"functions CPU pass: {time.perf_counter() - t0:.1f} s", flush=True)
+    del cpu
+    return launches, {k: {"max_abs_err": r["max_abs_err"], "shapes": r["shapes"]}
+                      for k, r in checks.items()}
+
+
+def decimal_text(raw: int, scale: int) -> str:
+    """A non-negative scaled decimal as an exact SQL literal."""
+    return f"{raw // 10 ** scale}.{raw % 10 ** scale:0{scale}d}"
+
+
+def functions_big():
+    """Phase 9c: F1, F3 and F5 at SF10 on the card alone, held by oracles
+    that need no CPU run: F5's sums are sum(l_extendedprice) * 10^10 of the
+    same groups, exactly; F1's and F3's counts are those of plain group-bys
+    (F3's summed on the host from a group-by over l_shipdate); each of F1's
+    medians sits at its rank, count_if(v < p50) <= round(0.5 (c - 1)) <
+    count_if(v <= p50)."""
+    import numpy as np
+    import torch
+
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    big = TpchConnector(sf=SF_BIG, split_rows=SPLIT_ROWS)
+    card = Engine(device=DEVICE)
+    card.register_catalog("tpch", big)
+    sess = card.create_session("tpch")
+    got = run_queries(card, {q: FUNCTIONS[q] for q in FUNCTIONS_BIG},
+                      big.exact_row_count("lineitem"), f"functions sf{SF_BIG:g}")
+    plain = card.execute_sql("select l_returnflag, l_linestatus, count(*), "
+                             "sum(l_extendedprice) from lineitem group by 1, 2 order by 1, 2",
+                             sess)
+    keys = list(zip(*[list(c) for c in plain.columns[:2]]))
+    counts = [int(c) for c in plain.raw_columns[2]]
+    sums = [int(v) for v in plain.raw_columns[3]]
+    f5 = got["f5_wide_sums"]["result"]
+    check(list(zip(*[list(c) for c in f5.columns[:2]])) == keys, "F5's groups differ")
+    check([int(v) for v in f5.raw_columns[2]] == [v * 10 ** 10 for v in sums],
+          "F5's exact sums are not sum(l_extendedprice) * 10^10")
+    f1 = got["f1_percentiles"]["result"]
+    check(list(zip(*[list(c) for c in f1.columns[:2]])) == keys, "F1's groups differ")
+    check([int(c) for c in f1.raw_columns[4]] == counts, "F1's counts differ")
+    p50 = [int(v) for v in f1.raw_columns[2]]
+    terms = []
+    for (rf, ls), p in zip(keys, p50):
+        cond = f"l_returnflag = '{rf}' and l_linestatus = '{ls}' and l_extendedprice"
+        terms += [f"count_if({cond} < {decimal_text(p, 2)})",
+                  f"count_if({cond} <= {decimal_text(p, 2)})"]
+    ranks = card.execute_sql(f"select {', '.join(terms)} from lineitem", sess).rows()[0]
+    for i, c in enumerate(counts):
+        lo, hi, k = int(ranks[2 * i]), int(ranks[2 * i + 1]), round(0.5 * (c - 1))
+        check(lo <= k < hi, f"F1's p50 of {keys[i]} is not at rank {k}: {lo}, {hi}")
+    by_day = card.execute_sql("select l_shipdate, count(*) from lineitem group by 1", sess)
+    days = np.asarray(by_day.raw_columns[0]).astype(np.int64)
+    month = days.astype("datetime64[D]").astype("datetime64[M]")
+    m = month.astype("datetime64[D]").astype(np.int64)
+    q = month.astype(np.int64) % 12 // 3 + 1
+    dw = (days + 3) % 7 + 1
+    want: dict = {}
+    for key, c in zip(zip(m.tolist(), q.tolist(), dw.tolist()), by_day.raw_columns[1].tolist()):
+        want[key] = want.get(key, 0) + int(c)
+    f3 = got["f3_date_keys"]["result"]
+    have = {(int(a), int(b), int(c)): int(n) for a, b, c, n in zip(*f3.raw_columns[:4])}
+    check(have == want, "F3's counts differ from the group-by over l_shipdate")
+    print(f"functions sf{SF_BIG:g}: F5's {len(sums)} exact sums, F1's counts and medians' "
+          f"ranks and F3's {len(have)} group counts hold; peak device memory "
+          f"{max(r['peak_bytes'] for r in got.values()) / 2**30:.2f} GiB", flush=True)
+    del card, big
+    torch.cuda.empty_cache()
+
+
+def functions_path():
+    """Phase 9: the function library's path.  Returns (launches of 9b,
+    {kernel: checks at its shapes})."""
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    t0 = time.perf_counter()
+    functions_parity()
+    launches, checks = functions_main(TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS))
+    functions_big()
+    print(f"functions path: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, checks
+
+
 def main() -> int:
     import torch
 
@@ -1715,6 +2500,8 @@ def main() -> int:
         del gpu, ds_big, big_res
         torch.cuda.empty_cache()
         mem_launches, mem_checks = memory_path(tpch_ref)
+        # -- phase 9: the function library at SF0.01, SF1 and SF10 ------------
+        fn_launches, fn_checks = functions_path()
 
         # per path: its launches, and the checks at its own shapes (the
         # top-level times stay the TPC-H path's largest shape's)
@@ -1726,11 +2513,13 @@ def main() -> int:
                 "tpcds_sf1": {"launches": ds_launches[name],
                               **ds_checks.get(name, {"max_abs_err": None, "shapes": []})},
                 "memory_sf1": {"launches": mem_launches[name],
-                               **mem_checks.get(name, {"max_abs_err": None, "shapes": []})}}
-            for checks in (ds_checks, mem_checks):
+                               **mem_checks.get(name, {"max_abs_err": None, "shapes": []})},
+                "functions_sf1": {"launches": fn_launches[name],
+                                  **fn_checks.get(name, {"max_abs_err": None, "shapes": []})}}
+            for checks in (ds_checks, mem_checks, fn_checks):
                 if name in checks:
                     r["max_abs_err"] = max(r["max_abs_err"], checks[name]["max_abs_err"])
-            r["launches"] += ds_launches[name] + mem_launches[name]
+            r["launches"] += ds_launches[name] + mem_launches[name] + fn_launches[name]
         print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

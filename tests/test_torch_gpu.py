@@ -1,8 +1,9 @@
 """Tests of the port that need a CUDA card: each kernel against its plain
 version on the card; TPC-H, multi-match joins, global aggregates and the
 TPC-DS corpus on the card against the same SQL on the CPU; the window
-primitives and the window kernel on the card against their CPU runs; and
-the streaming LIMIT compacting through the CUDA kernel.
+primitives and the window kernel on the card against their CPU runs; the
+streaming LIMIT compacting through the CUDA kernel; and the sort-based
+aggregation runner, the function corpora and the exact wide sums.
 
 They skip without a card.  This file imports no jax, so on a machine with a
 card (which has no jax) it runs without the repo's conftest:
@@ -678,3 +679,57 @@ def test_refresh_path_on_the_card_equals_the_cpu(dev):
             _run_on_both(engines, sql)
         _run_on_both(engines, "drop view revenue0")
     assert ck.STATS["compact_rows"].launches > 0 and ck.STATS["hash_insert"].launches > 0
+
+
+# -- the function library: sort-based aggregation and exact wide sums ---------------------
+
+
+def test_sort_keys_and_groups_on_the_card_equal_the_cpu(dev):
+    """The sort-based runner's group structure on the card equals the CPU's:
+    -0.0 and 0.0 in one group, NULL keys in one group, dead rows in none,
+    and each NaN key a group of its own after +inf, as in the reference
+    (ROADMAP C)."""
+    from trino_tpu_torch.exec.local_executor import _sort_key, _sorted_groups
+
+    rng = np.random.default_rng(3)
+    n = 200003
+    x = rng.choice(np.array([0.0, -0.0, np.nan, -np.nan, np.inf, 1.5, -2.5]), size=n)
+    k = rng.integers(0, 50, n).astype(np.int32)
+    kn = rng.random(n) < 0.1
+    valid = rng.random(n) < 0.9
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        kc = [torch.as_tensor(x, device=d), torch.as_tensor(k, device=d)]
+        kns = [None, torch.as_tensor(kn, device=d)]
+        _, gid, count = _sorted_groups(kc, kns, torch.as_tensor(valid, device=d))
+        got[d.type] = (gid.cpu(), int(count), torch.argsort(_sort_key(kc[0]), stable=True).cpu())
+    assert torch.equal(got["cuda"][0], got["cpu"][0])
+    nan = np.isnan(x)
+    distinct = {(v, kk if not nn else None)
+                for v, kk, nn in zip(x[valid & ~nan] + 0.0, k[valid & ~nan], kn[valid & ~nan])}
+    assert got["cuda"][1] == got["cpu"][1] == len(distinct) + int((valid & nan).sum())
+    assert torch.equal(got["cuda"][2], got["cpu"][2])
+
+
+def test_function_corpora_on_the_card_equal_the_cpu(dev):
+    """Phase 9a of chip_smoke.py: every statement of tests/test_torch_functions.py
+    and tests/test_torch_aggregates.py (sort-based aggregation, exact wide
+    sums, the new accumulators and scalar calls) on the card and the CPU."""
+    import chip_smoke as cs
+
+    ck.reset_stats()
+    cs.functions_parity()
+    assert ck.STATS["compact_rows"].launches > 0 and ck.STATS["hash_insert"].launches > 0
+
+
+def test_wide_sums_on_the_card_decode_exactly(dev):
+    from decimal import Decimal
+
+    import chip_smoke as cs
+
+    engine, sessions = cs.corpus_engines("cuda", cs.AGGREGATE_SETUP)
+    want = sum(Decimal(f"{8_600_000_000_000_000 + i * 7}.25") for i in range(40))
+    r = engine.execute_sql("select sum(v) s from big", sessions["mem"])
+    assert r.raw_columns[0].dtype == object and r.rows() == [(want,)]
+    with pytest.raises(NotImplementedError, match="wide-decimal"):
+        engine.execute_sql("select sum(v) + 1 x from big", sessions["mem"])

@@ -136,7 +136,11 @@ def test_predicate_equal():
 
 
 def test_unported_call_raises_naming_it():
-    x = TIR.FieldRef(0, TT.DOUBLE, "x")
-    with pytest.raises(NotImplementedError, match="sqrt"):
-        TIR.evaluate(TIR.Call("sqrt", (x,), TT.DOUBLE), [torch.ones(3, dtype=torch.float64)],
-                     [None])
+    # every scalar call is ported but the array, map and span calls
+    x = TIR.FieldRef(0, TT.BIGINT, "x")
+    with pytest.raises(NotImplementedError, match="'array_get'.*ROADMAP A4"):
+        TIR.evaluate(TIR.Call("array_get", (x, x, x), TT.BIGINT),
+                     [torch.ones(3, dtype=torch.int64)], [None])
+    with pytest.raises(NotImplementedError, match="'no_such_op'"):
+        TIR.evaluate(TIR.Call("no_such_op", (x,), TT.BIGINT),
+                     [torch.ones(3, dtype=torch.int64)], [None])

@@ -456,3 +456,14 @@ def test_join_builds_insert_in_place_without_copying_a_table(engine, monkeypatch
     assert seen["inserts"] > 0 and seen["fresh"] == seen["inserts"]
     assert seen["clones"] == 0
     _same_result(engine.execute_sql(JOIN_BUILD_SQL[name], engine.create_session("tpch")), got)
+
+
+def test_page_column_by_name():
+    """``Page.column(name)`` (ROADMAP C4): the column the schema names, as
+    the reference's ``Page.column``."""
+    rng = np.random.default_rng(4)
+    jp, tp, cols, _ = _build_pages(rng, 50, keys2=True)
+    for name in ("k", "k2", "v"):
+        np.testing.assert_array_equal(tp.column(name).numpy(), np.asarray(jp.column(name)))
+    with pytest.raises(KeyError):
+        tp.column("missing")

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+from decimal import Decimal
 from typing import Callable, Optional
 
 import numpy as np
@@ -34,8 +35,8 @@ from ..ops.hashjoin import (DIRECT_JOIN_RANGE_MAX, DirectJoinTable,
                             probe_slots)
 from ..page import Page, Schema
 from ..sql import plan as P
-from ..sql.ir import FieldRef, evaluate, evaluate_predicate
-from ..types import DecimalType, torch_dtype
+from ..sql.ir import Call, FieldRef, evaluate, evaluate_predicate
+from ..types import BIGINT, DecimalType, TimestampType, torch_dtype
 
 __all__ = ["LocalExecutor", "MaterializedResult"]
 
@@ -94,7 +95,18 @@ class _Stream:
     compacted: bool = False  # a compaction boundary already shrank this chain
 
     def run(self, page: Page):
-        return self.transform(page.columns, page.null_masks, page.valid_mask(), self.aux)
+        try:
+            return self.transform(page.columns, page.null_masks, page.valid_mask(),
+                                  self.aux)
+        except (TypeError, AttributeError, OverflowError) as e:
+            # exact wide-decimal sums live on the host: only FieldRefs pass them
+            if any(isinstance(c, np.ndarray) for c in page.columns):
+                raise NotImplementedError(_WIDE_EXPR_MSG) from e
+            raise
+
+
+_WIDE_EXPR_MSG = ("expressions over an exact wide-decimal aggregate (sum beyond 2^63) "
+                  "are not supported yet — such sums can only be output directly")
 
 
 def _identity(c, n, v, aux):
@@ -275,9 +287,9 @@ class LocalExecutor:
                 cols, nulls, valid = up.transform(cols, nulls, valid, aux)
                 out = [evaluate(e, cols, nulls) for e in exprs]
                 # constants evaluate to 0-d tensors: broadcast to the row count
-                vs = tuple(v.expand(valid.shape) if v.dim() == 0 else v for v, _ in out)
+                vs = tuple(v.expand(valid.shape) if v.ndim == 0 else v for v, _ in out)
                 ns = tuple(None if m is None
-                           else (m.expand(valid.shape) if m.dim() == 0 else m)
+                           else (m.expand(valid.shape) if m.ndim == 0 else m)
                            for _, m in out)
                 return vs, ns, valid
 
@@ -384,8 +396,7 @@ class LocalExecutor:
 
     def _run_aggregate(self, node: P.Aggregate):
         if any(s.kind in P.SORTED_AGG_KINDS for s in node.aggs):
-            raise _not_ported("sort-based aggregation (Aggregate with "
-                              + ", ".join(sorted({s.kind for s in node.aggs})) + ")")
+            return self._run_sorted_aggregate(node)
         if not node.keys:
             return self._run_global_aggregate(node)
         stream = self._compile_stream(node.child)
@@ -394,7 +405,7 @@ class LocalExecutor:
         for spec in node.aggs:
             for kind, dtype, init in _accumulators_for(spec):
                 acc_specs.append((dtype, init))
-                acc_exprs.append(spec.arg)
+                acc_exprs.append(_acc_input_expr(spec))
                 acc_kinds.append(kind)
         capacity = node.capacity or DEFAULT_GROUP_CAPACITY
 
@@ -483,17 +494,17 @@ class LocalExecutor:
         for spec in node.aggs:
             for kind, dtype, init in _accumulators_for(spec):
                 acc_specs.append((dtype, init))
-                acc_exprs.append(spec.arg)
+                acc_exprs.append(_acc_input_expr(spec))
                 acc_kinds.append(kind)
         state = _global_init_state(acc_specs, self.device)
         for page in stream.pages():
             cols, nulls, valid = stream.run(page)
             state = _global_agg_update(state, cols, nulls, valid, acc_exprs, acc_kinds)
-        fin_cols, fin_nulls, bad = _finalize_aggs_device(
-            node.aggs, tuple(a.reshape(1) for a in state))
+        accs = tuple(a.reshape(1) for a in state)
+        fin_cols, fin_nulls, bad = _finalize_aggs_device(node.aggs, accs)
         if bool(self._host([bad], "agg.global.envelope")[0]):
-            raise _not_ported("exact decimal sums past 2^62 (the host-exact "
-                              "finalization, _finalize_aggs)")
+            return self._finalize_exact(node, (), (), fin_cols, fin_nulls, accs, 1), \
+                tuple(None for _ in node.aggs)
         return Page(node.schema, fin_cols, fin_nulls, None), tuple(None for _ in node.aggs)
 
     def _run_hash_inserts(self, node, key_types, acc_exprs, acc_kinds, state, outs,
@@ -581,12 +592,188 @@ class LocalExecutor:
         dicts = tuple(stream.dicts[i] for i in node.keys) + tuple(None for _ in node.aggs)
         fin_cols, fin_nulls, bad = _finalize_aggs_device(node.aggs, tuple(accs))
         if bool(self._host([bad], "agg.finalize.envelope")[0]):
-            raise _not_ported("exact decimal sums past 2^62 (the host-exact "
-                              "finalization, _finalize_aggs)")
+            return self._finalize_exact(node, keys, key_nulls, fin_cols, fin_nulls, accs,
+                                        n_groups), dicts
         out_cols = tuple(k[:n_groups] for k in keys) + tuple(c[:n_groups] for c in fin_cols)
         out_nulls = tuple(kn[:n_groups] for kn in key_nulls) + tuple(
             None if fn is None else fn[:n_groups] for fn in fin_nulls)
         return Page(node.schema, out_cols, out_nulls, None), dicts
+
+    def _finalize_exact(self, node, keys, key_nulls, fin_cols, fin_nulls, accs, n):
+        """The host-exact finalization, once a wide decimal sum left the
+        int64 envelope: one read of the device-finalized page and of the
+        accumulators; each decimal sum and avg is recombined from its two
+        limbs as exact python ints (an object column past int64, decoded
+        through ``Decimal`` at the surface).  The page stays on the host."""
+        parts = [list(keys), list(key_nulls), list(fin_cols), list(fin_nulls), list(accs)]
+        flat = [None if a is None else a[:n] for part in parts for a in part]
+        got = iter(self._host(flat, site="agg.finalize.exact"))
+        keys, key_nulls, cols, nulls, accs = ([next(got) for _ in part] for part in parts)
+        i = 0
+        for j, spec in enumerate(node.aggs):
+            width = len(_accumulators_for(spec))
+            if _accumulators_for(spec)[0][0] == "sum_hi32":  # decimal sum or avg
+                exact = [h * (1 << 32) + lo for h, lo in zip(accs[i].tolist(),
+                                                           accs[i + 1].tolist())]
+                if spec.kind == "avg":  # HALF_UP on the exact sum; fits the input type
+                    exact = [_div_half_up(v, max(c, 1))
+                             for v, c in zip(exact, accs[i + 2].tolist())]
+                fits = all(_I64_MIN <= v <= _I64_MAX for v in exact)
+                cols[j] = np.array(exact, dtype=np.int64 if fits else object)
+            i += width
+        nulls = [None if m is None or not m.any() else m for m in key_nulls + nulls]
+        return Page(node.schema, tuple(keys + cols), tuple(nulls), None)
+
+    # -- sort-based aggregation -----------------------------------------------
+    def _run_sorted_aggregate(self, node: P.Aggregate):
+        """approx_percentile (exact selection at round(p * (count - 1))),
+        max_by / min_by, listagg and the bitwise aggregates, by sorting.
+
+        One key-major sort of the concatenated input gives the groups: their
+        dense ids, sizes and starts stay on the device, and one read carries
+        the live and group counts.  Each aggregate then sorts the rows by
+        (group, value NULL, value), which orders every group's values in
+        the same position range, and one read per aggregate carries its
+        results (with the group keys, on the first).  The page returned
+        lives on the host, as the reference's does."""
+        for s_ in node.aggs:
+            if s_.kind not in P.SORTED_AGG_KINDS:
+                raise NotImplementedError(
+                    "sort-based aggregates (approx_percentile/listagg/"
+                    "max_by/array_agg/...) cannot mix with other "
+                    "aggregates yet")
+            if not isinstance(s_.arg, FieldRef):
+                raise NotImplementedError(f"{s_.kind} argument must be a plain column")
+        for s_ in node.aggs:
+            if s_.kind in _ARRAY_AGG_KINDS:
+                raise _not_ported(f"{s_.kind} (array and map results, ROADMAP A4)")
+        stream = self._compile_stream(node.child)
+        page = self._concat_stream(stream)
+        n = page.capacity
+
+        def empty(rows):
+            """No group, or (a global aggregate over no input) one NULL row."""
+            cols = tuple(np.zeros((rows,), np.dtype(f.type.dtype)) for f in node.schema.fields)
+            nulls = tuple(np.ones((1,), bool) if rows else None for _ in cols)
+            return Page(node.schema, cols, nulls, None), tuple(None for _ in cols)
+
+        if n == 0:
+            return empty(0 if node.keys else 1)
+        dev = page.columns[0].device
+        valid = page.valid_mask()
+        kcols = [page.columns[i] for i in node.keys]
+        knulls = [page.null_masks[i] for i in node.keys]
+        order, gid, count = _sorted_groups(kcols, knulls, valid)
+        m, g = (int(x) for x in self._host([torch.sum(valid, dtype=torch.int64), count],
+                                           site="agg.sorted.counts"))
+        if not node.keys:
+            g = 1 if m else 0
+        if g == 0:
+            return empty(0)
+        gid = torch.clamp(gid, max=g)  # dead rows: the sink slot g
+        sizes = torch.zeros((g + 1,), dtype=torch.int64, device=dev).index_add_(
+            0, gid, valid.to(torch.int64))[:g]
+        starts = torch.cumsum(sizes, 0) - sizes
+        key_fetch = [k[order[starts]] for k in kcols] + \
+            [kn[order[starts]] for kn in knulls if kn is not None]
+
+        def group_sort(primary, pnull):
+            """Row permutation by (group, value NULL, value), and each group's
+            count of non-NULL values."""
+            idx = _lexsort([_sort_key(primary), gid * 2 + pnull.to(torch.int64)], n, dev)
+            live = (valid & ~pnull).to(torch.int64)
+            cnt = torch.zeros((g + 1,), dtype=torch.int64, device=dev).index_add_(
+                0, gid, live)[:g]
+            return idx, cnt
+
+        def read(arrays):
+            """One read per aggregate; the first also carries the group keys."""
+            extra = key_fetch if not agg_vals else []
+            got = self._host(list(arrays) + extra, site="agg.sorted.fetch")
+            if extra:
+                rest = got[len(arrays):]
+                out_keys.extend(rest[:len(kcols)])
+                it = iter(rest[len(kcols):])
+                out_knulls.extend(None if kn is None else next(it) for kn in knulls)
+            return got[:len(arrays)]
+
+        out_keys, out_knulls, agg_vals, agg_nulls, agg_dicts = [], [], [], [], []
+        for s_ in node.aggs:
+            vch = s_.arg.index
+            v = page.columns[vch]
+            vn = page.null_masks[vch]
+            vnull = torch.zeros((n,), dtype=torch.bool, device=dev) if vn is None else vn
+            d_out = None
+            if s_.kind in ("approx_percentile", "max_by", "min_by"):
+                rank = v
+                vd = stream.dicts[vch]
+                if s_.kind != "approx_percentile" and getattr(vd, "values", None) is not None:
+                    # string ranking follows the values, not the dictionary ids
+                    lut = torch.as_tensor(_collation_rank_lut(vd), device=dev)
+                    rank = lut[torch.clamp(v, 0, len(lut) - 1).to(torch.int64)]
+                idx, cnt = group_sort(rank, vnull)
+                last = torch.clamp(cnt - 1, min=0)
+                if s_.kind == "approx_percentile":
+                    off = torch.round(float(s_.param) * last.to(torch.float64)).to(torch.int64)
+                    tgt = starts + torch.minimum(torch.clamp(off, min=0), last)
+                    src, srcn = v, None
+                else:
+                    tgt = starts + last if s_.kind == "max_by" else starts
+                    src, srcn = page.columns[int(s_.param)], page.null_masks[int(s_.param)]
+                    d_out = stream.dicts[int(s_.param)]
+                at = idx[torch.clamp(tgt, 0, n - 1)]
+                got = read([src[at], cnt] + ([] if srcn is None else [srcn[at]]))
+                vals, vnull_out = got[0], got[1] == 0
+                if srcn is not None:
+                    vnull_out = vnull_out | got[2]
+            elif s_.kind == "listagg":
+                vals, vnull_out, d_out = self._listagg(s_, page, stream.dicts, v, vnull,
+                                                       group_sort, sizes, read)
+            else:  # bitwise_and_agg, bitwise_or_agg, bitwise_xor_agg
+                idx, _ = group_sort(v, vnull)
+                sv, svn, sz = read([v[idx], vnull[idx], sizes])
+                fold = {"bitwise_and_agg": np.bitwise_and, "bitwise_or_agg": np.bitwise_or,
+                        "bitwise_xor_agg": np.bitwise_xor}[s_.kind]
+                vals, vnull_out = np.zeros(g, np.int64), np.zeros(g, bool)
+                for gi, (s0, e0) in enumerate(_segments(sz)):
+                    vv = sv[s0:e0][~svn[s0:e0]]
+                    if len(vv):
+                        vals[gi] = fold.reduce(vv.astype(np.int64))
+                    else:
+                        vnull_out[gi] = True
+            agg_vals.append(np.asarray(vals))
+            agg_nulls.append(vnull_out if vnull_out.any() else None)
+            agg_dicts.append(d_out)
+        nulls = [None if kn is None or not kn.any() else kn for kn in out_knulls] + agg_nulls
+        dicts = tuple(stream.dicts[i] for i in node.keys) + tuple(agg_dicts)
+        return Page(node.schema, tuple(out_keys + agg_vals), tuple(nulls), None), dicts
+
+    def _listagg(self, spec, page, dicts, v, vnull, group_sort, sizes, read):
+        """listagg(x, sep) WITHIN GROUP (ORDER BY o): the rows sorted by the
+        order key inside each group, then each group's strings decoded and
+        joined on the host into a new dictionary (one entry per group)."""
+        from ..connectors.tpch import Dictionary
+
+        sep, order_ch, asc = spec.param
+        d = dicts[spec.arg.index]
+        if d is None:
+            raise NotImplementedError("listagg needs a dictionary-encoded string channel")
+        okey = page.columns[order_ch] if order_ch is not None else v
+        od = dicts[order_ch] if order_ch is not None else d
+        if getattr(od, "values", None) is not None:
+            lut = torch.as_tensor(_collation_rank_lut(od), device=okey.device)
+            okey = lut[torch.clamp(okey, 0, len(lut) - 1).to(torch.int64)]
+        if not asc:
+            okey = -okey if okey.is_floating_point() else ~okey
+        idx, _ = group_sort(okey, vnull)
+        sv, svn, sz = read([v[idx], vnull[idx], sizes])
+        joined, out_null = [], np.zeros(len(sz), bool)
+        for gi, (s0, e0) in enumerate(_segments(sz)):
+            ids = sv[s0:e0][~svn[s0:e0]]
+            out_null[gi] = len(ids) == 0
+            joined.append(sep.join(str(x) for x in d.decode(ids)) if len(ids) else "")
+        return (np.arange(len(sz), dtype=np.int32), out_null,
+                Dictionary(values=np.array(joined, dtype=object)))
 
     # -- joins ----------------------------------------------------------------
     def _compile_join(self, node: P.Join) -> _Stream:
@@ -785,16 +972,21 @@ class LocalExecutor:
         return self._concat_stream(stream), stream.dicts
 
     def _device_page(self, page: Page) -> Page:
-        """A page whose columns were pulled to the host (sort, TopN, limit)
-        back on the device, every row live."""
+        """A page whose columns were pulled to the host (sort, TopN, limit,
+        sort-based or exact aggregation) back on the device, every row live.
+        Exact wide-decimal (object) columns stay on the host."""
         if all(isinstance(c, torch.Tensor) for c in page.columns):
             return page
-        cols = tuple(torch.as_tensor(np.asarray(c), dtype=torch_dtype(f.type),
-                                     device=self.device)
+        cols = tuple(c if np.asarray(c).dtype == object
+                     else torch.as_tensor(np.asarray(c), dtype=torch_dtype(f.type),
+                                          device=self.device)
                      for c, f in zip(page.columns, page.schema.fields))
         nulls = tuple(None if m is None else torch.as_tensor(np.asarray(m), device=self.device)
                       for m in page.null_masks)
-        return Page(page.schema, cols, nulls, None)
+        valid = None
+        if any(isinstance(c, np.ndarray) for c in cols):  # the row mask stays on the device
+            valid = torch.ones((page.capacity,), dtype=torch.bool, device=self.device)
+        return Page(page.schema, cols, nulls, valid)
 
     # -- window, limit, values -------------------------------------------------
     def _run_window(self, node: P.Window):
@@ -993,6 +1185,15 @@ class LocalExecutor:
             for (cols, nulls, valid), n in zip(staged, counts):
                 if n == 0:
                     continue
+                if any(isinstance(c, np.ndarray) for c in cols):
+                    # exact wide-decimal columns: the live rows on the host
+                    got = self._host([valid] + list(cols) + list(nulls),
+                                     site="compact.host")
+                    v = got[0]
+                    parts.append((tuple(c[v] for c in got[1:1 + len(cols)]),
+                                  tuple(None if m is None else m[v]
+                                        for m in got[1 + len(cols):]), None))
+                    continue
                 bucket = min(max(1 << max(n - 1, 1).bit_length(), 1024), valid.shape[0])
                 packed, _ = compact_rows(tuple(cols) + tuple(nulls), valid, bucket)
                 pvalid = torch.arange(bucket, device=valid.device) < n
@@ -1015,6 +1216,13 @@ class LocalExecutor:
         if len(parts) == 1:
             ccols, cnulls, pvalid = parts[0]
             return Page(stream.schema, ccols, cnulls, pvalid)
+        if parts[0][2] is None:  # host parts
+            cols = tuple(np.concatenate([p[0][ci] for p in parts])
+                         for ci in range(len(parts[0][0])))
+            nulls = tuple(None if all(p[1][ci] is None for p in parts) else np.concatenate([
+                np.zeros(len(p[0][ci]), bool) if p[1][ci] is None else p[1][ci]
+                for p in parts]) for ci in range(len(cols)))
+            return Page(stream.schema, cols, nulls, None)
         ncols = len(parts[0][0])
         cols_out, nulls_out = [], []
         for ci in range(ncols):
@@ -1035,7 +1243,7 @@ class LocalExecutor:
         rankable = all(
             not page.schema.fields[k.channel].type.is_string
             or getattr(dicts[k.channel], "values", None) is not None for k in keys)
-        if rankable:
+        if rankable and all(isinstance(c, torch.Tensor) for c in page.columns):
             return self._topn_page_device(page, keys, count, dicts)
         return self._sort_page_host(page, keys, count, dicts)
 
@@ -1236,6 +1444,14 @@ def _page_bytes(page: Page) -> int:
     return total + sum(page.capacity for m in page.null_masks if m is not None)
 
 
+def _acc_input_expr(spec: P.AggSpec):
+    """The expression an aggregate's accumulators consume: checksum sums
+    the rows' hashes, every other aggregate its argument."""
+    if spec.kind == "checksum" and spec.arg is not None:
+        return Call("hash", (spec.arg,), BIGINT)
+    return spec.arg
+
+
 def _accumulators_for(spec: P.AggSpec):
     """(kind, dtype, init) accumulator list for one agg call."""
     t = spec.type
@@ -1257,7 +1473,21 @@ def _accumulators_for(spec: P.AggSpec):
         # (sum, sum of squares, count): the merge-friendly form of the
         # reference's VarianceState
         return [("sum", np.float64, 0), ("sum_sq", np.float64, 0), ("count", np.int64, 0)]
+    if spec.kind in ("bool_and", "bool_or"):
+        kind = "min" if spec.kind == "bool_and" else "max"
+        return [(kind, np.int8, hashagg._extreme(np.int8, 1 if kind == "min" else -1))]
+    if spec.kind == "arbitrary":
+        dtype = spec.arg.type.dtype
+        return [("min", dtype, hashagg._extreme(dtype, 1))]
+    if spec.kind == "checksum":
+        # the wrapping int64 sum of the rows' splitmix64 hashes, and a count
+        # (strings hash their dictionary ids, as in the reference)
+        return [("sum", np.int64, 0), ("count", np.int64, 0)]
     raise _not_ported(f"aggregate {spec.kind}")
+
+
+# sort-based aggregates whose results are arrays or maps
+_ARRAY_AGG_KINDS = ("array_agg", "histogram", "map_agg", "approx_most_frequent")
 
 
 _VARIANCE_KINDS = ("var_pop", "var_samp", "stddev_pop", "stddev_samp")
@@ -1345,7 +1575,7 @@ def _finalize_aggs_device(aggs, acc_cols):
             bad = bad | b
             out.append(v)
             nulls.append(c == 0)
-        elif spec.kind == "sum":
+        elif spec.kind in ("sum", "checksum"):
             s, c = acc_cols[i], acc_cols[i + 1]
             i += 2
             out.append(s.to(torch_dtype(spec.type)))
@@ -1367,12 +1597,68 @@ def _finalize_aggs_device(aggs, acc_cols):
             col = acc_cols[i]
             i += 1
             out.append(col.to(torch_dtype(spec.type)))
-            if spec.kind in ("min", "max"):
+            if spec.kind in ("min", "max", "arbitrary", "bool_and", "bool_or"):
                 # a surviving init sentinel marks an all-NULL group
                 nulls.append(col == _accumulators_for(spec)[0][2])
             else:  # counts are 0 for empty groups, never NULL
                 nulls.append(None)
     return tuple(out), tuple(nulls), bad
+
+
+def _div_half_up(v: int, c: int) -> int:
+    q, r = divmod(abs(v), c)
+    return (q + (2 * r >= c)) * (1 if v >= 0 else -1)
+
+
+def _sort_key(c):
+    """A column as a sort key whose order is the SQL order and the same on
+    every device: bools as int8; floats as their total-order bit patterns,
+    -0.0 as 0.0 and every NaN last."""
+    if c.dtype == torch.bool:
+        return c.to(torch.int8)
+    if not c.is_floating_point():
+        return c
+    f = c.to(torch.float64)
+    f = torch.where(f == 0, torch.zeros_like(f), f)
+    f = torch.where(torch.isnan(f), torch.full_like(f, float("nan")), f)
+    b = f.view(torch.int64)
+    return torch.where(b < 0, b ^ _I64_MAX, b)
+
+
+def _sorted_groups(kcols, knulls, valid):
+    """The groups of a sort-based aggregation: one lexicographic sort by
+    (live, key NULL, key) per key, most significant first.  Returns (the sort
+    order, each row's dense group id in key order (``n`` for dead rows), the
+    group count), all on the device."""
+    n = valid.shape[0]
+    lex = []
+    for k, kn in zip(reversed(kcols), reversed(knulls)):
+        lex.append(_sort_key(k))
+        if kn is not None:
+            lex.append(kn.to(torch.int8))
+    lex.append((~valid).to(torch.int8))
+    order = _lexsort(lex, n, valid.device)
+    svalid = valid[order]
+    new = torch.zeros((n,), dtype=torch.bool, device=valid.device)
+    new[:1] = True
+    for k, kn in zip(kcols, knulls):
+        sk = k[order]
+        diff = sk[1:] != sk[:-1]
+        if kn is not None:
+            skn = kn[order]
+            diff = (diff & ~(skn[1:] & skn[:-1])) | (skn[1:] != skn[:-1])
+        new[1:] |= diff
+    new = new & svalid
+    gid_sorted = torch.where(svalid, torch.cumsum(new, 0) - 1, n)
+    gid = torch.empty_like(gid_sorted)
+    gid[order] = gid_sorted
+    return order, gid, torch.sum(new, dtype=torch.int64)
+
+
+def _segments(sizes):
+    """[start, end) of each group from its size (host)."""
+    ends = np.cumsum(sizes)
+    return zip((ends - sizes).tolist(), ends.tolist())
 
 
 def _collation_rank_lut(d):
@@ -1395,11 +1681,22 @@ def _materialize_host(schema, valid, pcols, pnulls, dicts) -> MaterializedResult
         raw.append(arr)
         dec = arr
         if isinstance(f.type, DecimalType):
-            dec = arr.astype(np.float64) / (10**f.type.scale)
+            if arr.dtype == object:
+                # exact wide-decimal sums (python ints past 2^63): decode
+                # through Decimal so no digit is lost at the surface
+                q = Decimal(10) ** f.type.scale
+                dec = np.array([Decimal(int(v)) / q for v in arr.tolist()], dtype=object)
+            else:
+                dec = arr.astype(np.float64) / (10**f.type.scale)
         elif f.type.is_string and dicts[i] is not None:
             dec = dicts[i].decode(arr)
         elif f.type.name == "date":
             dec = arr.astype("datetime64[D]")
+        elif isinstance(f.type, TimestampType):
+            # epoch units of 10^-p seconds -> datetime64 (us up to p = 6)
+            p = f.type.precision
+            dec = (arr * 10 ** (6 - p)).astype("datetime64[us]") if p <= 6 \
+                else (arr * 10 ** (9 - p)).astype("datetime64[ns]")
         if pnulls[i] is not None:
             nm = np.asarray(pnulls[i])[valid]
             if nm.any():

@@ -68,6 +68,9 @@ class Page:
     def capacity(self) -> int:
         return int(self.columns[0].shape[0]) if self.columns else 0
 
+    def column(self, name: str):
+        return self.columns[self.schema.index(name)]
+
     @property
     def device(self) -> torch.device:
         if self.columns:

@@ -14,8 +14,9 @@ computing.  Torch would otherwise let a 0-d operand take the dtype of the
 column (an int32 column times an int64 constant would compute in int32);
 explicit promotion gives the reference's x64 results.
 
-Only the calls that TPC-H and the TPC-DS corpus reach
-are ported; any other call raises ``NotImplementedError`` naming it.
+Every scalar call of the reference is ported but its array, map and span
+calls, which raise ``NotImplementedError`` naming the op, as any unknown call
+does.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
-from ..types import DecimalType, Type, torch_dtype
+from ..ops.hashing import _lsr, hash_columns
+from ..types import DecimalType, TimestampType, Type, torch_dtype
 
 __all__ = ["Expr", "Constant", "FieldRef", "Call", "Parameter",
            "evaluate", "evaluate_predicate"]
@@ -275,7 +277,400 @@ def _eval_call(expr: Call, columns, null_masks, device):
         return _eval_cast(expr, vals[0], nulls[0])
     if op == "extract_year":
         return _extract_ymd(vals[0])[0].to(out_dt), nulls[0]
+    if op == "modulus":
+        # the divisor's sign, as jnp.remainder (Trino truncates: ROADMAP C)
+        a, b = _promote(vals[0], vals[1])
+        safe_b = torch.where(b == 0, torch.ones_like(b), b)
+        return torch.remainder(a, safe_b).to(out_dt), _combine_nulls(*nulls)
+    if op == "lut_nullable":
+        # "lut" with a parallel null table: entries whose transform produced
+        # SQL NULL (regexp miss, unparsable date) null out the row
+        table, ntable = vals[1], vals[2]
+        ids = torch.clamp(vals[0], 0, table.shape[0] - 1).to(torch.int64)
+        return table[ids], _combine_nulls(nulls[0], ntable[ids])
+    if op == "null_if_flag":
+        # (value, flag) -> value, NULL where flag (TRY_CAST failure lanes)
+        v, flag = vals
+        return v, (flag if nulls[0] is None else (nulls[0] | flag))
+    if op == "nullif":
+        # NULL where a = b is KNOWN true; a NULL b leaves a
+        a, b = _promote(vals[0], vals[1])
+        eq = a == b
+        for n in nulls:
+            if n is not None:
+                eq = eq & ~n
+        return vals[0], (eq if nulls[0] is None else (nulls[0] | eq))
+    if op in _UNARY_MATH:
+        return _UNARY_MATH[op](_float_in(vals[0], op)).to(out_dt), nulls[0]
+    if op == "log_b":  # log(b, x)
+        return (torch.log(vals[1].to(torch.float64))
+                / torch.log(vals[0].to(torch.float64))), _combine_nulls(*nulls)
+    if op in ("is_nan", "is_finite", "is_infinite"):
+        fn = {"is_nan": torch.isnan, "is_finite": torch.isfinite,
+              "is_infinite": torch.isinf}[op]
+        return fn(vals[0].to(torch.float64)), nulls[0]
+    if op in ("power", "atan2"):
+        x, y = vals[0].to(torch.float64), vals[1].to(torch.float64)
+        out = torch.pow(x, y) if op == "power" else torch.atan2(x, y)
+        return out, _combine_nulls(*nulls)
+    if op in ("round_n", "truncate_n"):
+        # round half AWAY from zero (Trino), or toward zero, at n decimals
+        f = 10.0 ** expr.meta[0]
+        x = _float_in(vals[0], op) * f
+        r = _round_half_away(x) if op == "round_n" else torch.trunc(x)
+        return (r / f).to(out_dt), nulls[0]
+    if op in ("greatest", "least"):
+        fn = torch.maximum if op == "greatest" else torch.minimum
+        out = vals[0]
+        for v in vals[1:]:
+            out = fn(*_promote(out, v))
+        return out.to(out_dt), _combine_nulls(*nulls)
+    if op == "width_bucket":
+        v, lo, hi, n = vals
+        lo, hi = lo.to(torch.float64), hi.to(torch.float64)
+        frac = (v.to(torch.float64) - lo) / torch.where(hi == lo, torch.ones_like(hi), hi - lo)
+        b = _to_int(torch.floor(frac * n.to(torch.float64)), torch.int64) + 1
+        b = torch.minimum(torch.clamp(b, min=0), n.to(torch.int64) + 1)
+        return b, _combine_nulls(*nulls)
+    if op in _BITWISE:
+        a, b = vals[0].to(torch.int64), vals[1].to(torch.int64)
+        return _BITWISE[op](a, b), _combine_nulls(*nulls)
+    if op == "bitwise_not":
+        return ~vals[0].to(torch.int64), nulls[0]
+    if op == "bit_count":
+        # popcount of the low `bits` bits; a value outside their signed range
+        # is NULL (the reference's traced-kernel deviation from raising)
+        bits = expr.meta[0]
+        v = vals[0].to(torch.int64)
+        bad = None
+        if bits < 64:
+            lo, hi = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+            bad = (v < lo) | (v > hi)
+            v = v & ((1 << bits) - 1)
+        return _popcount(v), _combine_nulls(nulls[0], bad)
+    if op in _DATE_CALLS:
+        return _DATE_CALLS[op](expr, vals[0]), nulls[0]
+    if op == "date_add_unit":
+        return _date_add_unit(expr.meta[0], vals[0], vals[1]).to(out_dt), \
+            _combine_nulls(*nulls)
+    if op == "date_diff_unit":
+        return _date_diff_unit(expr.meta[0], vals[0], vals[1]).to(out_dt), \
+            _combine_nulls(*nulls)
+    if op == "ts_extract":
+        return _ts_extract(expr.meta[0], expr.meta[1], vals[0]), nulls[0]
+    if op == "ts_to_date":
+        v = vals[0].to(torch.int64)
+        return _floordiv(_floordiv(v, 10 ** expr.meta[0]), 86400).to(out_dt), nulls[0]
+    if op == "as_timestamp":
+        # a double already in the target timestamp's epoch units; half to
+        # even, as jnp.round
+        return _to_int(torch.round(vals[0]), torch.int64), nulls[0]
+    if op in _STATS:
+        fv = [v.to(torch.float64) for v in vals]
+        return _STATS[op](*fv), _combine_nulls(*nulls)
+    if op == "st_distance":
+        # Euclidean distance of two planar points (args: ax, ay, bx, by); one
+        # op so the spatial-join rule can match it in join filters
+        ax, ay, bx, by = (v.to(torch.float64) for v in vals)
+        return torch.sqrt((ax - bx) ** 2 + (ay - by) ** 2), _combine_nulls(*nulls)
+    if op == "hash":
+        return hash_columns(vals), _combine_nulls(*nulls)
+    if op in _ARRAY_OPS:
+        raise NotImplementedError(
+            f"scalar op {op!r} (arrays, maps and spans) is not ported to "
+            f"trino_tpu_torch (ROADMAP A4)")
     raise NotImplementedError(f"scalar op {op!r} is not ported to trino_tpu_torch")
+
+
+# the reference's array, map and span calls (ROADMAP A4)
+_ARRAY_OPS = frozenset((
+    "span_len", "span_id", "span_filter", "span_slice", "span_trim", "arrays_overlap",
+    "span_reduce_lambda", "array_get", "array_contains", "array_reduce",
+    "array_position", "map_get"))
+
+
+def _float_in(x, op):
+    """A math function's operand: integers compute in float64 (jnp's x64
+    promotion; torch would take float32); floats keep their width.  floor,
+    ceil, sign and trunc keep integers as they are, as jnp does."""
+    if x.is_floating_point() or op in ("floor", "ceil", "sign", "trunc"):
+        return x
+    return x.to(torch.float64)
+
+
+def _to_int(x, dtype):
+    """Float -> integer conversion as XLA's: NaN to 0, out-of-range values
+    saturated (torch leaves them undefined)."""
+    info = torch.iinfo(dtype)
+    x = torch.where(torch.isnan(x), torch.zeros_like(x), x)
+    big = x >= float(info.max)
+    small = x <= float(info.min)
+    out = torch.where(big | small, torch.zeros_like(x), x).to(dtype)
+    out = torch.where(big, torch.full_like(out, info.max), out)
+    return torch.where(small, torch.full_like(out, info.min), out)
+
+
+def _round_half_away(x):
+    return torch.sign(x) * torch.floor(torch.abs(x) + 0.5)
+
+
+def _cbrt(x):
+    """Real cube root (torch has none): |x|^(1/3) with the sign, then one
+    Newton step, which makes exact cubes exact (27 -> 3.0)."""
+    r = torch.sign(x) * torch.pow(torch.abs(x), 1.0 / 3.0)
+    nz = r != 0
+    safe = torch.where(nz, r, torch.ones_like(r))
+    refined = safe - (safe * safe * safe - x) / (3.0 * safe * safe)
+    return torch.where(nz & torch.isfinite(x), refined, r)
+
+
+def _sign(x):
+    """sign with NaN kept, as jnp.sign (torch.sign(NaN) is 0)."""
+    return torch.where(torch.isnan(x), x, torch.sign(x)) if x.is_floating_point() \
+        else torch.sign(x)
+
+
+_UNARY_MATH = {
+    "sqrt": torch.sqrt, "floor": torch.floor, "ceil": torch.ceil, "exp": torch.exp,
+    "ln": torch.log, "round": _round_half_away, "sign": _sign, "trunc": torch.trunc,
+    "log10": torch.log10, "log2": torch.log2, "sin": torch.sin, "cos": torch.cos,
+    "tan": torch.tan, "asin": torch.asin, "acos": torch.acos, "atan": torch.atan,
+    "cbrt": _cbrt, "degrees": torch.rad2deg, "radians": torch.deg2rad,
+    "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
+}
+
+
+def _lsr_t(a, s):
+    """Logical right shift of int64 lanes by a shift tensor in [0, 63]."""
+    s1 = torch.clamp(s, 1, 63)
+    return torch.where(s == 0, a, (a >> s1) & ((torch.ones_like(s1) << (64 - s1)) - 1))
+
+
+def _shift_left(a, b):
+    out = a << torch.clamp(b, 0, 63)
+    return torch.where(b >= 64, torch.zeros_like(out), out)
+
+
+def _shift_right(a, b):  # LOGICAL: zero-filling
+    out = _lsr_t(a, torch.clamp(b, 0, 63))
+    return torch.where(b >= 64, torch.zeros_like(out), out)
+
+
+def _shift_right_arith(a, b):  # sign-extending
+    out = a >> torch.clamp(b, 0, 63)
+    return torch.where(b >= 64, torch.where(a < 0, -1, 0).to(out.dtype), out)
+
+
+_BITWISE = {
+    "bitwise_and": torch.bitwise_and, "bitwise_or": torch.bitwise_or,
+    "bitwise_xor": torch.bitwise_xor, "bitwise_left_shift": _shift_left,
+    "bitwise_right_shift": _shift_right,
+    "bitwise_right_shift_arithmetic": _shift_right_arith,
+}
+
+
+def _popcount(v):
+    """Set bits of int64 lanes (SWAR; torch has no popcount)."""
+    x = v - (_lsr(v, 1) & 0x5555555555555555)
+    x = (x & 0x3333333333333333) + (_lsr(x, 2) & 0x3333333333333333)
+    x = (x + _lsr(x, 4)) & 0x0F0F0F0F0F0F0F0F
+    return _lsr(x * 0x0101010101010101, 56)
+
+
+# -- dates (days since 1970-01-01) and timestamps (epoch units of 10^-p s) ----------
+
+
+def _dow0(days):
+    """ISO day of week, Monday = 0."""
+    return torch.remainder(days.to(torch.int64) + 3, 7)
+
+
+def _jan1(days):
+    y, m, d = _extract_ymd(days)
+    return _days_from_civil(y, torch.ones_like(m), torch.ones_like(d))
+
+
+def _date_trunc(unit, days):
+    if unit == "day":
+        return days
+    if unit == "week":  # ISO Monday
+        return (days.to(torch.int64) - _dow0(days)).to(days.dtype)
+    y, m, d = _extract_ymd(days)
+    mm = {"month": m, "quarter": _floordiv(m - 1, 3) * 3 + 1,
+          "year": torch.ones_like(m)}[unit]
+    return _days_from_civil(y, mm, torch.ones_like(d))
+
+
+def _last_day_of_month(days):
+    y, m, d = _extract_ymd(days)
+    ny = torch.where(m == 12, y + 1, y)
+    nm = torch.where(m == 12, torch.ones_like(m), m + 1)
+    return _days_from_civil(ny, nm, torch.ones_like(d)) - 1
+
+
+def _iso_week(days, year_of_week: bool):
+    """ISO-8601 week number or week-based year."""
+    d64 = days.to(torch.int64)
+    y, _, _ = _extract_ymd(days)
+    dow = _dow0(days) + 1  # Monday = 1
+    doy = d64 - _jan1(days) + 1
+
+    def weeks_in(yy):
+        def p(z):
+            return torch.remainder(z + _floordiv(z, 4) - _floordiv(z, 100)
+                                   + _floordiv(z, 400), 7)
+        return 52 + ((p(yy) == 4) | (p(yy - 1) == 3)).to(torch.int64)
+
+    w = _floordiv(doy - dow + 10, 7)
+    under, over = w < 1, w > weeks_in(y)
+    if year_of_week:
+        return torch.where(under, y - 1, torch.where(over, y + 1, y))
+    return torch.where(under, weeks_in(y - 1), torch.where(over, torch.ones_like(w), w))
+
+
+def _ymd_part(i):
+    return lambda expr, v: _extract_ymd(v)[i].to(torch_dtype(expr.type))
+
+
+_DATE_CALLS = {
+    "extract_month": _ymd_part(1),
+    "extract_day": _ymd_part(2),
+    "extract_quarter": lambda expr, v: (_floordiv(_extract_ymd(v)[1] - 1, 3) + 1).to(
+        torch_dtype(expr.type)),
+    "day_of_week": lambda expr, v: _dow0(v) + 1,
+    "day_of_year": lambda expr, v: v.to(torch.int64) - _jan1(v) + 1,
+    "last_day_of_month": lambda expr, v: _last_day_of_month(v).to(torch_dtype(expr.type)),
+    "week_of_year": lambda expr, v: _iso_week(v, False),
+    "year_of_week": lambda expr, v: _iso_week(v, True),
+    **{f"date_trunc_{u}": (lambda expr, v, u=u: _date_trunc(u, v).to(torch_dtype(expr.type)))
+       for u in ("year", "quarter", "month", "week", "day")},
+}
+
+
+def _month_length(total):
+    """Days in month ``total`` (months since year 0, zero-based)."""
+    one = torch.ones_like(total)
+    nxt = total + 1
+    return (_days_from_civil(_floordiv(nxt, 12), torch.remainder(nxt, 12) + 1, one)
+            - _days_from_civil(_floordiv(total, 12), torch.remainder(total, 12) + 1, one))
+
+
+def _date_add_unit(unit, n, d):
+    n, d = n.to(torch.int64), d.to(torch.int64)
+    if unit == "day":
+        return d + n
+    if unit == "week":
+        return d + 7 * n
+    y, m, day = _extract_ymd(d)  # month | year: clamp to the month's length
+    total = y * 12 + (m - 1) + n * (12 if unit == "year" else 1)
+    return _days_from_civil(_floordiv(total, 12), torch.remainder(total, 12) + 1,
+                            torch.minimum(day, _month_length(total)))
+
+
+def _date_diff_unit(unit, d1, d2):
+    d1, d2 = d1.to(torch.int64), d2.to(torch.int64)
+    if unit == "day":
+        return d2 - d1
+    if unit == "week":
+        return _floordiv(d2 - d1, 7)
+    y1, m1, day1 = _extract_ymd(d1)
+    y2, m2, day2 = _extract_ymd(d2)
+    months = (y2 * 12 + m2) - (y1 * 12 + m1) - (day2 < day1).to(torch.int64)
+    return _floordiv(months, 12) if unit == "year" else months
+
+
+def _ts_extract(part, prec, v):
+    unit = 10 ** prec
+    v = v.to(torch.int64)
+    secs = _floordiv(v, unit)
+    days = _floordiv(secs, 86400)
+    if part in ("hour", "minute", "second"):
+        tod = secs - days * 86400
+        if part == "hour":
+            return _floordiv(tod, 3600)
+        if part == "minute":
+            return torch.remainder(_floordiv(tod, 60), 60)
+        return torch.remainder(tod, 60)
+    if part == "millisecond":
+        frac = v - secs * unit
+        return _floordiv(frac * 1000, unit) if prec <= 3 else _floordiv(frac, unit // 1000)
+    y, m, d = _extract_ymd(days)
+    if part == "quarter":
+        return _floordiv(m - 1, 3) + 1
+    if part in ("year", "month", "day"):
+        return {"year": y, "month": m, "day": d}[part]
+    raise NotImplementedError(f"ts_extract {part}")
+
+
+# -- statistics ----------------------------------------------------------------------
+
+
+def _betainc(a, b, x, iters: int = 200):
+    """Regularized incomplete beta I_x(a, b) in float64 (torch has no
+    betainc): the continued fraction by Lentz's method, with the symmetry
+    I_x(a, b) = 1 - I_{1-x}(b, a) where x > (a + 1) / (a + b + 2)."""
+    tiny = 1e-300
+    swap = x > (a + 1.0) / (a + b + 2.0)
+    a_, b_ = torch.where(swap, b, a), torch.where(swap, a, b)
+    x_ = torch.where(swap, 1.0 - x, x)
+    xs = torch.clamp(x_, tiny, 1.0)
+    lbeta = torch.lgamma(a_) + torch.lgamma(b_) - torch.lgamma(a_ + b_)
+    front = torch.exp(a_ * torch.log(xs) + b_ * torch.log1p(-torch.clamp(x_, max=1.0 - 1e-16))
+                      - lbeta) / a_
+
+    c = torch.ones_like(x_)
+    d = 1.0 - (a_ + b_) * x_ / (a_ + 1.0)
+    d = torch.where(torch.abs(d) < tiny, torch.full_like(d, tiny), d)
+    d = 1.0 / d
+    f = d
+    for m in range(1, iters + 1):
+        for even in (True, False):
+            if even:
+                num = m * (b_ - m) * x_ / ((a_ + 2 * m - 1) * (a_ + 2 * m))
+            else:
+                num = -(a_ + m) * (a_ + b_ + m) * x_ / ((a_ + 2 * m) * (a_ + 2 * m + 1))
+            d = 1.0 + num * d
+            d = torch.where(torch.abs(d) < tiny, torch.full_like(d, tiny), d)
+            d = 1.0 / d
+            c = 1.0 + num / c
+            c = torch.where(torch.abs(c) < tiny, torch.full_like(c, tiny), c)
+            f = f * c * d
+    out = front * f
+    out = torch.where(x_ <= 0, torch.zeros_like(out), out)
+    out = torch.where(swap, 1.0 - out, out)
+    bad = (a <= 0) | (b <= 0) | (x < 0) | (x > 1) | torch.isnan(a) | torch.isnan(b) \
+        | torch.isnan(x)
+    return torch.where(bad, torch.full_like(out, float("nan")), out)
+
+
+def _wilson(lower: bool):
+    def fn(s, t, z):
+        # z^2/(4t^2) as (z/t)^2/4: the interval collapses to p at z = 0
+        p = s / t
+        z2n = z * z / t
+        center = p + z2n / 2.0
+        half = z * torch.sqrt(p * (1 - p) / t + (z / t) * (z / t) / 4.0)
+        return (center - half if lower else center + half) / (1.0 + z2n)
+    return fn
+
+
+def _ndtr(x):
+    """The standard normal CDF as jax computes it: erfc in the tails, where
+    torch.special.ndtr's 1 + erf(x) cancels to 0 below x ~ -8."""
+    w = x * (0.5 * 2.0 ** 0.5)
+    z = torch.abs(w)
+    y = torch.where(z < 0.5 * 2.0 ** 0.5, 1.0 + torch.erf(w),
+                    torch.where(w > 0, 2.0 - torch.erfc(z), torch.erfc(z)))
+    return 0.5 * y
+
+
+_STATS = {
+    "normal_cdf": lambda mean, sd, v: _ndtr((v - mean) / sd),
+    "inverse_normal_cdf": lambda mean, sd, p: mean + sd * torch.special.ndtri(p),
+    "beta_cdf": _betainc,
+    "wilson_interval_lower": _wilson(True),
+    "wilson_interval_upper": _wilson(False),
+}
 
 
 def _eval_cast(expr: Call, v, n):
@@ -297,10 +692,25 @@ def _eval_cast(expr: Call, v, n):
     if dst.is_floating or dst.is_integer or dst.name == "boolean":
         if isinstance(src, DecimalType) and dst.is_integer:
             return _div_round_half_up(v.to(torch.int64), 10**src.scale).to(dst_dt), n
+        if dst.is_integer and v.is_floating_point():
+            return _to_int(v, dst_dt), n
         return v.to(dst_dt), n
-    if dst.name.startswith("timestamp") or src.name.startswith("timestamp"):
+    if isinstance(dst, TimestampType) or isinstance(src, TimestampType):
+        sp = src.precision if isinstance(src, TimestampType) else None
+        dp = dst.precision if isinstance(dst, TimestampType) else None
+        v64 = v.to(torch.int64)
+        if sp is not None and dp is not None:  # rescale between precisions
+            diff = dp - sp
+            if diff >= 0:
+                return v64 * (10 ** diff), n
+            return _div_round_half_up(v64, 10 ** -diff), n  # narrowing: HALF UP
+        if sp is None and src.name == "date":
+            return v64 * (86400 * 10 ** dp), n
+        if sp is not None and dst.name == "date":
+            return _floordiv(_floordiv(v64, 10 ** sp), 86400).to(dst_dt), n
         raise NotImplementedError(
-            f"cast {src.name} -> {dst.name} is not ported to trino_tpu_torch")
+            f"cast {src.name} -> {dst.name} not supported (a fall-through "
+            f"would reinterpret raw storage as timestamp units)")
     if dst.name.startswith("date") and src.name.startswith("varchar"):
         raise NotImplementedError("runtime varchar->date cast; planner folds literals")
     return v.to(dst_dt), n
@@ -329,3 +739,14 @@ def _extract_ymd(days):
     m = torch.where(mp < 10, mp + 3, mp - 9)
     y = torch.where(m <= 2, y + 1, y)
     return y, m, d
+
+
+def _days_from_civil(y, m, d):
+    """Inverse of _extract_ymd (Howard Hinnant's days_from_civil), vectorized."""
+    y = torch.where(m <= 2, y - 1, y)
+    era = _floordiv(torch.where(y >= 0, y, y - 399), 400)
+    yoe = y - era * 400
+    mp = torch.where(m > 2, m - 3, m + 9)
+    doy = _floordiv(153 * mp + 2, 5) + d - 1
+    doe = yoe * 365 + _floordiv(yoe, 4) - _floordiv(yoe, 100) + doy
+    return era * 146097 + doe - 719468
