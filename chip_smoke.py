@@ -86,6 +86,21 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    at SF10 on the card alone, held by oracles that need no CPU run
    (``functions_big``).  The kernels line's ``by_path`` gains
    ``functions_sf1``.
+10. Arrays, maps, UNNEST and MATCH_RECOGNIZE (``arrays_path``): the
+   statements of tests/test_torch_arrays.py and tests/test_torch_match.py
+   (``ARRAY_CASES``, ``MATCH_CASES``) on the card and the CPU, the same
+   outcome for each; then ``orders_nested`` (TPC-H SF1's orders with their
+   line items as arrays, built through the memory connector's ``append`` and
+   timed on its own) and A1-A6 (``ARRAYS``: UNNEST with ordinality, a hash
+   group-by over unnested elements, element calls, lambdas, array- and
+   map-valued aggregates, MATCH_RECOGNIZE over orders) at SF1 on the card,
+   cold and warm, with host reads, H2D bytes, peak memory and launches, each
+   equal to the port's CPU result, A1 also to its lineitem oracle
+   (``A1_ORACLE``), and A7 (ALL ROWS PER MATCH) at SF0.1 against the CPU;
+   the kernels ``ARRAYS_REQUIRED`` names (the JAX reference's recording)
+   must launch, and those the path launched are held against their plain
+   versions at its shapes (insert also on A2's keys).  ``by_path`` gains
+   ``arrays_sf1``.
 
 It prints the card line, then one JSON line with every kernel's numbers, and
 last ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -976,6 +991,271 @@ AGGREGATE_CASES = {
        for q, sql in FUNCTIONS.items()},
 }
 
+# phase 10a and tests/test_torch_arrays.py: the SQL of the reference's array,
+# map and UNNEST tests (tests/test_arrays.py, test_arrays2.py,
+# test_array_lambdas.py), of its array- and map-valued aggregates
+# (test_agg_functions2.py, test_functions_stats.py) and of
+# test_functions_ext2.py::test_split_family, with each file's table under a
+# name of its own; setup statements are compared too
+ARRAY_SETUP = (
+    "create table ar (id bigint, tags array(varchar), nums array(bigint))",
+    "insert into ar values (1, array['red', 'blue'], array[10, 20]), "
+    "(2, array['blue'], array[30]), (3, null, array[])",
+    "create table ia (id bigint, xs array(bigint), ss array(varchar))",
+    "insert into ia values (1, array[1,2], array['a','b']), (2, array[], null)",
+    "create table rt (id bigint, a array(bigint))",
+    "insert into rt values (1, array[3,1,2]), (2, array[10]), (3, array[]), (4, null)",
+    "create table a2 (a array(bigint), b array(bigint), sa array(varchar), n bigint)",
+    "insert into a2 values (array[1,2,3], array[3,4], array['b','a','b'], 1), "
+    "(array[5,6], array[7,8], array['z'], 2), (null, array[1], null, 3)",
+    "create table lam (id bigint)",
+    "insert into lam values (1), (2)",
+    "create table ag (g bigint, n bigint, x double, s varchar)",
+    "insert into ag values (1, 10, 1.5, 'a'), (1, 30, 0.5, 'b'), (1, 20, 2.5, 'c'), "
+    "(2, 7, 9.0, 'd'), (2, 5, 8.0, 'd'), (3, null, 1.0, null)",
+    "create table sp (s varchar, n bigint)",
+    "insert into sp values ('a,b,c', 1), ('x', 2), ('k1=v1;k2=v2', 3)",
+    # DELETE and UPDATE over a table with array columns: spans move, heaps stay
+    "create table ad (id bigint, xs array(bigint), ws array(varchar))",
+    "insert into ad values (1, array[1, 2], array['p']), (2, array[3], array['q', 'r']), "
+    "(3, array[4, 5, 6], null), (4, array[], array['s'])",
+    "delete from ad where id = 2",
+    "update ad set id = id + 10 where id >= 3",
+    "insert into ad values (5, array[7, 8, 9, 10], array['t', 'p'])",
+    "create table mp (id bigint, m map(bigint, bigint))",
+)
+ARRAY_CASES = {
+    # tests/test_arrays.py
+    "literal_ops": ("mem", "select cardinality(array[1,2,3]) c, array[5,6,7][2] x, "
+                           "contains(array[1,2,3], 2) a, contains(array[1,2,3], 9) b"),
+    "literal_element_at_past_end": ("mem", "select element_at(array[1,2], 5) v"),
+    "literal_element_at_string": ("mem", "select element_at(array['a','b','c'], 3) v"),
+    "unnest_with_ordinality": ("mem", "select n, o from unnest(array[10,20,30]) "
+                                      "with ordinality as t(n, o)"),
+    "unnest_sequence_filtered": ("mem", "select n from unnest(sequence(1,5)) t(n) where n > 2"),
+    "unnest_zipped_pads_null": ("mem", "select a, b from unnest(array[1,2,3], array[7,8]) "
+                                       "t(a, b)"),
+    "map_subscript": ("mem", "select map(array['x','y'], array[7,8])['y'] v, "
+                             "cardinality(map(array[1,2], array[3,4])) c"),
+    "map_missing_key": ("mem", "select element_at(map(array[1], array[9]), 5) v"),
+    "map_keys_values": ("mem", "select cardinality(map_keys(map(array[1,2], array[3,4]))) k, "
+                               "map_values(map(array['a'], array[42]))[1] v"),
+    "row_field_access": ("mem", "select row(1, 'two', 3.5)[3] a, row(4, 5)[1] b"),
+    "storage_scan": ("mem", "select id, tags, nums from ar order by id"),
+    "storage_lateral_unnest": ("mem", "select t.id, u.tag from ar t cross join unnest(t.tags) "
+                                      "u(tag) order by id, tag"),
+    "storage_unnest_aggregate": ("mem", "select sum(n) sn, count(*) c from ar "
+                                        "cross join unnest(nums) u(n)"),
+    "storage_cardinality": ("mem", "select id, cardinality(nums) c from ar order by id"),
+    "unnest_cross_join_region": ("tpch", "select r_name, n from region cross join "
+                                         "unnest(sequence(1,3)) u(n) where n <= 2 "
+                                         "order by r_name, n"),
+    "unnest_group_by": ("tpch", "select n % 2 k, count(*) c from unnest(sequence(1,10)) t(n) "
+                                "group by n % 2 order by k"),
+    "insert_array_literals": ("mem", "select id, xs, ss from ia order by id"),
+    "sequence_step_zero": ("tpch", "select n from unnest(sequence(1,5,0)) t(n)"),
+    "reductions_and_position": ("mem", "select id, array_min(a) mn, array_max(a) mx, "
+                                       "array_sum(a) sm, array_average(a) av, "
+                                       "array_position(a, 2) p from rt order by id"),
+    "reduction_filter": ("mem", "select id from rt where array_sum(a) > 7"),
+    # element calls and lambdas over stored arrays, and after DELETE/UPDATE
+    "storage_element_calls": ("mem", "select id, contains(tags, 'blue') c, element_at(nums, 2) e, "
+                                     "array_position(nums, 20) p, nums[1] f, "
+                                     "array_max(nums) m from ar order by id"),
+    "storage_lambdas": ("mem", "select id, transform(nums, x -> x + 1) t, "
+                               "filter(nums, x -> x > 10) f, "
+                               "reduce(nums, 0, (s, x) -> s + x) r from ar order by id"),
+    "storage_after_dml": ("mem", "select id, xs, ws, cardinality(xs) c from ad order by id"),
+    "storage_unnest_after_dml": ("mem", "select id, x, o from ad cross join unnest(xs) "
+                                        "with ordinality u(x, o) order by id, o"),
+    "storage_unnest_zipped": ("mem", "select id, x, w from ad cross join unnest(xs, ws) u(x, w)"),
+    # tests/test_arrays2.py
+    "arrays_overlap": ("mem", "select n, arrays_overlap(a, b) o from a2 order by n"),
+    "slice": ("mem", "select n, slice(a, 2, 2) s, slice(a, -2, 2) s2 from a2 order by n"),
+    "slice_zero_start": ("mem", "select slice(a, 0, 1) s from a2 where n = 1"),
+    "trim_array": ("mem", "select n, trim_array(a, 1) tr from a2 order by n"),
+    "trim_array_past_length": ("mem", "select trim_array(a, 9) tr from a2 where n = 1"),
+    "array_remove": ("mem", "select array_remove(a, 3) x from a2 order by n"),
+    "array_remove_string": ("mem", "select array_remove(sa, 'b') x from a2 where n = 1"),
+    "distinct_sort_repeat": ("mem", "select array_distinct(array[3,1,3,2,1]) d, "
+                                    "array_sort(array[3,1,2]) s, "
+                                    "array_sort(array['b','a','c']) ss, "
+                                    "repeat(7, 3) rp from a2 where n = 1"),
+    "slice_negative_start_past_head": ("mem", "select slice(a, -5, 2) s from a2 where n = 1"),
+    "array_remove_null": ("mem", "select array_remove(a, null) x from a2 where n = 1"),
+    "composition_with_lambdas": ("mem", "select cardinality(filter(slice(a, 1, 3), "
+                                        "x -> x > 1)) c from a2 where n = 1"),
+    "map_lambdas": ("mem", "select transform_values(map(array[1,2,3], array[10,20,30]), "
+                           "(k, v) -> v * k) tv, transform_keys(map(array[1,2], array[10,20]), "
+                           "(k, v) -> k + 100) tk, map_filter(map(array[1,2,3], "
+                           "array[10,20,30]), (k, v) -> v > 15) mf from a2 where n = 1"),
+    # tests/test_array_lambdas.py (each test's expressions as one statement)
+    "lambda_transform": ("mem", "select transform(array[1,2,3], x -> x * 2 + 1) v, "
+                                "transform(array[1.5, 2.5], x -> x * 2) w from lam where id = 1"),
+    "lambda_filter": ("mem", "select filter(array[5,-2,7,0], x -> x > 0) v, "
+                             "filter(array[1,2,3], x -> x > 9) w, "
+                             "cardinality(filter(array[5,-2,7,0], x -> x >= 5)) c "
+                             "from lam where id = 1"),
+    "lambda_matches": ("mem", "select any_match(array[1,2,3], x -> x > 2) a, "
+                              "any_match(array[1,2,3], x -> x > 9) b, "
+                              "all_match(array[1,2,3], x -> x > 0) c, "
+                              "all_match(array[1,2,3], x -> x > 1) d, "
+                              "none_match(array[1,2,3], x -> x > 9) e, "
+                              "none_match(array[1,2,3], x -> x = 2) f from lam where id = 1"),
+    "lambda_compose": ("mem", "select transform(filter(array[1,2,3,4], x -> x % 2 = 0), "
+                              "y -> y * 10) v, array_sum(transform(array[1,2,3], x -> x * x)) w "
+                              "from lam where id = 1"),
+    "lambda_two_params_rejected": ("mem", "select transform(array[1], (a, b) -> a + b) v "
+                                          "from lam where id = 1"),
+    # tests/test_functions_stats.py::test_reduce_family
+    "reduce_sum": ("tpch", "select reduce(array[1, 2, 3, 4, 5], 0, (s, x) -> s + x) v"),
+    "reduce_max": ("tpch", "select reduce(array[3, 1, 4, 1, 5], -1, (s, x) -> if(x > s, x, s)) v"),
+    "reduce_finalizer": ("tpch", "select reduce(array[2, 3], 1, (s, x) -> s * x, "
+                                 "s -> s + 100) v"),
+    "reduce_empty": ("tpch", "select reduce(filter(array[1], x -> x > 9), 42, "
+                             "(s, x) -> s + x) v"),
+    # tests/test_functions_ext2.py::test_split_family
+    "split": ("mem", "select n, split(s, ',') v from sp order by n"),
+    "split_subscript": ("mem", "select split(s, ',')[2] v, cardinality(split(s, ',')) c "
+                               "from sp where n = 1"),
+    "split_limit": ("mem", "select split('a,b,c,d', ',', 2) v from sp where n = 1"),
+    "split_to_map": ("mem", "select split_to_map(s, ';', '=') m from sp where n = 3"),
+    # tests/test_agg_functions2.py
+    "array_agg": ("mem", "select g, array_agg(n) a from ag group by g order by g"),
+    "array_agg_strings": ("mem", "select g, array_agg(s) a from ag group by g order by g"),
+    "histogram": ("mem", "select g, histogram(s) h from ag group by g order by g"),
+    "map_agg": ("mem", "select g, map_agg(s, n) m from ag group by g order by g"),
+    "array_agg_global_and_cardinality": ("mem", "select array_agg(x) a, map_agg(n, x) m, "
+                                                "histogram(g) h from ag"),
+    "array_agg_empty_input": ("mem", "select array_agg(n) a from ag where g > 9"),
+    "map_agg_over_tpch": ("tpchs", "select o_custkey, array_agg(o_orderkey) a, "
+                                   "map_agg(o_orderkey, o_totalprice) m from orders "
+                                   "where o_custkey < 40 group by 1 order by 1"),
+    "histogram_over_tpch": ("tpchs", "select l_returnflag, histogram(l_shipmode) h "
+                                     "from lineitem group by 1 order by 1"),
+    # tests/test_functions_stats.py::test_approx_most_frequent
+    "approx_most_frequent": ("tpch", "select l_returnflag, approx_most_frequent(3, l_linenumber, "
+                                     "100) m from lineitem group by l_returnflag "
+                                     "order by l_returnflag"),
+    "approx_most_frequent_strings": ("tpch", "select approx_most_frequent(2, o_orderpriority, 10) "
+                                             "m from orders"),
+    "approx_most_frequent_zero_buckets": ("tpch", "select approx_most_frequent(0, l_linenumber, 9) "
+                                                  "from lineitem"),
+    # the reference's gaps, which both packages refuse
+    "ctas_of_array_query": ("mem", "create table arc as select id, nums from ar"),
+    "element_call_over_array_agg": ("mem", "select element_at(array_agg(id), 1) from ar"),
+    "unnest_of_array_agg": ("mem", "select x from (select array_agg(id) a from ar) "
+                                   "cross join unnest(a) t(x)"),
+    "cardinality_of_array_agg_in_its_select": ("mem", "select cardinality(array_agg(id)) "
+                                                      "from ar"),
+    "insert_of_a_map_value": ("mem", "insert into mp values (1, map(array[1], array[2]))"),
+    "update_of_an_array_column": ("mem", "update ad set xs = array[5] where id = 1"),
+}
+
+
+def _tick_rows() -> str:
+    """tests/test_match_recognize.py's random walk: 4 series of 200 ticks."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    rows = []
+    for g in range(4):
+        price = 100
+        for i in range(200):
+            price += int(rng.integers(-8, 9))
+            rows.append(f"({g}, {i}, {price})")
+    return "insert into ticks values " + ", ".join(rows)
+
+
+# phase 10a and tests/test_torch_match.py: the SQL of
+# tests/test_match_recognize.py, and the A6/A7 shapes over TPC-H SF0.01
+MATCH_SETUP = (
+    "create table px (sym varchar, d bigint, price double)",
+    "insert into px values ('a',1,10),('a',2,8),('a',3,7),('a',4,9),('a',5,12),('a',6,11),"
+    "('b',1,5),('b',2,6),('b',3,4),('b',4,3),('b',5,8)",
+    "create table ticks (g bigint, t bigint, price bigint)",
+    _tick_rows(),
+)
+V_SHAPE_TICKS = """select * from ticks match_recognize (
+  partition by g order by t
+  measures first(down.price) as top, last(down.price) as bottom, last(up.price) as rebound
+  pattern (down+ up+)
+  define down as price < prev(price), up as price > prev(price)
+) order by 1, 2"""
+MATCH_CASES = {
+    "v_shape": ("mem", """select * from px match_recognize (
+  partition by sym order by d
+  measures first(a.price) as start_price, last(b.price) as bottom_price,
+           last(c.price) as end_price
+  one row per match after match skip past last row
+  pattern (a b+ c+)
+  define b as price < prev(price), c as price > prev(price)
+) as m order by sym"""),
+    "decreasing_runs": ("mem", """select * from px match_recognize (
+  partition by sym order by d
+  measures first(s.price) as top, last(d.price) as low
+  pattern (s d+)
+  define d as price < prev(price)
+) as m order by sym, top"""),
+    "optional_tail": ("mem", """select * from px match_recognize (
+  order by sym, d
+  measures first(r.price) as p0, last(r.price) as p1
+  pattern (r r?)
+  define r as true
+) as m"""),
+    "unmatched_optional_is_null": ("mem", """select * from px match_recognize (
+  partition by sym order by d
+  measures last(z.price) as spike
+  pattern (s z?)
+  define z as price > 100
+) as m order by sym"""),
+    "next_navigation": ("mem", """select * from px match_recognize (
+  partition by sym order by d
+  measures first(t.d) as at_day
+  pattern (t)
+  define t as price < next(price)
+) as m order by sym, at_day"""),
+    "alternation_group": ("mem", """select * from px match_recognize (
+  partition by sym order by d
+  measures first(m.price) as st, last(u.price) as lastup, last(dn.price) as lastdn
+  pattern (m (u|dn)+)
+  define u as price > prev(price), dn as price < prev(price)
+) as x order by sym"""),
+    "all_rows_per_match": ("mem", """select sym, d, price, low from px match_recognize (
+  partition by sym order by d
+  measures last(dn.price) as low
+  all rows per match
+  pattern (st dn+)
+  define dn as price < prev(price)
+) as x order by sym, d"""),
+    "alternation_all_rows": ("mem", """select sym, d, price from px match_recognize (
+  partition by sym order by d
+  measures first(m.price) as st
+  all rows per match
+  pattern (m (u|dn)+)
+  define u as price > prev(price), dn as price < prev(price)
+) as x order by sym, d"""),
+    "v_shape_random_ticks": ("mem", V_SHAPE_TICKS),
+    "classifier_measure_refused": ("mem", """select * from px match_recognize (
+  partition by sym order by d
+  measures classifier() as cl
+  pattern (a b+)
+  define b as price < prev(price)
+)"""),
+    # A6 and A7 at SF0.01
+    "orders_v_shape": ("tpch", "select * from orders match_recognize (partition by o_custkey "
+                               "order by o_orderdate, o_orderkey measures "
+                               "first(b.o_totalprice) as top, last(b.o_totalprice) as bottom, "
+                               "last(c.o_totalprice) as rebound one row per match "
+                               "pattern (b+ c+) define b as o_totalprice < prev(o_totalprice), "
+                               "c as o_totalprice > prev(o_totalprice))"),
+    "orders_all_rows": ("tpch", "select o_custkey, o_orderkey, low from orders match_recognize ("
+                                "partition by o_custkey order by o_orderdate, o_orderkey "
+                                "measures last(b.o_totalprice) as low all rows per match "
+                                "pattern (b+ c+) define b as o_totalprice < prev(o_totalprice), "
+                                "c as o_totalprice > prev(o_totalprice))"),
+}
+
 # phase 9: the kernels each query must launch, those the JAX reference
 # reaches over the same queries (a call recording of trino_tpu at SF0.1: the
 # table that ``scripts/record_function_kernels.py`` prints); F1's count(*)
@@ -987,6 +1267,73 @@ FUNCTIONS_REQUIRED = {
     "f3_date_keys": ('hash_insert',),
     "f4_checksum_buckets": ('hash_insert',),
 }
+# phase 10: arrays, maps, UNNEST and MATCH_RECOGNIZE over the nested TPC-H
+# orders table (``orders_nested`` in the memory catalog: one row per order,
+# its line items as arrays in l_linenumber order, as nested Parquet and ORC
+# tables hold them; built by ``nested_orders``) and TPC-H's orders and
+# lineitem; the session catalog is ``memory``
+ARRAYS = {
+    # every line item back out of its order, zipped with its ordinal
+    "a1_unnest_zip": "select count(*) n, sum(p) sp, sum(s) ss, sum(o) so, count_if(o > 4) late "
+                     "from orders_nested cross join unnest(partkeys, suppkeys) "
+                     "with ordinality u(p, s, o)",
+    # a hash group-by over an unnested element, after a filter on the ordinal
+    "a2_unnest_group_by": "select p % 100000 b, count(*) c, sum(o) so from orders_nested "
+                          "cross join unnest(partkeys) with ordinality u(p, o) "
+                          "where o <= 3 group by 1 order by 1",
+    # element calls over every row
+    "a3_element_calls": "select count(*) n, sum(cardinality(partkeys)) items, "
+                        "sum(element_at(partkeys, 1)) first_part, "
+                        "count_if(contains(shipmodes, 'AIR')) by_air, "
+                        "sum(array_position(suppkeys, element_at(suppkeys, 2))) pos, "
+                        "sum(array_sum(partkeys)) part_sum, max(array_max(suppkeys)) top_supp, "
+                        "sum(cardinality(slice(partkeys, 2, 3))) sliced, "
+                        "count_if(arrays_overlap(partkeys, suppkeys)) overlap "
+                        "from orders_nested",
+    # the lambdas: transform, filter, reduce
+    "a4_lambdas": "select sum(reduce(partkeys, 0, (s, x) -> s + x)) folded, "
+                  "sum(cardinality(filter(partkeys, x -> x % 2 = 0))) even_parts, "
+                  "sum(array_sum(transform(suppkeys, x -> x * 2))) doubled "
+                  "from orders_nested",
+    # array- and map-valued aggregates, reduced at the surface
+    "a5_array_map_agg": "select count(*) customers, sum(cardinality(a)) orders_n, "
+                        "sum(cardinality(m)) keys_n from (select o_custkey, "
+                        "array_agg(o_orderkey) a, map_agg(o_orderkey, o_totalprice) m "
+                        "from tpch.orders group by o_custkey)",
+    "a5_histogram": "select l_returnflag, histogram(l_shipmode) h, "
+                    "approx_most_frequent(3, l_shipinstruct, 10) f from tpch.lineitem "
+                    "group by 1 order by 1",
+    # V-shaped price runs per customer, ONE ROW PER MATCH
+    "a6_match_recognize": "select * from tpch.orders match_recognize (partition by o_custkey "
+                          "order by o_orderdate, o_orderkey measures "
+                          "first(b.o_orderkey) as start_key, first(b.o_totalprice) as top, "
+                          "last(b.o_totalprice) as bottom, last(c.o_totalprice) as rebound "
+                          "one row per match pattern (b+ c+) "
+                          "define b as o_totalprice < prev(o_totalprice), "
+                          "c as o_totalprice > prev(o_totalprice)) order by start_key",
+}
+# A7: the same pattern with ALL ROWS PER MATCH (the host backtracker), at
+# ARRAYS_SF_ALL_ROWS
+ARRAYS_ALL_ROWS = {
+    "a7_all_rows": "select o_custkey, o_orderkey, o_totalprice, low from tpch.orders "
+                   "match_recognize (partition by o_custkey order by o_orderdate, o_orderkey "
+                   "measures last(b.o_totalprice) as low all rows per match "
+                   "pattern (b+ c+) define b as o_totalprice < prev(o_totalprice), "
+                   "c as o_totalprice > prev(o_totalprice)) order by o_orderkey",
+}
+ARRAYS_SF_ALL_ROWS = 0.1
+# phase 10: the kernels each statement must launch, those the JAX reference
+# reaches over the same statements (a call recording of trino_tpu at SF0.1:
+# the table that ``scripts/record_array_kernels.py`` prints); A2 groups by a
+# computed key, which has no column range; statements not named here reach
+# none of them in the reference (the port's UNNEST filters and nested
+# aggregates also pack rows through ``compact_rows``)
+ARRAYS_REQUIRED = {
+    "a2_unnest_group_by": ('hash_insert',),
+}
+# A1's oracle over tpch.lineitem: the ordinal is l_linenumber
+A1_ORACLE = ("select count(*) n, sum(l_partkey) sp, sum(l_suppkey) ss, sum(l_linenumber) so, "
+             "count_if(l_linenumber > 4) late from tpch.lineitem")
 # phase 9c: 60M lineitem rows on the card alone, held by oracles that need no
 # CPU run
 FUNCTIONS_BIG = ("f1_percentiles", "f3_date_keys", "f5_wide_sums")
@@ -1151,12 +1498,13 @@ def run_queries(engine, queries, conn_rows, label, catalog="tpch", fact="lineite
         out[q] = {"result": res, "rows": len(res), "cold_s": cold,
                   "warm_s": min(warm), "launches": launches,
                   "host_reads": reads.get("host_reads"),
-                  "host_bytes": reads.get("host_bytes"), "peak_bytes": peak,
+                  "host_bytes": reads.get("host_bytes"),
+                  "h2d_bytes": reads.get("h2d_bytes"), "peak_bytes": peak,
                   "rows_per_s": conn_rows / min(warm)}
         print(f"{label} {q}: rows={len(res)} cold_s={cold} warm_s={min(warm)} "
               f"launches={ {k: v for k, v in launches.items() if v} } "
-              f"host_reads={reads.get('host_reads')} peak_bytes={peak} "
-              f"{fact}_rows_per_s={conn_rows / min(warm)}", flush=True)
+              f"host_reads={reads.get('host_reads')} h2d_bytes={reads.get('h2d_bytes')} "
+              f"peak_bytes={peak} {fact}_rows_per_s={conn_rows / min(warm)}", flush=True)
     return out
 
 
@@ -2192,6 +2540,24 @@ def same_outcome(card, cpu, sql, card_sess, cpu_sess, what):
     if a is None or b is None:
         check(a is None and b is None, f"{what}: one side returned no result")
         return
+    same_outcome_result(a, b, sql, what)
+
+
+def same_nested(a, b, what, ordered):
+    """Array and map columns as their decoded lists and dicts (as a multiset
+    of values where the statement does not order its rows)."""
+    for name, t, da, db in zip(a.names, a.types, a.columns, b.columns):
+        if type(t).__name__ not in ("ArrayType", "MapType"):
+            continue
+        ra, rb = [repr(x) for x in list(da)], [repr(x) for x in list(db)]
+        check(ra == rb if ordered else sorted(ra) == sorted(rb),
+              f"{what}: column {name} differs as decoded values")
+
+
+def same_outcome_result(a, b, sql, what):
+    """Two results of one statement equal: in row order where it orders its
+    rows, else as sorted rows."""
+    same_nested(a, b, what, ordered_sql(sql))
     if not ordered_sql(sql):
         import numpy as np
 
@@ -2375,6 +2741,170 @@ def functions_path():
     return launches, checks
 
 
+def nested_orders(orders, lineitem):
+    """The columns of ``orders_nested`` as python values for
+    ``MemoryConnector.append``: ``orders`` = (o_orderkey, o_custkey,
+    o_orderdate as epoch days), ``lineitem`` = (l_orderkey, l_linenumber,
+    l_partkey, l_suppkey, l_shipmode as strings), numpy arrays; each order's
+    line items become lists in l_linenumber order."""
+    import numpy as np
+
+    ok, ock, od = (np.asarray(c) for c in orders)
+    lk, ln, lp, ls, lm = (np.asarray(c) for c in lineitem)
+    order = np.lexsort((ln, lk))
+    lk = lk[order]
+    oo = np.argsort(ok, kind="stable")
+    ok, ock, od = ok[oo], ock[oo], od[oo]
+    starts = np.searchsorted(lk, ok, side="left").tolist()
+    ends = np.searchsorted(lk, ok, side="right").tolist()
+
+    def lists(col):
+        flat = np.asarray(col)[order].tolist()
+        return [flat[a:b] for a, b in zip(starts, ends)]
+
+    return [ok.tolist(), ock.tolist(), od.tolist(), lists(lp), lists(ls), lists(lm)]
+
+
+NESTED_DDL = ("create table orders_nested (o_orderkey bigint, o_custkey bigint, "
+              "o_orderdate date, partkeys array(bigint), suppkeys array(bigint), "
+              "shipmodes array(varchar))")
+
+
+def build_nested(engine, sess, columns) -> float:
+    """CREATE TABLE orders_nested and one ``append`` of ``columns``; seconds."""
+    t0 = time.perf_counter()
+    engine.execute_sql(NESTED_DDL, sess)
+    engine.catalogs["memory"].append("orders_nested", columns)
+    return time.perf_counter() - t0
+
+
+def arrays_parity():
+    """Phase 10a: the statements of tests/test_torch_arrays.py and
+    tests/test_torch_match.py on the card and on the CPU, equal."""
+    t0 = time.perf_counter()
+    n = 0
+    for label, cases, setup in (("arrays", ARRAY_CASES, ARRAY_SETUP),
+                                ("match", MATCH_CASES, MATCH_SETUP)):
+        card, card_s = corpus_engines(DEVICE, ())
+        cpu, cpu_s = corpus_engines("cpu", ())
+        for i, sql in enumerate(setup):
+            same_outcome(card, cpu, sql, card_s["mem"], cpu_s["mem"], f"{label} setup {i}")
+            n += 1
+        for case, (catalog, sql) in cases.items():
+            same_outcome(card, cpu, sql, card_s[catalog], cpu_s[catalog],
+                         f"{label} {case} card vs CPU")
+            n += 1
+        del card, cpu
+    print(f"arrays parity: {n} statements on the card equal the port's CPU outcomes "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def nested_keys(columns):
+    """Phase 10's own insert keys: A2's ``p % 100000`` over every unnested
+    part key, packed as a one-key hash group-by packs it."""
+    import itertools
+
+    import torch
+
+    from trino_tpu_torch.ops.hashing import pack_keys
+    from trino_tpu_torch.types import BIGINT
+
+    p = torch.tensor(list(itertools.chain.from_iterable(columns[3])), dtype=torch.int64,
+                     device=DEVICE)
+    packed, _ = pack_keys((p % 100000,), (BIGINT,))
+    return packed, torch.ones(p.shape, dtype=torch.bool, device=DEVICE)
+
+
+def arrays_main():
+    """Phase 10b: ``orders_nested`` built at SF1 on the card (timed on its
+    own), A1-A6 on the card (cold, warm, launches, host reads, H2D bytes,
+    peak memory), ARRAYS_REQUIRED, A1 against its lineitem oracle, the
+    kernels the path launched against their plain versions at its shapes,
+    then A1-A6 against the port's CPU run at SF1 and A7 at
+    ARRAYS_SF_ALL_ROWS on the card against the CPU.  Returns (launches of
+    A1-A7, {kernel: checks})."""
+    import numpy as np
+    import torch
+
+    from trino_tpu_torch.ops import cuda_kernels as ck
+
+    card, sess = memory_engine(DEVICE, SF_MAIN)
+    t0 = time.perf_counter()
+    li = card.execute_sql("select l_orderkey, l_linenumber, l_partkey, l_suppkey, l_shipmode "
+                          "from tpch.lineitem", sess)
+    od = card.execute_sql("select o_orderkey, o_custkey, o_orderdate from tpch.orders", sess)
+    columns = nested_orders(od.raw_columns, [li.raw_columns[i] for i in range(4)]
+                            + [li.columns[4]])
+    n_items = len(li)
+    del li, od
+    lists_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build_s = build_nested(card, sess, columns)
+    torch.cuda.synchronize()
+    print(f"arrays: orders_nested {len(columns[0])} rows, {n_items} elements per array "
+          f"column: lists {lists_s:.2f} s, build (CREATE + append) {build_s:.2f} s, "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    ck.reset_stats()
+    got = run_queries(card, ARRAYS, n_items, f"arrays sf{SF_MAIN:g}", catalog="memory")
+    small, _ = memory_engine(DEVICE, ARRAYS_SF_ALL_ROWS)
+    got.update(run_queries(small, ARRAYS_ALL_ROWS, 0, f"arrays sf{ARRAYS_SF_ALL_ROWS:g}",
+                           catalog="memory"))
+    launches = {k: s.launches for k, s in ck.STATS.items()}
+    shapes = {k: list(s.shapes) for k, s in ck.STATS.items()}
+    for q, kernels in ARRAYS_REQUIRED.items():
+        for k in kernels:
+            check(got[q]["launches"][k] > 0, f"arrays {q} launched no {k} kernel")
+    oracle = card.execute_sql(A1_ORACLE, sess)
+    a1 = got["a1_unnest_zip"]["result"]
+    check([int(v[0]) for v in a1.raw_columns] == [int(v[0]) for v in oracle.raw_columns]
+          and a1.raw_columns[0][0] == n_items,
+          f"A1 {a1.rows()} differs from its lineitem oracle {oracle.rows()}")
+    print(f"arrays A1: equal to its lineitem oracle {oracle.rows()[0]}", flush=True)
+    gen = np.random.default_rng(19)
+    checks = {}
+    if shapes["hash_insert"]:
+        checks["hash_insert"] = insert_checks(
+            shapes["hash_insert"], ("unnested_partkey_mod_100000", *nested_keys(columns)), gen)
+    if shapes["hash_probe"]:
+        checks["hash_probe"] = probe_checks(shapes["hash_probe"], gen)
+    if shapes["compact_rows"]:
+        checks["compact_rows"] = compact_checks(shapes["compact_rows"], gen)
+    cpu, cpu_sess = memory_engine("cpu", SF_MAIN)
+    build_nested(cpu, cpu_sess, columns)
+    del columns
+    t1 = time.perf_counter()
+    for q, sql in ARRAYS.items():
+        t2 = time.perf_counter()
+        same_outcome_result(got[q]["result"], cpu.execute_sql(sql, cpu_sess), sql,
+                            f"arrays sf{SF_MAIN:g} {q} card vs CPU")
+        check(len(got[q]["result"]) > 0, f"arrays {q} returned no rows")
+        print(f"arrays sf{SF_MAIN:g} {q}: equal to the port's CPU result "
+              f"({len(got[q]['result'])} rows, CPU {time.perf_counter() - t2:.2f} s)",
+              flush=True)
+    del cpu
+    cpu, cpu_sess = memory_engine("cpu", ARRAYS_SF_ALL_ROWS)
+    for q, sql in ARRAYS_ALL_ROWS.items():
+        same_outcome_result(got[q]["result"], cpu.execute_sql(sql, cpu_sess), sql,
+                            f"arrays sf{ARRAYS_SF_ALL_ROWS:g} {q} card vs CPU")
+        check(len(got[q]["result"]) > 0, f"arrays {q} returned no rows")
+    print(f"arrays CPU pass: {time.perf_counter() - t1:.1f} s", flush=True)
+    del cpu, card, small
+    torch.cuda.empty_cache()
+    return launches, {k: {"max_abs_err": r["max_abs_err"], "shapes": r["shapes"]}
+                      for k, r in checks.items()}
+
+
+def arrays_path():
+    """Phase 10: arrays, maps, UNNEST and MATCH_RECOGNIZE.  Returns (launches
+    of 10b, {kernel: checks at its shapes})."""
+    t0 = time.perf_counter()
+    arrays_parity()
+    launches, checks = arrays_main()
+    print(f"arrays path: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, checks
+
+
 def main() -> int:
     import torch
 
@@ -2502,6 +3032,9 @@ def main() -> int:
         mem_launches, mem_checks = memory_path(tpch_ref)
         # -- phase 9: the function library at SF0.01, SF1 and SF10 ------------
         fn_launches, fn_checks = functions_path()
+        # -- phase 10: arrays, maps, UNNEST and MATCH_RECOGNIZE -----------------
+        torch.cuda.empty_cache()
+        ar_launches, ar_checks = arrays_path()
 
         # per path: its launches, and the checks at its own shapes (the
         # top-level times stay the TPC-H path's largest shape's)
@@ -2515,11 +3048,14 @@ def main() -> int:
                 "memory_sf1": {"launches": mem_launches[name],
                                **mem_checks.get(name, {"max_abs_err": None, "shapes": []})},
                 "functions_sf1": {"launches": fn_launches[name],
-                                  **fn_checks.get(name, {"max_abs_err": None, "shapes": []})}}
-            for checks in (ds_checks, mem_checks, fn_checks):
+                                  **fn_checks.get(name, {"max_abs_err": None, "shapes": []})},
+                "arrays_sf1": {"launches": ar_launches[name],
+                               **ar_checks.get(name, {"max_abs_err": None, "shapes": []})}}
+            for checks in (ds_checks, mem_checks, fn_checks, ar_checks):
                 if name in checks:
                     r["max_abs_err"] = max(r["max_abs_err"], checks[name]["max_abs_err"])
-            r["launches"] += ds_launches[name] + mem_launches[name] + fn_launches[name]
+            r["launches"] += (ds_launches[name] + mem_launches[name] + fn_launches[name]
+                              + ar_launches[name])
         print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

@@ -31,7 +31,7 @@ def one_side(package_root: str, sf: float) -> dict:
     """Run in a child process: {query: warm seconds} of the package under
     ``package_root``."""
     sys.path.insert(0, _ROOT)
-    from chip_smoke import ALL_QUERIES, SPLIT_ROWS, run_queries
+    from chip_smoke import ALL_QUERIES, Q15_VIEW, SPLIT_ROWS, run_queries
 
     sys.path.insert(0, os.path.abspath(package_root))
     from trino_tpu_torch import Engine
@@ -42,6 +42,7 @@ def one_side(package_root: str, sf: float) -> dict:
     conn = TpchConnector(sf=sf, split_rows=SPLIT_ROWS)
     engine = Engine(device="cuda")
     engine.register_catalog("tpch", conn)
+    engine.execute_sql(Q15_VIEW, engine.create_session("tpch"))  # the view Q15 reads
     got = run_queries(engine, ALL_QUERIES, conn.exact_row_count("lineitem"), "walls")
     return {q: r["warm_s"] for q, r in got.items()}
 
@@ -69,7 +70,10 @@ def main(argv=None) -> int:
         for side in (("base", "change") if r % 2 == 0 else ("change", "base")):
             out = subprocess.run([sys.executable, os.path.abspath(__file__), "--base",
                                   args.base, "--sf", str(args.sf), "--side", sides[side]],
-                                 capture_output=True, text=True, check=True)
+                                 capture_output=True, text=True)
+            if out.returncode:
+                print(out.stderr[-4000:], file=sys.stderr)
+                return out.returncode
             runs[side].append(json.loads(out.stdout.strip().splitlines()[-1]))
             print(f"round {r} {side}: done", flush=True)
     report = {"sf": args.sf, "rounds": args.rounds, "queries": {}}

@@ -115,6 +115,8 @@ def run_both(j, t, sql, sj=None, st=None):
     else:
         assert b is not None, sql
         _assert_same(a, b, _ordered(sql), sql)
+        # raw spans alone do not prove two heaps equal
+        chip_smoke.same_nested(a, b, sql, _ordered(sql))
     return b
 
 

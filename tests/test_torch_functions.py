@@ -1,9 +1,10 @@
 """The port's scalar function library against the JAX package.
 
 Op level, in the manner of ``tests/test_torch_ir.py``: each scalar call of
-``trino_tpu/sql/ir.py`` but the array, map and span calls is built in both
-packages' IR and evaluated over the same seeded numpy page with null masks.
-Values and null masks must be equal: integers, booleans, dates and
+``trino_tpu/sql/ir.py`` but the array, map and span calls (held in
+``tests/test_torch_arrays.py``) is built in both packages' IR and evaluated
+over the same seeded numpy page with null masks.  Values and null masks must
+be equal: integers, booleans, dates and
 timestamps exactly, DOUBLE within rtol 1e-12 (the same IEEE operations),
 except where ``RTOL`` states another tolerance, ten times the largest
 error measured at these inputs: the functions whose torch and XLA
@@ -30,10 +31,10 @@ timestamp of this century in both packages
 
 Statements of those files that wait for other parts of the port are left
 out, by the name of their test:
-- arrays and maps (ROADMAP A4): test_functions_ext2.py::test_split_family,
-  test_functions_stats.py::test_reduce_family, and
-  test_functions_stats.py::test_approx_most_frequent (a map-valued
-  aggregate; ``tests/test_torch_aggregates.py`` holds that it raises);
+- arrays and maps, held by ``tests/test_torch_arrays.py``:
+  test_functions_ext2.py::test_split_family,
+  test_functions_stats.py::test_reduce_family and
+  test_functions_stats.py::test_approx_most_frequent;
 - SHOW FUNCTIONS (A6): test_functions_ext.py::test_show_functions_lists_new_families,
   test_functions_stats.py::test_show_functions_lists_new_families;
 - nothing here waits for A5 or A7.
@@ -259,12 +260,13 @@ def _calls(expr, acc):
 
 
 def test_every_reference_call_has_a_case_or_waits_for_a4():
-    """Every call ``trino_tpu.sql.ir._eval_call`` names is evaluated above
-    (or in tests/test_torch_ir.py), or is one of the array, map and span
-    calls, which raise naming A4."""
+    """Every call ``trino_tpu.sql.ir._eval_call`` names is evaluated above,
+    in tests/test_torch_ir.py, or (the array, map and span calls, which no
+    longer wait for A4) in tests/test_torch_arrays.py."""
     import inspect
     import re
 
+    import test_torch_arrays
     import test_torch_ir
 
     body = inspect.getsource(JIR._eval_call)
@@ -273,14 +275,13 @@ def test_every_reference_call_has_a_case_or_waits_for_a4():
         ref |= set(re.findall(r'"(\w+)"', group))
     ref |= set(JIR._ARITH) | set(JIR._CMP)
     cased = set()
-    for e in list(_op_cases(TIR, TT).values()) + list(test_torch_ir._cases(TIR, TT).values()):
+    heap = np.zeros(1, np.int64)
+    arrays = test_torch_arrays._cases(TIR, TT, heap, heap, heap, None)
+    for e in (list(_op_cases(TIR, TT).values()) + list(test_torch_ir._cases(TIR, TT).values())
+              + list(arrays.values())):
         _calls(e, cased)
-    assert ref - cased == set(TIR._ARRAY_OPS)
-    x = TIR.FieldRef(0, TT.BIGINT)
-    for op in sorted(TIR._ARRAY_OPS):
-        with pytest.raises(NotImplementedError, match=f"'{op}'.*ROADMAP A4"):
-            TIR.evaluate(TIR.Call(op, (x, x, x, x), TT.BIGINT), [torch.ones(2, dtype=torch.int64)],
-                         [None])
+    assert ref - cased == set()
+    assert {e.op for e in arrays.values()} == set(TIR._ARRAY_OPS)
 
 
 def test_exact_values_the_approximations_must_keep():
@@ -354,9 +355,9 @@ def test_clock_functions_are_timestamps(engines):
 
 
 def test_array_calls_still_raise_naming_a4(engines):
-    _, t, sessions = engines
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        t.execute_sql("select cardinality(split(s, '/')) from t", sessions["mem"][1])
+    # the array calls no longer wait for A4: they equal the reference
+    j, t, sessions = engines
+    run_both(j, t, "select cardinality(split(s, '/')) from t", *sessions["mem"])
 
 
 def test_spatial_join_plans_alike(engines):

@@ -2,8 +2,10 @@
 version on the card; TPC-H, multi-match joins, global aggregates and the
 TPC-DS corpus on the card against the same SQL on the CPU; the window
 primitives and the window kernel on the card against their CPU runs; the
-streaming LIMIT compacting through the CUDA kernel; and the sort-based
-aggregation runner, the function corpora and the exact wide sums.
+streaming LIMIT compacting through the CUDA kernel; the sort-based
+aggregation runner, the function corpora and the exact wide sums; and the
+array, map, UNNEST and MATCH_RECOGNIZE corpora, UNNEST's expansion map and
+the vectorized matcher.
 
 They skip without a card.  This file imports no jax, so on a machine with a
 card (which has no jax) it runs without the repo's conftest:
@@ -733,3 +735,40 @@ def test_wide_sums_on_the_card_decode_exactly(dev):
     assert r.raw_columns[0].dtype == object and r.rows() == [(want,)]
     with pytest.raises(NotImplementedError, match="wide-decimal"):
         engine.execute_sql("select sum(v) + 1 x from big", sessions["mem"])
+
+
+def test_array_and_match_corpora_on_the_card_equal_the_cpu(dev):
+    """Phase 10a of chip_smoke.py: every statement of tests/test_torch_arrays.py
+    and tests/test_torch_match.py (UNNEST, element calls, lambdas, array- and
+    map-valued aggregates, MATCH_RECOGNIZE) on the card and the CPU."""
+    import chip_smoke as cs
+
+    ck.reset_stats()
+    cs.arrays_parity()
+    assert ck.STATS["compact_rows"].launches > 0 and ck.STATS["hash_insert"].launches > 0
+
+
+def test_unnest_indices_and_vector_match_on_the_card_equal_the_cpu(dev):
+    from trino_tpu_torch.ops.arrays import unnest_indices
+    from trino_tpu_torch.ops.matcher import vector_match
+
+    rng = np.random.default_rng(5)
+    n = 100_000
+    lens = rng.integers(0, 8, n)
+    lens[rng.random(n) < 0.2] = 0
+    total = 1 << int(lens.sum() - 1).bit_length()
+    got = [tuple(x.cpu() for x in unnest_indices(torch.as_tensor(lens, device=d), total))
+           for d in (dev, torch.device("cpu"))]
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
+    walk = rng.integers(-3, 4, n)
+    part = rng.random(n) < 0.01
+    part[0] = True
+    conds = {"d": walk < 0, "u": walk > 0}
+    out = [vector_match((("d", "+"), ("u", "+")),
+                        {k: torch.as_tensor(v, device=d) for k, v in conds.items()},
+                        torch.as_tensor(part, device=d), {"d", "u"})
+           for d in (dev, torch.device("cpu"))]
+    for f in ("usable", "end", "pos", "nxt"):
+        assert np.array_equal(getattr(out[0], f), getattr(out[1], f)), f
+    assert out[0].usable.any()

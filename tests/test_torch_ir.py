@@ -136,11 +136,14 @@ def test_predicate_equal():
 
 
 def test_unported_call_raises_naming_it():
-    # every scalar call is ported but the array, map and span calls
+    # every scalar call is ported, the array, map and span calls too: an
+    # unknown call raises naming it
     x = TIR.FieldRef(0, TT.BIGINT, "x")
-    with pytest.raises(NotImplementedError, match="'array_get'.*ROADMAP A4"):
-        TIR.evaluate(TIR.Call("array_get", (x, x, x), TT.BIGINT),
-                     [torch.ones(3, dtype=torch.int64)], [None])
+    span = torch.tensor([(1 << 24) | 2, 3, 0], dtype=torch.int64)  # [7, 9], [1, 7, 9], []
+    heap = TIR.Constant(np.array([1, 7, 9], np.int64), TT.UNKNOWN)
+    v, nulls = TIR.evaluate(TIR.Call("array_get", (x, TIR.Constant(2, TT.BIGINT), heap),
+                                     TT.BIGINT), [span], [None])
+    assert v.tolist()[:2] == [9, 7] and nulls.tolist() == [False, False, True]
     with pytest.raises(NotImplementedError, match="'no_such_op'"):
         TIR.evaluate(TIR.Call("no_such_op", (x,), TT.BIGINT),
                      [torch.ones(3, dtype=torch.int64)], [None])

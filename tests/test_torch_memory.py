@@ -12,7 +12,8 @@ errors of ``create_table`` (IF NOT EXISTS) and ``drop_table``.  Also: the
 port's stored columns live on its device as torch tensors, ``generate``
 hands out views of them, writes never change a tensor handed out earlier,
 columns given in storage form (``Raw``, ``Coded``) store what their decoded
-values store, and an array column raises naming the path.
+values store, and array columns (heaps, spans, element dictionaries) equal
+the reference's through appends, deletes and updates.
 """
 
 import numpy as np
@@ -210,9 +211,39 @@ def test_create_and_drop_equal_the_reference():
 
 
 def test_array_column_raises_naming_the_path():
+    # array columns are ported: heaps, spans and element dictionaries equal
+    # the reference's through appends (python lists, None = NULL), a delete
+    # and an update of another column
     t = MemoryConnector(device="cpu")
-    with pytest.raises(NotImplementedError, match=r"array/map column a\.xs.*memory connector"):
-        t.create_table("a", Schema.of(("k", BIGINT), ("xs", ArrayType.of(BIGINT))))
-    assert t.tables() == []
     j = jax_memory.MemoryConnector()
-    assert j.create_table("a", JaxSchema.of(("k", J_BIGINT), ("xs", JArray.of(J_BIGINT))))
+    vs, jvs = VarcharType.of(None), JVarchar.of(None)
+    assert t.create_table("a", Schema.of(("k", BIGINT), ("xs", ArrayType.of(BIGINT)),
+                                         ("ss", ArrayType.of(vs))))
+    assert j.create_table("a", JaxSchema.of(("k", J_BIGINT), ("xs", JArray.of(J_BIGINT)),
+                                            ("ss", JArray.of(jvs))))
+    rng = np.random.default_rng(9)
+    for lo in (0, 40):
+        rows = [None if rng.random() < 0.2 else rng.integers(0, 9, rng.integers(0, 5)).tolist()
+                for _ in range(40)]
+        words = [None if rng.random() < 0.2 else list(rng.choice(WORDS, rng.integers(0, 4)))
+                 for _ in range(40)]
+        for conn in (t, j):
+            conn.append("a", [list(range(lo, lo + 40)), rows, words])
+    mask = rng.random(80) < 0.3
+    assert t.delete_rows("a", mask) == j.delete_rows("a", mask)
+    keep = int((~mask).sum())
+    upd = rng.random(keep) < 0.5
+    assert t.update_rows("a", upd, {"k": [7] * keep}) == j.update_rows("a", upd, {"k": [7] * keep})
+    jd, td = j.dictionaries("a"), t.dictionaries("a")
+    for name in ("xs", "ss"):
+        np.testing.assert_array_equal(td[name].values, jd[name].values)
+        assert td[name].max_len == jd[name].max_len
+    np.testing.assert_array_equal(np.asarray(td["ss"].elem_dict.values),
+                                  np.asarray(jd["ss"].elem_dict.values))
+    jp = j.generate(j.splits("a")[0])
+    tp = t.generate(t.splits("a")[0])
+    for ca, cb, na, nb in zip(jp.columns, tp.columns, jp.null_masks, tp.null_masks):
+        np.testing.assert_array_equal(cb.numpy(), np.asarray(ca))
+        assert (na is None) == (nb is None)
+        if na is not None:
+            np.testing.assert_array_equal(nb.numpy(), np.asarray(na))

@@ -22,7 +22,16 @@ reference's semantics: a value that ``is None`` is NULL and stores 0, a
 string is ``str(v)`` and gets its id at its first appearance, decimals come
 as raw scaled ints and dates as epoch days.  A column may also come in
 storage form already (``Raw``, ``Coded``), as the engine's writes pass a
-query result's columns.  Array-typed columns are not ported.
+query result's columns.
+
+An array(T) column stores one int64 span per row (start << 24 | length, as
+``ops/arrays.py`` packs them) on the device, into an element heap that stays
+a host numpy array per column, as in the reference: every scan hands it out
+in the channel's dictionary slot (``ArrayData``), and the executor copies it
+to the device once per query.  Appends add python lists (None = NULL) to the
+heap, with spans offset by its length; string elements take ids in a growable
+dictionary of the column.  DELETE and UPDATE move spans and leave the heaps
+as they are.
 """
 
 from __future__ import annotations
@@ -32,9 +41,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.arrays import compact_rows
+from ..ops.arrays import ArrayData, compact_rows, encode_arrays, pack_span, span_len
 from ..page import Page, Schema
-from ..types import ArrayType, MapType, torch_dtype
+from ..types import ArrayType, torch_dtype
 from .tpch import Dictionary
 
 __all__ = ["MemoryConnector", "Raw", "Coded", "SPLIT_ROWS"]
@@ -169,9 +178,12 @@ class _GrowableDict:
 @dataclasses.dataclass
 class _MemTable:
     schema: Schema
-    columns: list  # torch tensors on the connector's device (strings: int32 ids)
+    columns: list  # torch tensors on the connector's device (strings: int32 ids;
+    # arrays: int64 spans)
     nulls: list  # torch bool tensors | None
-    growable: dict  # column name -> _GrowableDict (string columns)
+    growable: dict  # column name -> _GrowableDict (string columns + array elements)
+    heaps: dict = dataclasses.field(default_factory=dict)  # array column -> host heap
+    max_lens: dict = dataclasses.field(default_factory=dict)  # array column -> longest
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,13 +191,6 @@ class MemorySplit:
     table: str
     lo: int
     hi: int
-
-
-def _not_ported_array(table: str, name: str):
-    return NotImplementedError(
-        f"array/map column {table}.{name}: array-typed columns of the memory "
-        "connector (connectors/memory.py, encode_arrays) are not ported to "
-        "trino_tpu_torch")
 
 
 class MemoryConnector:
@@ -208,8 +213,16 @@ class MemoryConnector:
 
     def dictionaries(self, table: str) -> dict:
         t = self._tables[table]
-        return {f.name: t.growable[f.name].view() for f in t.schema.fields
-                if f.name in t.growable}
+        out = {}
+        for f in t.schema.fields:
+            if isinstance(f.type, ArrayType):
+                gd = t.growable.get(f.name)
+                out[f.name] = ArrayData(t.heaps[f.name], f.type.element,
+                                        elem_dict=gd.view() if gd else None,
+                                        max_len=t.max_lens[f.name])
+            elif f.name in t.growable:
+                out[f.name] = t.growable[f.name].view()
+        return out
 
     def row_count(self, table: str) -> int:
         t = self._tables[table]
@@ -225,15 +238,16 @@ class MemoryConnector:
             if if_not_exists:
                 return False
             raise ValueError(f"table {table} already exists")
-        for f in schema.fields:
-            if isinstance(f.type, (ArrayType, MapType)):
-                raise _not_ported_array(table, f.name)
         dev = self._dev()
+        arrays = [f for f in schema.fields if isinstance(f.type, ArrayType)]
         self._tables[table] = _MemTable(
             schema,
             [torch.empty((0,), dtype=torch_dtype(f.type), device=dev) for f in schema.fields],
             [None] * len(schema.fields),
-            {f.name: _GrowableDict() for f in schema.fields if f.type.is_string})
+            {f.name: _GrowableDict() for f in schema.fields
+             if f.type.is_string or (f in arrays and f.type.element.is_string)},
+            {f.name: np.zeros(0, np.dtype(f.type.element.dtype)) for f in arrays},
+            {f.name: 0 for f in arrays})
         return True
 
     def drop_table(self, table: str, if_exists=False) -> None:
@@ -243,11 +257,35 @@ class MemoryConnector:
             raise ValueError(f"table {table} does not exist")
         del self._tables[table]
 
+    def _append_arrays(self, t: _MemTable, f, rows):
+        """(spans, null flags) of appended python lists (None = NULL), whose
+        elements extend the column's heap (``encode_arrays``); string
+        elements take their dictionary ids in one call."""
+        gd = t.growable.get(f.name)
+        heap_dt = t.heaps[f.name].dtype
+        spans, nulls, heap = encode_arrays(rows, object if gd is not None else heap_dt)
+        if gd is not None:
+            # code each distinct element once (in order of first appearance),
+            # then give the codes their dictionary ids
+            table: dict = {}
+            codes = np.fromiter((table.setdefault(x, len(table)) for x in heap), np.int64,
+                                len(heap))
+            distinct = _objects(list(table))
+            heap = gd.encode_codes(codes, distinct, is_none(distinct)[codes]).astype(heap_dt)
+        base = len(t.heaps[f.name])
+        spans = np.where(spans != 0, spans + pack_span(base, 0), spans)
+        t.heaps[f.name] = np.concatenate([t.heaps[f.name], heap])
+        longest = int(span_len(spans).max()) if len(spans) else 0
+        t.max_lens[f.name] = max(t.max_lens[f.name], longest)
+        return spans, (np.zeros(len(spans), bool) if nulls is None else nulls)
+
     def _storage(self, t: _MemTable, i: int, vals, null_flags=None):
         """(storage numpy array, null flags) of one written column."""
         f = t.schema.fields[i]
         dtype = np.dtype(f.type.dtype)
-        if isinstance(vals, Coded):
+        if isinstance(f.type, ArrayType) and not isinstance(vals, (Raw, Coded)):
+            arr, nulls = self._append_arrays(t, f, vals)
+        elif isinstance(vals, Coded):
             if not f.type.is_string:
                 raise TypeError(f"string codes written to {f.type.name} column {f.name}")
             arr = t.growable[f.name].encode_codes(vals.codes, vals.values, vals.nulls)
@@ -306,6 +344,13 @@ class MemoryConnector:
         t.columns = packed[:len(t.columns)]
         rest = iter(packed[len(t.columns):])
         t.nulls = [None if m is None else next(rest) for m in t.nulls]
+        names = [f.name for f in t.schema.fields if isinstance(f.type, ArrayType)]
+        if names:  # the longest array left, as the reference rescans its spans
+            cols = [t.columns[t.schema.index(nm)] for nm in names]
+            got = torch.stack([span_len(c).max() if c.shape[0] else
+                               torch.zeros((), dtype=torch.int64, device=c.device)
+                               for c in cols]).cpu().tolist()
+            t.max_lens.update(zip(names, got))
         return deleted
 
     def update_rows(self, table: str, mask, decoded_values: dict) -> int:

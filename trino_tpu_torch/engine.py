@@ -77,9 +77,9 @@ class Engine:
         # "session_catalog": name}
         self.materialized_views: dict = {}
         self.memory_pool = MemoryPool(device=self.device)
-        # device -> host reads and bytes of the most recent execute_sql (its
-        # plan-time subqueries and a statement's inner queries included) or
-        # bare execute_plan
+        # device -> host reads and bytes, and host -> device bytes, of the
+        # most recent execute_sql (its plan-time subqueries and a statement's
+        # inner queries included) or bare execute_plan
         self.last_query_counters: dict = {}
         self._sql_totals: Optional[dict] = None
 
@@ -104,7 +104,8 @@ class Engine:
             return ex.execute(plan)
         finally:
             self.last_query_counters = {"host_reads": ex.host_reads,
-                                        "host_bytes": ex.host_bytes}
+                                        "host_bytes": ex.host_bytes,
+                                        "h2d_bytes": ex.h2d_bytes}
             if self._sql_totals is not None:
                 for k, v in self.last_query_counters.items():
                     self._sql_totals[k] += v
@@ -117,7 +118,7 @@ class Engine:
 
         sess = session or Session()
         ast = A.parse(sql)
-        self._sql_totals = totals = {"host_reads": 0, "host_bytes": 0}
+        self._sql_totals = totals = {"host_reads": 0, "host_bytes": 0, "h2d_bytes": 0}
         try:
             if not isinstance(ast, (A.Select, A.SetOp)):
                 return self._execute_statement(ast, sess)
@@ -598,7 +599,9 @@ def _write_column(res, i, dst_t=None):
     if dst_t is not None and dst_t != t:
         return _coerce_host(list(dec), t, dst_t)
     if isinstance(t, (ArrayType, MapType)):
-        return list(dec)  # the connector refuses array columns, naming them
+        # the reference's per-value coercion, which takes no list (its known
+        # gap: CTAS and INSERT ... SELECT of an array-valued query raise)
+        return _coerce_host(list(dec), t, t)
     nulls = is_none(dec)
     raw = np.asarray(res.raw_columns[i])
     if t.is_string:

@@ -11,7 +11,9 @@ are not ported, and where a plan asks for one of them the executor raises
 ``NotImplementedError`` naming the node and the path.
 
 Every device -> host read goes through ``LocalExecutor._host``, which counts
-them (``host_reads``) and their bytes (``host_bytes``).
+them (``host_reads``) and their bytes (``host_bytes``).  Host arrays the query
+hands to the device (planner tables such as element heaps, once per query;
+host pages moved back) are counted in ``h2d_bytes``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import numpy as np
 import torch
 
 from ..ops import hashagg
-from ..ops.arrays import compact_rows
+from ..ops.arrays import (ArrayData, MapData, compact_rows, pack_span, span_len,
+                          span_start, unnest_indices)
 from ..ops.cuda_kernels import _ranged
 from ..ops.hashing import ceil_pow2
 from ..ops.hashjoin import (DIRECT_JOIN_RANGE_MAX, DirectJoinTable,
@@ -35,8 +38,9 @@ from ..ops.hashjoin import (DIRECT_JOIN_RANGE_MAX, DirectJoinTable,
                             probe_slots)
 from ..page import Page, Schema
 from ..sql import plan as P
-from ..sql.ir import Call, FieldRef, evaluate, evaluate_predicate
-from ..types import BIGINT, DecimalType, TimestampType, torch_dtype
+from ..sql.ir import (Call, FieldRef, device_array, device_constants, evaluate,
+                      evaluate_predicate)
+from ..types import ArrayType, BIGINT, DecimalType, MapType, TimestampType, torch_dtype
 
 __all__ = ["LocalExecutor", "MaterializedResult"]
 
@@ -115,6 +119,8 @@ def _identity(c, n, v, aux):
 
 # nodes that run to completion before their consumer sees a row
 _BLOCKING = (P.Aggregate, P.Sort, P.Limit, P.Output, P.Window)
+# ... and those that a streaming consumer also takes as one page
+_BLOCKING_NODES = _BLOCKING + (P.Unnest, P.MatchRecognize)
 
 
 def _not_ported(what: str):
@@ -133,15 +139,18 @@ class LocalExecutor:
             else MemoryPool(device=self.device)
         self.host_reads = 0
         self.host_bytes = 0
+        self.h2d_bytes = 0
         self._reserved: list = []  # join-build bytes held until the query ends
 
     # ------------------------------------------------------------------ public
     def execute(self, node: P.PlanNode) -> MaterializedResult:
         self.host_reads = 0
         self.host_bytes = 0
+        self.h2d_bytes = 0
         try:
-            page, dicts = self._execute_to_page(node)
-            return self._materialize(page, dicts)
+            with device_constants(self._count_h2d):
+                page, dicts = self._execute_to_page(node)
+                return self._materialize(page, dicts)
         finally:
             for nbytes in self._reserved:
                 self.memory_pool.free(nbytes)
@@ -160,6 +169,16 @@ class LocalExecutor:
             else:
                 out.append(None if a is None else np.asarray(a))
         return out
+
+    def _count_h2d(self, nbytes: int):
+        self.h2d_bytes += int(nbytes)
+
+    def _to_device(self, arr, dtype=None) -> torch.Tensor:
+        """A host array on the engine's device, its bytes counted."""
+        arr = np.asarray(arr)
+        self._count_h2d(arr.nbytes)
+        t = torch.as_tensor(arr, device=self.device)
+        return t if dtype is None else t.to(dtype)
 
     def _host_page(self, page: Page, site="page"):
         """(valid, cols, nulls) as numpy, in one read."""
@@ -194,8 +213,12 @@ class LocalExecutor:
             return self._run_aggregate(node)
         if isinstance(node, P.Window):
             return self._run_window(node)
-        if isinstance(node, (P.Unnest, P.MatchRecognize)):
-            raise _not_ported(f"{type(node).__name__} node")
+        if isinstance(node, P.Unnest):
+            child, dicts = self._execute_to_page(node.child)
+            return self._run_unnest(node, child, dicts)
+        if isinstance(node, P.MatchRecognize):
+            child, dicts = self._execute_to_page(node.child)
+            return self._run_match_recognize(node, child, dicts)
         # streaming leaf reached directly (scan/filter/project/join-probe): materialize
         stream = self._compile_stream(node)
         return self._concat_stream(stream), stream.dicts
@@ -321,7 +344,7 @@ class LocalExecutor:
             return _Stream(node.schema, tuple(None for _ in node.schema.fields),
                            lambda page=page: iter((page,)), _identity)
 
-        if isinstance(node, _BLOCKING):
+        if isinstance(node, _BLOCKING_NODES):
             # blocking sub-plan feeding a streaming consumer: run it, emit its page
             page, dicts = self._execute_to_page(node)
             page = self._device_page(page)
@@ -627,7 +650,8 @@ class LocalExecutor:
     # -- sort-based aggregation -----------------------------------------------
     def _run_sorted_aggregate(self, node: P.Aggregate):
         """approx_percentile (exact selection at round(p * (count - 1))),
-        max_by / min_by, listagg and the bitwise aggregates, by sorting.
+        max_by / min_by, listagg, the bitwise aggregates and the aggregates
+        whose results are arrays or maps (``_nested_agg``), by sorting.
 
         One key-major sort of the concatenated input gives the groups: their
         dense ids, sizes and starts stay on the device, and one read carries
@@ -644,9 +668,6 @@ class LocalExecutor:
                     "aggregates yet")
             if not isinstance(s_.arg, FieldRef):
                 raise NotImplementedError(f"{s_.kind} argument must be a plain column")
-        for s_ in node.aggs:
-            if s_.kind in _ARRAY_AGG_KINDS:
-                raise _not_ported(f"{s_.kind} (array and map results, ROADMAP A4)")
         stream = self._compile_stream(node.child)
         page = self._concat_stream(stream)
         n = page.capacity
@@ -709,7 +730,7 @@ class LocalExecutor:
                 vd = stream.dicts[vch]
                 if s_.kind != "approx_percentile" and getattr(vd, "values", None) is not None:
                     # string ranking follows the values, not the dictionary ids
-                    lut = torch.as_tensor(_collation_rank_lut(vd), device=dev)
+                    lut = device_array(_collation_rank_lut(vd), dev)
                     rank = lut[torch.clamp(v, 0, len(lut) - 1).to(torch.int64)]
                 idx, cnt = group_sort(rank, vnull)
                 last = torch.clamp(cnt - 1, min=0)
@@ -729,6 +750,9 @@ class LocalExecutor:
             elif s_.kind == "listagg":
                 vals, vnull_out, d_out = self._listagg(s_, page, stream.dicts, v, vnull,
                                                        group_sort, sizes, read)
+            elif s_.kind in _ARRAY_AGG_KINDS:
+                vals, vnull_out, d_out = self._nested_agg(s_, page, stream, vnull, gid, g,
+                                                          group_sort, read)
             else:  # bitwise_and_agg, bitwise_or_agg, bitwise_xor_agg
                 idx, _ = group_sort(v, vnull)
                 sv, svn, sz = read([v[idx], vnull[idx], sizes])
@@ -748,6 +772,77 @@ class LocalExecutor:
         dicts = tuple(stream.dicts[i] for i in node.keys) + tuple(agg_dicts)
         return Page(node.schema, tuple(out_keys + agg_vals), tuple(nulls), None), dicts
 
+    def _nested_agg(self, spec, page, stream, vnull, gid, g, group_sort, read):
+        """array_agg(v), map_agg(k, v), histogram(v) and
+        approx_most_frequent(b, v, c) (exact counts, as the reference's) over
+        the group sort of ``v`` (of ``k`` for map_agg; NULLs skipped).
+        Each group's heap entries are picked on the device: every live value
+        for array_agg (in value order), the first row of each run of equal
+        values otherwise (map_agg's first value per key, a histogram's count
+        per value; approx_most_frequent keeps the ``b`` most frequent, by
+        count, then value).  The compaction kernel packs them; one read sizes
+        it and one carries the heaps and each group's entry count.  Spans
+        and heaps are built on the host; a group without live values is
+        NULL.  Returns (spans, NULL flags, ArrayData | MapData)."""
+        n, kind = page.capacity, spec.kind
+        ch = spec.arg.index
+        v = page.columns[ch]
+        dev = v.device
+        idx, cnt = group_sort(v, vnull)
+        sv, sg = v[idx], gid[idx]
+        live = (gid < g) & ~vnull
+        slive = live[idx]
+        if kind == "array_agg":
+            entry = slive
+        else:  # the first row of each run of one value in a group
+            same = (sg[1:] == sg[:-1]) & (sv[1:] == sv[:-1])
+            entry = slive & ~torch.cat([torch.zeros((1,), dtype=torch.bool, device=dev), same])
+        pack = [sv]
+        if kind in ("histogram", "approx_most_frequent"):
+            run = torch.cumsum(entry.to(torch.int64), 0) - 1
+            counts = torch.zeros((n + 1,), dtype=torch.int64, device=dev).index_add_(
+                0, torch.where(slive, run, n), torch.ones_like(run))
+            pack.append(counts[torch.clamp(run, min=0)])
+        if kind == "approx_most_frequent":
+            # per group, runs by (count desc, value asc): a stable sort of the
+            # value-ordered runs by (group, -count); keep the first b
+            grp = torch.where(entry, sg, g)
+            order = _lexsort([-pack[1], grp], n, dev)
+            sgrp = grp[order]
+            per = torch.zeros((g + 1,), dtype=torch.int64, device=dev).index_add_(
+                0, sgrp, torch.ones_like(sgrp))
+            rank = torch.arange(n, device=dev) - (torch.cumsum(per, 0) - per)[sgrp]
+            entry = (sgrp < g) & (rank < int(spec.param))
+            sg, pack = sgrp, [p[order] for p in pack]
+        if kind == "map_agg":
+            vch = int(spec.param)
+            pack.append(page.columns[vch][idx])
+            if page.null_masks[vch] is not None:
+                pack.append(page.null_masks[vch][idx])
+        lens = torch.zeros((g + 1,), dtype=torch.int64, device=dev).index_add_(
+            0, torch.where(entry, sg, g), torch.ones_like(sg))[:g]
+        r = int(self._host([torch.sum(entry, dtype=torch.int64)], site="agg.sorted.size")[0])
+        packed = compact_rows(tuple(pack), entry, r)[0] if r else [p[:0] for p in pack]
+        got = read(list(packed) + [lens, cnt])
+        heaps, lens_h, cnt_h = got[:-2], got[-2], got[-1]
+        spans = pack_span(np.cumsum(lens_h) - lens_h, lens_h).astype(np.int64)
+        max_len = int(lens_h.max()) if g else 0
+        out_null = cnt_h == 0
+        elem_t, d = stream.schema.fields[ch].type, stream.dicts[ch]
+        if kind == "array_agg":
+            data = ArrayData(heaps[0], elem_t, elem_dict=d, max_len=max_len)
+        elif kind == "map_agg":
+            vals = heaps[1]
+            if len(heaps) > 2 and heaps[2].any():  # a NULL value decodes to None
+                vals = vals.astype(object)
+                vals[heaps[2]] = None
+            data = MapData(heaps[0], vals, elem_t, stream.schema.fields[vch].type,
+                           key_dict=d, value_dict=stream.dicts[vch], max_len=max_len)
+        else:
+            data = MapData(heaps[0], heaps[1], spec.arg.type, BIGINT, key_dict=d,
+                           max_len=max_len)
+        return spans, out_null, data
+
     def _listagg(self, spec, page, dicts, v, vnull, group_sort, sizes, read):
         """listagg(x, sep) WITHIN GROUP (ORDER BY o): the rows sorted by the
         order key inside each group, then each group's strings decoded and
@@ -761,7 +856,7 @@ class LocalExecutor:
         okey = page.columns[order_ch] if order_ch is not None else v
         od = dicts[order_ch] if order_ch is not None else d
         if getattr(od, "values", None) is not None:
-            lut = torch.as_tensor(_collation_rank_lut(od), device=okey.device)
+            lut = device_array(_collation_rank_lut(od), okey.device)
             okey = lut[torch.clamp(okey, 0, len(lut) - 1).to(torch.int64)]
         if not asc:
             okey = -okey if okey.is_floating_point() else ~okey
@@ -965,7 +1060,7 @@ class LocalExecutor:
     def _execute_to_page_streamed(self, node):
         """Materialize a sub-plan into one device page (join build side,
         window input)."""
-        if isinstance(node, _BLOCKING):
+        if isinstance(node, _BLOCKING_NODES):
             page, dicts = self._execute_to_page(node)
             return self._device_page(page), dicts
         stream = self._compile_stream(node)
@@ -977,12 +1072,11 @@ class LocalExecutor:
         Exact wide-decimal (object) columns stay on the host."""
         if all(isinstance(c, torch.Tensor) for c in page.columns):
             return page
-        cols = tuple(c if np.asarray(c).dtype == object
-                     else torch.as_tensor(np.asarray(c), dtype=torch_dtype(f.type),
-                                          device=self.device)
+        cols = tuple(c if isinstance(c, torch.Tensor) or np.asarray(c).dtype == object
+                     else self._to_device(c, torch_dtype(f.type))
                      for c, f in zip(page.columns, page.schema.fields))
-        nulls = tuple(None if m is None else torch.as_tensor(np.asarray(m), device=self.device)
-                      for m in page.null_masks)
+        nulls = tuple(None if m is None else m if isinstance(m, torch.Tensor)
+                      else self._to_device(m) for m in page.null_masks)
         valid = None
         if any(isinstance(c, np.ndarray) for c in cols):  # the row mask stays on the device
             valid = torch.ones((page.capacity,), dtype=torch.bool, device=self.device)
@@ -1006,6 +1100,294 @@ class LocalExecutor:
         return (Page(node.schema, tuple(page.columns) + out_cols,
                      tuple(page.null_masks) + out_nulls, page.valid),
                 tuple(dicts) + spec_dicts)
+
+    # -- UNNEST and MATCH_RECOGNIZE -------------------------------------------
+    def _run_unnest(self, node: P.Unnest, child: Page, cdicts):
+        """UNNEST (reference: operator/unnest/UnnestOperator.java) as the
+        searchsorted expansion map of ``ops/arrays.unnest_indices``, the
+        multi-match join's shape: parallel arrays zip by position and the
+        shorter ones pad with NULL; replicated channels repeat per element.
+        One read of the total sizes the output page (a power of two, at
+        least 16); the element heaps come from the query's device copies."""
+        child = self._device_page(child)
+        if child.capacity == 0:
+            # one dead row keeps the gathers defined (zero rows out)
+            child = Page(child.schema,
+                         tuple(torch.zeros((1,), dtype=c.dtype, device=self.device)
+                               for c in child.columns),
+                         tuple(None for _ in child.columns),
+                         torch.zeros((1,), dtype=torch.bool, device=self.device))
+        valid = child.valid_mask()
+        spans = [child.columns[ch] for ch in node.unnest_channels]
+        lens, per_ch = None, []
+        for sp, nm in zip(spans, (child.null_masks[ch] for ch in node.unnest_channels)):
+            ln = span_len(sp)
+            if nm is not None:
+                ln = torch.where(nm, torch.zeros_like(ln), ln)
+            ln = torch.where(valid, ln, torch.zeros_like(ln))
+            per_ch.append(ln)
+            lens = ln if lens is None else torch.maximum(lens, ln)
+        total = int(self._host([torch.sum(lens)], site="unnest.total")[0])
+        cap = max(1 << max(total - 1, 1).bit_length(), 16)
+        row, ordinal, in_range = unnest_indices(lens, cap)
+        row = row.to(torch.int64)
+        cols, nulls, dicts = [], [], []
+        for ch in node.replicate:
+            cols.append(child.columns[ch][row])
+            nm = child.null_masks[ch]
+            nulls.append(None if nm is None else nm[row])
+            dicts.append(cdicts[ch] if cdicts and ch < len(cdicts) else None)
+        for sp, ln, data in zip(spans, per_ch, node.array_datas):
+            heap = device_array(np.asarray(data.values), self.device)
+            if heap.shape[0]:
+                pos = torch.clamp(span_start(sp)[row] + ordinal, 0, heap.shape[0] - 1)
+                cols.append(heap[pos])
+            else:
+                cols.append(torch.zeros((cap,), dtype=heap.dtype, device=self.device))
+            nulls.append(ordinal >= ln[row])  # zipped shorter arrays pad with NULL
+            dicts.append(data.elem_dict)
+        if node.ordinality:
+            cols.append((ordinal + 1).to(torch.int64))
+            nulls.append(None)
+            dicts.append(None)
+        return Page(node.schema, tuple(cols), tuple(nulls), in_range), tuple(dicts)
+
+    def _run_match_recognize(self, node: P.MatchRecognize, child: Page, cdicts):
+        """Row-pattern matching over sorted partitions (reference:
+        operator/window/matcher/, and the reference engine's subset: linear
+        patterns with ?/*/+, alternation groups, DEFINE with PREV/NEXT,
+        FIRST/LAST measures, ONE or ALL ROWS PER MATCH, AFTER MATCH SKIP PAST
+        LAST ROW, empty matches skipped).
+
+        On the device: the sort by (partition, order) keys, partition
+        starts, the navigation channels shifted inside each partition and
+        one condition vector per DEFINE variable.  ONE ROW PER MATCH takes
+        ``ops/matcher.vector_match`` where its gate admits the pattern: the
+        match geometry for every start in one device pass and one read; the
+        host walks the chain of matches (non-overlapping, skip past last
+        row) and the measure rows are gathered on the device.  ALL ROWS PER
+        MATCH and refused patterns read the sorted page and run the host
+        backtracker."""
+        from ..ops.matcher import vector_match
+
+        keys = tuple(P.SortKey(ch, True, False) for ch in node.partition) + tuple(node.order)
+        page = self._sorted_device_page(child, keys, cdicts)
+        n = page.capacity
+        cols, nulls = list(page.columns), list(page.null_masks)
+        dev = self.device
+        new_part = torch.zeros((n,), dtype=torch.bool, device=dev)
+        new_part[:1] = True
+        for ch in node.partition:
+            c, nm = cols[ch], nulls[ch]
+            diff = c[1:] != c[:-1]
+            if nm is not None:
+                # NULL keys form one partition; their fill values never compare
+                diff = (diff & ~(nm[1:] | nm[:-1])) | (nm[1:] != nm[:-1])
+            new_part[1:] |= diff
+        part_id = torch.cumsum(new_part.to(torch.int64), 0)
+        ext_cols, ext_nulls = list(cols), list(nulls)
+        for ch, off in node.nav:  # off < 0: PREV, > 0: NEXT; NULL across edges
+            src = torch.arange(n, device=dev) + off
+            ok = (src >= 0) & (src < n)
+            safe = torch.clamp(src, 0, max(n - 1, 0))
+            if n:
+                ok = ok & (part_id[safe] == part_id)
+            nm = nulls[ch]
+            ext_cols.append(cols[ch][safe])
+            ext_nulls.append((torch.zeros((n,), dtype=torch.bool, device=dev) if nm is None
+                              else nm[safe]) | ~ok)
+        defined = dict(node.defines)
+        conds = {}
+        for el, _ in node.pattern:
+            for var in (el if isinstance(el, tuple) else (el,)):
+                e = defined.get(var)
+                if e is None:  # an undefined variable matches every row
+                    conds[var] = torch.ones((n,), dtype=torch.bool, device=dev)
+                    continue
+                v, nu = evaluate(e, ext_cols, ext_nulls)
+                v = v.expand((n,))
+                conds[var] = v if nu is None else (v & ~nu.expand((n,)))
+        all_rows = getattr(node, "all_rows", False)
+        vm = None
+        if not all_rows:
+            measure_vars = {var for _, var, _, _ in node.measures if var is not None}
+            vm = vector_match(node.pattern, conds, new_part, measure_vars,
+                              host=lambda arrays: self._host(arrays, site="mr.vector"))
+        if vm is not None:
+            out_cols, out_nulls = self._vector_matches(node, vm, cols, nulls, n)
+        else:
+            out_cols, out_nulls = self._backtrack_matches(node, conds, new_part, cols, nulls, n)
+        measure_dicts = tuple(cdicts[ch] if cdicts and ch < len(cdicts) else None
+                              for _, _, ch, _ in node.measures)
+        lead = range(len(cols)) if all_rows else node.partition
+        dicts = tuple(cdicts[ch] if cdicts and ch < len(cdicts) else None
+                      for ch in lead) + measure_dicts
+        return Page(node.schema, tuple(out_cols), tuple(out_nulls), None), dicts
+
+    def _vector_matches(self, node, vm, cols, nulls, n):
+        """ONE ROW PER MATCH from the vectorized geometry: the chain of match
+        starts (the next usable start, then past the match's last row) on the
+        host, each measure's row by numpy, the values gathered on the
+        device."""
+        nxt, end = vm.nxt.tolist(), vm.end.tolist()
+        starts, i = [], 0
+        while True:
+            i = nxt[i]
+            if i >= n:
+                break
+            starts.append(i)
+            i = end[i]
+        st = np.asarray(starts, np.int64)
+        stop = vm.end[st].astype(np.int64) if len(st) else st
+        picks = [(st, None, ch) for ch in node.partition]
+        for kind, var, ch, _ in node.measures:
+            if kind == "col":
+                picks.append((stop - 1, None, ch))
+            elif var is not None:
+                k = vm.var_element[var]
+                lo, hi = vm.pos[k][st].astype(np.int64), vm.pos[k + 1][st].astype(np.int64)
+                picks.append((lo if kind == "first" else hi - 1, hi <= lo, ch))
+            else:
+                picks.append((st if kind == "first" else stop - 1, None, ch))
+        out_cols, out_nulls = [], []
+        for (rows, absent, ch), f in zip(picks, node.schema.fields):
+            rows_d = self._to_device(np.maximum(rows, 0))
+            out_cols.append(cols[ch][rows_d].to(torch_dtype(f.type)))
+            nm = None if nulls[ch] is None else nulls[ch][rows_d]
+            if absent is not None and absent.any():
+                a = self._to_device(absent)
+                nm = a if nm is None else (nm | a)
+            out_nulls.append(nm)
+        return out_cols, out_nulls
+
+    def _backtrack_matches(self, node, conds, new_part, cols, nulls, n):
+        """The reference's host matcher: greedy with backtracking over the
+        condition vectors (regex semantics; alternation prefers its leftmost
+        variable), for ALL ROWS PER MATCH (RUNNING measures: each row sees
+        the match up to itself) and the patterns ``vector_match`` refuses.
+        One read carries the conditions and the sorted page."""
+        names = list(conds)
+        nc = len(cols)
+        got = self._host([conds[v] for v in names] + [new_part] + cols
+                         + [m for m in nulls if m is not None], site="mr.backtrack")
+        cond = dict(zip(names, (g.astype(bool) for g in got[:len(names)])))
+        new_part = got[len(names)]
+        hcols = got[len(names) + 1:len(names) + 1 + nc]
+        it = iter(got[len(names) + 1 + nc:])
+        hnulls = [None if m is None else next(it) for m in nulls]
+        all_rows = getattr(node, "all_rows", False)
+
+        def elem_conds(el):
+            if not isinstance(el, tuple):
+                return cond[el], None
+            ok = np.zeros(n, bool)
+            who = np.empty(n, object)
+            for v in reversed(el):
+                who[cond[v]] = v
+                ok |= cond[v]
+            return ok, who
+
+        pat = [elem_conds(el) + (q, el) for el, q in node.pattern]
+
+        def find_match(start, end):
+            """(stop, [(row, var), ...]) or None."""
+            def rec(i, pi):
+                if pi == len(pat):
+                    return i, []
+                ok, who, q, el = pat[pi]
+
+                def tag(k):
+                    return who[k] if who is not None else el
+
+                if q is None:
+                    if i < end and ok[i]:
+                        r = rec(i + 1, pi + 1)
+                        if r is not None:
+                            return r[0], [(i, tag(i))] + r[1]
+                    return None
+                if q == "?":
+                    if i < end and ok[i]:
+                        r = rec(i + 1, pi + 1)
+                        if r is not None:
+                            return r[0], [(i, tag(i))] + r[1]
+                    return rec(i, pi + 1)
+                j = i
+                while j < end and ok[j]:
+                    j += 1
+                lo = i + (1 if q == "+" else 0)
+                while j >= lo:
+                    r = rec(j, pi + 1)
+                    if r is not None:
+                        return r[0], [(k, tag(k)) for k in range(i, j)] + r[1]
+                    j -= 1
+                return None
+
+            return rec(start, 0)
+
+        def value(ch, row):
+            nm = hnulls[ch]
+            return None if (nm is not None and nm[row]) else hcols[ch][row]
+
+        bounds = list(np.flatnonzero(new_part)) + [n]
+        out_rows: list = []
+        for pi in range(len(bounds) - 1):
+            s, e = int(bounds[pi]), int(bounds[pi + 1])
+            i = s
+            while i < e:
+                m = find_match(i, e)
+                if m is None or m[0] == i:  # no match, or an empty one: advance
+                    i += 1
+                    continue
+                stop, assign = m
+                by_var: dict = {}
+                for row, var in assign:
+                    by_var.setdefault(var, []).append(row)
+                if all_rows:
+                    for r, _ in assign:
+                        vals_r = []
+                        for kind, var, ch, _ in node.measures:
+                            if kind == "col":
+                                row = r
+                            elif var is not None:
+                                rows_v = [x for x in by_var.get(var, ()) if x <= r]
+                                if not rows_v:
+                                    vals_r.append(None)
+                                    continue
+                                row = rows_v[0] if kind == "first" else rows_v[-1]
+                            else:
+                                row = i if kind == "first" else r
+                            vals_r.append(value(ch, row))
+                        out_rows.append(tuple(value(ch, r) for ch in range(nc))
+                                        + tuple(vals_r))
+                else:
+                    vals = []
+                    for kind, var, ch, _ in node.measures:
+                        if kind == "col":
+                            row = stop - 1
+                        elif var is not None:
+                            rows_v = by_var.get(var)
+                            if not rows_v:
+                                vals.append(None)
+                                continue
+                            row = rows_v[0] if kind == "first" else rows_v[-1]
+                        else:
+                            row = i if kind == "first" else stop - 1
+                        vals.append(value(ch, row))
+                    out_rows.append(tuple(value(ch, i) for ch in node.partition)
+                                    + tuple(vals))
+                i = stop
+        out_cols, out_nulls = [], []
+        for j, f in enumerate(node.schema.fields):
+            arr = np.zeros(len(out_rows), np.dtype(f.type.dtype))
+            nm = np.zeros(len(out_rows), bool)
+            for r, row in enumerate(out_rows):
+                if row[j] is None:
+                    nm[r] = True
+                else:
+                    arr[r] = row[j]
+            out_cols.append(self._to_device(arr))
+            out_nulls.append(self._to_device(nm) if nm.any() else None)
+        return out_cols, out_nulls
 
     def _limited_stream_page(self, node: P.Limit):
         """LIMIT over a streaming child: pull pages only until ``count`` live
@@ -1055,8 +1437,7 @@ class LocalExecutor:
         return Page(page.schema, cols, nulls, None)
 
     def _values_page(self, node: P.Values) -> Page:
-        cols = tuple(torch.as_tensor(np.array([r[ci] for r in node.rows]),
-                                     device=self.device).to(torch_dtype(f.type))
+        cols = tuple(self._to_device(np.array([r[ci] for r in node.rows]), torch_dtype(f.type))
                      for ci, f in enumerate(node.schema.fields))
         return Page(node.schema, cols, tuple(None for _ in cols), None)
 
@@ -1284,35 +1665,14 @@ class LocalExecutor:
         """Device-side sort (count=None) or TopN: one lexicographic sort over
         collation-ranked keys, then pull only the selected rows."""
         n = page.capacity
-        lex = []
-        for k in reversed(keys):
-            c = page.columns[k.channel]
-            t = page.schema.fields[k.channel].type
-            d = dicts[k.channel] if dicts is not None else None
-            if t.is_string:
-                rank = torch.as_tensor(_collation_rank_lut(d), device=c.device)
-                c = rank[torch.clamp(c, 0, max(len(rank) - 1, 0)).to(torch.int64)]
-            if c.dtype == torch.bool:
-                c = c.to(torch.int8)
-            nm = page.null_masks[k.channel]
-            if nm is not None:
-                # NULL lanes hold arbitrary fill values: pin them to one constant
-                c = torch.where(nm, torch.zeros_like(c), c)
-            if not k.ascending:
-                c = ~c if not c.is_floating_point() else -c
-            lex.append(c)
-            ind = torch.zeros(c.shape, dtype=torch.int8, device=c.device) if nm is None \
-                else nm.to(torch.int8)
-            lex.append(-ind if k.nulls_first else ind)
         valid = page.valid_mask()
-        lex.append((~valid).to(torch.int8))  # invalid lanes last
         if count is None:
             count = int(self._host([torch.sum(valid, dtype=torch.int64)],
                                    site="sort.count")[0])
             all_live = True
         else:
             all_live = False
-        idx = _lexsort(lex, n, valid.device)[:count]
+        idx = _lexsort(_sort_lex(page, keys, dicts), n, valid.device)[:count]
         nc = len(page.columns)
         fetch = [c[idx] for c in page.columns]
         fetch += [nm[idx] for nm in page.null_masks if nm is not None]
@@ -1334,6 +1694,21 @@ class LocalExecutor:
             nulls = [None if m is None else m[v] for m in nulls]
         return Page(page.schema, cols, tuple(nulls), None)
 
+    def _sorted_device_page(self, page: Page, keys, dicts) -> Page:
+        """The live rows of a page in ``keys`` order, on the device: the
+        lexicographic sort of ``_topn_page_device`` (input order among equal
+        keys) where every key ranks on the device, else the host sort moved
+        back.  One read counts the live rows."""
+        if not all(not page.schema.fields[k.channel].type.is_string
+                   or getattr(dicts[k.channel], "values", None) is not None for k in keys):
+            return self._device_page(self._sort_page_host(page, keys, None, dicts))
+        page = self._device_page(page)
+        valid = page.valid_mask()
+        count = int(self._host([torch.sum(valid, dtype=torch.int64)], site="sort.count")[0])
+        idx = _lexsort(_sort_lex(page, keys, dicts), page.capacity, valid.device)[:count]
+        return Page(page.schema, tuple(c[idx] for c in page.columns),
+                    tuple(None if m is None else m[idx] for m in page.null_masks), None)
+
     def _materialize(self, page: Page, dicts) -> MaterializedResult:
         if all(isinstance(c, torch.Tensor) for c in page.columns):
             valid, pcols, pnulls = self._host_page(page, site="result")
@@ -1344,6 +1719,34 @@ class LocalExecutor:
 
 
 # -- helpers ------------------------------------------------------------------------------
+
+
+def _sort_lex(page: Page, keys, dicts):
+    """The sort keys of a page for ``_lexsort`` (the last is primary):
+    collation-ranked strings, each key's NULL placement above its values,
+    dead lanes last."""
+    lex = []
+    for k in reversed(keys):
+        c = page.columns[k.channel]
+        t = page.schema.fields[k.channel].type
+        d = dicts[k.channel] if dicts is not None else None
+        if t.is_string:
+            rank = device_array(_collation_rank_lut(d), c.device)
+            c = rank[torch.clamp(c, 0, max(len(rank) - 1, 0)).to(torch.int64)]
+        if c.dtype == torch.bool:
+            c = c.to(torch.int8)
+        nm = page.null_masks[k.channel]
+        if nm is not None:
+            # NULL lanes hold arbitrary fill values: pin them to one constant
+            c = torch.where(nm, torch.zeros_like(c), c)
+        if not k.ascending:
+            c = ~c if not c.is_floating_point() else -c
+        lex.append(c)
+        ind = torch.zeros(c.shape, dtype=torch.int8, device=c.device) if nm is None \
+            else nm.to(torch.int8)
+        lex.append(-ind if k.nulls_first else ind)
+    lex.append((~page.valid_mask()).to(torch.int8))  # invalid lanes last
+    return lex
 
 
 def _scan_pages(conn, splits, columns):
@@ -1690,6 +2093,8 @@ def _materialize_host(schema, valid, pcols, pnulls, dicts) -> MaterializedResult
                 dec = arr.astype(np.float64) / (10**f.type.scale)
         elif f.type.is_string and dicts[i] is not None:
             dec = dicts[i].decode(arr)
+        elif isinstance(f.type, (ArrayType, MapType)) and dicts[i] is not None:
+            dec = dicts[i].decode(arr)  # spans -> python lists / dicts
         elif f.type.name == "date":
             dec = arr.astype("datetime64[D]")
         elif isinstance(f.type, TimestampType):

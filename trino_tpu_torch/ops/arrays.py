@@ -2,22 +2,29 @@
 
 An array(T) column is one int64 column of packed spans (start << 24 | length)
 into a host-side element heap; heaps ride the planner's per-channel
-dictionary slot, whose ``decode`` the result path calls.  The slice ports the
-heap classes the planner imports and ``compact_rows``, the shared
-filter -> compaction step, which runs through the ``compact_rows`` CUDA
-kernel on the card.
+dictionary slot, whose ``decode`` the result path calls.  Element access
+(subscript, contains, UNNEST) gathers from a device copy of the heap that the
+executor makes once per query (``sql/ir.py``).
+
+Ported: the heap classes, ``encode_arrays`` (the storage path of the memory
+connector), ``unnest_indices`` (UNNEST's expansion map) and ``compact_rows``,
+the shared filter -> compaction step, which runs through the ``compact_rows``
+CUDA kernel on the card.  ``append_rows`` serves only the distributed
+executor's exchange and waits for it (ROADMAP A7).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import numpy as np
+import torch
 
 from . import cuda_kernels
 
 __all__ = ["SPAN_BITS", "ArrayData", "MapData", "pack_span", "span_start",
-           "span_len", "compact_rows"]
+           "span_len", "encode_arrays", "compact_rows", "unnest_indices"]
 
 SPAN_BITS = 24  # max 16M elements per array; 2^39 heap rows
 _LEN_MASK = (1 << SPAN_BITS) - 1
@@ -103,6 +110,22 @@ class MapData:
         return out
 
 
+def encode_arrays(rows, elem_dtype, encoder=None):
+    """Python lists (None allowed) -> (spans int64, null mask, heap ndarray).
+
+    The storage path (memory connector INSERT, literal folding): elements
+    flatten into one heap in row order; each row's span points at its slice."""
+    rows = list(rows)
+    nulls = np.fromiter((r is None for r in rows), bool, len(rows))
+    lens = np.fromiter((0 if r is None else len(r) for r in rows), np.int64, len(rows))
+    flat = list(itertools.chain.from_iterable(r for r in rows if r is not None))
+    if encoder:
+        flat = [encoder(v) for v in flat]
+    spans = np.where(nulls, 0, pack_span(np.cumsum(lens) - lens, lens))
+    heap = np.asarray(flat, dtype=elem_dtype) if flat else np.zeros(0, elem_dtype)
+    return spans, (nulls if nulls.any() else None), heap
+
+
 def compact_rows(arrays, valid, out_len: int):
     """Order-preserving masked-lane pack, THE shared filter->compaction step:
     live lanes move to the front of ``out_len``-sized outputs (zeros beyond
@@ -110,3 +133,21 @@ def compact_rows(arrays, valid, out_len: int):
     Returns (packed tuple, live-count device scalar).  Byte-identical to the
     reference's XLA cumsum-scatter."""
     return cuda_kernels.compact_rows(tuple(arrays), valid, out_len)
+
+
+def unnest_indices(lens, total: int):
+    """Expansion map for UNNEST: output slot j -> (input row i, ordinal k,
+    in_range), on the device of ``lens``.  The same searchsorted shape as the
+    multi-match join's expansion.  ``lens`` = per input row output count (0
+    for invalid rows); ``total`` is the output capacity."""
+    lens = lens.to(torch.int64).contiguous()
+    incl = torch.cumsum(lens, 0)
+    j = torch.arange(total, dtype=torch.int64, device=lens.device)
+    if lens.shape[0] == 0:
+        zeros = torch.zeros((total,), dtype=torch.int32, device=lens.device)
+        return zeros, zeros, torch.zeros((total,), dtype=torch.bool, device=lens.device)
+    row = torch.searchsorted(incl, j, right=True)
+    row_safe = torch.clamp(row, max=lens.shape[0] - 1)
+    before = incl[row_safe] - lens[row_safe]
+    ordinal = (j - before).to(torch.int32)
+    return row_safe.to(torch.int32), ordinal, j < incl[-1]

@@ -14,24 +14,30 @@ computing.  Torch would otherwise let a 0-d operand take the dtype of the
 column (an int32 column times an int64 constant would compute in int32);
 explicit promotion gives the reference's x64 results.
 
-Every scalar call of the reference is ported but its array, map and span
-calls, which raise ``NotImplementedError`` naming the op, as any unknown call
-does.
+Every scalar call of the reference is ported, its array, map and span calls
+included.  Planner-made tables (LIKE lookup tables, element heaps) are numpy
+constants: inside ``device_constants`` (the executor's query scope) each one
+is copied to the device once per query and the copied bytes are counted;
+outside it (plan-time folding) each evaluation converts it.  An unknown call
+raises ``NotImplementedError`` naming the op.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..ops.arrays import pack_span, span_len, span_start
 from ..ops.hashing import _lsr, hash_columns
 from ..types import DecimalType, TimestampType, Type, torch_dtype
 
 __all__ = ["Expr", "Constant", "FieldRef", "Call", "Parameter",
-           "evaluate", "evaluate_predicate"]
+           "evaluate", "evaluate_predicate", "device_constants", "device_array"]
 
 
 class Expr:
@@ -104,6 +110,38 @@ def _device_of(columns) -> torch.device:
     return torch.device("cpu")
 
 
+_CONSTS = threading.local()
+
+
+@contextlib.contextmanager
+def device_constants(count=None):
+    """A query's scope for numpy constants: each one is copied to the device
+    once (keyed by the array's identity, which the scope keeps alive) and
+    ``count(nbytes)`` is called for each copy."""
+    old = getattr(_CONSTS, "scope", None)
+    _CONSTS.scope = ({}, count)
+    try:
+        yield
+    finally:
+        _CONSTS.scope = old
+
+
+def device_array(value: np.ndarray, device) -> torch.Tensor:
+    """``value`` on ``device``: the query's copy inside ``device_constants``."""
+    scope = getattr(_CONSTS, "scope", None)
+    if scope is None:
+        return torch.as_tensor(value, device=device)
+    cache, count = scope
+    dev = torch.device(device)
+    key = (id(value), dev.type, dev.index or 0)
+    hit = cache.get(key)
+    if hit is None:
+        hit = cache[key] = (value, torch.as_tensor(value, device=device))
+        if count is not None:
+            count(value.nbytes)
+    return hit[1]
+
+
 def evaluate(expr: Expr, columns: Sequence, null_masks: Sequence):
     """Evaluate ``expr`` over columnar inputs; returns (values, null_mask|None)."""
     return _evaluate(expr, columns, null_masks, _device_of(columns))
@@ -112,7 +150,7 @@ def evaluate(expr: Expr, columns: Sequence, null_masks: Sequence):
 def _evaluate(expr, columns, null_masks, device):
     if isinstance(expr, Constant):
         if isinstance(expr.value, np.ndarray):
-            return torch.as_tensor(expr.value, device=device), None
+            return device_array(expr.value, device), None
         dt = torch_dtype(expr.type)
         if expr.value is None:
             return (torch.zeros((), dtype=dt, device=device),
@@ -376,17 +414,219 @@ def _eval_call(expr: Call, columns, null_masks, device):
     if op == "hash":
         return hash_columns(vals), _combine_nulls(*nulls)
     if op in _ARRAY_OPS:
-        raise NotImplementedError(
-            f"scalar op {op!r} (arrays, maps and spans) is not ported to "
-            f"trino_tpu_torch (ROADMAP A4)")
+        return _ARRAY_OPS[op](expr, vals, nulls, device)
     raise NotImplementedError(f"scalar op {op!r} is not ported to trino_tpu_torch")
 
 
-# the reference's array, map and span calls (ROADMAP A4)
-_ARRAY_OPS = frozenset((
-    "span_len", "span_id", "span_filter", "span_slice", "span_trim", "arrays_overlap",
-    "span_reduce_lambda", "array_get", "array_contains", "array_reduce",
-    "array_position", "map_get"))
+# -- array/map spans (ops/arrays.py layout: start << 24 | length into an element
+# heap; the heaps are plan-time constants, one device copy per query) ---------
+
+
+def _i64(x):
+    return x.to(torch.int64)
+
+
+def _rows_of(*ts):
+    """(1-D broadcast operands, whether every operand was a scalar)."""
+    scalar = all(t.ndim == 0 for t in ts)
+    return torch.broadcast_tensors(*(torch.atleast_1d(t) for t in ts)), scalar
+
+
+def _scalar_null(null, scalar):
+    return null[0] if scalar and null is not None and null.ndim else null
+
+
+def _span_elems(start, ln, heap, max_len):
+    """The [rows, max_len] gather of each row's elements (positions clipped
+    into the heap) and the in-row mask; elements are None for an empty heap."""
+    offs = torch.arange(max_len, dtype=torch.int64, device=start.device)
+    in_row = offs[None, :] < ln[:, None]
+    if not heap.shape[0]:
+        return None, in_row, None
+    pos = torch.clamp(start[:, None] + offs[None, :], 0, heap.shape[0] - 1)
+    return heap[pos], in_row, pos
+
+
+def _op_span_len(expr, vals, nulls, device):
+    return span_len(vals[0]).to(torch_dtype(expr.type)), nulls[0]
+
+
+def _op_span_id(expr, vals, nulls, device):
+    # identity over the span: a transform lambda rewrote only the heap
+    return vals[0], nulls[0]
+
+
+def _op_span_filter(expr, vals, nulls, device):
+    # (span, exclusive cumsum of kept elements, len(heap) + 1 entries): the
+    # span remapped into the filtered heap by two gathers
+    span, excl = vals[0], _i64(vals[1])
+    start, ln = span_start(span), span_len(span)
+    hi = max(excl.shape[0] - 1, 0)
+    s0 = excl[torch.clamp(start, 0, hi)]
+    s1 = excl[torch.clamp(start + ln, 0, hi)]
+    return pack_span(s0, s1 - s0), nulls[0]
+
+
+def _op_span_slice(expr, vals, nulls, device):
+    # (span, start [1-based; negative from the tail], length): slice() as
+    # span arithmetic
+    sp, st, ln = vals[0], _i64(vals[1]), _i64(vals[2])
+    alen, s0 = span_len(sp), span_start(sp)
+    zero = torch.zeros((), dtype=torch.int64, device=sp.device)
+    begin = torch.where(st > 0, st - 1, alen + st)
+    begin_c = torch.minimum(torch.maximum(begin, zero), alen)
+    # a negative start past the head selects nothing, not the clipped prefix
+    ln_c = torch.where(begin < 0, zero,
+                       torch.minimum(torch.maximum(ln, zero), alen - begin_c))
+    bad = (st == 0) | (ln < 0)  # the reference's NULL where Trino raises
+    return pack_span(s0 + begin_c, ln_c), _combine_nulls(
+        _combine_nulls(nulls[0], nulls[1]), _combine_nulls(nulls[2], bad))
+
+
+def _op_span_trim(expr, vals, nulls, device):
+    # (span, n): trim_array drops the last n elements
+    sp, n = vals[0], _i64(vals[1])
+    alen = span_len(sp)
+    zero = torch.zeros((), dtype=torch.int64, device=sp.device)
+    ln_c = torch.minimum(torch.maximum(alen - n, zero), alen)
+    return pack_span(span_start(sp), ln_c), _combine_nulls(
+        _combine_nulls(nulls[0], nulls[1]), n < 0)
+
+
+def _op_arrays_overlap(expr, vals, nulls, device):
+    # (span_a, span_b, heap_a, heap_b); meta = (max_len_a, max_len_b): one
+    # [rows, La, Lb] masked compare
+    (sa, sb), scalar = _rows_of(vals[0], vals[1])
+    ha, hb = vals[2], vals[3]
+    ea, in_a, _ = _span_elems(span_start(sa), span_len(sa), ha, expr.meta[0])
+    eb, in_b, _ = _span_elems(span_start(sb), span_len(sb), hb, expr.meta[1])
+    if ea is not None and eb is not None:
+        ea, eb = _promote(ea, eb)
+        hit = torch.any(((ea[:, :, None] == eb[:, None, :])
+                         & in_a[:, :, None] & in_b[:, None, :]).flatten(1), dim=1)
+    else:
+        hit = torch.zeros(sa.shape, dtype=torch.bool, device=sa.device)
+    return (hit[0] if scalar else hit), _combine_nulls(nulls[0], nulls[1])
+
+
+def _op_span_reduce_lambda(expr, vals, nulls, device):
+    # reduce(array, init, lambda): a masked fold unrolled over max_len steps;
+    # step i applies the combiner (an Expr over [state, element]) to element
+    # i of every row's span where i < its length
+    span, init, heap = vals[0], vals[1], vals[2]
+    max_len, body = expr.meta
+    start, ln = span_start(span), span_len(span)
+    state = init.expand(span.shape) if init.ndim == 0 else init
+    state = state.to(torch_dtype(expr.type))
+    if heap.shape[0] == 0:  # every array empty: the fold is the init
+        return state, nulls[0]
+    hi = heap.shape[0] - 1
+    for i in range(max_len):
+        elem = heap[torch.clamp(start + i, 0, hi)]
+        new_state, _ = _evaluate(body, (state, elem), (None, None), device)
+        state = torch.where(i < ln, new_state.to(state.dtype), state)
+    return state, nulls[0]
+
+
+def _op_array_get(expr, vals, nulls, device):
+    # (span, index [1-based], heap)
+    span, idx, heap = vals[0], vals[1], vals[2]
+    start, ln = span_start(span), span_len(span)
+    i0 = _i64(idx) - 1
+    ok = (i0 >= 0) & (i0 < ln)
+    pos = torch.clamp(start + i0, 0, max(heap.shape[0] - 1, 0))
+    val = heap[pos] if heap.shape[0] else torch.zeros_like(pos)
+    return val.to(torch_dtype(expr.type)), _combine_nulls(
+        _combine_nulls(nulls[0], nulls[1]), ~ok)
+
+
+def _op_array_contains(expr, vals, nulls, device):
+    # (span, needle, heap); meta[0] = max array length: one [rows, max_len]
+    # gather and a masked reduce
+    (span, needle), scalar = _rows_of(vals[0], vals[1])
+    elems, in_row, _ = _span_elems(span_start(span), span_len(span), vals[2], expr.meta[0])
+    if elems is not None:
+        elems, nd = _promote(elems, needle)
+        hit = torch.any(in_row & (elems == nd[:, None]), dim=1)
+    else:
+        hit = torch.zeros(span.shape, dtype=torch.bool, device=span.device)
+    return (hit[0] if scalar else hit), _combine_nulls(nulls[0], nulls[1])
+
+
+def _op_array_reduce(expr, vals, nulls, device):
+    # (span, heap); meta = (max_len, kind), kind in sum / avg / min / max;
+    # empty arrays give NULL
+    kind = expr.meta[1]
+    (span,), scalar = _rows_of(vals[0])
+    heap = vals[1]
+    ln = span_len(span)
+    elems, in_row, _ = _span_elems(span_start(span), ln, heap, expr.meta[0])
+    if elems is None:
+        elems = torch.zeros(in_row.shape, dtype=heap.dtype, device=span.device)
+    if kind in ("sum", "avg"):
+        out = torch.sum(torch.where(in_row, elems, torch.zeros_like(elems)), dim=1)
+        if kind == "avg":
+            out = out.to(torch.float64) / torch.clamp(ln, min=1).to(torch.float64)
+    else:
+        fill = _extreme_for(elems.dtype, +1 if kind == "min" else -1)
+        masked = torch.where(in_row, elems, torch.full_like(elems, fill))
+        out = torch.amin(masked, dim=1) if kind == "min" else torch.amax(masked, dim=1)
+    out = out.to(torch_dtype(expr.type))
+    null = _combine_nulls(nulls[0], ln == 0)
+    return (out[0] if scalar else out), _scalar_null(null, scalar)
+
+
+def _op_array_position(expr, vals, nulls, device):
+    # (span, needle, heap); meta[0] = max_len: the 1-based index of the first
+    # match, 0 when absent
+    (span, needle), scalar = _rows_of(vals[0], vals[1])
+    elems, in_row, _ = _span_elems(span_start(span), span_len(span), vals[2], expr.meta[0])
+    if elems is not None:
+        elems, nd = _promote(elems, needle)
+        hit = in_row & (elems == nd[:, None])
+        # the first hit: argmax over the mask as int32 (torch takes no bool)
+        first = torch.argmax(hit.to(torch.int32), dim=1)
+        out = torch.where(torch.any(hit, dim=1), first + 1, torch.zeros_like(first))
+    else:
+        out = torch.zeros(span.shape, dtype=torch.int64, device=span.device)
+    return (out[0] if scalar else out).to(torch.int64), _combine_nulls(nulls[0], nulls[1])
+
+
+def _op_map_get(expr, vals, nulls, device):
+    # (span, key, key heap, value heap); meta[0] = max_len: the value at the
+    # first matching key, NULL where none matches
+    (span, key), scalar = _rows_of(vals[0], vals[1])
+    kheap, vheap = vals[2], vals[3]
+    out_dt = torch_dtype(expr.type)
+    keys, in_row, pos = _span_elems(span_start(span), span_len(span), kheap, expr.meta[0])
+    if keys is not None:
+        keys, k = _promote(keys, key)
+        m = in_row & (keys == k[:, None])
+        found = torch.any(m, dim=1)
+        first = torch.argmax(m.to(torch.int32), dim=1)
+        rows = torch.arange(span.shape[0], device=span.device)
+        out = vheap[pos[rows, first]].to(out_dt)
+    else:
+        found = torch.zeros(span.shape, dtype=torch.bool, device=span.device)
+        out = torch.zeros(span.shape, dtype=out_dt, device=span.device)
+    null = _combine_nulls(_combine_nulls(nulls[0], nulls[1]), ~found)
+    return (out[0] if scalar else out), _scalar_null(null, scalar)
+
+
+def _extreme_for(dtype, sign):
+    if dtype.is_floating_point:
+        return float("inf") * sign
+    info = torch.iinfo(dtype)
+    return info.max if sign > 0 else info.min
+
+
+_ARRAY_OPS = {
+    "span_len": _op_span_len, "span_id": _op_span_id, "span_filter": _op_span_filter,
+    "span_slice": _op_span_slice, "span_trim": _op_span_trim,
+    "arrays_overlap": _op_arrays_overlap, "span_reduce_lambda": _op_span_reduce_lambda,
+    "array_get": _op_array_get, "array_contains": _op_array_contains,
+    "array_reduce": _op_array_reduce, "array_position": _op_array_position,
+    "map_get": _op_map_get}
 
 
 def _float_in(x, op):
