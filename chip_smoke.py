@@ -101,6 +101,28 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    must launch, and those the path launched are held against their plain
    versions at its shapes (insert also on A2's keys).  ``by_path`` gains
    ``arrays_sf1``.
+11. The coordinator entry point (``server_path``): a ``CoordinatorServer``
+   (``dispatch_threads=4``) in this process over a card engine holding TPC-H
+   at SF1, a memory catalog and the system catalog; clients on loopback
+   HTTP.  (a) The 22 queries through ``Client``, each equal to phase 2's
+   direct result as the server sends it (``_json_value``), with the host
+   reads and launches of each statement equal to phase 2's
+   (``SERVER_REQUIRED``), and a warm wall from POST to the last page beside
+   the direct warm wall; (b) bench.py's five queries from one client and
+   from four at once (each runs them twice, in its own order): statements/s,
+   peak memory, every result equal to the serial one, each statement's
+   launches equal to its serial run's and the summed launches 8x the
+   serial ones; (c) the 1,500,000 rows of SF1 orders pulled inline and
+   spooled (json+zlib), rows/s at the client, row count and column sums
+   equal to the direct run's; (d) SHOW, EXPLAIN [ANALYZE], PREPARE /
+   EXECUTE and protocol parameters of Q3, SET SESSION of
+   join_distribution_type (EXPLAIN of Q3 must show every join
+   partitioned), CTAS of Q1 into memory, system.queries listing the phase's statements, a cancel and a
+   wrong password, held against the direct engine; (e) the DB-API over HTTP
+   (Q1 and a parameterized Q6) and the verifier over the 22 at SF0.1, the
+   port on the CPU as control and a card server as test, all MATCH.  Then
+   insert, probe and compaction against their plain versions at the shapes
+   recorded while the four clients ran.  ``by_path`` gains ``server_sf1``.
 
 It prints the card line, then one JSON line with every kernel's numbers, and
 last ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -2905,6 +2927,481 @@ def arrays_path():
     return launches, checks
 
 
+# -- phase 11: the coordinator entry point, TPC-H SF1 over the statement protocol --------
+# the kernels each query must launch through the server: those phase 2
+# requires of it (REQUIRED)
+SERVER_REQUIRED = REQUIRED
+SERVER_CLIENTS = 4
+BIG_RESULT = ("select o_orderkey, o_custkey, o_orderstatus, o_totalprice, o_orderdate "
+              "from orders")
+SPOOL_THRESHOLD = 10_000
+VERIFIER_SF = 0.1
+# Q3 with ``?`` for the segment and the date; Q6 with ``?`` for the discount
+# band and the quantity
+Q3_PARAMS = (QUERIES["q3"].replace("c_mktsegment = 'BUILDING'", "c_mktsegment = ?")
+             .replace("o_orderdate < date '1995-03-15'", "o_orderdate < ?"))
+Q6_PARAMS = (TPCH_QUERIES["q6"].replace("between 0.05 and 0.07", "between ? and ?")
+             .replace("l_quantity < 24", "l_quantity < ?"))
+
+
+def json_rows(res):
+    """A direct result's rows as the server sends them: through the server's
+    ``_json_value`` and a JSON round trip."""
+    from trino_tpu_torch.server.server import _json_value
+
+    return json.loads(json.dumps([[_json_value(v) for v in row] for row in res.rows()]))
+
+
+def same_json_rows(got, want, columns, sql, what):
+    """Protocol rows equal: DOUBLE columns within rtol 1e-9, every other
+    column exactly; in order where the statement orders its rows."""
+    import numpy as np
+
+    check(len(got) == len(want), f"{what}: {len(got)} rows vs {len(want)}")
+    flt = [c["type"] in ("double", "real") for c in columns]
+    if not ordered_sql(sql):
+        key = lambda r: tuple(repr(v) for v, f in zip(r, flt) if not f)  # noqa: E731
+        got, want = sorted(got, key=key), sorted(want, key=key)
+    for i, (name, f) in enumerate(zip([c["name"] for c in columns], flt)):
+        a, b = [r[i] for r in got], [r[i] for r in want]
+        if f:
+            check([v is None for v in a] == [v is None for v in b],
+                  f"{what}: column {name} NULLs differ")
+            x = np.array([v for v in a if v is not None], np.float64)
+            y = np.array([v for v in b if v is not None], np.float64)
+            ok = np.allclose(x, y, rtol=1e-9, atol=0.0, equal_nan=True)
+        else:
+            ok = a == b
+        check(ok, f"{what}: column {name} differs")
+
+
+def statement_counters(engine, sql):
+    """The counters of the last finished statement with this text (the
+    engine's query tracker)."""
+    done = [q for q in engine.query_tracker.all_queries() if q.sql == sql and q.is_done]
+    check(done, f"no finished statement in the tracker for {sql[:60]!r}")
+    return done[-1].counters
+
+
+def timed_client(client, sql, **kw):
+    """(result, seconds from POST to the last page)."""
+    t0 = time.perf_counter()
+    res = client.execute(sql, **kw)
+    return res, time.perf_counter() - t0
+
+
+def server_queries(engine, srv, direct):
+    """11a: the 22 queries through the protocol, cold and warm, each equal to
+    phase 2's direct card result; host reads and launches per query equal
+    the direct run's; warm wall per query beside the direct warm wall on
+    the same engine."""
+    import torch
+
+    from trino_tpu_torch.server import Client
+
+    client = Client(srv.url, catalog="tpch")
+    out = {}
+    for q, sql in ALL_QUERIES.items():
+        res, cold = timed_client(client, sql)
+        check([c["name"] for c in res.columns] == list(direct[q]["names"]),
+              f"server {q}: column names differ")
+        same_json_rows(res.rows, direct[q]["rows"], res.columns, sql,
+                       f"server {q} vs phase 2")
+        c = statement_counters(engine, sql)
+        check(c["host_reads"] == direct[q]["host_reads"],
+              f"server {q}: {c['host_reads']} host reads vs {direct[q]['host_reads']} direct")
+        launches = {k: v for k, v in c["launches"].items() if v}
+        check(launches == direct[q]["launches"],
+              f"server {q}: launches {launches} vs phase 2's {direct[q]['launches']}")
+        for k in SERVER_REQUIRED.get(q, ()):
+            check(launches.get(k, 0) > 0, f"server {q} launched no {k} kernel")
+        warm, direct_warm = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.execute_sql(sql, engine.create_session("tpch"))
+            torch.cuda.synchronize()
+            direct_warm.append(time.perf_counter() - t0)
+            res2, s = timed_client(client, sql)
+            warm.append(s)
+            same_json_rows(res2.rows, direct[q]["rows"], res2.columns, sql,
+                           f"server {q} warm vs phase 2")
+        out[q] = {"rows": len(res.rows), "cold_s": cold, "warm_s": min(warm),
+                  "direct_warm_s": min(direct_warm),
+                  "overhead_s": min(warm) - min(direct_warm),
+                  "host_reads": c["host_reads"], "launches": launches}
+        print(f"server {q}: rows={len(res.rows)} cold_s={cold} warm_s={min(warm)} "
+              f"direct_warm_s={min(direct_warm)} overhead_s={min(warm) - min(direct_warm)} "
+              f"host_reads={c['host_reads']} launches={launches}", flush=True)
+    return out
+
+
+def server_clients(engine, srv):
+    """11b: bench.py's five queries from one client, then from four at once
+    (each runs the five twice, in its own order); every result equal to the
+    serial one, each statement's launches equal to its serial run's, and
+    the kernels' summed launches 8x the serial ones.  Returns the record
+    and the launch shapes recorded while the four clients ran."""
+    import torch
+
+    from trino_tpu_torch.ops import cuda_kernels as ck
+    from trino_tpu_torch.server import Client
+
+    names = list(QUERIES)
+    client = Client(srv.url, catalog="tpch")
+    serial, serial_launches = {}, {}
+    for q in names:
+        ck.reset_stats()
+        serial[q] = client.execute(QUERIES[q]).rows
+        serial_launches[q] = {k: s.launches for k, s in ck.STATS.items()}
+        c = statement_counters(engine, QUERIES[q])
+        check({k: v for k, v in c["launches"].items() if v}
+              == {k: v for k, v in serial_launches[q].items() if v},
+              f"server {q}: the statement's launches differ from the kernels' counts")
+    t0 = time.perf_counter()
+    for _ in range(2):
+        for q in names:
+            client.execute(QUERIES[q])
+    one_s = time.perf_counter() - t0
+    orders = [names[i:] + names[:i] for i in range(SERVER_CLIENTS)]
+    results, errors = {}, []
+    before = {q.query_id for q in engine.query_tracker.all_queries()}
+
+    def run(i):
+        try:
+            c = Client(srv.url, catalog="tpch")
+            for j, q in enumerate(orders[i] + orders[i][::-1]):
+                results[(i, j, q)] = c.execute(QUERIES[q])
+        except Exception as e:  # noqa: BLE001 - reported by the check below
+            errors.append(e)
+
+    import threading
+
+    ck.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(SERVER_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    four_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(not errors, f"concurrent clients failed: {errors!r}")
+    check(len(results) == SERVER_CLIENTS * 2 * len(names), "a client statement was lost")
+    for (_, _, q), res in results.items():
+        same_json_rows(res.rows, serial[q], res.columns, QUERIES[q],
+                       f"server {q} under {SERVER_CLIENTS} clients vs serial")
+    launches = {k: s.launches for k, s in ck.STATS.items()}
+    shapes = {k: list(s.shapes) for k, s in ck.STATS.items()}
+    runs = 2 * SERVER_CLIENTS
+    for k, n in launches.items():
+        want = runs * sum(serial_launches[q][k] for q in names)
+        check(n == want, f"{SERVER_CLIENTS} clients: {n} {k} launches vs {want} "
+              f"({runs}x the serial ones)")
+    new = [q for q in engine.query_tracker.all_queries() if q.query_id not in before]
+    check(len(new) == len(results), f"{len(new)} tracked statements vs {len(results)}")
+    by_sql = {QUERIES[q]: q for q in names}
+    for qsm in new:
+        q = by_sql[qsm.sql]
+        got = {k: v for k, v in qsm.counters["launches"].items() if v}
+        check(got == {k: v for k, v in serial_launches[q].items() if v},
+              f"server {q} under {SERVER_CLIENTS} clients: its launches {got} vs serial")
+    rec = {"statements_per_s_1": 2 * len(names) / one_s,
+           "statements_per_s_4": len(results) / four_s, "seconds_1": one_s,
+           "seconds_4": four_s, "peak_bytes": peak, "launches": launches,
+           "serial_launches": serial_launches}
+    print(f"server clients: 1 client {rec['statements_per_s_1']} statements/s "
+          f"({2 * len(names)} in {one_s} s), {SERVER_CLIENTS} clients "
+          f"{rec['statements_per_s_4']} statements/s ({len(results)} in {four_s} s), "
+          f"peak {peak / 2**30:.2f} GiB, launches {launches} = {runs}x serial", flush=True)
+    return rec, shapes
+
+
+def column_sums(names, rows):
+    """Per-column checks of a large result: sums of the numbers, value counts
+    of the status, the sum of the dates' epoch days."""
+    import collections
+
+    import numpy as np
+
+    cols = list(zip(*rows)) if rows else [()] * len(names)
+    out = {}
+    for name, col in zip(names, cols):
+        if name == "o_orderstatus":
+            out[name] = dict(collections.Counter(col))
+        elif name == "o_orderdate":
+            out[name] = int(np.array(col, dtype="datetime64[D]").astype(np.int64).sum())
+        elif name == "o_totalprice":
+            out[name] = round(float(np.sum(np.array(col, np.float64))), 2)
+        else:
+            out[name] = int(np.sum(np.array(col, np.int64)))
+    return out
+
+
+def server_big_result(engine, srv, spool_srv):
+    """11c: the 1,500,000 rows of SF1 orders pulled inline (pages of
+    DATA_ROWS_PER_FETCH rows) and spooled (json+zlib segments); the row
+    count and per-column sums equal the direct run's."""
+    import torch
+
+    from trino_tpu_torch.server import Client
+    from trino_tpu_torch.server.server import DATA_ROWS_PER_FETCH
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    direct = engine.execute_sql(BIG_RESULT, engine.create_session("tpch"))
+    torch.cuda.synchronize()
+    direct_s = time.perf_counter() - t0
+    want = column_sums(direct.names, json_rows(direct))
+    n = len(direct)
+    out = {"rows": n, "direct_s": direct_s, "direct_rows_per_s": n / direct_s,
+           "pages": -(-n // DATA_ROWS_PER_FETCH)}
+    for form, server in (("inline", srv), ("spooled", spool_srv)):
+        res, s = timed_client(Client(server.url, catalog="tpch"), BIG_RESULT)
+        check(len(res.rows) == n, f"{form} pull: {len(res.rows)} rows vs {n}")
+        got = column_sums(res.column_names, res.rows)
+        check(got == want, f"{form} pull: column sums {got} vs direct {want}")
+        out[f"{form}_s"] = s
+        out[f"{form}_rows_per_s"] = n / s
+        print(f"server big result {form}: {n} rows in {s} s, {n / s} rows/s at the client "
+              f"(direct {direct_s} s); sums equal the direct run's", flush=True)
+    return out
+
+
+def join_markers(rows):
+    """{"joins": each join's distribution, "exchanges": each Exchange's kind}
+    of an EXPLAIN's rows, in plan order."""
+    import re
+
+    text = "\n".join(r[0] for r in rows)
+    return {"joins": re.findall(r"Join\[.*?, (replicated|partitioned|broadcast)\b", text),
+            "exchanges": re.findall(r"Exchange\[([^\]]*\]?)\]", text)}
+
+
+def _status(url, headers=None, method="GET", body=None):
+    import urllib.error
+    import urllib.request
+
+    try:
+        urllib.request.urlopen(urllib.request.Request(url, data=body, method=method,
+                                                      headers=headers or {}), timeout=60)
+        return 200
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def server_statements(engine, srv, auth_srv, direct):
+    """11d: SHOW, EXPLAIN [ANALYZE], PREPARE / EXECUTE, protocol parameters,
+    SET SESSION of join_distribution_type (held on EXPLAIN of Q3), CTAS of
+    Q1 into memory, system.queries, a cancel and a wrong password, each held
+    against the direct engine."""
+    import base64
+    import urllib.request
+
+    from trino_tpu_torch.server import Client
+
+    client = Client(srv.url, catalog="tpch")
+    sess = engine.create_session("tpch")
+    # the statements of the phase so far, and of this step before the read of
+    # system.queries
+    phase_sql = set(ALL_QUERIES.values()) | {BIG_RESULT}
+    for sql in ("show catalogs", "show tables", "show columns from lineitem", "show session",
+                "show stats for lineitem", "explain " + QUERIES["q3"]):
+        res = client.execute(sql)
+        phase_sql.add(sql)
+        check(res.rows == json_rows(engine.execute_sql(sql, sess)),
+              f"server {sql[:40]!r} differs from the direct engine")
+    text = "\n".join(r[0] for r in client.execute("explain analyze " + QUERIES["q3"]).rows)
+    check("executed in" in text and f"{len(direct['q3']['rows'])} output rows" in text,
+          "server EXPLAIN ANALYZE of Q3 reports no run")
+    want = direct["q3"]["rows"]
+    engine.execute_sql("prepare q3p from " + Q3_PARAMS, sess)
+    res = engine.execute_sql("execute q3p using 'BUILDING', date '1995-03-15'", sess)
+    same_json_rows(json_rows(res), want, [{"name": n, "type": t.name}
+                                          for n, t in zip(res.names, res.types)],
+                   QUERIES["q3"], "EXECUTE q3p vs Q3")
+    res = client.execute(Q3_PARAMS, params=["BUILDING", "1995-03-15"])
+    phase_sql.add(Q3_PARAMS)
+    same_json_rows(res.rows, want, res.columns, QUERIES["q3"], "protocol parameters vs Q3")
+    # SET SESSION of the one property the planner reads: it must reach the plan
+    setting = "set session join_distribution_type = 'PARTITIONED'"
+    check(client.execute(setting).rows == [[True]], "server SET SESSION")
+    phase_sql.add(setting)
+    default = join_markers(json_rows(engine.execute_sql("explain " + QUERIES["q3"], sess)))
+    engine.execute_sql(setting, sess)
+    forced = join_markers(json_rows(engine.execute_sql("explain " + QUERIES["q3"], sess)))
+    check(forced != default and set(default["joins"]) != {"partitioned"},
+          f"EXPLAIN Q3 unchanged by SET SESSION: {default}")
+    check(forced["joins"] and set(forced["joins"]) == {"partitioned"}
+          and "auto" not in forced["exchanges"]
+          and any(x.startswith("hash on") for x in forced["exchanges"]),
+          f"EXPLAIN Q3 after SET SESSION join_distribution_type: {forced}")
+    mem = Client(srv.url, catalog="memory")
+    q1 = QUERIES["q1"].replace("from lineitem", "from tpch.lineitem")
+    check(mem.execute("create table q1_result as " + q1).rows == [[True]], "CTAS of Q1")
+    res = mem.execute("select * from q1_result order by l_returnflag, l_linestatus")
+    same_json_rows(res.rows, direct["q1"]["rows"], res.columns, QUERIES["q1"],
+                   "CTAS of Q1 read back vs Q1")
+    mem.execute("drop table q1_result")
+    phase_sql |= {"create table q1_result as " + q1, "drop table q1_result",
+                  "select * from q1_result order by l_returnflag, l_linestatus"}
+    listed = {r[0] for r in client.execute("select query from system.queries").rows}
+    missing = [s for s in phase_sql if s not in listed]
+    check(not missing, f"system.queries lacks {len(missing)} statements of the phase, "
+          f"e.g. {missing[:1]!r}")
+    # a cancel: the statement waits at the gate behind a writer, is canceled,
+    # never runs, and its page is terminal
+    srv._engine_lock.acquire_exclusive()
+    try:
+        req = urllib.request.Request(f"{srv.url}/v1/statement", method="POST",
+                                     data=QUERIES["q9"].encode(),
+                                     headers={"X-Trino-Catalog": "tpch"})
+        qid = json.loads(urllib.request.urlopen(req, timeout=60).read())["id"]
+        urllib.request.urlopen(urllib.request.Request(f"{srv.url}/v1/statement/{qid}",
+                                                      method="DELETE"), timeout=60)
+    finally:
+        srv._engine_lock.release_exclusive()
+    q = srv.queries[qid]
+    for _ in range(500):
+        if q.finished_at is not None:
+            break
+        time.sleep(0.01)
+    body = json.loads(urllib.request.urlopen(
+        f"{srv.url}/v1/statement/executing/{qid}/0", timeout=60).read())
+    check(q.state == "CANCELED" and "nextUri" not in body
+          and body["stats"]["state"] == "CANCELED", f"cancel: {q.state} {body}")
+    wrong = {"Authorization": "Basic " + base64.b64encode(b"smoke:nope").decode()}
+    right = {"Authorization": "Basic " + base64.b64encode(b"smoke:pw").decode()}
+    codes = (_status(f"{auth_srv.url}/v1/statement", wrong, "POST", b"select 1"),
+             _status(f"{auth_srv.url}/v1/statement", right, "POST", b"select 1"))
+    check(codes == (401, 200), f"wrong password / right password: HTTP {codes}")
+    print(f"server statements: SHOW x5, EXPLAIN, EXPLAIN ANALYZE, PREPARE/EXECUTE and "
+          f"protocol parameters of Q3, SET SESSION join_distribution_type (EXPLAIN Q3's "
+          f"joins {default['joins']} -> {forced['joins']}), CTAS of Q1, system.queries "
+          f"({len(phase_sql)} statements listed), cancel, HTTP {codes[0]} on a wrong "
+          f"password: all held", flush=True)
+
+
+def _normal(rows):
+    """Rows for the verifier: DOUBLEs to 12 significant digits (the card and
+    the CPU sum in different orders; the parity rule is rtol 1e-9)."""
+    return [tuple(float(f"{v:.12g}") if isinstance(v, float) else
+                  (v.item() if hasattr(v, "item") else v) for v in row) for row in rows]
+
+
+def server_dbapi_and_verifier(srv, direct):
+    """11e: the DB-API over HTTP runs Q1 and a parameterized Q6; the verifier
+    runs the 22 at VERIFIER_SF with the port on the CPU as the control and a
+    card server as the test: all must MATCH."""
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.server import Client, CoordinatorServer, dbapi
+    from trino_tpu_torch.server.server import _json_value
+    from trino_tpu_torch.verifier import Verifier, VerifierQuery
+
+    cur = dbapi.connect(url=srv.url, catalog="tpch").cursor()
+    cur.execute(QUERIES["q1"])
+    check([list(r) for r in cur.fetchall()] == direct["q1"]["rows"], "DB-API Q1")
+    cur.execute(Q6_PARAMS, (0.05, 0.07, 24))
+    got = [list(r) for r in cur.fetchall()]
+    same_json_rows(got, direct["q6"]["rows"], [{"name": "revenue", "type": "double"}],
+                   TPCH_QUERIES["q6"], "DB-API parameterized Q6 vs Q6")
+    cpu = Engine(device="cpu")
+    cpu.register_catalog("tpch", TpchConnector(sf=VERIFIER_SF, split_rows=SPLIT_ROWS))
+    card = Engine(device=DEVICE)
+    card.register_catalog("tpch", TpchConnector(sf=VERIFIER_SF, split_rows=SPLIT_ROWS))
+    for e in (cpu, card):
+        e.execute_sql(Q15_VIEW, e.create_session("tpch"))
+    test_srv = CoordinatorServer(card, port=0, dispatch_threads=SERVER_CLIENTS)
+    test_srv.start()
+    try:
+        c = Client(test_srv.url, catalog="tpch")
+        results = Verifier(
+            lambda q: _normal([[_json_value(v) for v in row]
+                               for row in cpu.execute_sql(q, cpu.create_session("tpch"))
+                               .rows()]),
+            lambda q: _normal(c.execute(q).rows),
+        ).run([VerifierQuery(q, sql) for q, sql in ALL_QUERIES.items()])
+    finally:
+        test_srv.stop()
+    report = Verifier.report(results)
+    print(report, flush=True)
+    check(all(r.status == "MATCH" for r in results),
+          f"verifier at SF{VERIFIER_SF:g}: not every query matched")
+    return {"matched": sum(r.status == "MATCH" for r in results), "queries": len(results),
+            "control_s": sum(r.control_wall_s for r in results),
+            "test_s": sum(r.test_wall_s for r in results)}
+
+
+def server_path(direct):
+    """Phase 11: a ``CoordinatorServer`` over a card engine holding TPC-H at
+    SF1, a memory catalog and the system catalog; clients on loopback HTTP.
+    ``direct``: phase 2's per-query JSON rows, host reads and launches.
+    Returns (the phase's record, launches of 11b, {kernel: checks at the
+    shapes recorded while the clients ran})."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.server import CoordinatorServer
+
+    t_phase = time.perf_counter()
+    engine = Engine(device=DEVICE)
+    engine.register_catalog("tpch", TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS))
+    engine.register_catalog("memory", MemoryConnector())
+    engine.execute_sql(Q15_VIEW, engine.create_session("tpch"))
+    # system.queries must list every statement of the phase
+    engine.query_tracker.max_history = 100_000
+    spool = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "spool")
+    servers = (CoordinatorServer(engine, port=0, dispatch_threads=SERVER_CLIENTS),
+               CoordinatorServer(engine, port=0, dispatch_threads=SERVER_CLIENTS,
+                                 spool_dir=spool, spool_threshold_rows=SPOOL_THRESHOLD),
+               CoordinatorServer(engine, port=0, passwords={"smoke": "pw"}))
+    for s in servers:
+        s.start()
+    srv, spool_srv, auth_srv = servers
+    try:
+        rec = {"queries": server_queries(engine, srv, direct)}
+        rec["clients"], shapes = server_clients(engine, srv)
+        rec["big_result"] = server_big_result(engine, srv, spool_srv)
+        server_statements(engine, srv, auth_srv, direct)
+        rec["verifier"] = server_dbapi_and_verifier(srv, direct)
+    finally:
+        for s in servers:
+            s.stop()
+        shutil.rmtree(spool, ignore_errors=True)
+    li_keys = lineitem_keys(engine.catalogs["tpch"])
+    gen = np.random.default_rng(23)
+    checks = {}
+    if shapes["hash_insert"]:
+        checks["hash_insert"] = insert_checks(shapes["hash_insert"],
+                                              ("lineitem_orderkey", *li_keys), gen)
+    if shapes["hash_probe"]:
+        checks["hash_probe"] = probe_checks(shapes["hash_probe"], gen)
+    if shapes["compact_rows"]:
+        checks["compact_rows"] = compact_checks(shapes["compact_rows"], gen)
+    for k in ("hash_insert", "hash_probe", "compact_rows"):
+        check(k in checks, f"server path: the {SERVER_CLIENTS} clients launched no {k}")
+    overheads = [r["overhead_s"] for r in rec["queries"].values()]
+    rec["overhead_s_median"] = statistics.median(overheads)
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"server path: {rec['seconds']:.1f} s; protocol overhead per query median "
+          f"{rec['overhead_s_median']} s (min {min(overheads)}, max {max(overheads)})",
+          flush=True)
+    print(json.dumps({"server_sf1": rec}, default=str), flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return rec, rec["clients"]["launches"], {
+        k: {"max_abs_err": r["max_abs_err"], "shapes": r["shapes"]} for k, r in checks.items()}
+
+
 def main() -> int:
     import torch
 
@@ -2971,6 +3468,12 @@ def main() -> int:
         del cpu
         # phase 8's oracle after RF1
         tpch_ref = {q: main[q]["result"] for q in MEMORY_QUERIES}
+        # phase 11's: each query's rows as the server sends them, its host
+        # reads and its launches
+        direct = {q: {"names": list(r["result"].names), "rows": json_rows(r["result"]),
+                      "host_reads": r["host_reads"],
+                      "launches": {k: v for k, v in r["launches"].items() if v}}
+                  for q, r in main.items()}
 
         # -- phase 3: kernels against their plain versions ---------------------
         q1_page = conn.generate(conn.splits("lineitem")[0], Q1_COLUMNS)
@@ -3035,6 +3538,9 @@ def main() -> int:
         # -- phase 10: arrays, maps, UNNEST and MATCH_RECOGNIZE -----------------
         torch.cuda.empty_cache()
         ar_launches, ar_checks = arrays_path()
+        # -- phase 11: the coordinator entry point, TPC-H SF1 over the protocol -
+        torch.cuda.empty_cache()
+        _, sv_launches, sv_checks = server_path(direct)
 
         # per path: its launches, and the checks at its own shapes (the
         # top-level times stay the TPC-H path's largest shape's)
@@ -3050,12 +3556,14 @@ def main() -> int:
                 "functions_sf1": {"launches": fn_launches[name],
                                   **fn_checks.get(name, {"max_abs_err": None, "shapes": []})},
                 "arrays_sf1": {"launches": ar_launches[name],
-                               **ar_checks.get(name, {"max_abs_err": None, "shapes": []})}}
-            for checks in (ds_checks, mem_checks, fn_checks, ar_checks):
+                               **ar_checks.get(name, {"max_abs_err": None, "shapes": []})},
+                "server_sf1": {"launches": sv_launches[name],
+                               **sv_checks.get(name, {"max_abs_err": None, "shapes": []})}}
+            for checks in (ds_checks, mem_checks, fn_checks, ar_checks, sv_checks):
                 if name in checks:
                     r["max_abs_err"] = max(r["max_abs_err"], checks[name]["max_abs_err"])
             r["launches"] += (ds_launches[name] + mem_launches[name] + fn_launches[name]
-                              + ar_launches[name])
+                              + ar_launches[name] + sv_launches[name])
         print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

@@ -9,8 +9,10 @@ statement by statement in both packages (``trino_tpu.Engine`` and
 - tests/test_window_frames2.py over its memory table;
 - the four memory-catalog cases of tests/test_window_setops.py;
 - tests/test_routines.py's function cases and the materialized-view case
-  of tests/test_security.py (without their SHOW statements, which the port
-  refuses: ``test_statements_left_out_raise_naming_them``);
+  of tests/test_security.py (without their SHOW statements; SHOW and the
+  other statements of the control plane are held by
+  ``test_statements_left_out_raise_naming_them`` and
+  tests/test_torch_control_plane.py);
 - tests/test_sql_tpch3.py::test_q15 (CREATE VIEW, the query, DROP VIEW);
 - TPC-H's refresh path as ``chip_smoke.py`` phase 8 runs it (CTAS, RF1's
   MERGE and INSERT, the query set with Q15, RF2's DELETEs and UPDATEs, the
@@ -22,9 +24,8 @@ equal; query results equal (integer, decimal, date and string columns and
 NULL masks exactly, DOUBLE within rtol 1e-9, row order compared where the
 statement orders its rows, else as sorted lists); an error of the same type
 with the same message.  Also: a query never changes a stored table (the
-checksums of every numeric column before and after the query set), the
-refresh path's memory tables equal ``tpch`` after RF1, and the statements
-left out raise ``NotImplementedError`` naming the statement.
+checksums of every numeric column before and after the query set), and the
+refresh path's memory tables equal ``tpch`` after RF1.
 """
 
 import os
@@ -457,11 +458,22 @@ def test_dml_results_carry_the_affected_row_counts(torch_tpch):
     ("grant select on nation to bob", "GRANT"),
     ("revoke select on nation from bob", "REVOKE"),
 ])
-def test_statements_left_out_raise_naming_them(torch_tpch, sql, what):
-    t = TorchEngine(device="cpu")
-    t.register_catalog("tpch", torch_tpch)
-    with pytest.raises(NotImplementedError, match=f"^{what} statements"):
-        t.execute_sql(sql, t.create_session("tpch"))
+def test_statements_left_out_raise_naming_them(tpch_sf001, torch_tpch, sql, what):
+    """The statements the port refused before its control plane landed now
+    run: each outcome equals the reference's (the same error where the
+    reference raises: EXECUTE and DEALLOCATE of a statement never prepared,
+    a property value of the wrong type, GRANT and REVOKE under the default
+    access control).  EXPLAIN ANALYZE's timing differs by nature: both report
+    the run and its one output row."""
+    j, t = _engines("tpch", tpch_sf001, torch_tpch)
+    sj, st = j.create_session("tpch"), t.create_session("tpch")
+    assert sql.split()[0].upper() == what.split()[0]
+    if sql.startswith("explain analyze"):
+        for e, sess in ((j, sj), (t, st)):
+            text = "\n".join(e.execute_sql(sql, sess).columns[0].tolist())
+            assert "executed in" in text and "1 output rows" in text
+        return
+    run_both(j, t, sql, sj, st)
 
 
 # -- TPC-H's refresh path at SF0.01 ------------------------------------------------------

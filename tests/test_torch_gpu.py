@@ -5,7 +5,7 @@ primitives and the window kernel on the card against their CPU runs; the
 streaming LIMIT compacting through the CUDA kernel; the sort-based
 aggregation runner, the function corpora and the exact wide sums; and the
 array, map, UNNEST and MATCH_RECOGNIZE corpora, UNNEST's expansion map and
-the vectorized matcher.
+the vectorized matcher; the coordinator server over a card engine.
 
 They skip without a card.  This file imports no jax, so on a machine with a
 card (which has no jax) it runs without the repo's conftest:
@@ -772,3 +772,57 @@ def test_unnest_indices_and_vector_match_on_the_card_equal_the_cpu(dev):
     for f in ("usable", "end", "pos", "nxt"):
         assert np.array_equal(getattr(out[0], f), getattr(out[1], f)), f
     assert out[0].usable.any()
+
+
+def test_server_on_the_card_serves_the_cpu_results(dev):
+    """Phase 11 of chip_smoke.py at SF0.01: a CoordinatorServer over a card
+    engine answers bench.py's queries with the pages a CPU engine's results
+    make, from four clients at once; each statement's launches are its
+    serial run's, and /v1/status reports the card's memory."""
+    import json
+    import threading
+    import urllib.request
+
+    import chip_smoke as cs
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.server import Client, CoordinatorServer
+
+    card = Engine(device="cuda")
+    card.register_catalog("tpch", TpchConnector(sf=0.01))
+    cpu = Engine(device="cpu")
+    cpu.register_catalog("tpch", TpchConnector(sf=0.01))
+    srv = CoordinatorServer(card, port=0, dispatch_threads=4)
+    srv.start()
+    try:
+        c = Client(srv.url, catalog="tpch")
+        serial, want = {}, {}
+        for q, sql in cs.QUERIES.items():
+            res = c.execute(sql)
+            want[q] = cs.json_rows(cpu.execute_sql(sql, cpu.create_session("tpch")))
+            cs.same_json_rows(res.rows, want[q], res.columns, sql, q)
+            serial[q] = cs.statement_counters(card, sql)["launches"]
+        errors = []
+
+        def run():
+            try:
+                c2 = Client(srv.url, catalog="tpch")
+                for q, sql in cs.QUERIES.items():
+                    res = c2.execute(sql)
+                    cs.same_json_rows(res.rows, want[q], res.columns, sql, q)
+            except Exception as e:  # noqa: BLE001 - reported by the assertion
+                errors.append(e)
+
+        threads = [threading.Thread(target=run) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not errors, errors
+        for qsm in card.query_tracker.all_queries():
+            q = next(k for k, v in cs.QUERIES.items() if v == qsm.sql)
+            assert qsm.counters["launches"] == serial[q], q
+        status = json.loads(urllib.request.urlopen(srv.url + "/v1/status").read())
+        assert status["device_memory"]["bytes_limit"] > 0
+    finally:
+        srv.stop()

@@ -1,14 +1,27 @@
 """Engine facade of the PyTorch port (counterpart of ``trino_tpu/engine.py``, slim):
-catalogs, sessions, and the statement entry point.
+catalogs, sessions, the control plane and the statement entry point.
 
-``execute_sql`` parses, plans SELECTs with the planner copied from the
-reference (``Planner(self, session).plan_query``) and runs the plan on one
-device through ``LocalExecutor``.  Every other statement goes to
-``_execute_statement``, the port of the reference's statement layer: views,
-SQL routines, tables (CREATE, CTAS, INSERT, DROP), materialized views and
-row-level DML (DELETE, UPDATE, MERGE) over a writable catalog such as
+``execute_sql`` is the coordinator's entry path, as in the reference: the
+access check, a query id, admission through the resource groups, the query
+state machine, listener events and the ``query`` / ``planner`` /
+``execution`` spans around parse -> plan -> execute.  SELECTs are planned with
+the planner copied from the reference (``Planner(self, session).plan_query``)
+and run on one device through ``LocalExecutor``.  Every other statement goes
+to ``_execute_statement``: PREPARE / EXECUTE / DEALLOCATE, SET / RESET
+SESSION, SHOW, EXPLAIN [ANALYZE], GRANT / REVOKE, views, SQL routines,
+tables (CREATE, CTAS, INSERT, DROP), materialized views and row-level DML
+(DELETE, UPDATE, MERGE) over a writable catalog such as
 ``connectors/memory.MemoryConnector``.  DDL returns ``None`` and DML the
-affected-row count, as in the reference.
+affected-row count, as in the reference.  ``engine.access_control`` (allow-all
+by default, ``spi/security.py``) is consulted where the reference consults it.
+
+Accounting is per statement and per thread: each statement counts its host
+reads, their bytes, its H2D bytes and its kernel launches in its own
+``QueryCounters`` (``execution/tracing.py``) on the thread that runs it, and
+publishes them there (``last_query_counters``, ``last_query_trace``), so
+statements running at once on several threads (the server's dispatch pool)
+never read each other's counts.  ``counters_total`` sums every statement for
+``/v1/metrics``.
 
 Writes are vectorised with numpy where the reference walks python lists:
 a query result whose column type equals the target's is written from its
@@ -16,24 +29,25 @@ raw (storage-form) columns, and the per-value coercion of the reference
 (``_coerce_host``) runs only where a coercion happens (``INSERT ... VALUES``,
 mismatched types).
 
-Not ported: PREPARE / EXECUTE / DEALLOCATE, SET / RESET SESSION, SHOW,
-EXPLAIN and GRANT / REVOKE raise ``NotImplementedError`` naming the
-statement; access control (the reference's default allows every
-statement) and the plan, result and buffer caches that the reference's
-``_invalidate`` clears.  Nor are the reference's other services (plan
-templates, batching, adaptive advice, history, flight recorder,
-fault-tolerant and distributed execution).
+Not ported: the reference's plan, result and buffer caches that its
+``_invalidate`` clears, plan templates (EXECUTE always substitutes its
+parameters as literals), batching, adaptive execution, plan history, the
+flight recorder, the memory ladder, fault-tolerant and distributed execution.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import threading
 from typing import Optional
 
 import numpy as np
 import torch
 
 __all__ = ["Engine", "Session"]
+
+_query_ids = itertools.count(1)
 
 
 @dataclasses.dataclass
@@ -42,6 +56,7 @@ class Session:
     schema: Optional[str] = None
     user: str = "user"
     properties: dict = dataclasses.field(default_factory=dict)
+    prepared: dict = dataclasses.field(default_factory=dict)  # name -> sql text
 
 
 def _resolve_device(device) -> torch.device:
@@ -57,17 +72,16 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-# statements the port refuses, by the SQL that names them
-_NOT_PORTED = {
-    "Prepare": "PREPARE", "ExecutePrepared": "EXECUTE", "Deallocate": "DEALLOCATE",
-    "SetSession": "SET SESSION", "ResetSession": "RESET SESSION", "Show": "SHOW",
-    "Explain": "EXPLAIN", "Grant": "GRANT",
-}
-
-
 class Engine:
     def __init__(self, device=None):
+        from .connectors.system import InformationSchemaConnector, SystemConnector
+        from .execution.eventlistener import EventListenerManager
+        from .execution.query_state import QueryTracker
+        from .execution.resourcegroups import ResourceGroupManager
+        from .execution.session_properties import SessionPropertyManager
+        from .execution.tracing import QueryCounters, Tracer
         from .memory import MemoryPool
+        from .spi.security import AllowAllAccessControl
 
         self.device = _resolve_device(device)
         self.catalogs: dict = {}
@@ -77,11 +91,29 @@ class Engine:
         # "session_catalog": name}
         self.materialized_views: dict = {}
         self.memory_pool = MemoryPool(device=self.device)
-        # device -> host reads and bytes, and host -> device bytes, of the
-        # most recent execute_sql (its plan-time subqueries and a statement's
-        # inner queries included) or bare execute_plan
-        self.last_query_counters: dict = {}
-        self._sql_totals: Optional[dict] = None
+        self._totals_lock = threading.Lock()  # guards counters_total
+        # serializes the system connector's dictionary growth (RLock: the
+        # planner asks for dictionaries while a scan of the same table may
+        # hold it on this thread)
+        self._plan_lock = threading.RLock()
+        # control plane (reference: DispatchManager + QueryTracker + resource
+        # groups + EventListenerManager + TracingModule)
+        self.query_tracker = QueryTracker()
+        self.resource_groups = ResourceGroupManager()
+        self.event_listeners = EventListenerManager()
+        self.session_properties = SessionPropertyManager()
+        self.tracer = Tracer()
+        # every statement's counters summed, for /v1/metrics
+        self.counters_total = QueryCounters()
+        # per-thread slots: the running statement's counters (stmt) and the
+        # last finished statement's counters (snap) and trace
+        self._thread_accounting = threading.local()
+        self.access_control = AllowAllAccessControl()
+        # the system catalog is always present (reference: GlobalSystemConnector
+        # registered at server bootstrap), and the information_schema BI tools
+        # introspect
+        self.catalogs["system"] = SystemConnector(self)
+        self.catalogs["information_schema"] = InformationSchemaConnector(self)
 
     def register_catalog(self, name: str, connector) -> None:
         """Register a connector; one without a device works on the engine's."""
@@ -93,57 +125,241 @@ class Engine:
                        schema: str = "default") -> Session:
         return Session(catalog=catalog, schema=schema)
 
+    # -- per-thread accounting (reference: Engine._thread_accounting) ------------
+    @property
+    def last_query_counters(self) -> dict:
+        """Host reads and bytes, H2D bytes and kernel launches of the last
+        ``execute_sql`` this thread ran (its plan-time subqueries and a
+        statement's inner queries included), or of its last bare
+        ``execute_plan``."""
+        snap = getattr(self._thread_accounting, "snap", None)
+        return {} if snap is None else snap.as_dict()
+
+    @property
+    def last_query_trace(self) -> dict:
+        """{"query_id", "root_span_s", "spans", "wall_breakdown"} of the last
+        statement this thread ran."""
+        return getattr(self._thread_accounting, "trace", None) or {}
+
+    def _account_counters(self, counters) -> None:
+        """Fold one finished plan execution into the statement running on this
+        thread, or, outside any statement, publish it and add it to the
+        engine's totals."""
+        acct = self._thread_accounting
+        stmt = getattr(acct, "stmt", None)
+        if stmt is not None:
+            stmt.merge(counters)
+            return
+        with self._totals_lock:
+            self.counters_total.merge(counters)
+        acct.snap = counters
+
+    def _run_plan(self, plan):
+        """(result, counters) of one plan on a fresh executor."""
+        from .exec.local_executor import LocalExecutor
+        from .execution import tracing
+
+        ex = LocalExecutor(self.catalogs, self.device, memory_pool=self.memory_pool)
+        counters = tracing.QueryCounters()
+        try:
+            with tracing.track_counters(counters):
+                return ex.execute(plan), counters
+        finally:
+            counters.host_reads += ex.host_reads
+            counters.host_bytes += ex.host_bytes
+            counters.h2d_bytes += ex.h2d_bytes
+            self._account_counters(counters)
+
     def execute_plan(self, plan, cache: bool = True):
         """Run a plan to a host-side ``MaterializedResult`` (also the
         planner's entry point for eager subqueries, which pass
         ``cache=False``; the port keeps no plan caches either way)."""
-        from .exec.local_executor import LocalExecutor
+        return self._run_plan(plan)[0]
 
-        ex = LocalExecutor(self.catalogs, self.device, memory_pool=self.memory_pool)
+    # -- introspection ------------------------------------------------------------
+    def memory_info(self) -> list:
+        """The memory pool's snapshot (labeled ``pool0``), with the card's
+        allocator counters on a CUDA engine: the /v1/status and /v1/metrics
+        pool surface."""
+        d = self.memory_pool.info()
+        d["pool"] = "pool0"
+        if self.device.type == "cuda":
+            st = torch.cuda.memory_stats(self.device)
+            d["device_allocated_bytes"] = int(st.get("allocated_bytes.all.current", 0))
+            d["device_reserved_bytes"] = int(st.get("reserved_bytes.all.current", 0))
+            d["device_peak_allocated_bytes"] = int(st.get("allocated_bytes.all.peak", 0))
+        return [d]
+
+    def health(self) -> dict:
+        """Live health verdict.  The port has no stall watchdog yet: always
+        "ok", with the watchdog reported as disabled."""
+        return {"status": "ok", "stalled": 0, "compiling": 0, "inflight": 0,
+                "watchdog": {"enabled": False}}
+
+    def _check_select_access(self, plan, user: str) -> None:
+        """Every table the plan scans needs SELECT (reference: the analyzer's
+        per-table checkCanSelectFromColumns during StatementAnalyzer)."""
+        from .sql import plan as P
+
+        storage_to_mv = {m["storage"]: name
+                         for name, m in self.materialized_views.items()}
+
+        def walk(n):
+            if isinstance(n, P.TableScan) and not n.source_tables:
+                # MV storage tables check under the MV's own name; scans of
+                # virtual pushdown handles check their source_tables instead
+                self.access_control.check_can_select(
+                    user, n.catalog, storage_to_mv.get(n.table, n.table))
+            for cat, tab in getattr(n, "source_tables", ()):
+                self.access_control.check_can_select(
+                    user, cat, storage_to_mv.get(tab, tab))
+            for c in n.children:
+                walk(c)
+
+        walk(plan)
+
+    # -- the statement entry point (reference: Engine.execute_sql) ---------------
+    def execute_sql(self, sql: str, session: Optional[Session] = None,
+                    parameters: Optional[list] = None):
+        """Statement entry point (reference: DispatchManager.createQuery ->
+        resource-group admission -> SqlQueryExecution for queries;
+        coordinator-only tasks for the other statements).  Every statement
+        moves through the query state machine and fires listener events.
+
+        ``parameters`` is the protocol-level EXECUTE form: ``sql`` carries
+        ``?`` markers and ``parameters`` the python values, substituted as
+        literals."""
+        from .execution import tracing
+        from .execution.query_state import QueryState, QueryStateMachine
+
+        sess = session or Session()
+        acct = self._thread_accounting
+        # cleared first: a statement that fails admission must not leave this
+        # thread holding the previous statement's counters or trace
+        acct.snap = None
+        acct.trace = None
+        self.access_control.check_can_execute_query(sess.user)
+        qid = f"query_{next(_query_ids)}"
+        group = self.resource_groups.get_or_create(f"global.{sess.user}")
+        qsm = QueryStateMachine(qid, sql, sess.user, sess.catalog, group.full_name)
+        self.query_tracker.register(qsm)
+        self.event_listeners.query_created(qsm)
+        admitted = threading.Event()
+        self.resource_groups.submit(
+            group, admitted.set,
+            queued=lambda: qsm.transition(QueryState.WAITING_FOR_RESOURCES))
+        admitted.wait()
+        totals = tracing.QueryCounters()
+        outer = getattr(acct, "stmt", None)
+        acct.stmt = totals
         try:
-            return ex.execute(plan)
+            qsm.transition(QueryState.DISPATCHING)
+            with tracing.query_scope(qid), tracing.activate_tracer(self.tracer), \
+                    tracing.track_counters(totals), \
+                    self.tracer.span("query", trace_id=qid, sql=sql):
+                result = self._execute_admitted(sql, sess, qsm, parameters)
+            if result is not None and hasattr(result, "__len__"):
+                qsm.rows = len(result)
+            qsm.transition(QueryState.FINISHING)
+            qsm.transition(QueryState.FINISHED)
+            return result
+        except BaseException as e:
+            qsm.fail(str(e))
+            raise
         finally:
-            self.last_query_counters = {"host_reads": ex.host_reads,
-                                        "host_bytes": ex.host_bytes,
-                                        "h2d_bytes": ex.h2d_bytes}
-            if self._sql_totals is not None:
-                for k, v in self.last_query_counters.items():
-                    self._sql_totals[k] += v
+            acct.stmt = outer
+            with self._totals_lock:
+                self.counters_total.merge(totals)
+            acct.snap = totals
+            root = self._finish_query_trace(qid, queued_s=qsm.info().queued_s or 0)
+            qsm.counters = totals.as_dict()
+            qsm.root_span_duration_s = root.duration_s if root else None
+            self.resource_groups.finish(group)
+            self.event_listeners.query_completed(qsm)
 
-    def execute_sql(self, sql: str, session: Optional[Session] = None):
-        """Statement entry point: a SELECT is parsed, planned and executed;
-        any other statement runs through ``_execute_statement``."""
+    def _finish_query_trace(self, qid: str, queued_s: float = 0.0):
+        """Publish the finished span tree on this thread as
+        ``last_query_trace`` (span summaries and the wall-clock breakdown,
+        what GET /v1/query/{id}/trace serves); returns the root span."""
+        from .execution import tracing
+
+        spans = self.tracer.spans_for(qid)
+        root = next((s for s in spans if s.parent_id is None), None)
+        trace = {"query_id": qid, "root_span_s": root.duration_s if root else None,
+                 "spans": [tracing.span_dict(s) for s in spans]}
+        bd = tracing.wall_breakdown(trace["spans"], queued_s=queued_s)
+        if bd is not None:
+            trace["wall_breakdown"] = bd
+        self._thread_accounting.trace = trace
+        return root
+
+    def _execute_admitted(self, sql: str, sess: Session, qsm, parameters=None):
+        from .execution.query_state import QueryState
         from .sql import parser as A
         from .sql.frontend import Planner
 
-        sess = session or Session()
+        if parameters is not None:
+            # protocol-level EXECUTE: the values arrived out of band and
+            # substitute as literals (the port has no plan templates)
+            from .server.dbapi import _substitute
+            from .sql import params as PRM
+
+            vals = [PRM.literal_param_value(PRM.value_to_literal_ast(v))
+                    for v in parameters]
+            return self._execute_admitted(_substitute(sql, vals), sess, qsm)
+        qsm.transition(QueryState.PLANNING)
         ast = A.parse(sql)
-        self._sql_totals = totals = {"host_reads": 0, "host_bytes": 0, "h2d_bytes": 0}
-        try:
-            if not isinstance(ast, (A.Select, A.SetOp)):
-                return self._execute_statement(ast, sess)
+        if isinstance(ast, (A.Select, A.SetOp)):
             # scalar and EXISTS subqueries execute while the query plans
-            plan = Planner(self, sess).plan_query(ast)
-            return self.execute_plan(plan)
-        finally:
-            self._sql_totals = None
-            self.last_query_counters = totals
+            with self.tracer.span("planner", trace_id=qsm.query_id):
+                plan = Planner(self, sess).plan_query(ast)
+            self._check_select_access(plan, sess.user)
+            qsm.transition(QueryState.STARTING)
+            qsm.transition(QueryState.RUNNING)
+            with self.tracer.span("execution", trace_id=qsm.query_id):
+                return self.execute_plan(plan)
+        qsm.transition(QueryState.RUNNING)
+        return self._execute_statement(ast, sess)
 
     # -- statements (reference: Engine._execute_statement) ----------------------
     def _execute_statement(self, ast, sess: Session):
         from .sql import parser as A
 
         kind = type(ast).__name__
-        if kind in _NOT_PORTED:
-            what = "REVOKE" if getattr(ast, "revoke", False) else _NOT_PORTED[kind]
-            raise NotImplementedError(
-                f"{what} statements ({kind}) are not ported to trino_tpu_torch")
+        if isinstance(ast, A.Prepare):
+            # session-scoped prepared statements (reference: QueryPreparer +
+            # Session.preparedStatements; parameters substitute at EXECUTE)
+            sess.prepared[ast.name] = ast.sql
+            return None
+        if isinstance(ast, A.ExecutePrepared):
+            return self._execute_prepared(ast, sess)
+        if isinstance(ast, A.Deallocate):
+            if ast.name not in sess.prepared:
+                raise ValueError(f"prepared statement {ast.name} not found")
+            del sess.prepared[ast.name]
+            return None
         if isinstance(ast, A.Delete):
             return self._delete(ast, sess)
         if isinstance(ast, A.Update):
             return self._update(ast, sess)
         if isinstance(ast, A.Merge):
             return self._merge(ast, sess)
+        if isinstance(ast, A.SetSession):
+            self.access_control.check_can_set_session_property(sess.user, ast.name)
+            self.session_properties.set_property(sess, ast.name, ast.value)
+            return None
+        if isinstance(ast, A.ResetSession):
+            self.session_properties.reset_property(sess, ast.name)
+            return None
+        if isinstance(ast, A.Show):
+            return self._show(ast, sess)
+        if isinstance(ast, A.Explain):
+            if isinstance(ast.query, A.ExecutePrepared):
+                return self._explain_execute(ast, sess)
+            if not isinstance(ast.query, (A.Select, A.SetOp)):
+                raise ValueError(
+                    f"EXPLAIN of {type(ast.query).__name__} is not supported")
+            return self._explain(ast, sess)
         if isinstance(ast, A.CreateView):
             if not ast.or_replace and ast.name in self.views:
                 raise ValueError(f"view {ast.name} already exists")
@@ -188,13 +404,228 @@ class Engine:
                 if ast.if_exists:
                     return None
                 raise ValueError(f"materialized view {ast.name} does not exist")
+            self.access_control.check_can_write(sess.user, mv["catalog"],
+                                                ast.name, "drop table")
             del self.materialized_views[ast.name]
             self.catalogs[mv["catalog"]].drop_table(mv["storage"], True)
             return None
+        if isinstance(ast, A.Grant):
+            return self._grant(ast, sess)
         if isinstance(ast, A.DropTable):
-            self._writable_catalog(sess).drop_table(ast.name, ast.if_exists)
+            conn = self._writable_catalog(sess)
+            self.access_control.check_can_write(
+                sess.user, self._catalog_name_of(conn), ast.name, "drop table")
+            conn.drop_table(ast.name, ast.if_exists)
             return None
         raise ValueError(f"unsupported statement {kind}")
+
+    def _grant(self, ast, sess: Session):
+        """GRANT / REVOKE on the table's catalog (reference: GrantTask,
+        RevokeTask); the access control decides who may administer."""
+        conn = None
+        cat = sess.catalog
+        if cat in self.catalogs and ast.table in self.catalogs[cat].tables():
+            conn = self.catalogs[cat]
+        else:
+            for name, c in self.catalogs.items():
+                if ast.table in c.tables():
+                    cat, conn = name, c
+                    break
+        if conn is None:
+            raise ValueError(f"table {ast.table!r} not found")
+        op = self.access_control.revoke if ast.revoke else self.access_control.grant
+        try:
+            op(sess.user, ast.grantee, cat, ast.table, set(ast.privileges))
+        except NotImplementedError as e:
+            raise ValueError(str(e))
+        return None
+
+    def _execute_prepared(self, ast, sess: Session):
+        """EXECUTE name [USING ...]: the parameters substitute as literals
+        into the prepared text, which runs inside this statement (no second
+        admission)."""
+        from .server.dbapi import _substitute
+        from .sql import params as PRM
+
+        text = sess.prepared.get(ast.name)
+        if text is None:
+            raise ValueError(f"prepared statement {ast.name} not found")
+        # literal extraction raises a typed error for unsupported parameter
+        # AST kinds (sql/params) instead of silently mis-substituting
+        vals = [PRM.literal_param_value(p) for p in ast.parameters]
+        return self._run_sql_inline(_substitute(text, vals), sess)
+
+    def _run_sql_inline(self, sql: str, sess: Session):
+        """Run a statement without re-entering admission (EXECUTE runs inside
+        the outer statement's resource-group slot)."""
+        from .sql import parser as A
+        from .sql.frontend import Planner
+
+        ast = A.parse(sql)
+        if not isinstance(ast, (A.Select, A.SetOp)):
+            return self._execute_statement(ast, sess)
+        plan = Planner(self, sess).plan_query(ast)
+        self._check_select_access(plan, sess.user)
+        return self.execute_plan(plan)
+
+    def _show(self, ast, sess: Session):
+        """SHOW SESSION/CATALOGS/SCHEMAS/TABLES/COLUMNS/STATS/CREATE TABLE/
+        FUNCTIONS (reference: the ShowQueriesRewrite-backed SHOW statements
+        over information_schema)."""
+        from .exec.local_executor import MaterializedResult
+        from .types import VarcharType
+
+        def result(names, rows):
+            cols = [np.array([r[i] for r in rows], dtype=object)
+                    for i in range(len(names))]
+            return MaterializedResult(tuple(names),
+                                      tuple(VarcharType.of(None) for _ in names),
+                                      cols, cols)
+
+        def find_table(target):
+            cat = sess.catalog
+            if cat in self.catalogs and target in self.catalogs[cat].tables():
+                return cat, self.catalogs[cat]
+            for name, c in self.catalogs.items():
+                if target in c.tables():
+                    return name, c
+            raise ValueError(f"table {target!r} not found")
+
+        if ast.what == "session":
+            return result(("name", "value", "default", "type", "description"),
+                          self.session_properties.rows(sess))
+        if ast.what == "catalogs":
+            return result(("catalog",), [(c,) for c in sorted(self.catalogs)])
+        if ast.what == "tables":
+            conn = self.catalogs.get(sess.catalog)
+            if conn is None:
+                raise ValueError(f"catalog {sess.catalog!r} not found")
+            names = sorted((set(conn.tables()) | set(self.views)
+                            | set(self.materialized_views))
+                           - {m["storage"] for m in self.materialized_views.values()})
+            names = self.access_control.filter_tables(sess.user, sess.catalog, names)
+            return result(("table",), [(t,) for t in names])
+        if ast.what == "schemas":
+            return result(("schema",), [(n,) for n in sorted(self.catalogs)])
+        if ast.what == "columns":
+            conn = self.catalogs.get(sess.catalog)
+            if conn is None or ast.target not in conn.tables():
+                raise ValueError(f"table {ast.target!r} not found")
+            return result(("column", "type"),
+                          [(f.name, f.type.name) for f in conn.schema(ast.target).fields])
+        if ast.what == "stats":
+            # reference: SHOW STATS FOR table -- the same TableStats the CBO
+            # consumes (spi/statistics.py), per-column rows + summary row
+            from .spi.statistics import connector_table_stats
+
+            _, conn = find_table(ast.target)
+            ts = connector_table_stats(conn, ast.target)
+            fmt = lambda v: "" if v is None else (  # noqa: E731
+                str(int(v)) if float(v).is_integer() else str(v))
+            rows = []
+            for f in conn.schema(ast.target).fields:
+                cs = ts.column(f.name)
+                rows.append((f.name, None if cs.ndv is None else fmt(cs.ndv),
+                             fmt(cs.lo), fmt(cs.hi), ""))
+            rows.append(("", None, "", "", fmt(ts.row_count)))
+            return result(("column_name", "distinct_values_count", "low_value",
+                           "high_value", "row_count"), rows)
+        if ast.what == "create_table":
+            cat, conn = find_table(ast.target)
+            cols = ",\n".join(f"   {f.name} {f.type.name}"
+                               for f in conn.schema(ast.target).fields)
+            return result(("create table",), [(f"CREATE TABLE {cat}.{ast.target} (\n"
+                                               f"{cols}\n)",)])
+        if ast.what == "functions":
+            # one source of truth: the function registry
+            from .sql import functions as FN
+
+            FN.ensure_legacy_registered()
+            rows = FN.catalog_rows()
+            for name, (params, rt, _body) in sorted(self.sql_routines.items()):
+                rows.append((name, "routine", str(len(params)),
+                             f"SQL routine returning {rt[0]}"))
+            return result(("function", "category", "arity", "description"), rows)
+        raise ValueError(f"unsupported SHOW {ast.what!r}")
+
+    def _explain(self, ast, sess: Session):
+        """EXPLAIN renders the physical plan (the distribution pass's
+        Exchange markers included); EXPLAIN ANALYZE runs the plan and adds
+        its counters, wall breakdown and timing."""
+        import time
+
+        from .exec.local_executor import MaterializedResult
+        from .sql.frontend import Planner
+        from .sql.planprinter import format_plan
+        from .types import VarcharType
+
+        plan = Planner(self, sess).plan_query(ast.query)
+        self._check_select_access(plan, sess.user)  # ANALYZE executes the query
+        if ast.analyze:
+            t0 = time.perf_counter()
+            t0_wall = time.time()
+            res, counters = self._run_plan(plan)
+            dt = time.perf_counter() - t0
+            lines = format_plan(plan, counters=counters,
+                                breakdown=self._analyze_breakdown(t0_wall, time.time())
+                                ).split("\n")
+            lines += [f"-- executed in {dt * 1000:.1f} ms, {len(res)} output rows"]
+        else:
+            from .sql.exchanges import physical_plan
+
+            phys = physical_plan(plan, self.catalogs, getattr(sess, "properties", None))
+            lines = format_plan(phys).split("\n")
+        rows = np.array(lines, dtype=object)
+        return MaterializedResult(("query plan",), (VarcharType.of(None),), [rows], [rows])
+
+    def _analyze_breakdown(self, t0_wall: float, t1_wall: float):
+        """Wall decomposition of an EXPLAIN ANALYZE execution window from the
+        statement's spans; None outside a statement."""
+        from .execution import tracing
+
+        qid = tracing.current_query_id()
+        if qid is None:
+            return None
+        spans = [tracing.span_dict(s) for s in self.tracer.spans_for(qid)]
+        return tracing.wall_breakdown(spans, window=(t0_wall, t1_wall))
+
+    def _explain_execute(self, ast, sess: Session):
+        """EXPLAIN [ANALYZE] EXECUTE name [USING ...]: the plan of the
+        statement its parameters make (ANALYZE runs it), and the template
+        line the reference's serving path exposes: the port has no plan
+        templates, so every EXECUTE takes the substitution path."""
+        import time
+
+        from .exec.local_executor import MaterializedResult
+        from .server.dbapi import _substitute
+        from .sql import params as PRM
+        from .sql import parser as A
+        from .sql.frontend import Planner
+        from .sql.planprinter import format_plan
+        from .types import VarcharType
+
+        ex_ast = ast.query
+        text = sess.prepared.get(ex_ast.name)
+        if text is None:
+            raise ValueError(f"prepared statement {ex_ast.name} not found")
+        sql = _substitute(text, [PRM.literal_param_value(p) for p in ex_ast.parameters])
+        inner = A.parse(sql)
+        if not isinstance(inner, (A.Select, A.SetOp)):
+            raise ValueError(f"EXPLAIN of {type(inner).__name__} is not supported")
+        plan = Planner(self, sess).plan_query(inner)
+        self._check_select_access(plan, sess.user)
+        if ast.analyze:
+            t0 = time.perf_counter()
+            res, counters = self._run_plan(plan)
+            dt = time.perf_counter() - t0
+            lines = format_plan(plan, counters=counters).split("\n")
+            lines += ["Plan template: none -- substitution path",
+                      f"-- executed in {dt * 1000:.1f} ms, {len(res)} output rows"]
+        else:
+            lines = format_plan(plan).split("\n")
+            lines.append("Plan template: none -- substitution path")
+        rows = np.array(lines, dtype=object)
+        return MaterializedResult(("query plan",), (VarcharType.of(None),), [rows], [rows])
 
     def _writable_catalog(self, sess: Session):
         cand = self.catalogs.get(sess.catalog)
@@ -216,8 +647,11 @@ class Engine:
         from .sql.frontend import Planner, _type_from_name
 
         conn = self._writable_catalog(sess)
+        self.access_control.check_can_write(
+            sess.user, self._catalog_name_of(conn), ast.name, "create table")
         if ast.as_query is not None:  # CTAS
             src_plan = Planner(self, sess).plan_query(ast.as_query)
+            self._check_select_access(src_plan, sess.user)
             res = self.execute_plan(src_plan, cache=False)
             schema = Schema(tuple(Field(n, t) for n, t in zip(res.names, res.types)))
             created = conn.create_table(ast.name, schema, ast.if_not_exists)
@@ -258,7 +692,10 @@ class Engine:
             conn = self._writable_catalog(sess)
             cat = self._catalog_name_of(conn)
         storage = f"__mv_{ast.name}"
-        res = self.execute_plan(Planner(self, sess).plan_query(ast.query), cache=False)
+        self.access_control.check_can_write(sess.user, cat, ast.name, "create table")
+        src_plan = Planner(self, sess).plan_query(ast.query)
+        self._check_select_access(src_plan, sess.user)
+        res = self.execute_plan(src_plan, cache=False)
         conn.drop_table(storage, True)
         conn.create_table(storage, Schema(tuple(Field(n, t)
                                                 for n, t in zip(res.names, res.types))))
@@ -284,13 +721,17 @@ class Engine:
         from .sql.frontend import Planner
 
         conn = self._writable_catalog(sess)
+        self.access_control.check_can_write(
+            sess.user, self._catalog_name_of(conn), ast.name, "insert into")
         schema = conn.schema(ast.name)
         names = ast.columns or schema.names
         if isinstance(ast.query, A.ValuesRows):
             cols = _literal_rows_to_columns(ast.query.rows,
                                             [schema.field(n).type for n in names])
         else:
-            res = self.execute_plan(Planner(self, sess).plan_query(ast.query), cache=False)
+            src_plan = Planner(self, sess).plan_query(ast.query)
+            self._check_select_access(src_plan, sess.user)
+            res = self.execute_plan(src_plan, cache=False)
             if len(res.columns) != len(names):
                 raise ValueError(
                     f"INSERT has {len(names)} target columns but the query "
@@ -337,6 +778,8 @@ class Engine:
         from .sql import parser as A
 
         conn = self._dml_target(ast.table, sess)
+        self.access_control.check_can_write(
+            sess.user, self._catalog_name_of(conn), ast.table, "delete from")
         res = self._eval_rowwise(ast.table, [ast.where or A.BoolLit(True)], sess)
         return _dml_count_result(conn.delete_rows(ast.table, self._dml_mask(res.columns[0])))
 
@@ -367,6 +810,8 @@ class Engine:
         from .sql import parser as A
 
         conn = self._dml_target(ast.table, sess)
+        self.access_control.check_can_write(
+            sess.user, self._catalog_name_of(conn), ast.table, "update")
         const_assigns, expr_assigns = self._assignment_casts(conn.schema(ast.table),
                                                              ast.assignments)
         exprs = [ast.where or A.BoolLit(True)] + [e for _, e in expr_assigns]
@@ -394,6 +839,8 @@ class Engine:
         from .sql import parser as A
 
         conn = self._dml_target(ast.target, sess)
+        self.access_control.check_can_write(
+            sess.user, self._catalog_name_of(conn), ast.target, "merge into")
         tgt_schema = conn.schema(ast.target)
         tgt_cols = list(tgt_schema.names)
 
@@ -401,14 +848,17 @@ class Engine:
         if isinstance(ast.source, str):
             if ast.source not in conn.tables():
                 raise ValueError(f"table {ast.source} does not exist")
+            self.access_control.check_can_select(
+                sess.user, self._catalog_name_of(conn), ast.source)
             src_cols = list(conn.schema(ast.source).names)
             src_res = self._eval_rowwise(
                 ast.source, [A.Identifier((c,)) for c in src_cols], sess)
         else:
             from .sql.frontend import Planner
 
-            src_res = self.execute_plan(Planner(self, sess).plan_query(ast.source),
-                                        cache=False)
+            plan = Planner(self, sess).plan_query(ast.source)
+            self._check_select_access(plan, sess.user)
+            src_res = self.execute_plan(plan, cache=False)
             src_cols = list(src_res.names)
 
         # ---- equi-key pairs from the ON condition

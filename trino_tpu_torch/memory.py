@@ -43,3 +43,9 @@ class MemoryPool:
     def free(self, nbytes: int) -> None:
         with self._lock:
             self.reserved = max(self.reserved - nbytes, 0)
+
+    def info(self) -> dict:
+        """Snapshot dict: what /v1/status and /v1/metrics serve."""
+        with self._lock:
+            return {"max_bytes": self.max_bytes, "reserved": self.reserved,
+                    "free": self.max_bytes - self.reserved}

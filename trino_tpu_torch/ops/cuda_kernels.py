@@ -30,8 +30,10 @@ allocate nothing (the wrappers allocate outputs and scratch with torch; a C
 entry may zero them with a memset on the stream), and each C entry returns
 ``cudaGetLastError()``.
 
-Each wrapper counts its launches in ``STATS[name].launches`` and records the
-shapes it launched at in ``STATS[name].shapes``, and, while a profiler
+Each wrapper counts its launches in ``STATS[name].launches`` (under a lock:
+statements on several threads launch at once) and records the shapes it
+launched at in ``STATS[name].shapes``; it charges the launch to the counters
+of the statement running on its thread too (``execution/tracing``), and, while a profiler
 records, opens a ``torch.profiler.record_function`` range named after its
 kernel, so a profile attributes the wrapper's host time and every device
 operation it causes (allocations' fills, copies) to it.
@@ -53,6 +55,7 @@ import time
 import torch
 from torch.profiler import record_function
 
+from ..execution import tracing
 from .hashing import EMPTY_KEY, probe_step, splitmix64
 
 __all__ = ["hash_insert", "hash_insert_", "hash_probe", "compact_rows", "fused_segment_agg",
@@ -80,15 +83,21 @@ class KernelStats:
     replaces: str  # the TPU kernel it replaces (file:line of its entry)
     launches: int = 0
     shapes: list = dataclasses.field(default_factory=list)
+    _lock: threading.Lock = dataclasses.field(default_factory=threading.Lock,
+                                              repr=False, compare=False)
 
-    def record(self, shape: tuple) -> None:
-        self.launches += 1
-        if len(self.shapes) < _SHAPES_KEPT:
-            self.shapes.append(shape)
+    def record(self, shape: tuple, seconds: float) -> None:
+        """One launch at ``shape`` whose C entry took ``seconds`` of host time."""
+        with self._lock:
+            self.launches += 1
+            if len(self.shapes) < _SHAPES_KEPT:
+                self.shapes.append(shape)
+        tracing.record_launch(self.name, seconds)
 
     def reset(self) -> None:
-        self.launches = 0
-        self.shapes.clear()
+        with self._lock:
+            self.launches = 0
+            self.shapes.clear()
 
 
 STATS = {
@@ -302,11 +311,12 @@ def _insert_into(table, packed, valid, max_probes):
     placed = torch.empty((n,), dtype=torch.bool, device=table.device)
     if n == 0:
         return slot, placed
+    t0 = time.perf_counter()
     rc = _entry("trino_hash_insert")(table.data_ptr(), packed.data_ptr(), valid.data_ptr(),
                                      n, C, int(max_probes), slot.data_ptr(),
                                      placed.data_ptr(), _stream())
     _check(rc, "hash_insert")
-    STATS["hash_insert"].record((n, C))
+    STATS["hash_insert"].record((n, C), time.perf_counter() - t0)
     return slot, placed
 
 
@@ -379,13 +389,14 @@ def hash_probe(table, vals, packed, valid, max_probes: int = MAX_PROBES):
     matched = torch.empty((n,), dtype=torch.bool, device=table.device)
     if n == 0:
         return out, matched
+    t0 = time.perf_counter()
     rc = _entry("trino_hash_probe")(table.data_ptr(),
                                     None if vals is None else vals.data_ptr(),
                                     packed.data_ptr(), valid.data_ptr(), n, C,
                                     int(max_probes), out.data_ptr(), matched.data_ptr(),
                                     _stream())
     _check(rc, "hash_probe")
-    STATS["hash_probe"].record((n, C))
+    STATS["hash_probe"].record((n, C), time.perf_counter() - t0)
     return out, matched
 
 
@@ -444,10 +455,12 @@ def compact_rows(arrays, valid, out_len: int):
     src_ptrs = (ctypes.c_void_p * k)(*[a.data_ptr() for a in srcs])
     dst_ptrs = (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs])
     widths = (ctypes.c_int * k)(*[a.element_size() for a in srcs])
+    t0 = time.perf_counter()
     rc = _entry("trino_compact_rows")(valid.data_ptr(), n, int(out_len), k, src_ptrs,
                                       dst_ptrs, widths, scratch.data_ptr(), _stream())
     _check(rc, "compact_rows")
-    STATS["compact_rows"].record((n, int(out_len), tuple(a.element_size() for a in srcs)))
+    STATS["compact_rows"].record((n, int(out_len), tuple(a.element_size() for a in srcs)),
+                                 time.perf_counter() - t0)
     it = iter(outs)
     return tuple(None if a is None else next(it) for a in arrays), scratch[ntiles + 1]
 
@@ -495,11 +508,12 @@ def fused_segment_agg(slot, valid, value_cols, n_slots: int):
     k = len(cols)
     out = torch.empty((n_slots * (k + 1),), dtype=torch.int32, device=slot.device)
     ptrs = (ctypes.c_void_p * max(k, 1))(*[c.data_ptr() for c in cols])
+    t0 = time.perf_counter()
     rc = _entry("trino_segment_agg")(slot.data_ptr(), valid.data_ptr(), ptrs, k, n,
                                      int(n_slots), out.data_ptr(), _stream())
     _check(rc, "fused_segment_agg")
     if n:
-        STATS["fused_segment_agg"].record((n, int(n_slots), k))
+        STATS["fused_segment_agg"].record((n, int(n_slots), k), time.perf_counter() - t0)
     sums = out[n_slots:].view(torch.float32).view(k, n_slots)
     return out[:n_slots], tuple(sums[j] for j in range(k))
 
