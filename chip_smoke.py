@@ -123,6 +123,25 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    port on the CPU as control and a card server as test, all MATCH.  Then
    insert, probe and compaction against their plain versions at the shapes
    recorded while the four clients ran.  ``by_path`` gains ``server_sf1``.
+12. The plan cache and the device buffer pool at their defaults
+   (``cache_path``; phases 2-11 run with the pool's tiers off, phase 12 with
+   the page tier at a quarter of the card's memory): (a) the 22 queries twice
+   on one SF1 engine, each result equal to phase 2's, with wall, launches,
+   H2D bytes, host reads and the pool's hits, misses and bytes saved per
+   query and pass; the second pass plans nothing, hits the page tier on
+   every scan, checks every join build out (no hashed build runs, so no
+   ``hash_insert`` launch for one) and copies no more H2D bytes; the pool's
+   resident bytes against its budget beside the card's peak and reserved
+   memory; (b) the 22 over a 1 GiB page tier: equal results, evictions, the
+   resident bytes never past the budget; (c) bench.py's five with a 256 MiB
+   result tier: a hit equals the miss and counts no launch, no host read,
+   no H2D byte, and ``now()`` never enters; (d) CTAS of orders into memory,
+   a read that hits, then INSERT, DELETE and UPDATE: after each no tier
+   holds anything, the read misses, and its rows equal a numpy oracle of the
+   same writes; (e) the planner milliseconds a warm repeat saves; (f) a
+   kernel launched at the whole lineitem page (6,000,026 rows at SF1), and
+   insert, compaction and probe against their plain versions at the second
+   pass's shapes.  ``by_path`` gains ``cache_sf1``.
 
 It prints the card line, then one JSON line with every kernel's numbers, and
 last ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -3402,6 +3421,357 @@ def server_path(direct):
         k: {"max_abs_err": r["max_abs_err"], "shapes": r["shapes"]} for k, r in checks.items()}
 
 
+# -- phase 12: the plan cache and the device buffer pool at SF1 ---------------------------
+CACHE_EVICT_BUDGET = 1 << 30  # 12b: the page tier's budget under pressure
+CACHE_RESULT_BUDGET = 256 << 20  # 12c: TRINO_TPU_RESULT_CACHE
+CACHE_COUNTERS = ("page_cache_hits", "page_cache_misses", "page_cache_bytes_saved",
+                  "build_cache_hits", "build_cache_misses", "build_cache_bytes_saved",
+                  "result_cache_hits", "result_cache_misses", "result_cache_bytes_saved")
+# 12d: TPC-H orders copied into the memory catalog, one read, and three writes
+CACHE_CTAS = "create table o as select * from tpch.orders"
+CACHE_READ = ("select o_orderstatus, count(*) c, sum(o_totalprice) s, max(o_orderkey) mk "
+              "from o group by o_orderstatus order by o_orderstatus")
+CACHE_WRITES = (
+    ("insert", "insert into o select * from tpch.orders where o_orderkey < 1000"),
+    ("delete", "delete from o where o_orderkey % 7 = 3"),
+    ("update", "update o set o_totalprice = o_totalprice * 2 where o_orderstatus = 'P'"),
+)
+CACHE_VOLATILE = "select n_name, now() t from nation"
+
+
+def counted_builds():
+    """Count the calls of the executor's two hashed join builds
+    (``build_insert``, ``multi_build``) and the hash_insert launches they
+    make.  Returns (the counts, a function that undoes the wrapping)."""
+    import trino_tpu_torch.exec.local_executor as LE
+    from trino_tpu_torch.ops import cuda_kernels as ck
+
+    counts = {"calls": 0, "hash_insert": 0}
+    saved = {name: getattr(LE, name) for name in ("build_insert", "multi_build")}
+
+    def wrap(real):
+        def counted(*a, **k):
+            before = ck.STATS["hash_insert"].launches
+            try:
+                return real(*a, **k)
+            finally:
+                counts["calls"] += 1
+                counts["hash_insert"] += ck.STATS["hash_insert"].launches - before
+        return counted
+
+    for name, real in saved.items():
+        setattr(LE, name, wrap(real))
+    return counts, lambda: [setattr(LE, n, f) for n, f in saved.items()]
+
+
+def launch_counts():
+    from trino_tpu_torch.ops import cuda_kernels as ck
+
+    return {k: s.launches for k, s in ck.STATS.items()}
+
+
+def cache_pass(engine, label, phase2, builds):
+    """12a: the 22 queries once, each equal to phase 2's result.  Per query:
+    wall, launches per kernel, H2D bytes and host reads, the pool's hits,
+    misses and bytes saved, the planner span's milliseconds and the hashed
+    join builds that ran."""
+    import torch
+
+    out = {}
+    for q, sql in ALL_QUERIES.items():
+        before, b0 = launch_counts(), dict(builds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.execute_sql(sql, engine.create_session("tpch"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        same_result(res, phase2[q], f"cache {label} {q} vs phase 2")
+        c = engine.last_query_counters
+        planner = [s["duration_s"] for s in engine.last_query_trace["spans"]
+                   if s["name"] == "planner"]
+        after = launch_counts()
+        rec = {"wall_s": wall, "launches": {k: after[k] - before[k] for k in after
+                                            if after[k] > before[k]},
+               "h2d_bytes": c["h2d_bytes"], "host_reads": c["host_reads"],
+               **{k: c[k] for k in CACHE_COUNTERS},
+               "planned": bool(planner), "planner_ms": 1e3 * sum(planner),
+               "build_calls": builds["calls"] - b0["calls"],
+               "build_inserts": builds["hash_insert"] - b0["hash_insert"]}
+        out[q] = rec
+        print(f"cache {label} {q}: wall_s={wall} launches={rec['launches']} "
+              f"h2d_bytes={rec['h2d_bytes']} host_reads={rec['host_reads']} "
+              f"page hits/misses/saved={rec['page_cache_hits']}/{rec['page_cache_misses']}/"
+              f"{rec['page_cache_bytes_saved']} build hits/misses/saved="
+              f"{rec['build_cache_hits']}/{rec['build_cache_misses']}/"
+              f"{rec['build_cache_bytes_saved']} planner_ms={rec['planner_ms']} "
+              f"build_calls={rec['build_calls']} build_inserts={rec['build_inserts']}",
+              flush=True)
+    return out
+
+
+def pool_line(engine, what):
+    """The pool's resident bytes against its budget, beside the card's peak
+    and reserved memory."""
+    import torch
+
+    info = engine.buffer_pool.info()
+    line = {"what": what, "device_bytes": info["device_bytes"],
+            "budget_bytes": engine.buffer_pool.budget(), "entries": info["entries"],
+            "evictions": info["evictions"],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "memory_reserved": torch.cuda.memory_reserved()}
+    print(f"cache pool {what}: resident {line['device_bytes']} of {line['budget_bytes']} "
+          f"bytes in {line['entries']} entries, {line['evictions']} evictions; "
+          f"max_memory_allocated {line['max_memory_allocated']} "
+          f"memory_reserved {line['memory_reserved']}", flush=True)
+    return line
+
+
+def cache_eviction(engine, phase2):
+    """12b: the 22 queries again over a page tier of CACHE_EVICT_BUDGET:
+    results equal phase 2's, the pool evicts, and its resident bytes never
+    pass the budget."""
+    from trino_tpu_torch.execution.bufferpool import DeviceBufferPool
+
+    engine.buffer_pool.clear()
+    engine.buffer_pool = bp = DeviceBufferPool(budget_bytes=CACHE_EVICT_BUDGET,
+                                               device=engine.device)
+    most = 0
+    for q, sql in ALL_QUERIES.items():
+        res = engine.execute_sql(sql, engine.create_session("tpch"))
+        same_result(res, phase2[q], f"cache eviction {q} vs phase 2")
+        most = max(most, bp.info()["device_bytes"])
+        check(bp.info()["device_bytes"] <= CACHE_EVICT_BUDGET,
+              f"cache eviction {q}: {bp.info()['device_bytes']} resident bytes past "
+              f"the budget {CACHE_EVICT_BUDGET}")
+    check(bp.evictions > 0, "cache eviction: a 1 GiB page tier evicted nothing")
+    line = pool_line(engine, "12b")
+    line["most_resident_bytes"] = most
+    return line
+
+
+def result_hit_counts(engine, sql, sess, what):
+    """A statement the result tier must answer: no launch, no host read, no
+    H2D byte, one hit."""
+    before = launch_counts()
+    res = engine.execute_sql(sql, sess)
+    c = engine.last_query_counters
+    check(launch_counts() == before, f"{what}: a result-tier hit launched a kernel")
+    check(c["result_cache_hits"] == 1 and c["result_cache_misses"] == 0
+          and c["launches"] == {} and c["host_reads"] == 0 and c["h2d_bytes"] == 0,
+          f"{what}: a result-tier hit counted {c}")
+    return res
+
+
+def cache_results(engine, phase2):
+    """12c: bench.py's five with a CACHE_RESULT_BUDGET result tier: a miss
+    stores, the hit equals it and counts nothing; ``now()`` never enters."""
+    from trino_tpu_torch.execution.bufferpool import DeviceBufferPool
+
+    os.environ["TRINO_TPU_RESULT_CACHE"] = str(CACHE_RESULT_BUDGET)
+    try:
+        engine.buffer_pool.clear()
+        engine.buffer_pool = bp = DeviceBufferPool(device=engine.device)
+        check(bp.result_budget() == CACHE_RESULT_BUDGET, "cache results: the tier's budget")
+    finally:
+        os.environ.pop("TRINO_TPU_RESULT_CACHE")
+    out = {}
+    for q, sql in QUERIES.items():
+        sess = engine.create_session("tpch")
+        t0 = time.perf_counter()
+        miss = engine.execute_sql(sql, sess)
+        miss_s = time.perf_counter() - t0
+        check(engine.last_query_counters["result_cache_misses"] == 1,
+              f"cache results {q}: the first run was no miss of the tier")
+        same_result(miss, phase2[q], f"cache results {q} miss vs phase 2")
+        t0 = time.perf_counter()
+        hit = result_hit_counts(engine, sql, sess, f"cache results {q}")
+        hit_s = time.perf_counter() - t0
+        same_result(hit, miss, f"cache results {q} hit vs miss")
+        out[q] = {"miss_s": miss_s, "hit_s": hit_s,
+                  "bytes_saved": engine.last_query_counters["result_cache_bytes_saved"]}
+        print(f"cache results {q}: miss_s={miss_s} hit_s={hit_s} "
+              f"bytes_saved={out[q]['bytes_saved']}", flush=True)
+    sess = engine.create_session("tpch")
+    for _ in range(2):
+        engine.execute_sql(CACHE_VOLATILE, sess)
+        c = engine.last_query_counters
+        check(c["result_cache_hits"] == 0 and c["result_cache_misses"] == 0,
+              "cache results: now() entered the result tier")
+    return out
+
+
+def orders_oracle(keys, status, price):
+    """CACHE_READ over host arrays: (status, count, raw sum, max key) per
+    status, in status order."""
+    out = []
+    for s in sorted(set(status.tolist())):
+        m = status == s
+        out.append((s, int(m.sum()), int(price[m].sum()), int(keys[m].max())))
+    return out
+
+
+def cache_invalidation(engine):
+    """12d: a memory copy of orders read twice (the second read a hit), then
+    INSERT, DELETE and UPDATE: after each, every tier is empty, the read
+    misses and returns the new rows, its repeat hits, and the rows equal a
+    numpy oracle over the same writes applied to the orders the card
+    returned."""
+    import numpy as np
+
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+
+    engine.register_catalog("memory", MemoryConnector())
+    sess = engine.create_session("memory")
+    base = engine.execute_sql("select o_orderkey, o_orderstatus, o_totalprice from tpch.orders",
+                              engine.create_session("tpch"))
+    keys = np.asarray(base.raw_columns[0]).astype(np.int64)
+    status = np.asarray([str(v) for v in base.columns[1]], dtype=object)
+    price = np.asarray(base.raw_columns[2]).astype(np.int64)
+    t0 = time.perf_counter()
+    engine.execute_sql(CACHE_CTAS, sess)
+    steps = {"ctas_s": time.perf_counter() - t0}
+
+    def read(what):
+        res = engine.execute_sql(CACHE_READ, sess)
+        c = engine.last_query_counters
+        check(c["result_cache_hits"] == 0 and c["result_cache_misses"] == 1
+              and c["page_cache_hits"] == 0 and c["build_cache_hits"] == 0,
+              f"cache invalidation {what}: the read after the write hit a tier: {c}")
+        same_result(result_hit_counts(engine, CACHE_READ, sess, f"cache invalidation {what}"),
+                    res, f"cache invalidation {what} hit vs miss")
+        got = [(str(s), int(n), int(t), int(k)) for s, n, t, k in zip(
+            res.columns[0], res.raw_columns[1], res.raw_columns[2], res.raw_columns[3])]
+        want = orders_oracle(keys, status, price)
+        check(got == want, f"cache invalidation {what}: {got} vs the oracle's {want}")
+        print(f"cache invalidation {what}: {got} equal the oracle's", flush=True)
+        return got
+
+    prev = read("ctas")
+    for label, sql in CACHE_WRITES:
+        t0 = time.perf_counter()
+        engine.execute_sql(sql, sess)
+        steps[f"{label}_s"] = time.perf_counter() - t0
+        check(engine.buffer_pool.info()["entries"] == 0 and not engine._plan_cache,
+              f"cache invalidation {label}: a cache survived the write")
+        if label == "insert":
+            m = keys < 1000
+            keys, status, price = (np.concatenate([a, a[m]]) for a in (keys, status, price))
+        elif label == "delete":
+            m = keys % 7 != 3
+            keys, status, price = keys[m], status[m], price[m]
+        else:
+            price = np.where(status == "P", price * 2, price)
+        got = read(label)
+        check(got != prev, f"cache invalidation {label}: the write changed no row the read sees")
+        prev = got
+    return steps
+
+
+def cache_path(phase2):
+    """Phase 12: the plan cache and the buffer pool at their defaults on one
+    card.  ``phase2``: phase 2's result of each of the 22 queries.  Returns
+    (the record, launches of the phase, {kernel: checks at its shapes})."""
+    import numpy as np
+    import torch
+
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.exec.local_executor import LocalExecutor
+    from trino_tpu_torch.ops import cuda_kernels as ck
+    from trino_tpu_torch.ops.hashing import pack_keys
+
+    t_phase = time.perf_counter()
+    # the defaults: the page tier at a quarter of the card's memory, the
+    # result tier off
+    os.environ.pop("TRINO_TPU_PAGE_CACHE", None)
+    os.environ.pop("TRINO_TPU_RESULT_CACHE", None)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    conn = TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS)
+    engine = Engine(device=DEVICE)
+    engine.register_catalog("tpch", conn)
+    engine.execute_sql(Q15_VIEW, engine.create_session("tpch"))
+    _free, total = torch.cuda.mem_get_info()
+    budget = engine.buffer_pool.budget()
+    check(0 < budget <= total // 4, f"the page tier's default budget {budget} of {total}")
+    li_rows = conn.exact_row_count("lineitem")
+    rec = {"budget_bytes": budget, "total_bytes": total}
+    launches = dict.fromkeys(ck.STATS, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    builds, restore = counted_builds()
+    try:
+        ck.reset_stats()
+        p1 = cache_pass(engine, "pass1", phase2, builds)
+        add(launch_counts())
+        ck.reset_stats()
+        p2 = cache_pass(engine, "pass2", phase2, builds)
+        add(launch_counts())
+        shapes = {k: list(s.shapes) for k, s in ck.STATS.items()}
+    finally:
+        restore()
+    check(sum(r["build_inserts"] for r in p1.values()) > 0,
+          "cache pass1: no hashed join build launched hash_insert")
+    for q, r in p2.items():
+        check(not r["planned"], f"cache pass2 {q} planned again")
+        check(r["page_cache_misses"] == 0 and r["page_cache_hits"] > 0,
+              f"cache pass2 {q}: {r['page_cache_hits']} page hits, "
+              f"{r['page_cache_misses']} misses")
+        check(r["build_cache_misses"] == 0, f"cache pass2 {q}: a join built again")
+        check(r["build_calls"] == 0 and r["build_inserts"] == 0,
+              f"cache pass2 {q}: {r['build_inserts']} hash_insert launches for builds")
+        check(r["h2d_bytes"] <= p1[q]["h2d_bytes"], f"cache pass2 {q}: more H2D bytes")
+    rec["pass1"], rec["pass2"] = p1, p2
+    rec["pool_12a"] = pool_line(engine, "12a")
+    check(rec["pool_12a"]["device_bytes"] <= budget, "cache: the pool passed its budget")
+    # 12e: a warm repeat plans nothing; the host time saved is the cold
+    # planner span (plan-time subqueries included)
+    for q in ALL_QUERIES:
+        print(f"cache plan {q}: planner_ms saved {p1[q]['planner_ms']} "
+              f"(pass1 wall_s {p1[q]['wall_s']}, pass2 wall_s {p2[q]['wall_s']})", flush=True)
+    # 12f: a cached scan reaches the kernels as one page of the whole table
+    whole = {k: sum(1 for s in v if s[0] == li_rows) for k, v in shapes.items()}
+    check(any(whole.values()), f"cache pass2: no kernel launched at the whole lineitem "
+          f"page of {li_rows} rows")
+    rec["whole_page_launches"] = whole
+    print(f"cache pass2: launches at the whole lineitem page ({li_rows} rows): {whole}",
+          flush=True)
+
+    before = launch_counts()
+    rec["eviction"] = cache_eviction(engine, phase2)
+    rec["results"] = cache_results(engine, phase2)
+    rec["invalidation"] = cache_invalidation(engine)
+    after = launch_counts()
+    add({k: after[k] - before[k] for k in after})
+
+    # the kernels at this path's shapes (pass 2's: whole-table pages), the
+    # insert also on the whole cached lineitem's l_orderkey
+    ex = LocalExecutor(engine.catalogs, DEVICE)
+    page = ex._stage_scan_entry([conn.generate(s, ["l_orderkey"])
+                                 for s in conn.splits("lineitem")])
+    check(page.capacity == li_rows, f"the staged lineitem page holds {page.capacity} rows")
+    packed, _ = pack_keys((page.columns[0],), (page.schema.fields[0].type,))
+    gen = np.random.default_rng(29)
+    checks = {"hash_insert": insert_checks(shapes["hash_insert"], (
+                  "whole_lineitem_orderkey", packed, page.valid_mask()), gen),
+              "compact_rows": compact_checks(shapes["compact_rows"], gen)}
+    if shapes["hash_probe"]:
+        checks["hash_probe"] = probe_checks(shapes["hash_probe"], gen)
+    del page, packed, ex
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"cache path: {rec['seconds']:.1f} s, launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    print(json.dumps({"cache_sf1": rec}, default=str), flush=True)
+    del engine, conn
+    torch.cuda.empty_cache()
+    return rec, launches, {k: {"max_abs_err": r["max_abs_err"], "shapes": r["shapes"]}
+                           for k, r in checks.items()}
+
+
 def main() -> int:
     import torch
 
@@ -3421,6 +3791,11 @@ def main() -> int:
         return 3
 
     t_start = time.perf_counter()
+    # phases 2-11 measure the port with the buffer pool's tiers off, as their
+    # launch tables and H2D checks were recorded (every scan generated);
+    # phase 12 measures the defaults
+    os.environ["TRINO_TPU_PAGE_CACHE"] = "0"
+    os.environ["TRINO_TPU_RESULT_CACHE"] = "0"
     try:
         card = card_line()
         print(f"card: {card}", flush=True)
@@ -3439,6 +3814,7 @@ def main() -> int:
         engine = Engine(device=DEVICE)
         engine.register_catalog("tpch", conn)
         engine.execute_sql(Q15_VIEW, engine.create_session("tpch"))
+        check(engine.buffer_pool.budget() == 0, "phase 2 runs with the page tier on")
         li_rows = conn.exact_row_count("lineitem")
         ck.reset_stats()
         main = run_queries(engine, ALL_QUERIES, li_rows, f"sf{SF_MAIN:g}")
@@ -3466,8 +3842,9 @@ def main() -> int:
                   f"({len(ref)} rows, CPU {time.perf_counter() - t0:.2f} s)", flush=True)
         print(f"CPU pass: {time.perf_counter() - t_cpu:.1f} s", flush=True)
         del cpu
-        # phase 8's oracle after RF1
-        tpch_ref = {q: main[q]["result"] for q in MEMORY_QUERIES}
+        # phase 12's oracle, and phase 8's after RF1
+        phase2 = {q: main[q]["result"] for q in ALL_QUERIES}
+        tpch_ref = {q: phase2[q] for q in MEMORY_QUERIES}
         # phase 11's: each query's rows as the server sends them, its host
         # reads and its launches
         direct = {q: {"names": list(r["result"].names), "rows": json_rows(r["result"]),
@@ -3541,6 +3918,8 @@ def main() -> int:
         # -- phase 11: the coordinator entry point, TPC-H SF1 over the protocol -
         torch.cuda.empty_cache()
         _, sv_launches, sv_checks = server_path(direct)
+        # -- phase 12: the plan cache and the buffer pool at their defaults ----
+        _, ca_launches, ca_checks = cache_path(phase2)
 
         # per path: its launches, and the checks at its own shapes (the
         # top-level times stay the TPC-H path's largest shape's)
@@ -3558,12 +3937,14 @@ def main() -> int:
                 "arrays_sf1": {"launches": ar_launches[name],
                                **ar_checks.get(name, {"max_abs_err": None, "shapes": []})},
                 "server_sf1": {"launches": sv_launches[name],
-                               **sv_checks.get(name, {"max_abs_err": None, "shapes": []})}}
-            for checks in (ds_checks, mem_checks, fn_checks, ar_checks, sv_checks):
+                               **sv_checks.get(name, {"max_abs_err": None, "shapes": []})},
+                "cache_sf1": {"launches": ca_launches[name],
+                              **ca_checks.get(name, {"max_abs_err": None, "shapes": []})}}
+            for checks in (ds_checks, mem_checks, fn_checks, ar_checks, sv_checks, ca_checks):
                 if name in checks:
                     r["max_abs_err"] = max(r["max_abs_err"], checks[name]["max_abs_err"])
             r["launches"] += (ds_launches[name] + mem_launches[name] + fn_launches[name]
-                              + ar_launches[name] + sv_launches[name])
+                              + ar_launches[name] + sv_launches[name] + ca_launches[name])
         print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

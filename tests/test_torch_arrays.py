@@ -18,8 +18,8 @@ lists and dicts).  The statements the reference refuses (CTAS
 of an array-valued query, element calls and UNNEST over an ``array_agg``
 result) are cases too: both packages raise alike.
 
-Left out: test_arrays.py::test_array_type_ddl_roundtrip, whose SHOW COLUMNS
-waits for the port's statement layer (ROADMAP A6).
+test_arrays.py::test_array_type_ddl_roundtrip is restated in
+tests/test_torch_parity_edges.py.
 
 Op level: each of the 12 array, map and span calls of ``sql/ir.py`` built in
 both packages' IR and evaluated over the same numpy-seeded spans and heaps,

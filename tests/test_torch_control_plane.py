@@ -223,6 +223,32 @@ def test_show_and_explain_equal_the_reference(ref, sql):
     assert a.rows() == b.rows(), sql
 
 
+@pytest.mark.parametrize("sql", [
+    "explain execute p",
+    "explain execute p using 3",
+    "explain analyze execute p using 3",
+], ids=["explain", "explain_using", "explain_analyze"])
+def test_explain_execute_equals_the_reference(monkeypatch, sql):
+    """ROADMAP C6: EXPLAIN [ANALYZE] EXECUTE prints the reference's lines for
+    a statement without a plan template (the reference's templates off; the
+    port has none yet).  The time in ANALYZE's last line is masked."""
+    import re
+
+    monkeypatch.setenv("TRINO_TPU_PLAN_TEMPLATES", "0")
+    j = JaxEngine()
+    j.register_catalog("tpch", JaxTpch(sf=0.01, split_rows=1 << 14))
+    t = TorchEngine(device="cpu")
+    t.register_catalog("tpch", TorchTpch(sf=0.01, split_rows=1 << 14))
+    got = []
+    for e in (j, t):
+        s = e.create_session("tpch")
+        e.execute_sql("prepare p from select c_name from customer where c_custkey = ?", s)
+        got.append([re.sub(r"executed in [0-9.]+ ms", "executed in T ms", r[0])
+                    for r in e.execute_sql(sql, s).rows()])
+    assert got[0] == got[1], got
+    assert got[1][0].startswith("Plan template: ")
+
+
 def test_show_statements():
     e = _engine()
     s = e.create_session("tpch")

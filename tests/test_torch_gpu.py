@@ -5,7 +5,9 @@ primitives and the window kernel on the card against their CPU runs; the
 streaming LIMIT compacting through the CUDA kernel; the sort-based
 aggregation runner, the function corpora and the exact wide sums; and the
 array, map, UNNEST and MATCH_RECOGNIZE corpora, UNNEST's expansion map and
-the vectorized matcher; the coordinator server over a card engine.
+the vectorized matcher; the coordinator server over a card engine; the
+buffer pool's page, build and result tiers on the card (phase 12 of
+chip_smoke.py at SF0.01).
 
 They skip without a card.  This file imports no jax, so on a machine with a
 card (which has no jax) it runs without the repo's conftest:
@@ -774,11 +776,12 @@ def test_unnest_indices_and_vector_match_on_the_card_equal_the_cpu(dev):
     assert out[0].usable.any()
 
 
-def test_server_on_the_card_serves_the_cpu_results(dev):
+def test_server_on_the_card_serves_the_cpu_results(dev, monkeypatch):
     """Phase 11 of chip_smoke.py at SF0.01: a CoordinatorServer over a card
     engine answers bench.py's queries with the pages a CPU engine's results
     make, from four clients at once; each statement's launches are its
-    serial run's, and /v1/status reports the card's memory."""
+    serial run's, and /v1/status reports the card's memory.  As in phase 11,
+    the buffer pool's page tier is off: every run generates its scans."""
     import json
     import threading
     import urllib.request
@@ -788,6 +791,7 @@ def test_server_on_the_card_serves_the_cpu_results(dev):
     from trino_tpu_torch.connectors.tpch import TpchConnector
     from trino_tpu_torch.server import Client, CoordinatorServer
 
+    monkeypatch.setenv("TRINO_TPU_PAGE_CACHE", "0")
     card = Engine(device="cuda")
     card.register_catalog("tpch", TpchConnector(sf=0.01))
     cpu = Engine(device="cpu")
@@ -826,3 +830,93 @@ def test_server_on_the_card_serves_the_cpu_results(dev):
         assert status["device_memory"]["bytes_limit"] > 0
     finally:
         srv.stop()
+
+
+# -- the buffer pool on the card (phase 12) ----------------------------------------------
+
+
+def test_page_tier_defaults_to_a_quarter_of_the_card(dev, monkeypatch):
+    from trino_tpu_torch import Engine
+
+    monkeypatch.delenv("TRINO_TPU_PAGE_CACHE", raising=False)
+    monkeypatch.delenv("TRINO_TPU_RESULT_CACHE", raising=False)
+    e = Engine()
+    free, total = torch.cuda.mem_get_info()
+    assert 0 < e.buffer_pool.budget() <= total // 4
+    assert e.buffer_pool.result_budget() == 0
+    assert Engine(device="cpu").buffer_pool.budget() == 0
+
+
+def test_cached_passes_on_the_card_equal_the_cpu(dev, monkeypatch):
+    """The 22 queries twice on a card engine at the default page tier: both
+    passes equal the CPU's results; the second hits the page tier on every
+    scan, checks every join build out and runs no hashed build, so it
+    launches no ``hash_insert`` for one."""
+    import chip_smoke as cs
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    monkeypatch.delenv("TRINO_TPU_PAGE_CACHE", raising=False)
+    cpu = _card_and_cpu(cs.ALL_QUERIES)["cpu"]
+    card = Engine(device="cuda")
+    card.register_catalog("tpch", TpchConnector(sf=0.01))
+    card.execute_sql(cs.Q15_VIEW, card.create_session("tpch"))
+    builds, restore = cs.counted_builds()
+    try:
+        for label in ("pass1", "pass2"):
+            before = dict(builds)
+            for q, sql in cs.ALL_QUERIES.items():
+                _same(card.execute_sql(sql, card.create_session("tpch")), cpu[q])
+                c = card.last_query_counters
+                if label == "pass2":
+                    # bench.py's Q18 is empty at SF0.01: its semi join's
+                    # build is empty, so its probe reads no split at all
+                    assert c["page_cache_misses"] == 0, q
+                    assert c["page_cache_hits"] > 0 or q == "q18", q
+                    assert c["build_cache_misses"] == 0, q
+            if label == "pass1":
+                assert builds["hash_insert"] > before["hash_insert"]
+            else:
+                assert builds == before, "a warm pass ran a hashed join build"
+    finally:
+        restore()
+    assert card.buffer_pool.info()["device_bytes"] <= card.buffer_pool.budget()
+
+
+def test_staged_scan_page_on_the_card_equals_the_cpu(dev):
+    """A completed scan staged as one page (the kernel packs the live rows)
+    holds the bytes the CPU's staging holds."""
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.exec.local_executor import LocalExecutor
+
+    pages = {}
+    for device in ("cuda", "cpu"):
+        conn = TpchConnector(sf=0.01, split_rows=1 << 13, device=device)
+        ex = LocalExecutor({"tpch": conn}, device)
+        cols = ["l_orderkey", "l_quantity", "l_shipdate", "l_returnflag"]
+        before = ck.STATS["compact_rows"].launches
+        pages[device] = ex._stage_scan_entry([conn.generate(s, cols)
+                                              for s in conn.splits("lineitem")])
+        if device == "cuda":
+            assert ck.STATS["compact_rows"].launches == before + 1
+    a, b = pages["cuda"], pages["cpu"]
+    assert a.valid is None and b.valid is None and a.capacity == b.capacity
+    for x, y in zip(a.columns, b.columns):
+        assert x.device.type == "cuda" and torch.equal(x.cpu(), y)
+
+
+def test_result_tier_hit_launches_nothing_on_the_card(dev, monkeypatch):
+    import chip_smoke as cs
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    monkeypatch.setenv("TRINO_TPU_RESULT_CACHE", str(64 << 20))
+    card = Engine(device="cuda")
+    card.register_catalog("tpch", TpchConnector(sf=0.01))
+    cpu = _card_and_cpu(cs.QUERIES)["cpu"]
+    for q, sql in cs.QUERIES.items():
+        s = card.create_session("tpch")
+        miss = card.execute_sql(sql, s)
+        hit = cs.result_hit_counts(card, sql, s, q)
+        _same(miss, cpu[q])
+        _same(hit, miss)

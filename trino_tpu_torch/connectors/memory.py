@@ -195,6 +195,10 @@ class MemorySplit:
 
 class MemoryConnector:
     name = "memory"
+    CACHEABLE_SCANS = True  # every write through the engine calls
+    # Engine._invalidate, which clears the buffer pool; a write that
+    # bypasses the engine (a direct ``append``) must invalidate itself, the
+    # contract the plan cache imposes too
 
     def __init__(self, device=None):
         # device the tables live on; None = the device of the engine

@@ -42,8 +42,8 @@ SCHEMAS = {
         # ticks from creation
         Field("device_dispatches", BIGINT), Field("host_bytes_pulled", BIGINT),
         Field("elapsed_s", DOUBLE),
-        # statements answered whole from a result cache (the port keeps
-        # none: NULL)
+        # statements answered whole from the result tier (result_cache_hits
+        # > 0: no launch, no host read)
         Field("result_cache_hits", BIGINT),
     )),
     "nodes": Schema((
@@ -134,6 +134,14 @@ class SystemConnector:
             g = _Growable()
             self._dicts[(table, column)] = g
         return g
+
+    def plan_version(self) -> int:
+        """Growable dictionaries grow in place across queries, while a cached
+        plan embeds string-predicate tables sized to the dictionary at plan
+        time: a new id would gather past them.  The engine keys its plan
+        cache on this value, so any growth replans the plans that read
+        these tables."""
+        return sum(len(g.values) for g in self._dicts.values())
 
     def row_count(self, table: str) -> int:
         return len(self._rows(table))

@@ -1259,6 +1259,7 @@ class TpcdsConnector:
 
     name = "tpcds"
     supports_count_pushdown = True  # row counts are index-derived (exact)
+    CACHEABLE_SCANS = True  # deterministic generator (see TpchConnector)
 
     def __init__(self, sf: float = 1.0, split_rows: int = 1 << 20, device=None):
         self.sf = sf

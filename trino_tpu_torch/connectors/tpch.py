@@ -449,6 +449,9 @@ class TpchConnector:
     """Connector over generated TPC-H data."""
 
     supports_count_pushdown = True  # via exact_row_count below
+    CACHEABLE_SCANS = True  # deterministic generator: a (table, split,
+    # columns) page is the same for the life of the process, so the buffer
+    # pool may serve it across queries
 
     name = "tpch"
 

@@ -29,17 +29,39 @@ raw (storage-form) columns, and the per-value coercion of the reference
 (``_coerce_host``) runs only where a coercion happens (``INSERT ... VALUES``,
 mismatched types).
 
-Not ported: the reference's plan, result and buffer caches that its
-``_invalidate`` clears, plan templates (EXECUTE always substitutes its
-parameters as literals), batching, adaptive execution, plan history, the
-flight recorder, the memory ladder, fault-tolerant and distributed execution.
+Caches, as in the reference:
+
+- the plan cache: a SELECT's plan keyed on its normalized text, the session
+  catalog, the user and the plan-shaping session properties
+  (``_plan_shape_props``); a hit skips parse, analyze and plan (no
+  ``planner`` span).  A catalog with a ``plan_version`` (the system
+  catalog's growable dictionaries) replans the plans that read it when the
+  version moves.  Unlike the reference's, it keeps at most
+  ``PLAN_CACHE_ENTRIES`` plans, least recently used out first: without
+  plan templates every new EXECUTE value is a new text and a new plan;
+- the device buffer pool (``execution/bufferpool.py``, ``buffer_pool``):
+  the page and build tiers, read by every executor the engine makes (plan
+  time subqueries and the statements' row evaluations included), and the
+  result tier, consulted before a SELECT reaches an executor.
+
+``_invalidate`` clears the plan cache and the pool after every DDL and DML
+statement and at ``register_catalog``: no cache serves rows from before a
+write.  The reference's executor pool, whose executors keep jitted
+pipelines, has no counterpart: the port has no compiled pipelines to keep,
+and makes a fresh executor per plan.
+
+Not ported: plan templates (EXECUTE always substitutes its parameters as
+literals), batching, adaptive execution, plan history, the flight recorder,
+the memory ladder, fault-tolerant and distributed execution.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import re
 import threading
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -75,6 +97,7 @@ def _resolve_device(device) -> torch.device:
 class Engine:
     def __init__(self, device=None):
         from .connectors.system import InformationSchemaConnector, SystemConnector
+        from .execution.bufferpool import DeviceBufferPool
         from .execution.eventlistener import EventListenerManager
         from .execution.query_state import QueryTracker
         from .execution.resourcegroups import ResourceGroupManager
@@ -91,10 +114,18 @@ class Engine:
         # "session_catalog": name}
         self.materialized_views: dict = {}
         self.memory_pool = MemoryPool(device=self.device)
+        # page, build and result tiers shared by every executor of this
+        # engine; budgets read at first use (TRINO_TPU_PAGE_CACHE,
+        # TRINO_TPU_RESULT_CACHE)
+        self.buffer_pool = DeviceBufferPool(device=self.device)
         self._totals_lock = threading.Lock()  # guards counters_total
-        # serializes the system connector's dictionary growth (RLock: the
-        # planner asks for dictionaries while a scan of the same table may
-        # hold it on this thread)
+        # plan cache: key -> (plan, plan_versions of the catalogs it reads),
+        # least recently used first, at most PLAN_CACHE_ENTRIES plans
+        self._plan_cache: OrderedDict = OrderedDict()
+        # serializes plan-cache lookup, planning and store, and the system
+        # connector's dictionary growth (RLock: the planner asks for
+        # dictionaries while a scan of the same table may hold it on this
+        # thread)
         self._plan_lock = threading.RLock()
         # control plane (reference: DispatchManager + QueryTracker + resource
         # groups + EventListenerManager + TracingModule)
@@ -120,6 +151,75 @@ class Engine:
         if getattr(connector, "device", False) is None:
             connector.device = self.device
         self.catalogs[name] = connector
+        self._invalidate()
+
+    # -- the plan cache (reference: Engine._plan_cache) ---------------------------
+    def _invalidate(self) -> None:
+        """Drop every cached plan and release the buffer pool: after DDL, DML
+        or a new catalog, no cache may serve what was there before, nor hold
+        device memory for it."""
+        with self._plan_lock:
+            self._plan_cache.clear()
+        self.buffer_pool.clear()
+
+    def _plan_versions(self, plan) -> tuple:
+        """(catalog, plan_version) of each versioned catalog the plan scans,
+        stored beside the cached plan: a moved version replans only the
+        plans that read that catalog."""
+        from .sql import plan as P
+
+        names: set = set()
+
+        def walk(n):
+            if isinstance(n, P.TableScan):
+                names.add(n.catalog)
+            for c in n.children:
+                walk(c)
+
+        walk(plan)
+        return tuple((nm, self.catalogs[nm].plan_version()) for nm in sorted(names)
+                     if nm in self.catalogs and hasattr(self.catalogs[nm], "plan_version"))
+
+    def _stale_catalog(self, versions):
+        """The first catalog whose plan_version moved past ``versions``, or
+        None while the snapshot is current."""
+        for name, ver in versions:
+            conn = self.catalogs.get(name)
+            if conn is None or conn.plan_version() != ver:
+                return name
+        return None
+
+    def _evict_stale_plan(self, name) -> None:
+        """A catalog's version moved: the pool's entries over it can never
+        serve again, so they release their memory now."""
+        self.buffer_pool.invalidate_catalog(name)
+
+    def _cache_lookup(self, key):
+        """The cached plan, or None when absent or version-stale (a stale
+        entry is evicted).  The caller holds ``_plan_lock``."""
+        entry = self._plan_cache.get(key)
+        if entry is None:
+            return None
+        plan, versions = entry
+        stale = self._stale_catalog(versions)
+        if stale is not None:
+            self._evict_stale_plan(stale)
+            self._plan_cache.pop(key, None)
+            return None
+        self._plan_cache.move_to_end(key)
+        return plan
+
+    def _cache_store(self, key, plan) -> None:
+        """Store a fresh plan, dropping the least recently used past
+        ``PLAN_CACHE_ENTRIES``: EXECUTE and protocol parameters substitute
+        their values into new text (the port has no plan templates), so
+        every new value is a new key.  The caller holds ``_plan_lock``."""
+        # the versions are read AFTER planning: planning itself encodes the
+        # current rows into the growable dictionaries
+        self._plan_cache[key] = (plan, self._plan_versions(plan))
+        self._plan_cache.move_to_end(key)
+        while len(self._plan_cache) > PLAN_CACHE_ENTRIES:
+            self._plan_cache.popitem(last=False)
 
     def create_session(self, catalog: Optional[str] = None,
                        schema: str = "default") -> Session:
@@ -154,12 +254,15 @@ class Engine:
             self.counters_total.merge(counters)
         acct.snap = counters
 
-    def _run_plan(self, plan):
-        """(result, counters) of one plan on a fresh executor."""
+    def _run_plan(self, plan, page_cache: Optional[bool] = None):
+        """(result, counters) of one plan on a fresh executor, which reads
+        the engine's buffer pool (``page_cache``: the session's override)."""
         from .exec.local_executor import LocalExecutor
         from .execution import tracing
 
-        ex = LocalExecutor(self.catalogs, self.device, memory_pool=self.memory_pool)
+        ex = LocalExecutor(self.catalogs, self.device, memory_pool=self.memory_pool,
+                           buffer_pool=self.buffer_pool)
+        ex.page_cache = page_cache
         counters = tracing.QueryCounters()
         try:
             with tracing.track_counters(counters):
@@ -170,17 +273,21 @@ class Engine:
             counters.h2d_bytes += ex.h2d_bytes
             self._account_counters(counters)
 
-    def execute_plan(self, plan, cache: bool = True):
+    def execute_plan(self, plan, cache: bool = True, page_cache: Optional[bool] = None):
         """Run a plan to a host-side ``MaterializedResult`` (also the
         planner's entry point for eager subqueries, which pass
-        ``cache=False``; the port keeps no plan caches either way)."""
-        return self._run_plan(plan)[0]
+        ``cache=False``).  As in the reference, ``cache=False`` still reads
+        and fills the buffer pool's page and build tiers: the reference's
+        flag keeps the plan's compiled pipelines out of its executor pool,
+        and the port keeps none."""
+        return self._run_plan(plan, page_cache)[0]
 
     # -- introspection ------------------------------------------------------------
     def memory_info(self) -> list:
         """The memory pool's snapshot (labeled ``pool0``), with the card's
-        allocator counters on a CUDA engine: the /v1/status and /v1/metrics
-        pool surface."""
+        allocator counters on a CUDA engine, and the buffer pool's labeled
+        reservations (``buffer-pool``, once it stored an entry): the
+        /v1/status and /v1/metrics pool surface."""
         d = self.memory_pool.info()
         d["pool"] = "pool0"
         if self.device.type == "cuda":
@@ -188,7 +295,13 @@ class Engine:
             d["device_allocated_bytes"] = int(st.get("allocated_bytes.all.current", 0))
             d["device_reserved_bytes"] = int(st.get("reserved_bytes.all.current", 0))
             d["device_peak_allocated_bytes"] = int(st.get("allocated_bytes.all.peak", 0))
-        return [d]
+        out = [d]
+        bpool = self.buffer_pool.memory_pool
+        if bpool is not None:
+            b = bpool.info()
+            b["pool"] = "buffer-pool"
+            out.append(b)
+        return out
 
     def health(self) -> dict:
         """Live health verdict.  The port has no stall watchdog yet: always
@@ -307,19 +420,124 @@ class Engine:
             vals = [PRM.literal_param_value(PRM.value_to_literal_ast(v))
                     for v in parameters]
             return self._execute_admitted(_substitute(sql, vals), sess, qsm)
+        # the user is in the key (row filters and column masks make plans
+        # user-specific), and so are the plan-shaping session properties;
+        # the text is normalized, so reformatted repeats share a plan
+        key = (_normalize_statement(sql), sess.catalog, False, sess.user,
+               _plan_shape_props(sess))
+        with self._plan_lock:
+            plan = self._cache_lookup(key)
+        if plan is not None:
+            self._check_select_access(plan, sess.user)
+            return self._run_select(sql, plan, sess, qsm)
         qsm.transition(QueryState.PLANNING)
         ast = A.parse(sql)
         if isinstance(ast, (A.Select, A.SetOp)):
             # scalar and EXISTS subqueries execute while the query plans
             with self.tracer.span("planner", trace_id=qsm.query_id):
-                plan = Planner(self, sess).plan_query(ast)
+                # planning and the version snapshot are atomic with respect
+                # to the system catalog's dictionary growth
+                with self._plan_lock:
+                    plan = Planner(self, sess).plan_query(ast)
+                    self._cache_store(key, plan)
             self._check_select_access(plan, sess.user)
             qsm.transition(QueryState.STARTING)
-            qsm.transition(QueryState.RUNNING)
-            with self.tracer.span("execution", trace_id=qsm.query_id):
-                return self.execute_plan(plan)
+            return self._run_select(sql, plan, sess, qsm)
         qsm.transition(QueryState.RUNNING)
         return self._execute_statement(ast, sess)
+
+    def _run_select(self, sql: str, plan, sess: Session, qsm):
+        """A planned SELECT, cached plan or fresh: the result tier first (a
+        hit answers with no launch, no host read and no H2D copy, after
+        admission, so the statement is tracked and access-checked like any
+        other), else the plan runs and its result is stored on clean
+        completion."""
+        from .execution.query_state import QueryState
+
+        rkey = self._result_cache_key(sql, plan, sess)
+        # the epoch the statement starts under: an invalidation while it runs
+        # refuses its late store
+        epoch = self.buffer_pool.epoch if rkey is not None else None
+        if rkey is not None:
+            served = self._result_cache_fetch(rkey)
+            if served is not None:
+                qsm.transition(QueryState.RUNNING)
+                return served
+        qsm.transition(QueryState.RUNNING)
+        with self.tracer.span("execution", trace_id=qsm.query_id):
+            result = self.execute_plan(plan, page_cache=_effective_page_cache(sess))
+        self._result_cache_finish(rkey, result, epoch, plan)
+        return result
+
+    # -- the result tier (reference: Engine._result_cache_*) ---------------------
+    def _result_cache_key(self, sql: str, plan, sess: Session):
+        """The result-tier key, or None when the statement may not be served
+        or stored: the tier is off (its budget, or the ``result_cache``
+        session property), a scanned catalog is volatile (no
+        CACHEABLE_SCANS: the system tables), or the text names a volatile
+        function (they fold to constants while planning, so only the text
+        shows them).  The key is (structural plan fingerprint, catalogs,
+        distributed, fault-tolerant, plan-shaping properties); the
+        fingerprint embeds each scan's plan_version."""
+        bp = self.buffer_pool
+        if not bp.result_enabled or _effective_result_cache(sess) is False:
+            return None
+        if _VOLATILE_SQL_RE.search(sql):
+            return None
+        from .exec.local_executor import _plan_fingerprint
+        from .sql import plan as P
+
+        catalogs: set = set()
+
+        def walk(n):
+            if isinstance(n, P.TableScan):
+                catalogs.add(n.catalog)
+            for cat, _tab in getattr(n, "source_tables", ()):
+                catalogs.add(cat)
+            for c in n.children:
+                walk(c)
+
+        walk(plan)
+        for name in catalogs:
+            conn = self.catalogs.get(name)
+            if conn is None or not bp.cacheable(conn):
+                return None
+        return ("result", _plan_fingerprint(plan, self.catalogs), tuple(sorted(catalogs)),
+                False, False, _plan_shape_props(sess))
+
+    def _result_cache_fetch(self, rkey):
+        """``rkey``'s cached result, or None.  A hit is accounted as a
+        counter set of its own holding result_cache_hits=1 and nothing else:
+        no launch, no host read, no H2D byte."""
+        from .execution import tracing
+
+        hit = self.buffer_pool.get_result(rkey)
+        if hit is None:
+            return None
+        result, nbytes = hit
+        counters = tracing.QueryCounters()
+        with tracing.track_counters(counters):
+            tracing.record_result_cache(hits=1, bytes_saved=nbytes)
+        self._account_counters(counters)
+        return result
+
+    def _result_cache_finish(self, rkey, result, epoch, plan) -> None:
+        """After a clean run of a statement the tier would take: count the
+        miss and store the result (an error unwinds past this, so a failed
+        statement never stores).  A store that fails leaves the statement
+        successful and the entry absent; only the store is guarded."""
+        if rkey is None:
+            return
+        from .execution import tracing
+
+        counters = tracing.QueryCounters()
+        with tracing.track_counters(counters):
+            tracing.record_result_cache(misses=1)
+        self._account_counters(counters)
+        try:
+            self.buffer_pool.put_result(rkey, result, epoch=epoch, anchor=plan)
+        except Exception:  # noqa: BLE001 - uncached, not failed
+            pass
 
     # -- statements (reference: Engine._execute_statement) ----------------------
     def _execute_statement(self, ast, sess: Session):
@@ -364,6 +582,7 @@ class Engine:
             if not ast.or_replace and ast.name in self.views:
                 raise ValueError(f"view {ast.name} already exists")
             self.views[ast.name] = ((), ast.query)
+            self._invalidate()
             return None
         if isinstance(ast, A.CreateFunction):
             # inline SQL routine (reference: CreateFunctionTask + sql/routine/
@@ -379,16 +598,19 @@ class Engine:
             if not ast.or_replace and ast.name in self.sql_routines:
                 raise ValueError(f"function {ast.name} already exists")
             self.sql_routines[ast.name] = (ast.params, ast.return_type, ast.body)
+            self._invalidate()  # cached plans may now resolve differently
             return None
         if isinstance(ast, A.DropFunction):
             if ast.name not in self.sql_routines and not ast.if_exists:
                 raise ValueError(f"function {ast.name} does not exist")
             self.sql_routines.pop(ast.name, None)
+            self._invalidate()
             return None
         if isinstance(ast, A.DropView):
             if ast.name not in self.views and not ast.if_exists:
                 raise ValueError(f"view {ast.name} does not exist")
             self.views.pop(ast.name, None)
+            self._invalidate()
             return None
         if isinstance(ast, A.CreateTable):
             return self._create_table(ast, sess)
@@ -408,6 +630,7 @@ class Engine:
                                                 ast.name, "drop table")
             del self.materialized_views[ast.name]
             self.catalogs[mv["catalog"]].drop_table(mv["storage"], True)
+            self._invalidate()
             return None
         if isinstance(ast, A.Grant):
             return self._grant(ast, sess)
@@ -416,6 +639,7 @@ class Engine:
             self.access_control.check_can_write(
                 sess.user, self._catalog_name_of(conn), ast.name, "drop table")
             conn.drop_table(ast.name, ast.if_exists)
+            self._invalidate()
             return None
         raise ValueError(f"unsupported statement {kind}")
 
@@ -461,12 +685,19 @@ class Engine:
         from .sql import parser as A
         from .sql.frontend import Planner
 
-        ast = A.parse(sql)
-        if not isinstance(ast, (A.Select, A.SetOp)):
-            return self._execute_statement(ast, sess)
-        plan = Planner(self, sess).plan_query(ast)
+        key = (_normalize_statement(sql), sess.catalog, False, sess.user,
+               _plan_shape_props(sess))
+        with self._plan_lock:
+            plan = self._cache_lookup(key)
+        if plan is None:
+            ast = A.parse(sql)
+            if not isinstance(ast, (A.Select, A.SetOp)):
+                return self._execute_statement(ast, sess)
+            with self._plan_lock:
+                plan = Planner(self, sess).plan_query(ast)
+                self._cache_store(key, plan)
         self._check_select_access(plan, sess.user)
-        return self.execute_plan(plan)
+        return self.execute_plan(plan, page_cache=_effective_page_cache(sess))
 
     def _show(self, ast, sess: Session):
         """SHOW SESSION/CATALOGS/SCHEMAS/TABLES/COLUMNS/STATS/CREATE TABLE/
@@ -564,7 +795,7 @@ class Engine:
         if ast.analyze:
             t0 = time.perf_counter()
             t0_wall = time.time()
-            res, counters = self._run_plan(plan)
+            res, counters = self._run_plan(plan, _effective_page_cache(sess))
             dt = time.perf_counter() - t0
             lines = format_plan(plan, counters=counters,
                                 breakdown=self._analyze_breakdown(t0_wall, time.time())
@@ -590,40 +821,29 @@ class Engine:
         return tracing.wall_breakdown(spans, window=(t0_wall, t1_wall))
 
     def _explain_execute(self, ast, sess: Session):
-        """EXPLAIN [ANALYZE] EXECUTE name [USING ...]: the plan of the
-        statement its parameters make (ANALYZE runs it), and the template
-        line the reference's serving path exposes: the port has no plan
-        templates, so every EXECUTE takes the substitution path."""
+        """EXPLAIN [ANALYZE] EXECUTE name [USING ...]: the statement's plan
+        template disposition, as the reference prints it where no template
+        exists.  The port has no plan templates yet (ROADMAP A2.3), so a
+        plain EXPLAIN prints the line of a template not yet created, whatever
+        parameters follow, and ANALYZE runs the statement by substitution and
+        prints the substitution line and the run's time and row count."""
         import time
 
         from .exec.local_executor import MaterializedResult
-        from .server.dbapi import _substitute
-        from .sql import params as PRM
-        from .sql import parser as A
-        from .sql.frontend import Planner
-        from .sql.planprinter import format_plan
         from .types import VarcharType
 
         ex_ast = ast.query
-        text = sess.prepared.get(ex_ast.name)
-        if text is None:
+        if ex_ast.name not in sess.prepared:
             raise ValueError(f"prepared statement {ex_ast.name} not found")
-        sql = _substitute(text, [PRM.literal_param_value(p) for p in ex_ast.parameters])
-        inner = A.parse(sql)
-        if not isinstance(inner, (A.Select, A.SetOp)):
-            raise ValueError(f"EXPLAIN of {type(inner).__name__} is not supported")
-        plan = Planner(self, sess).plan_query(inner)
-        self._check_select_access(plan, sess.user)
         if ast.analyze:
             t0 = time.perf_counter()
-            res, counters = self._run_plan(plan)
+            res = self._execute_prepared(ex_ast, sess)
             dt = time.perf_counter() - t0
-            lines = format_plan(plan, counters=counters).split("\n")
-            lines += ["Plan template: none -- substitution path",
-                      f"-- executed in {dt * 1000:.1f} ms, {len(res)} output rows"]
+            lines = ["Plan template: unbindable — substitution path",
+                     f"-- executed in {dt * 1000:.1f} ms, "
+                     f"{len(res) if res is not None else 0} output rows"]
         else:
-            lines = format_plan(plan).split("\n")
-            lines.append("Plan template: none -- substitution path")
+            lines = ["Plan template: not yet created (first EXECUTE plans it)"]
         rows = np.array(lines, dtype=object)
         return MaterializedResult(("query plan",), (VarcharType.of(None),), [rows], [rows])
 
@@ -671,6 +891,7 @@ class Engine:
                 # are not ported)
                 raise ValueError("this catalog does not support partitioned_by")
             conn.create_table(ast.name, Schema(fields), if_not_exists=ast.if_not_exists)
+        self._invalidate()
         return None
 
     def _create_materialized_view(self, ast, sess: Session):
@@ -703,6 +924,7 @@ class Engine:
         self.materialized_views[ast.name] = {
             "query": ast.query, "storage": storage, "catalog": cat,
             "session_catalog": sess.catalog}
+        self._invalidate()
         return None
 
     def _refresh_materialized_view(self, ast, sess: Session):
@@ -742,6 +964,7 @@ class Engine:
             by_name = dict(zip(names, cols))
             cols = [by_name.get(f.name, [None] * n_rows) for f in schema.fields]
         conn.append(ast.name, cols)
+        self._invalidate()
         return _dml_count_result(n_rows)
 
     # -- row-level DML (reference: spi/connector/ConnectorMergeSink -- DELETE
@@ -781,7 +1004,9 @@ class Engine:
         self.access_control.check_can_write(
             sess.user, self._catalog_name_of(conn), ast.table, "delete from")
         res = self._eval_rowwise(ast.table, [ast.where or A.BoolLit(True)], sess)
-        return _dml_count_result(conn.delete_rows(ast.table, self._dml_mask(res.columns[0])))
+        n = conn.delete_rows(ast.table, self._dml_mask(res.columns[0]))
+        self._invalidate()
+        return _dml_count_result(n)
 
     @staticmethod
     def _assignment_casts(schema, assignments, rewrite=lambda e: e):
@@ -820,7 +1045,9 @@ class Engine:
         values = {col: _constant_column(v, len(mask)) for col, v in const_assigns.items()}
         for j, (col, _) in enumerate(expr_assigns):
             values[col] = _write_column(res, j + 1)
-        return _dml_count_result(conn.update_rows(ast.table, mask, values))
+        n = conn.update_rows(ast.table, mask, values)
+        self._invalidate()
+        return _dml_count_result(n)
 
     def _merge(self, ast, sess: Session):
         """MERGE INTO: match target rows against a source relation on
@@ -935,6 +1162,8 @@ class Engine:
         self.catalogs[cat_name] = scratch
         scratch_sess = dataclasses.replace(sess, catalog=cat_name)
         try:
+            self._invalidate()
+
             def rewrite(e, in_matched):
                 if isinstance(e, A.Identifier):
                     side, c = classify(e)
@@ -1028,7 +1257,77 @@ class Engine:
                                          for f in tgt_schema.fields])
         finally:
             del self.catalogs[cat_name]
+            self._invalidate()
         return None
+
+
+# -- cache keys and the session properties they read -------------------------------------
+
+
+def _normalize_statement(sql: str) -> str:
+    """Plan-cache key form of a statement: comments stripped, whitespace
+    collapsed, so reformatted repeats share a plan."""
+    from .sql.params import normalize_sql
+
+    return normalize_sql(sql)
+
+
+def _plan_shape_props(sess) -> tuple:
+    """The session properties that change a plan, in every plan-cache and
+    result-tier key: SET SESSION of one of them must replan a cached
+    statement.  The tuple is the reference's: ``join_distribution_type``
+    (the physical plan's joins), and ``dispatch_batch`` and
+    ``adaptive_execution``, which the port acts on neither, resolved as the
+    reference resolves them (4 and on by default), so that the keys of both
+    packages move together."""
+    props = getattr(sess, "properties", None) or {}
+    return (str(props.get("join_distribution_type", "AUTOMATIC")).upper(),
+            _effective_dispatch_batch(sess), _effective_adaptive(sess))
+
+
+def _effective_dispatch_batch(sess) -> int:
+    """``dispatch_batch`` when the session set it above 0, else the
+    reference's default, 4."""
+    props = getattr(sess, "properties", None) or {}
+    try:
+        v = int(props.get("dispatch_batch", 0) or 0)
+    except (TypeError, ValueError):
+        v = 0
+    return v if v > 0 else 4
+
+
+def _effective_adaptive(sess) -> bool:
+    """``adaptive_execution`` when the session set it, else on, the
+    reference's default."""
+    props = getattr(sess, "properties", None) or {}
+    v = props.get("adaptive_execution")
+    return True if v is None else bool(v)
+
+
+def _effective_page_cache(sess):
+    """The ``page_cache`` session property: True or False where the session
+    set it, None (the pool's budget decides) otherwise.  Not plan-shaping:
+    where scan pages come from never changes the plan."""
+    v = (getattr(sess, "properties", None) or {}).get("page_cache")
+    return None if v is None else bool(v)
+
+
+def _effective_result_cache(sess):
+    """The ``result_cache`` session property, as ``page_cache``."""
+    v = (getattr(sess, "properties", None) or {}).get("result_cache")
+    return None if v is None else bool(v)
+
+
+# plans the plan cache keeps (least recently used out first)
+PLAN_CACHE_ENTRIES = 256
+
+
+# Volatile functions fold to constants while the statement plans, so the
+# result tier tests the TEXT for them: a word match, which may keep a column
+# named "random" out of the tier and never lets a volatile call in.
+_VOLATILE_SQL = ("now", "current_timestamp", "current_date", "current_time",
+                 "localtimestamp", "localtime", "random", "rand", "uuid")
+_VOLATILE_SQL_RE = re.compile(r"\b(" + "|".join(_VOLATILE_SQL) + r")\b", re.IGNORECASE)
 
 
 # -- the write path ----------------------------------------------------------------------

@@ -14,18 +14,31 @@ Every device -> host read goes through ``LocalExecutor._host``, which counts
 them (``host_reads``) and their bytes (``host_bytes``).  Host arrays the query
 hands to the device (planner tables such as element heaps, once per query;
 host pages moved back) are counted in ``h2d_bytes``.
+
+The engine's device buffer pool (``execution/bufferpool.py``), when the
+executor is given one, serves two tiers here: a scan whose table, splits and
+columns were read to completion before comes back as ONE device page of the
+whole scan (``_scan_pages_source``), and a join whose build fragment was
+built before checks out the finished build page and hash table
+(``_build_cache_key``) instead of running the fragment and inserting its
+rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import enum
+import hashlib
 import itertools
+import weakref
 from decimal import Decimal
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from ..execution import tracing
 from ..ops import hashagg
 from ..ops.arrays import (ArrayData, MapData, compact_rows, pack_span, span_len,
                           span_start, unnest_indices)
@@ -82,6 +95,9 @@ class _ScanInfo:
     scan_columns: tuple  # column names requested from the connector
     columns: tuple  # per OUTPUT channel: source column name | None
     replayable: bool = True  # False once compaction transformed the pages
+    catalog: str = ""  # catalog and table: a split-pruning replacement
+    table: str = ""  # rebuilds its page source through _scan_pages_source,
+    # which keys the buffer pool on them
 
 
 @dataclasses.dataclass
@@ -130,13 +146,21 @@ def _not_ported(what: str):
 class LocalExecutor:
     """Executes a plan tree on one device (``cuda`` or ``cpu``)."""
 
-    def __init__(self, catalogs: dict, device, memory_pool=None):
+    def __init__(self, catalogs: dict, device, memory_pool=None, buffer_pool=None):
         from ..memory import MemoryPool
 
         self.catalogs = catalogs
         self.device = torch.device(device)
         self.memory_pool = memory_pool if memory_pool is not None \
             else MemoryPool(device=self.device)
+        # the engine's DeviceBufferPool, shared by every executor it makes;
+        # ``page_cache`` is the query's session-property override (None: the
+        # pool's budget decides)
+        self.buffer_pool = buffer_pool
+        self.page_cache = None
+        # the pool epoch this executor started under: a page or build store
+        # after a write's invalidation is refused (it may hold pre-write rows)
+        self._pool_epoch = buffer_pool.epoch if buffer_pool is not None else None
         self.host_reads = 0
         self.host_bytes = 0
         self.h2d_bytes = 0
@@ -155,6 +179,111 @@ class LocalExecutor:
             for nbytes in self._reserved:
                 self.memory_pool.free(nbytes)
             self._reserved.clear()
+
+    # ------------------------------------------------------- the buffer pool
+    def _page_cache_on(self) -> bool:
+        """Does this query read and fill the buffer pool's page and build
+        tiers?  The ``page_cache`` session property decides where it is set;
+        otherwise the pool's budget (0: off, the CPU default).  The property
+        gates the use of a configured pool: it makes no budget."""
+        bp = self.buffer_pool
+        if bp is None or not bp.enabled:
+            return False
+        return True if self.page_cache is None else bool(self.page_cache)
+
+    def _scan_pages_source(self, conn, catalog: str, table: str, splits, columns):
+        """Page source of a (possibly split-pruned) scan, through the page
+        tier.  A hit yields the whole scan as one device page: no generation,
+        and every per-split loop downstream runs once.  A miss runs the
+        per-split source, keeps its pages, and stores them as one page only
+        once the scan ran to completion: a consumer that stops early (LIMIT)
+        or an error leaves the generator before the store.  The lookup, its
+        accounting and the store run on the query's thread."""
+        splits, columns = list(splits), tuple(columns)
+        raw = _scan_pages(conn, splits, columns)
+        bp = self.buffer_pool
+
+        def pages(self=self):
+            if not (splits and bp is not None and self._page_cache_on()
+                    and bp.cacheable(conn)):
+                yield from raw()
+                return
+            key = bp.page_key(catalog, conn, table, splits, columns)
+            hit = bp.get_page(key)
+            if hit is not None:
+                page, nbytes = hit
+                tracing.record_page_cache(hits=1, bytes_saved=nbytes)
+                yield page
+                return
+            tracing.record_page_cache(misses=1)
+            acc = None if bp.has_page(key) else []
+            acc_bytes = 0
+            for pg in raw():
+                if acc is not None:
+                    # a scan past the whole budget, or with host columns,
+                    # is not kept: its pages free as they are consumed
+                    acc_bytes += _page_bytes(pg)
+                    if acc_bytes > bp.budget() or not all(
+                            isinstance(c, torch.Tensor) for c in pg.columns):
+                        acc = None
+                    else:
+                        acc.append(pg)
+                yield pg
+            if acc:
+                bp.put_page(key, self._stage_scan_entry(acc), self._pool_epoch)
+
+        return pages
+
+    def _stage_scan_entry(self, pages) -> Page:
+        """One device page of a completed scan: the pages concatenated in
+        split order, then, where lanes are dead (generated tables mask rows
+        past their bound), the live rows packed in order by the compaction
+        kernel, every lane of the stored page live.  Row order is split
+        order either way, so the page gives exactly what the splits give."""
+        nc = len(pages[0].columns)
+        cols = [torch.cat([p.columns[ci] for p in pages]) for ci in range(nc)]
+        nulls = [None if all(p.null_masks[ci] is None for p in pages) else torch.cat([
+            torch.zeros((p.capacity,), dtype=torch.bool, device=p.columns[ci].device)
+            if p.null_masks[ci] is None else p.null_masks[ci] for p in pages])
+            for ci in range(nc)]
+        if all(p.valid is None for p in pages):
+            return Page(pages[0].schema, tuple(cols), tuple(nulls), None)
+        valid = torch.cat([p.valid_mask() for p in pages])
+        n = int(valid.shape[0])
+        live = int(self._host([torch.sum(valid, dtype=torch.int64)],
+                              site="cache.store.count")[0])
+        if live == 0 or live == n:
+            return Page(pages[0].schema, tuple(cols), tuple(nulls), valid)
+        packed, _ = compact_rows(tuple(cols) + tuple(nulls), valid, live)
+        return Page(pages[0].schema, packed[:nc], packed[nc:], None)
+
+    def _build_cache_key(self, node: P.Join):
+        """Build-tier key of this join's build fragment, or None when it must
+        not be cached (the tiers are off for this query, or the fragment
+        reads a volatile connector): ("build", structural fingerprint, right
+        keys, catalogs, filter is None).  invalidate_catalog matches the
+        catalogs (key[3]); plan_versions are in the fingerprint."""
+        bp = self.buffer_pool
+        if bp is None or not self._page_cache_on():
+            return None
+        cats: set = set()
+        cacheable = True
+
+        def walk(n):
+            nonlocal cacheable
+            if isinstance(n, P.TableScan):
+                conn = self.catalogs.get(n.catalog)
+                if conn is None or not bp.cacheable(conn):
+                    cacheable = False
+                cats.add(n.catalog)
+            for c in n.children:
+                walk(c)
+
+        walk(node.right)
+        if not cacheable:
+            return None
+        return ("build", _plan_fingerprint(node.right, self.catalogs),
+                tuple(node.right_keys), tuple(sorted(cats)), node.filter is None)
 
     # ------------------------------------------------------ device -> host reads
     def _host(self, arrays, site: str):
@@ -279,11 +408,13 @@ class LocalExecutor:
             conn = self.catalogs[node.catalog]
             dicts = tuple(conn.dictionaries(node.table).get(c) for c in node.columns)
             splits = conn.splits(node.table)
-            si = _ScanInfo(conn, splits, tuple(node.columns), tuple(node.columns))
+            si = _ScanInfo(conn, splits, tuple(node.columns), tuple(node.columns),
+                           catalog=node.catalog, table=node.table)
             clustered = tuple(conn.clustered_by(node.table)) \
                 if hasattr(conn, "clustered_by") else ()
-            return _Stream(node.schema, dicts, _scan_pages(conn, splits, node.columns),
-                           _identity, si, clustered_by=clustered)
+            pages = self._scan_pages_source(conn, node.catalog, node.table, splits,
+                                            node.columns)
+            return _Stream(node.schema, dicts, pages, _identity, si, clustered_by=clustered)
 
         if isinstance(node, P.Filter):
             up = self._compile_stream(node.child)
@@ -294,6 +425,11 @@ class LocalExecutor:
                 return cols, nulls, evaluate_predicate(pred, cols, nulls, valid)
 
             pruned = _static_pruned_stream(up, pred)
+            if pruned is not None:
+                # the kept splits key their own page-tier entry
+                psi = pruned[1]
+                pruned = (self._scan_pages_source(psi.conn, psi.catalog, psi.table,
+                                                  psi.splits, psi.scan_columns), psi)
             pages, si = pruned if pruned is not None else (up.pages, up.scan_info)
             return _Stream(up.schema, up.dicts, pages, transform, si, aux=up.aux,
                            clustered_by=up.clustered_by, compacted=up.compacted)
@@ -874,7 +1010,20 @@ class LocalExecutor:
     def _compile_join(self, node: P.Join) -> _Stream:
         if node.kind not in ("inner", "left", "semi", "anti", "mark"):
             raise _not_ported(f"{node.kind} join")
-        build_page, build_dicts = self._execute_to_page_streamed(node.right)
+        # build tier: a structurally equal build fragment finished by any
+        # executor of this pool checks out its page and table instead of
+        # running the fragment and inserting its rows again
+        bkey = self._build_cache_key(node)
+        cached = None
+        if bkey is not None:
+            cached = self.buffer_pool.get_build(bkey)
+            tracing.record_build_cache(
+                hits=int(cached is not None), misses=int(cached is None),
+                bytes_saved=cached["nbytes"] if cached is not None else 0)
+        if cached is not None:
+            build_page, build_dicts = cached["page"], cached["dicts"]
+        else:
+            build_page, build_dicts = self._execute_to_page_streamed(node.right)
         probe_stream = self._compile_stream(node.left)
         build_key_types = tuple(node.right.schema.fields[i].type for i in node.right_keys)
         if node.kind in ("inner", "semi") and node.filter is None:
@@ -892,32 +1041,56 @@ class LocalExecutor:
             probe_stream = self._compacted_stream(probe_stream)
         # memory gate: build columns (+ compaction copies) and the 4x-pow2 table.
         # Shapes the reference would Grace-partition raise; the others proceed
-        # unreserved, as the reference's do
-        need = _page_bytes(build_page) * 2 + 12 * 4 * ceil_pow2(max(build_page.capacity, 16))
-        if self.memory_pool.try_reserve(need):
-            self._reserved.append(need)
-        elif node.kind in ("inner", "left", "semi") and node.left_keys \
-                and node.filter is None:
-            raise _not_ported("Grace-partitioned join (build side does not fit "
-                              "the memory pool)")
+        # unreserved, as the reference's do.  A build in the buffer pool is
+        # held by the pool's reservation: a checked-out one reserves nothing
+        # here (it fit when it was built), and a fresh one gives its
+        # reservation back once the pool took it (_join_with_build), so no
+        # build is ever counted twice
+        reserved = 0
+        if cached is None:
+            need = _page_bytes(build_page) * 2 \
+                + 12 * 4 * ceil_pow2(max(build_page.capacity, 16))
+            if self.memory_pool.try_reserve(need):
+                self._reserved.append(need)
+                reserved = need
+            elif node.kind in ("inner", "left", "semi") and node.left_keys \
+                    and node.filter is None:
+                raise _not_ported("Grace-partitioned join (build side does not fit "
+                                  "the memory pool)")
         return self._join_with_build(node, build_page, build_dicts, probe_stream,
-                                     build_key_types)
+                                     build_key_types, bkey, cached, reserved)
 
     def _join_with_build(self, node: P.Join, build_page, build_dicts, probe_stream,
-                         build_key_types) -> _Stream:
+                         build_key_types, cache_key=None, cached=None,
+                         reserved: int = 0) -> _Stream:
         # "mark": the probe channels plus one boolean matched channel, no
         # lane filtering (EXISTS in expression position)
         semi = node.kind in ("semi", "anti", "mark")
-        null_stats = self._build_null_stats(build_page, node.right_keys)
-        span = self._direct_join_span(build_page, node.right_keys, build_key_types)
-        table = None
-        if node.filter is None and build_page.capacity > 0:
-            table = self._build_join_table(build_page, node.right_keys, build_key_types,
-                                           span)
-        if table is None or node.filter is not None:
+        if cached is not None:
+            # a build-tier hit: the null statistics, the direct span and the
+            # table (or multi-match layout), with their host reads and
+            # inserts, were made when the entry was stored
+            null_stats, span = cached["null_stats"], cached["span"]
+            table, mt = cached["table"], cached["multi"]
+        else:
+            null_stats = self._build_null_stats(build_page, node.right_keys)
+            span = self._direct_join_span(build_page, node.right_keys, build_key_types)
+            table = mt = None
+            if node.filter is None and build_page.capacity > 0:
+                table = self._build_join_table(build_page, node.right_keys,
+                                               build_key_types, span)
+            if table is None:
+                mt = self._multi_join_table(node, build_page, build_key_types, span)
+            if cache_key is not None and self.buffer_pool.put_build(cache_key, {
+                    "page": build_page, "dicts": build_dicts, "null_stats": null_stats,
+                    "span": span, "table": table, "multi": mt},
+                    self._pool_epoch, node.right) and reserved:
+                self._reserved.remove(reserved)
+                self.memory_pool.free(reserved)
+        if table is None:
             # an empty build, duplicate build keys or a residual filter
-            return self._compile_multi_join(node, build_page, build_dicts, probe_stream,
-                                            build_key_types, span, null_stats)
+            return self._compile_multi_join(node, mt, build_dicts, probe_stream,
+                                            build_key_types, null_stats)
 
         def transform(cols, nulls, valid, aux, up=probe_stream, node=node):
             up_aux, table = aux
@@ -951,25 +1124,29 @@ class LocalExecutor:
                        probe_stream.pages, transform, si,
                        aux=(probe_stream.aux, table), compacted=probe_stream.compacted)
 
-    def _compile_multi_join(self, node: P.Join, build_page, build_dicts, probe_stream,
-                            build_key_types, span, null_stats) -> _Stream:
-        """Join with duplicate build keys and/or a residual match filter: build
-        rows grouped by slot, a count step per probe page, and an expand step
-        that emits one lane per candidate match.  The expanded page's size is
-        data-dependent: one host read per page sizes it to a power of two."""
-        semi = node.kind in ("semi", "anti", "mark")
+    def _multi_join_table(self, node: P.Join, build_page, build_key_types, span):
+        """The multi-match layout of a build: rows grouped by slot, direct or
+        hashed (an empty build gets one never-matching dummy row, which keeps
+        the gathers defined)."""
         if build_page.capacity == 0:
-            # empty build: one never-matching dummy row keeps the gathers defined
             cols = tuple(torch.zeros((1,), dtype=torch_dtype(f.type), device=self.device)
                          for f in node.right.schema.fields)
             build_page = Page(node.right.schema, cols, tuple(None for _ in cols),
                               torch.zeros((1,), dtype=torch.bool, device=self.device))
         if span is not None:
-            mt = direct_multi_build(span[0], span[1], build_page, node.right_keys[0])
-        else:
-            capacity = max(1 << max(build_page.capacity - 1, 1).bit_length(), 16) * 4
-            mt = multi_build(capacity, build_page, node.right_keys, build_key_types,
-                             lambda arrays: self._host(arrays, site="join.multi.overflow"))
+            return direct_multi_build(span[0], span[1], build_page, node.right_keys[0])
+        capacity = max(1 << max(build_page.capacity - 1, 1).bit_length(), 16) * 4
+        return multi_build(capacity, build_page, node.right_keys, build_key_types,
+                           lambda arrays: self._host(arrays, site="join.multi.overflow"))
+
+    def _compile_multi_join(self, node: P.Join, mt, build_dicts, probe_stream,
+                            build_key_types, null_stats) -> _Stream:
+        """Join with duplicate build keys and/or a residual match filter over
+        the multi-match layout ``mt``: a count step per probe page, and an
+        expand step that emits one lane per candidate match.  The expanded
+        page's size is data-dependent: one host read per page sizes it to a
+        power of two."""
+        semi = node.kind in ("semi", "anti", "mark")
 
         def count_step(page):
             cols, nulls, valid = probe_stream.run(page)
@@ -1550,7 +1727,10 @@ class LocalExecutor:
             return None
         keep = domain_to_split_pruner(domains, si.conn)
         kept = tuple(s for s in si.splits if keep(s))
-        return _scan_pages(si.conn, kept, si.scan_columns), kept
+        # the kept splits key their own page-tier entry: a pruned probe scan
+        # never serves or stores the whole table
+        return self._scan_pages_source(si.conn, si.catalog, si.table, kept,
+                                       si.scan_columns), kept
 
     # -- materialization ------------------------------------------------------
     def _concat_stream(self, stream: _Stream) -> Page:
@@ -1778,7 +1958,8 @@ def _lexsort(lex, n: int, device) -> torch.Tensor:
 
 def _static_pruned_stream(up: _Stream, pred):
     """Split pruning from the pushed-down predicate's TupleDomain: (pages,
-    scan_info) with the kept splits, or None when nothing prunes."""
+    scan_info) with the kept splits, or None when nothing prunes.  ``pages``
+    is None where splits are kept: the caller builds their page source."""
     si = up.scan_info
     if si is None or not si.replayable or not hasattr(si.conn, "split_range"):
         return None
@@ -1787,7 +1968,7 @@ def _static_pruned_stream(up: _Stream, pred):
 
     td = extract_domains(split_conjuncts(pred)).tuple_domain
     if td.is_none:
-        return (lambda: iter(()), dataclasses.replace(si, splits=[]))
+        return None, dataclasses.replace(si, splits=[])
     if td.is_all:
         return None
     by_col: dict = {}
@@ -1802,7 +1983,7 @@ def _static_pruned_stream(up: _Stream, pred):
     kept = [s for s in si.splits if keep(s)]
     if len(kept) == len(si.splits):
         return None
-    return _scan_pages(si.conn, kept, si.scan_columns), dataclasses.replace(si, splits=kept)
+    return None, dataclasses.replace(si, splits=kept)
 
 
 def _gather_build(table, row_ids, matched, kind):
@@ -1845,6 +2026,77 @@ def _page_bytes(page: Page) -> int:
     """Device bytes held by a page's columns + null masks."""
     total = sum(page.capacity * c.element_size() for c in page.columns)
     return total + sum(page.capacity for m in page.null_masks if m is not None)
+
+
+# digests of object arrays, by identity: id -> (weak reference, digest).  An
+# entry is used only while its weak reference still names the array, so a
+# reused id never finds another array's digest
+_OBJECT_DIGESTS: dict = {}
+
+# value types whose repr is their whole value
+_BY_REPR = (Decimal, datetime.date, datetime.time, datetime.timedelta, enum.Enum)
+
+
+def _plan_fingerprint(node: P.PlanNode, catalogs: dict) -> str:
+    """Structural fingerprint of a plan subtree: the build-tier key and the
+    result tier's.  Two structurally equal fragments collide even when they
+    are different plan objects (another statement with the same subquery),
+    so the walk is by content: dataclass leaves print by value, children
+    recurse, and a TableScan prints its catalog, table, columns and the
+    connector's plan_version.  numpy arrays (planner lookup tables and
+    dictionaries, IN lists) print as a digest of their contents, numpy
+    scalars, decimals and dates by value.  Only a value of another kind
+    prints by identity, and the pool's entry holds the fragment it was
+    keyed on, so that identity is not reused while the entry lives."""
+
+    def val(v):
+        if v is None or isinstance(v, (str, int, float, bool, bytes)):
+            return repr(v)
+        if isinstance(v, (tuple, list)):
+            return "(" + ",".join(val(x) for x in v) + ")"
+        if isinstance(v, P.PlanNode):
+            return fp(v)
+        if isinstance(v, np.ndarray):
+            if v.dtype == object:
+                return f"nd(object,{v.shape},{object_digest(v)})"
+            digest = hashlib.blake2b(np.ascontiguousarray(v).tobytes(),
+                                     digest_size=16).hexdigest()
+            return f"nd({v.dtype},{v.shape},{digest})"
+        if isinstance(v, np.generic):
+            return f"{v.dtype}:{v.item()!r}"
+        if isinstance(v, _BY_REPR):
+            return f"{type(v).__name__}:{v!r}"
+        if isinstance(v, type):
+            return f"type:{v.__module__}.{v.__qualname__}"
+        if dataclasses.is_dataclass(v):
+            return f"{type(v).__name__}(" + ",".join(
+                val(getattr(v, f.name)) for f in dataclasses.fields(v)) + ")"
+        return f"{type(v).__name__}#{id(v)}"
+
+    def object_digest(v):
+        memo = _OBJECT_DIGESTS.get(id(v))
+        if memo is not None and memo[0]() is v:
+            return memo[1]
+        digest = hashlib.blake2b("\x1f".join(val(x) for x in v.ravel().tolist())
+                                 .encode("utf-8", "surrogatepass"),
+                                 digest_size=16).hexdigest()
+
+        def forget(ref, k=id(v)):
+            if _OBJECT_DIGESTS.get(k, (None,))[0] is ref:
+                del _OBJECT_DIGESTS[k]
+
+        _OBJECT_DIGESTS[id(v)] = (weakref.ref(v, forget), digest)
+        return digest
+
+    def fp(n):
+        if isinstance(n, P.TableScan):
+            conn = catalogs.get(n.catalog)
+            ver = conn.plan_version() if hasattr(conn, "plan_version") else 0
+            return f"TableScan({n.catalog},{n.table},{','.join(n.columns)},v{ver})"
+        return f"{type(n).__name__}(" + ";".join(
+            val(getattr(n, f.name)) for f in dataclasses.fields(n)) + ")"
+
+    return fp(node)
 
 
 def _acc_input_expr(spec: P.AggSpec):

@@ -8,7 +8,9 @@ export and the breakdown are the reference's.
 
 ``QueryCounters`` are the port's own counts at its device boundary: host
 reads (each a synchronising device -> host copy), the bytes they move, the
-bytes copied host -> device, and the launches of each hand-written kernel.
+bytes copied host -> device, and the launches of each hand-written kernel;
+and the buffer pool's hits, misses and bytes saved per tier
+(``record_page_cache``, ``record_build_cache``, ``record_result_cache``).
 The engine opens one counter set per statement (``track_counters``) on the
 statement's thread; the kernel wrappers charge their launches to the set
 open on the thread that launches them (``record_launch``), so concurrent
@@ -27,7 +29,8 @@ import time
 from typing import Optional
 
 __all__ = ["Span", "Tracer", "NOOP_TRACER", "QueryCounters", "track_counters",
-           "record_launch", "DISPATCH_LATENCY", "LatencyHistogram",
+           "record_launch", "record_page_cache", "record_build_cache",
+           "record_result_cache", "DISPATCH_LATENCY", "LatencyHistogram",
            "LATENCY_BUCKETS_S", "activate_tracer", "current_tracer", "maybe_span",
            "span_dict", "spans_to_otlp", "query_scope", "current_query_id",
            "live_query_counters", "WALL_BUCKETS", "wall_breakdown",
@@ -86,6 +89,26 @@ class QueryCounters:
     host_bytes: int = 0
     h2d_bytes: int = 0
     launches: dict = dataclasses.field(default_factory=dict)  # kernel -> count
+    # the device buffer pool (execution/bufferpool).  A page hit served a
+    # whole scan from device memory (no generation, one page instead of one
+    # per split); a build hit checked a join's finished build out instead of
+    # running its fragment and inserting its rows; bytes_saved is the served
+    # entry's size.  A result hit answered the whole statement from a cached
+    # result; result misses count only statements the tier would take.
+    page_cache_hits: int = 0
+    page_cache_misses: int = 0
+    page_cache_bytes_saved: int = 0
+    build_cache_hits: int = 0
+    build_cache_misses: int = 0
+    build_cache_bytes_saved: int = 0
+    result_cache_hits: int = 0
+    result_cache_misses: int = 0
+    result_cache_bytes_saved: int = 0
+
+    _CACHE_FIELDS = ("page_cache_hits", "page_cache_misses", "page_cache_bytes_saved",
+                     "build_cache_hits", "build_cache_misses", "build_cache_bytes_saved",
+                     "result_cache_hits", "result_cache_misses",
+                     "result_cache_bytes_saved")
 
     @property
     def kernel_launches(self) -> int:
@@ -109,13 +132,16 @@ class QueryCounters:
         self.h2d_bytes += other.h2d_bytes
         for k, v in list(other.launches.items()):
             self.launches[k] = self.launches.get(k, 0) + v
+        for f in self._CACHE_FIELDS:
+            setattr(self, f, getattr(self, f) + getattr(other, f))
 
     def as_dict(self) -> dict:
         return {"host_reads": self.host_reads, "host_bytes": self.host_bytes,
                 "h2d_bytes": self.h2d_bytes, "launches": dict(self.launches),
                 "device_dispatches": self.device_dispatches,
                 "host_transfers": self.host_transfers,
-                "host_bytes_pulled": self.host_bytes_pulled}
+                "host_bytes_pulled": self.host_bytes_pulled,
+                **{f: getattr(self, f) for f in self._CACHE_FIELDS}}
 
 
 _counter_local = threading.local()
@@ -167,6 +193,37 @@ def record_launch(kernel: str, seconds: float) -> None:
     c = getattr(_counter_local, "counters", None)
     if c is not None:
         c.launches[kernel] = c.launches.get(kernel, 0) + 1
+
+
+def record_page_cache(hits: int = 0, misses: int = 0, bytes_saved: int = 0) -> None:
+    """One page-tier lookup, charged to the counter set open on this thread
+    (the scan's page source resolves the cache on the query's thread)."""
+    c = getattr(_counter_local, "counters", None)
+    if c is not None:
+        c.page_cache_hits += hits
+        c.page_cache_misses += misses
+        c.page_cache_bytes_saved += bytes_saved
+
+
+def record_build_cache(hits: int = 0, misses: int = 0, bytes_saved: int = 0) -> None:
+    """One build-tier lookup."""
+    c = getattr(_counter_local, "counters", None)
+    if c is not None:
+        c.build_cache_hits += hits
+        c.build_cache_misses += misses
+        c.build_cache_bytes_saved += bytes_saved
+
+
+def record_result_cache(hits: int = 0, misses: int = 0, bytes_saved: int = 0) -> None:
+    """One result-tier outcome: a hit records on a counter set of its own,
+    which the engine accounts as the statement's (a served statement never
+    reaches an executor); a miss is stamped on the statement's counters
+    after it ran."""
+    c = getattr(_counter_local, "counters", None)
+    if c is not None:
+        c.result_cache_hits += hits
+        c.result_cache_misses += misses
+        c.result_cache_bytes_saved += bytes_saved
 
 
 def live_query_counters() -> dict:

@@ -15,7 +15,8 @@ engine: the protocol, the pages, the statement gate, authentication, spooling,
 the status, trace and UI endpoints are the reference's.  Device memory comes
 from ``torch.cuda`` on the engine's device; ``/v1/metrics`` exports the
 families whose source the port has (query states, kernel launches and host
-reads, host bytes, the launch-latency histogram, memory, resource groups);
+reads, host bytes, the launch-latency histogram, the buffer pool's page,
+build and result tiers, memory, resource groups);
 ``/v1/history``, ``/v1/flight`` and ``/v1/compiles`` answer as the reference
 does when plan history, the flight recorder or the compile log is off.
 """
@@ -656,6 +657,53 @@ class CoordinatorServer:
         lines.append(f'trino_tpu_dispatch_latency_seconds_bucket{{le="+Inf"}} {h["count"]}')
         lines.append(f"trino_tpu_dispatch_latency_seconds_sum {h['sum_s']}")
         lines.append(f"trino_tpu_dispatch_latency_seconds_count {h['count']}")
+        # the device buffer pool: entries and bytes are gauges (they shrink on
+        # eviction and invalidation), hits and misses lifetime counters
+        bp = getattr(self.engine, "buffer_pool", None)
+        if bp is not None:
+            bi = bp.info()
+            lines += [
+                "# HELP trino_tpu_page_cache_bytes Device bytes resident in "
+                "the buffer pool (page + build tiers).",
+                "# TYPE trino_tpu_page_cache_bytes gauge",
+                f"trino_tpu_page_cache_bytes {bi['device_bytes']}",
+                "# HELP trino_tpu_page_cache_entries Entries resident in the "
+                "buffer pool.",
+                "# TYPE trino_tpu_page_cache_entries gauge",
+                f"trino_tpu_page_cache_entries {bi['entries']}",
+                "# HELP trino_tpu_page_cache_hits_total Buffer-pool page-"
+                "tier hits (whole scans served from device memory).",
+                "# TYPE trino_tpu_page_cache_hits_total counter",
+                f"trino_tpu_page_cache_hits_total {bi['hits']}",
+                "# HELP trino_tpu_page_cache_misses_total Buffer-pool page-"
+                "tier misses.",
+                "# TYPE trino_tpu_page_cache_misses_total counter",
+                f"trino_tpu_page_cache_misses_total {bi['misses']}",
+                "# HELP trino_tpu_build_cache_hits_total Buffer-pool build-"
+                "tier hits (join builds checked out instead of re-executed).",
+                "# TYPE trino_tpu_build_cache_hits_total counter",
+                f"trino_tpu_build_cache_hits_total {bi['build_hits']}",
+                "# HELP trino_tpu_page_cache_evictions_total LRU evictions "
+                "under buffer-pool memory pressure.",
+                "# TYPE trino_tpu_page_cache_evictions_total counter",
+                f"trino_tpu_page_cache_evictions_total {bi['evictions']}",
+                "# HELP trino_tpu_result_cache_bytes Host bytes resident in "
+                "the buffer pool's result tier.",
+                "# TYPE trino_tpu_result_cache_bytes gauge",
+                f"trino_tpu_result_cache_bytes {bi['result_bytes']}",
+                "# HELP trino_tpu_result_cache_entries Cached statement "
+                "results resident in the buffer pool.",
+                "# TYPE trino_tpu_result_cache_entries gauge",
+                f"trino_tpu_result_cache_entries {bi['result_entries']}",
+                "# HELP trino_tpu_result_cache_hits_total Statements served "
+                "whole from the result tier (zero device dispatches).",
+                "# TYPE trino_tpu_result_cache_hits_total counter",
+                f"trino_tpu_result_cache_hits_total {bi['result_hits']}",
+                "# HELP trino_tpu_result_cache_misses_total Admissible "
+                "statements not resident in the result tier.",
+                "# TYPE trino_tpu_result_cache_misses_total counter",
+                f"trino_tpu_result_cache_misses_total {bi['result_misses']}",
+            ]
         # memory-pool snapshots as labeled gauges (the pool info dict finally
         # reaches the metrics endpoint — round-8 satellite)
         pools = self.engine.memory_info() \
@@ -719,7 +767,7 @@ class CoordinatorServer:
                 "inflight": [],
                 "queries": queries,
                 "memory": e.memory_info(),
-                "buffer_pool": None,
+                "buffer_pool": e.buffer_pool.info(),
                 "device_memory": _device_memory_stats(e.device)}
 
     def _query_row_count(self, q):
