@@ -142,6 +142,38 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    kernel launched at the whole lineitem page (6,000,026 rows at SF1), and
    insert, compaction and probe against their plain versions at the second
    pass's shapes.  ``by_path`` gains ``cache_sf1``.
+13. Plan templates and the template batcher (``templates_path``): one
+   statement shape with new values on every request, as a dashboard or an
+   API backend sends it, on one SF1 engine at its defaults (page tier on;
+   the result tier off through the ``result_cache`` session property);
+   bindings from ``numpy.random.default_rng(13)``.  (a) PREPARE each of
+   ``TEMPLATES`` (T1-T6) and EXECUTE it ``TEMPLATE_EXECUTES`` times (a NULL
+   binding and one outside the domain among them): the first EXECUTE
+   creates the template, every later one hits it and plans nothing (no
+   ``Planner.plan_query`` call, no ``planner`` span); every result equal
+   byte for byte to a card engine with templates off (the substitution
+   path), four bindings of each also to the port's CPU engine; per
+   statement the median wall of a hit and of the substitution path, host
+   reads, H2D bytes and launches per request.  (b) The same values inline
+   as ad-hoc SELECTs (auto-parameterization): the same checks.  (c) Fused
+   windows of 4 and 16 requests of T1, T3 and T4 (the leader parked in
+   ``batcher.LEADER_EXIT_HOOK`` until the window has queued): every lane
+   equal to its own serial answer, T4's window scanning the union of its
+   members' kept splits, and a warm window of 4 reading the host at most
+   twice as often as one warm serial request; each window's wall beside
+   the sum of its members' serial walls.  (d) A
+   ``CoordinatorServer(dispatch_threads=4)`` over the engine: DB-API
+   clients send T3 and T4 with parameters, ``TEMPLATE_SERVER_REQUESTS``
+   requests per setting from 1, 4 and 16 clients, the batcher on and then
+   off; every response equal to the direct answer for its binding;
+   statements/s, p50 and p99 wall and the batches formed.  (e) T4 and T1
+   on a TPC-H SF10 engine (lineitem not cut): bind-time pruning reads one
+   lineitem split per binding; results equal a templates-off card engine;
+   the warm walls of both.  (f) ``compact_rows`` against its plain version
+   at the phase's largest and most frequent shapes.  ``by_path`` gains
+   ``templates_sf1``: the launches and shapes of the templates engine's own
+   requests at SF1 (13a-13d), counted from zero around each of them, so the
+   templates-off comparator and the SF10 engines are left out.
 
 It prints the card line, then one JSON line with every kernel's numbers, and
 last ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -150,6 +182,7 @@ package beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -3470,6 +3503,30 @@ def launch_counts():
     return {k: s.launches for k, s in ck.STATS.items()}
 
 
+class OwnLaunches:
+    """Launches and launch shapes of one engine's own calls.  Each region
+    counts from zero (``reset_stats`` just before it) and is read just
+    after, so what other engines launch between the regions is left out."""
+
+    def __init__(self):
+        from trino_tpu_torch.ops import cuda_kernels as ck
+
+        self.launches = {k: 0 for k in ck.STATS}
+        self.shapes = {k: [] for k in ck.STATS}
+
+    @contextlib.contextmanager
+    def region(self):
+        from trino_tpu_torch.ops import cuda_kernels as ck
+
+        ck.reset_stats()
+        try:
+            yield
+        finally:
+            for k, s in ck.STATS.items():
+                self.launches[k] += s.launches
+                self.shapes[k].extend(s.shapes)
+
+
 def cache_pass(engine, label, phase2, builds):
     """12a: the 22 queries once, each equal to phase 2's result.  Per query:
     wall, launches per kernel, H2D bytes and host reads, the pool's hits,
@@ -3772,6 +3829,574 @@ def cache_path(phase2):
                            for k, r in checks.items()}
 
 
+# -- phase 13: plan templates and the template batcher ---------------------------------
+# one statement shape, new values on every request (a dashboard, an API backend)
+TEMPLATES = {
+    "t1": "select c_name, c_acctbal from customer where c_custkey = ?",
+    "t2": "select c_custkey from customer where c_mktsegment = ? order by c_custkey limit 6",
+    "t3": "select o_orderkey, o_totalprice, o_orderstatus from orders where o_custkey = ?",
+    "t4": "select l_linenumber, l_quantity, l_extendedprice from lineitem where l_orderkey = ?",
+    "t5": "select o_orderkey from orders where o_orderdate < ? order by o_orderkey limit 5",
+    "t6": ("select c_custkey from customer where c_acctbal between ? and ? "
+           "order by c_custkey limit 5"),
+}
+TEMPLATE_EXECUTES = 32
+TEMPLATE_NULL_AT, TEMPLATE_OUTSIDE_AT = 5, 9  # which EXECUTE binds NULL, which a missing value
+TEMPLATE_CPU_CHECKED = (0, 1, TEMPLATE_NULL_AT, TEMPLATE_OUTSIDE_AT)  # also held to the CPU
+TEMPLATE_FUSED = (4, 16)  # fused window sizes of 13c
+TEMPLATE_FUSED_STATEMENTS = ("t1", "t3", "t4")
+TEMPLATE_SERVER_STATEMENTS = ("t3", "t4")
+TEMPLATE_SERVER_CLIENTS = (1, 4, 16)
+TEMPLATE_SERVER_REQUESTS = 200
+TEMPLATE_SERVER_POOL = 50  # distinct bindings per statement in 13d
+TEMPLATE_SERVER_POLL_S = 0.005  # the DB-API client's poll, so the engine and not the poll sets the rate
+TEMPLATE_BIG_EXECUTES = 8  # 13e: bindings of T4 and T1 at SF10
+# phase 11b's rate from four clients (bench.py's five queries at SF1) on an
+# NVIDIA H100 80GB HBM3 at 700 W, as PERF.md §6 records it
+PHASE11_FOUR_CLIENT_RATE = 3.1950313862430493
+SEGMENTS = ("AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD", "MACHINERY")
+
+
+def same_bytes(a, b, what):
+    """Two port results equal byte for byte: names, types, each raw column's
+    dtype and bytes (an object column's values), and the decoded values."""
+    import numpy as np
+
+    check(tuple(a.names) == tuple(b.names) and tuple(a.types) == tuple(b.types),
+          f"{what}: names or types differ")
+    for name, ra, rb, da, db in zip(a.names, a.raw_columns, b.raw_columns, a.columns,
+                                    b.columns):
+        ra, rb = np.asarray(ra), np.asarray(rb)
+        same = list(ra) == list(rb) if ra.dtype == object else ra.tobytes() == rb.tobytes()
+        check(ra.dtype == rb.dtype and ra.shape == rb.shape and same,
+              f"{what}: raw column {name} differs")
+        check([repr(x) for x in list(da)] == [repr(x) for x in list(db)],
+              f"{what}: column {name} differs as decoded values")
+
+
+def template_values(gen, name, n, sf):
+    """``n`` bindings of statement ``name`` (tuples of python values, None
+    for NULL) at scale ``sf``: at TEMPLATE_NULL_AT a NULL, at
+    TEMPLATE_OUTSIDE_AT a value outside the table's domain, where the
+    statement has one."""
+    import datetime
+
+    customers, orders = int(150_000 * sf), int(1_500_000 * sf)
+    out = []
+    for i in range(n):
+        if name in ("t1", "t3"):
+            v = (int(gen.integers(1, customers + 1)),)
+            if name == "t1" and i == TEMPLATE_OUTSIDE_AT:
+                v = (customers + 1 + int(gen.integers(0, 1000)),)
+        elif name == "t2":
+            v = (SEGMENTS[int(gen.integers(0, len(SEGMENTS)))],)
+            if i == TEMPLATE_OUTSIDE_AT:
+                v = ("no-such-segment",)
+        elif name == "t4":
+            v = (int(gen.integers(1, orders + 1)),)
+            if i == TEMPLATE_OUTSIDE_AT:
+                v = (orders + 1 + int(gen.integers(0, 1000)),)
+        elif name == "t5":
+            day = datetime.date(1992, 1, 1) + datetime.timedelta(days=int(gen.integers(0, 2400)))
+            v = (day,)
+        else:
+            lo = int(gen.integers(-99_999, 900_000))
+            v = (f"{lo / 100:.2f}", f"{(lo + int(gen.integers(0, 100_000))) / 100:.2f}")
+        if i == TEMPLATE_NULL_AT:
+            v = (None,) + v[1:]
+        out.append(v)
+    return out
+
+
+def sql_literal(v) -> str:
+    """A binding's SQL literal: decimals are given as text with two digits."""
+    import datetime
+
+    if v is None:
+        return "null"
+    if isinstance(v, datetime.date):
+        return f"date '{v.isoformat()}'"
+    if isinstance(v, str) and not v.lstrip("-").replace(".", "").isdigit():
+        return "'" + v.replace("'", "''") + "'"
+    return str(v)
+
+
+def inline_sql(text, values) -> str:
+    parts = text.split("?")
+    check(len(parts) == len(values) + 1, f"{text}: {len(values)} values")
+    return parts[0] + "".join(sql_literal(v) + p for v, p in zip(values, parts[1:]))
+
+
+def counted_plans():
+    """Count ``Planner.plan_query`` calls.  Returns (the counts, a function
+    that undoes the wrapping)."""
+    from trino_tpu_torch.sql import frontend
+
+    counts = {"plans": 0}
+    real = frontend.Planner.plan_query
+
+    def counted(self, *a, **k):
+        counts["plans"] += 1
+        return real(self, *a, **k)
+
+    frontend.Planner.plan_query = counted
+    return counts, lambda: setattr(frontend.Planner, "plan_query", real)
+
+
+def recorded_scans():
+    """Record the split list of every scan the executor reads (a page
+    source of ``_scan_pages_source`` when it is iterated), as (table, split
+    lo's).  Returns (the list, a function that undoes the wrapping)."""
+    from trino_tpu_torch.exec.local_executor import LocalExecutor
+
+    seen = []
+    real = LocalExecutor._scan_pages_source
+
+    def recorded(self, conn, catalog, table, splits, columns):
+        pages = real(self, conn, catalog, table, splits, columns)
+        los = tuple(s.lo for s in splits)
+
+        def read():
+            seen.append((table, los))
+            yield from pages()
+
+        return read
+
+    LocalExecutor._scan_pages_source = recorded
+    return seen, lambda: setattr(LocalExecutor, "_scan_pages_source", real)
+
+
+def timed_statement(engine, sql, sess, plans, **kw):
+    """(result, record) of one statement: wall to a synchronized card, its
+    template hits and misses, plan_query calls, whether a planner span
+    opened, host reads, H2D bytes and launches."""
+    import torch
+
+    torch.cuda.synchronize()
+    p0 = plans["plans"]
+    t0 = time.perf_counter()
+    res = engine.execute_sql(sql, sess, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = engine.last_query_counters
+    spans = [x.get("name") for x in engine.last_query_trace.get("spans", ())]
+    return res, {"wall_s": wall, "hits": c["plan_template_hits"],
+                 "misses": c["plan_template_misses"], "plans": plans["plans"] - p0,
+                 "planner_span": "planner" in spans, "host_reads": c["host_reads"],
+                 "h2d_bytes": c["h2d_bytes"], "launches": sum(c["launches"].values()),
+                 "batched_with": engine.last_batched_with}
+
+
+def template_sessions(*engines):
+    """A session per engine with the result tier off."""
+    out = []
+    for e in engines:
+        s = e.create_session("tpch")
+        e.execute_sql("set session result_cache = false", s)
+        out.append(s)
+    return out
+
+
+def template_statements(engine, off, cpu, values, plans, label, inline, own):
+    """13a (EXECUTE) and 13b (``inline``: the values in the text): each
+    statement's requests on the templates engine and the templates-off one,
+    byte-equal; the first a template miss, every later one a hit that plans
+    nothing; TEMPLATE_CPU_CHECKED bindings also equal the CPU engine.  The
+    templates engine's requests count their launches in ``own``."""
+    from trino_tpu_torch.sql.params import parameterize_text
+
+    st, so, sc = template_sessions(engine, off, cpu)
+    rec = {}
+    for name, text in TEMPLATES.items():
+        vals = values[name]
+        if inline:
+            # a NULL literal changes the text's shape: it is not the same template
+            idx = [i for i, v in enumerate(vals) if None not in v]
+            stmts = {i: inline_sql(text, vals[i]) for i in idx}
+            kw = {}
+        else:
+            idx = list(range(len(vals)))
+            for e, sess in ((engine, st), (off, so), (cpu, sc)):
+                e.execute_sql(f"prepare {name} from {text}", sess)
+            stmts = {i: f"execute {name} using " + ", ".join(sql_literal(x) for x in vals[i])
+                     for i in idx}
+        reqs, subs, shapes = [], [], set()
+        for i in idx:
+            with own.region():
+                res, r = timed_statement(engine, stmts[i], st, plans)
+            want, w = timed_statement(off, stmts[i], so, plans)
+            same_bytes(res, want, f"{label} {name} binding {i} vs templates off")
+            # the shape a request templates under: an inline negative number
+            # keeps its sign in the text, so it is a shape of its own
+            shape = parameterize_text(stmts[i])[0] if inline else text
+            if shape not in shapes:
+                shapes.add(shape)
+                check(r["misses"] == 1 and r["hits"] == 0,
+                      f"{label} {name} binding {i}: the first request of its shape is not "
+                      f"a template miss ({r})")
+            else:
+                check(r["hits"] == 1 and r["misses"] == 0 and r["plans"] == 0
+                      and not r["planner_span"],
+                      f"{label} {name} binding {i}: not a template hit that plans nothing ({r})")
+            check(w["hits"] == 0 and w["misses"] == 0,
+                  f"{label} {name}: the templates-off engine used a template")
+            if i in TEMPLATE_CPU_CHECKED:
+                same_result(res, cpu.execute_sql(stmts[i], sc),
+                            f"{label} {name} binding {i} card vs CPU")
+            reqs.append(r)
+            subs.append(w)
+        hits = [r for r in reqs if r["hits"]]
+        rec[name] = {
+            "requests": len(reqs), "shapes": len(shapes), "rows": len(res),
+            "hit_wall_s": statistics.median(r["wall_s"] for r in hits),
+            "miss_wall_s": reqs[0]["wall_s"],
+            "substitution_wall_s": statistics.median(w["wall_s"] for w in subs[1:]),
+            "host_reads": statistics.median(r["host_reads"] for r in hits),
+            "substitution_host_reads": statistics.median(w["host_reads"] for w in subs[1:]),
+            "h2d_bytes": statistics.median(r["h2d_bytes"] for r in hits),
+            "substitution_h2d_bytes": statistics.median(w["h2d_bytes"] for w in subs[1:]),
+            "launches": statistics.median(r["launches"] for r in hits),
+            "substitution_launches": statistics.median(w["launches"] for w in subs[1:]),
+            "plans_per_hit": max(r["plans"] for r in hits),
+        }
+        print(f"templates {label} {name}: {len(reqs)} requests in {len(shapes)} template(s), "
+              f"hit wall_s "
+              f"{rec[name]['hit_wall_s']} (miss {rec[name]['miss_wall_s']}), substitution "
+              f"wall_s {rec[name]['substitution_wall_s']}; per request host_reads "
+              f"{rec[name]['host_reads']} vs {rec[name]['substitution_host_reads']}, h2d_bytes "
+              f"{rec[name]['h2d_bytes']} vs {rec[name]['substitution_h2d_bytes']}, launches "
+              f"{rec[name]['launches']} vs {rec[name]['substitution_launches']}; no planner "
+              f"span and 0 plan_query calls on every hit", flush=True)
+    return rec
+
+
+def fused_window(engine, text, leader, members):
+    """One fused window: the leader runs and parks in LEADER_EXIT_HOOK until
+    every member queued behind it; then (member results in order, records,
+    wall from the release to the last member's answer)."""
+    import threading
+
+    import torch
+
+    from trino_tpu_torch.execution import batcher as BA
+
+    bt = engine.template_batcher
+    key = engine._template_key(text, engine.create_session("tpch"))
+    ready = threading.Event()
+    out, recs, errors = [None] * len(members), [None] * len(members), []
+    BA.LEADER_EXIT_HOOK = lambda k: ready.wait(120) if k == key else None
+
+    def run(i, v):
+        try:
+            sess = engine.create_session("tpch")
+            engine.execute_sql("set session result_cache = false", sess)
+            res = engine.execute_sql(text, sess, parameters=list(v))
+            if i is not None:
+                out[i] = res
+                recs[i] = {"batched_with": engine.last_batched_with,
+                           **{k: engine.last_query_counters[k]
+                              for k in ("host_reads", "batched_requests", "plan_template_hits")}}
+        except Exception as e:  # noqa: BLE001 - reported by the check below
+            errors.append(e)
+
+    try:
+        lead = threading.Thread(target=run, args=(None, leader))
+        lead.start()
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 60:
+            with bt._lock:
+                if key in bt._lanes and bt._lanes[key].busy:
+                    break
+            time.sleep(0.0005)
+        threads = [threading.Thread(target=run, args=(i, v)) for i, v in enumerate(members)]
+        for t in threads:
+            t.start()
+        while time.perf_counter() - t0 < 60:
+            with bt._lock:
+                if len(bt._lanes[key].queue) >= len(members):
+                    break
+            time.sleep(0.0005)
+        t1 = time.perf_counter()
+        ready.set()
+        for t in threads:
+            t.join(120)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        lead.join(120)
+    finally:
+        BA.LEADER_EXIT_HOOK = None
+    check(not errors, f"fused window: {errors!r}")
+    return out, recs, wall
+
+
+def template_windows(engine, gen, scans):
+    """13c: fused windows of TEMPLATE_FUSED sizes on T1, T3 and T4, each
+    lane equal to its serial answer; T4's scans the union of its members'
+    kept splits; a warm window of 4 within 2x one warm serial request's host
+    reads."""
+    import torch
+
+    bt = engine.template_batcher
+    rec = {}
+    for name in TEMPLATE_FUSED_STATEMENTS:
+        text = TEMPLATES[name]
+        sess = template_sessions(engine)[0]
+        for size in TEMPLATE_FUSED:
+            vals = template_values(gen, name, size + 1, SF_MAIN)
+            vals = [v if v[0] is not None else template_values(gen, name, 1, SF_MAIN)[0]
+                    for v in vals]
+            # serial answers and walls, the batcher off; the kept splits of each
+            # (the leader's first)
+            bt.enabled = False
+            serial, walls, kept = [], [], []
+            try:
+                for v in vals:
+                    torch.cuda.synchronize()
+                    n0 = len(scans)
+                    t0 = time.perf_counter()
+                    serial.append(engine.execute_sql(text, sess, parameters=list(v)))
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                    kept.append([lo for tab, los in scans[n0:] for lo in los])
+                serial_reads = engine.last_query_counters["host_reads"]
+            finally:
+                bt.enabled = True
+            serial, walls = serial[1:], walls[1:]
+            before = bt.info()
+            n0 = len(scans)
+            out, recs, wall = fused_window(engine, text, vals[0], vals[1:])
+            fused_scans = [lo for tab, los in scans[n0:] for lo in los]
+            after = bt.info()
+            check(after["batches_total"] == before["batches_total"] + 1,
+                  f"fused {name} x{size}: {after['batches_total'] - before['batches_total']} "
+                  f"batches formed")
+            for i, (got, want, r) in enumerate(zip(out, serial, recs)):
+                same_bytes(got, want, f"fused {name} x{size} lane {i} vs its serial answer")
+                check(r["batched_with"] == size and r["batched_requests"] == 1,
+                      f"fused {name} x{size} lane {i}: {r}")
+            reads = sum(r["host_reads"] for r in recs)
+            union = sorted(set(lo for ks in kept[1:] for lo in ks))
+            if name == "t4":
+                # the leader's own scan comes first, then the window's, once
+                # over each split of the union, in split order
+                check(fused_scans == kept[0] + union,
+                      f"fused t4 x{size}: scanned splits {fused_scans} vs the leader's "
+                      f"{kept[0]} and the union {union} of its members' kept splits")
+            if size == 4:
+                check(0 < reads <= 2 * serial_reads,
+                      f"fused {name} x4: {reads} host reads vs {serial_reads} for one request")
+            rec[f"{name}_x{size}"] = {"wall_s": wall, "serial_walls_s": sum(walls),
+                                      "host_reads": reads, "serial_host_reads": serial_reads,
+                                      "kept_union": union if name == "t4" else None}
+            print(f"templates fused {name} x{size}: window wall_s {wall} vs serial sum "
+                  f"{sum(walls)} ({size} requests); host_reads {reads} vs one serial request's "
+                  f"{serial_reads}; every lane equal to its serial answer"
+                  + (f"; scanned the union of kept splits {union}" if name == "t4" else ""),
+                  flush=True)
+    info = bt.info()
+    rec["batches_total"], rec["sizes"] = info["batches_total"], info["sizes"]
+    print(f"templates fused: batches_total {info['batches_total']}, sizes {info['sizes']}",
+          flush=True)
+    return rec
+
+
+def template_server(engine, gen):
+    """13d: DB-API clients over a CoordinatorServer(dispatch_threads=4)
+    send T3 and T4 with parameters, from 1, 4 and 16 clients, the batcher on
+    and then off; every response equal to the direct answer."""
+    import threading
+
+    from trino_tpu_torch.server import CoordinatorServer, dbapi
+
+    direct, pools = {}, {}
+    sess = template_sessions(engine)[0]
+    for name in TEMPLATE_SERVER_STATEMENTS:
+        pools[name] = [v for v in template_values(gen, name, TEMPLATE_SERVER_POOL + 1, SF_MAIN)
+                       if v[0] is not None][:TEMPLATE_SERVER_POOL]
+        for v in pools[name]:
+            direct[(name, v)] = json_rows(engine.execute_sql(TEMPLATES[name], sess,
+                                                             parameters=list(v)))
+    srv = CoordinatorServer(engine, port=0, dispatch_threads=4)
+    srv.start()
+    rec = {}
+    try:
+        for on in (True, False):
+            engine.template_batcher.enabled = on
+            for name in TEMPLATE_SERVER_STATEMENTS:
+                for clients in TEMPLATE_SERVER_CLIENTS:
+                    picks = [pools[name][int(i)] for i in
+                             gen.integers(0, len(pools[name]), TEMPLATE_SERVER_REQUESTS)]
+                    walls, errors = [], []
+
+                    def run(share):
+                        try:
+                            conn = dbapi.connect(url=srv.url, catalog="tpch")
+                            conn._client.poll_interval = TEMPLATE_SERVER_POLL_S
+                            cur = conn.cursor()
+                            for v in share:
+                                t0 = time.perf_counter()
+                                cur.execute(TEMPLATES[name], list(v))
+                                got = [list(r) for r in cur.fetchall()]
+                                walls.append(time.perf_counter() - t0)
+                                if got != direct[(name, v)]:
+                                    errors.append(f"{name} {v}: {got} vs {direct[(name, v)]}")
+                        except Exception as e:  # noqa: BLE001 - reported below
+                            errors.append(repr(e))
+
+                    b0 = engine.template_batcher.info()["batches_total"]
+                    threads = [threading.Thread(target=run, args=(picks[i::clients],))
+                               for i in range(clients)]
+                    t0 = time.perf_counter()
+                    for t in threads:
+                        t.start()
+                    for t in threads:
+                        t.join(600)
+                    secs = time.perf_counter() - t0
+                    check(not errors, f"server {name} x{clients} batcher "
+                          f"{'on' if on else 'off'}: {errors[:3]}")
+                    check(len(walls) == TEMPLATE_SERVER_REQUESTS, "a server request was lost")
+                    walls.sort()
+                    r = {"statements_per_s": len(walls) / secs, "seconds": secs,
+                         "p50_s": walls[len(walls) // 2],
+                         "p99_s": walls[min(len(walls) - 1, int(0.99 * len(walls)))],
+                         "batches": engine.template_batcher.info()["batches_total"] - b0}
+                    rec[f"{name}_c{clients}_{'on' if on else 'off'}"] = r
+                    print(f"templates server {name}: {clients} clients, batcher "
+                          f"{'on' if on else 'off'}: {r['statements_per_s']} statements/s, "
+                          f"p50 {r['p50_s']} s, p99 {r['p99_s']} s, {r['batches']} batches; "
+                          f"every response equal to the direct answer", flush=True)
+    finally:
+        engine.template_batcher.enabled = True
+        srv.stop()
+    for name in TEMPLATE_SERVER_STATEMENTS:
+        four = rec[f"{name}_c4_off"]["statements_per_s"]
+        print(f"templates server {name}: 4 clients, batcher off {four} statements/s against "
+              f"phase 11b's {PHASE11_FOUR_CLIENT_RATE} (bench.py's five queries): "
+              f"{'within' if 0.5 <= four / PHASE11_FOUR_CLIENT_RATE <= 2 else 'not within'} 2x",
+              flush=True)
+    return rec
+
+
+def template_big(scans, plans):
+    """13e: T4 and T1 at SF10 (lineitem not cut): one kept lineitem split per
+    T4 binding, results equal to a templates-off card engine, warm walls."""
+    import numpy as np
+    import torch
+
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    conn = TpchConnector(sf=SF_BIG, split_rows=SPLIT_ROWS)
+    engine, off = Engine(device=DEVICE), Engine(device=DEVICE)
+    off.plan_templates_enabled = False
+    for e in (engine, off):
+        e.register_catalog("tpch", conn)
+    st, so = template_sessions(engine, off)
+    gen = np.random.default_rng(13)
+    rec = {"lineitem_rows": conn.exact_row_count("lineitem"),
+           "lineitem_splits": len(conn.splits("lineitem"))}
+    for name in ("t4", "t1"):
+        vals = [v for v in template_values(gen, name, TEMPLATE_BIG_EXECUTES + 1, SF_BIG)
+                if v[0] is not None][:TEMPLATE_BIG_EXECUTES]
+        for e, sess in ((engine, st), (off, so)):
+            e.execute_sql(f"prepare {name} from {TEMPLATES[name]}", sess)
+        hits, subs, kept = [], [], []
+        for k, v in enumerate(vals):
+            stmt = f"execute {name} using {sql_literal(v[0])}"
+            n0 = len(scans)
+            res, r = timed_statement(engine, stmt, st, plans)
+            read = [los for tab, los in scans[n0:] if tab == "lineitem"]
+            want, w = timed_statement(off, stmt, so, plans)
+            same_bytes(res, want, f"sf{SF_BIG:g} {name} {v} vs templates off")
+            check(k == 0 or r["hits"] == 1, f"sf{SF_BIG:g} {name} {v}: not a template hit")
+            if name == "t4":
+                check(len(read) == 1 and len(read[0]) == 1,
+                      f"sf{SF_BIG:g} t4 {v}: read lineitem splits {read}, not one")
+                kept.append(read[0][0])
+            if k:
+                hits.append(r["wall_s"])
+                subs.append(w["wall_s"])
+        rec[name] = {"hit_wall_s": statistics.median(hits),
+                     "substitution_wall_s": statistics.median(subs),
+                     "kept_split_lo": kept or None}
+        print(f"templates sf{SF_BIG:g} {name}: hit wall_s {rec[name]['hit_wall_s']}, "
+              f"templates-off wall_s {rec[name]['substitution_wall_s']}"
+              + (f"; one of {rec['lineitem_splits']} lineitem splits read per binding "
+                 f"({rec['lineitem_rows']} rows)" if name == "t4" else ""), flush=True)
+    del engine, off, conn
+    torch.cuda.empty_cache()
+    return rec
+
+
+def templates_path():
+    """Phase 13: plan templates and the template batcher on one card.
+    Returns (the record, launches of the phase, {kernel: checks at its
+    shapes})."""
+    import numpy as np
+    import torch
+
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    t_phase = time.perf_counter()
+    os.environ.pop("TRINO_TPU_PAGE_CACHE", None)
+    os.environ.pop("TRINO_TPU_RESULT_CACHE", None)
+    torch.cuda.empty_cache()
+    conn = TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS)
+    engine, off = Engine(device=DEVICE), Engine(device=DEVICE)
+    off.plan_templates_enabled = False
+    cpu = Engine(device="cpu")
+    for e in (engine, off):
+        e.register_catalog("tpch", conn)
+    cpu.register_catalog("tpch", TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS))
+    check(engine.plan_templates_enabled and engine.template_batcher.enabled,
+          "templates or the batcher are off by default")
+    gen = np.random.default_rng(13)
+    values = {name: template_values(gen, name, TEMPLATE_EXECUTES, SF_MAIN)
+              for name in TEMPLATES}
+    plans, unplan = counted_plans()
+    scans, unscan = recorded_scans()
+    # the templates engine's own requests: 13a and 13b count each of its
+    # requests, 13c and 13d run on it alone
+    own = OwnLaunches()
+    rec = {}
+    try:
+        rec["execute"] = template_statements(engine, off, cpu, values, plans, "13a", False,
+                                             own)
+        # 13b starts with no template and no plan in either engine: the
+        # templates-off engine plans every new text, as 13a's substitution did
+        for e in (engine, off):
+            with e._plan_lock:
+                e._template_cache.clear()
+                e._plan_cache.clear()
+        rec["inline"] = template_statements(engine, off, cpu, values, plans, "13b", True, own)
+        del cpu
+        with own.region():
+            rec["fused"] = template_windows(engine, gen, scans)
+            rec["server"] = template_server(engine, gen)
+        del engine, off
+        rec["sf10"] = template_big(scans, plans)
+    finally:
+        unplan()
+        unscan()
+    launches, shapes = own.launches, own.shapes
+    check(launches["compact_rows"] > 0,
+          "the templates engine's requests launched no compact_rows")
+    # the template subset has no join and no group-by
+    check(launches["hash_insert"] == 0 and launches["hash_probe"] == 0,
+          f"the templates path launched a hash kernel: {launches}")
+    checks = {"compact_rows": compact_checks(shapes["compact_rows"],
+                                             np.random.default_rng(31))}
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"templates path: {rec['seconds']:.1f} s, launches of the templates engine's "
+          f"own SF1 requests {launches}", flush=True)
+    print(json.dumps({"templates_sf1": rec}, default=str), flush=True)
+    torch.cuda.empty_cache()
+    return rec, launches, {k: {"max_abs_err": r["max_abs_err"], "shapes": r["shapes"]}
+                           for k, r in checks.items()}
+
+
 def main() -> int:
     import torch
 
@@ -3920,6 +4545,8 @@ def main() -> int:
         _, sv_launches, sv_checks = server_path(direct)
         # -- phase 12: the plan cache and the buffer pool at their defaults ----
         _, ca_launches, ca_checks = cache_path(phase2)
+        # -- phase 13: plan templates and the template batcher -----------------
+        _, tp_launches, tp_checks = templates_path()
 
         # per path: its launches, and the checks at its own shapes (the
         # top-level times stay the TPC-H path's largest shape's)
@@ -3939,12 +4566,16 @@ def main() -> int:
                 "server_sf1": {"launches": sv_launches[name],
                                **sv_checks.get(name, {"max_abs_err": None, "shapes": []})},
                 "cache_sf1": {"launches": ca_launches[name],
-                              **ca_checks.get(name, {"max_abs_err": None, "shapes": []})}}
-            for checks in (ds_checks, mem_checks, fn_checks, ar_checks, sv_checks, ca_checks):
+                              **ca_checks.get(name, {"max_abs_err": None, "shapes": []})},
+                "templates_sf1": {"launches": tp_launches[name],
+                                  **tp_checks.get(name, {"max_abs_err": None, "shapes": []})}}
+            for checks in (ds_checks, mem_checks, fn_checks, ar_checks, sv_checks, ca_checks,
+                           tp_checks):
                 if name in checks:
                     r["max_abs_err"] = max(r["max_abs_err"], checks[name]["max_abs_err"])
             r["launches"] += (ds_launches[name] + mem_launches[name] + fn_launches[name]
-                              + ar_launches[name] + sv_launches[name] + ca_launches[name])
+                              + ar_launches[name] + sv_launches[name] + ca_launches[name]
+                              + tp_launches[name])
         print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

@@ -230,8 +230,9 @@ def test_show_and_explain_equal_the_reference(ref, sql):
 ], ids=["explain", "explain_using", "explain_analyze"])
 def test_explain_execute_equals_the_reference(monkeypatch, sql):
     """ROADMAP C6: EXPLAIN [ANALYZE] EXECUTE prints the reference's lines for
-    a statement without a plan template (the reference's templates off; the
-    port has none yet).  The time in ANALYZE's last line is masked."""
+    a statement without a plan template (templates off in both packages;
+    tests/test_torch_plan_templates.py holds the lines with one).  The time
+    in ANALYZE's last line is masked."""
     import re
 
     monkeypatch.setenv("TRINO_TPU_PLAN_TEMPLATES", "0")

@@ -7,7 +7,7 @@ aggregation runner, the function corpora and the exact wide sums; and the
 array, map, UNNEST and MATCH_RECOGNIZE corpora, UNNEST's expansion map and
 the vectorized matcher; the coordinator server over a card engine; the
 buffer pool's page, build and result tiers on the card (phase 12 of
-chip_smoke.py at SF0.01).
+chip_smoke.py at SF0.01); a fused template window on the card (phase 13).
 
 They skip without a card.  This file imports no jax, so on a machine with a
 card (which has no jax) it runs without the repo's conftest:
@@ -920,3 +920,31 @@ def test_result_tier_hit_launches_nothing_on_the_card(dev, monkeypatch):
         hit = cs.result_hit_counts(card, sql, s, q)
         _same(miss, cpu[q])
         _same(hit, miss)
+
+
+def test_fused_template_window_on_the_card_equals_serial(dev, monkeypatch):
+    """A fused window of four requests of T4 (a lineitem point lookup,
+    bind-time pruned) on the card equals, byte for byte, the four requests
+    run one by one, and packs its lanes through the CUDA compaction."""
+    import chip_smoke as cs
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    monkeypatch.setenv("TRINO_TPU_RESULT_CACHE", "0")
+    card = Engine(device="cuda")
+    card.register_catalog("tpch", TpchConnector(sf=0.01, split_rows=1 << 12))
+    text = cs.TEMPLATES["t4"]
+    s = card.create_session("tpch")
+    for k in (1, 2):  # create and confirm the template
+        card.execute_sql(text, s, parameters=[k])
+    keys = [(7,), (3000,), (9001,), (14999,)]  # kept splits differ
+    card.template_batcher.enabled = False
+    serial = [card.execute_sql(text, s, parameters=list(k)) for k in keys]
+    card.template_batcher.enabled = True
+    before = ck.STATS["compact_rows"].launches
+    fused, recs, _ = cs.fused_window(card, text, (5,), keys)
+    assert ck.STATS["compact_rows"].launches > before
+    for got, want, r in zip(fused, serial, recs):
+        cs.same_bytes(got, want, "fused lane vs serial")
+        assert r["batched_with"] == len(keys)
+    assert any(len(r) for r in serial)

@@ -303,6 +303,10 @@ def test_early_stop_and_errors_store_nothing(monkeypatch):
     import trino_tpu_torch.exec.local_executor as LE
 
     e = _engine(monkeypatch)
+    # the statement's own plan: a plan template whose first execution fails
+    # is dropped and the statement runs again by substitution (probation),
+    # which would answer past the one failure injected below
+    e.plan_templates_enabled = False
     s = e.create_session("tpch")
     assert len(e.execute_sql("select l_orderkey from lineitem limit 5", s)) == 5
     assert e.buffer_pool.info()["page_entries"] == 0
@@ -330,6 +334,37 @@ def test_early_stop_and_errors_store_nothing(monkeypatch):
     monkeypatch.setattr(LE, "compact_rows", failing)
     with pytest.raises(RuntimeError, match="compaction failed"):
         e.execute_sql(sql, s)  # the cached page's compaction fails the statement
+
+
+def test_failed_template_attempt_stores_nothing(monkeypatch):
+    """Templates on (the default): an error mid-scan in a template's first
+    execution is retried by substitution (probation).  With the error on
+    both attempts the statement raises, and neither attempt stores a page."""
+    import trino_tpu_torch.exec.local_executor as LE
+
+    e = _engine(monkeypatch)
+    assert e.plan_templates_enabled
+    s = e.create_session("tpch")
+    sql = "select l_orderkey, l_partkey from lineitem where l_quantity > 49"
+    real = LE.evaluate_predicate
+    seen = []
+
+    def fails_on_every_second_page(*a, **k):
+        seen.append(1)
+        if len(seen) % 2 == 0:
+            raise RuntimeError("filter failed")
+        return real(*a, **k)
+
+    monkeypatch.setattr(LE, "evaluate_predicate", fails_on_every_second_page)
+    with pytest.raises(RuntimeError, match="filter failed"):
+        e.execute_sql(sql, s)
+    # the template attempt ran to its failure on the second page, then the
+    # substitution attempt (templates off, the filter runs twice in all)
+    assert len(seen) == 4, seen
+    assert e.buffer_pool.info()["page_entries"] == 0
+    monkeypatch.setattr(LE, "evaluate_predicate", real)
+    e.execute_sql(sql, s)  # stores
+    assert e.buffer_pool.info()["page_entries"] == 1
 
 
 def test_pruned_scans_key_their_own_splits(monkeypatch, ref):
@@ -470,9 +505,13 @@ def test_freed_subquery_plans_never_serve_another_build(monkeypatch, ref):
         gc.collect()
         _assert_same(got, e.execute_sql(sql, _off(e)))
         _same_ref(got, ref(sql), sql)
-    # the second BRAZIL's fresh subquery plan checked out the first's build
+    # the second BRAZIL's fresh subquery plan checked out the first's build.
+    # One more miss: the first statement also tried to plan a template,
+    # whose subquery looked its build up (the nation fragment over the
+    # parameter) before the parameter, which has no value while planning,
+    # stopped it; the text is then unbindable and no later statement tries
     info = e.buffer_pool.info()
-    assert info["build_hits"] == 1 and info["build_misses"] == 3, info
+    assert info["build_hits"] == 1 and info["build_misses"] == 4, info
     for sql in (Q_JOIN, Q_SEMI, Q_HASH, Q_MULTI):
         e.execute_sql(sql, s)
     assert prints and not [p for p in prints if re.search(r"[A-Za-z_]#\d", p)]

@@ -5,8 +5,10 @@ Restates tests/test_plan_templates.py::test_plan_cache_key_normalization (a
 reformatted repeat of a cached statement does not plan again) and
 tests/test_dispatch_batch.py::test_set_session_rides_plan_cache (SET SESSION
 of a plan-shaping property replans a cached statement, RESET finds the first
-plan again), with the reference's plan templates off
-(``TRINO_TPU_PLAN_TEMPLATES=0``: the port has none yet, ROADMAP A2.3).  Adds
+plan again), with plan templates off in both packages
+(``TRINO_TPU_PLAN_TEMPLATES=0``: a template would serve these statements
+before the plan cache sees them; tests/test_torch_plan_templates.py holds
+the templates).  Adds
 one case for each statement after which the reference calls ``_invalidate``:
 the plan cache and the buffer pool are empty after it, and the next SELECT
 plans again and sees the write.  Where both packages answer a statement,
@@ -148,8 +150,9 @@ def test_every_write_clears_the_caches(engines, name):
 @pytest.mark.parametrize("form", ["execute", "parameters"])
 def test_substituted_statements_keep_the_plan_cache_bounded(engines, form, monkeypatch):
     """EXECUTE and protocol parameters substitute each value into new text
-    (the port has no plan templates): every new value is a new plan, and the
-    cache keeps at most ``PLAN_CACHE_ENTRIES`` of them, the newest warm."""
+    where no plan template serves them (templates are off in this file):
+    every new value is a new plan, and the cache keeps at most
+    ``PLAN_CACHE_ENTRIES`` of them, the newest warm."""
     from trino_tpu_torch import engine as port_engine
     from trino_tpu_torch.sql.frontend import Planner
 

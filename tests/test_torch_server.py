@@ -418,3 +418,60 @@ def test_client_basic_auth(engines, tmp_path):
     finally:
         for s in pair:
             s.stop()
+
+
+def test_unfetched_results_outlive_newer_statements(engines, monkeypatch):
+    """A finished statement whose client has not fetched its last response
+    keeps its results while more than the retained number of newer
+    statements finish (many clients, one of them slow to read); once read,
+    it is dropped like any other.  The reference drops it, and the slow
+    client's next poll gets a 404."""
+    from trino_tpu_torch.server import server as S
+
+    _, t = engines
+    srv = TorchServer(t, port=0)
+    srv.start()
+    try:
+        keep = 5
+        monkeypatch.setattr(srv, "_evict_finished",
+                            lambda keep=keep, f=srv._evict_finished: f(keep))
+        slow = _get(srv.url + "/v1/statement", method="POST",
+                    body=b"select n_name from nation where n_nationkey = 3")
+        qid = slow["id"]
+        deadline = time.time() + 30
+        while srv.queries[qid].state != "FINISHED" and time.time() < deadline:
+            time.sleep(0.005)
+        c = Client(srv.url, catalog="tpch", poll_interval=0.002)
+        for k in range(2 * keep):
+            assert c.execute(f"select {k} x").rows == [[k]]
+        assert qid in srv.queries
+        page = _get(slow["nextUri"])
+        assert page["data"] == [["CANADA"]] and "nextUri" not in page
+        for k in range(2 * keep):
+            c.execute(f"select {k} x")
+        assert qid not in srv.queries
+        assert S.UNFETCHED_KEEP_S > 0
+    finally:
+        srv.stop()
+
+
+def test_many_clients_connect_at_once():
+    """32 clients connect while the accept loop is busy: every connect is
+    taken at once.  With the standard library's backlog of 5 (the
+    reference's) the connects past it wait for a retry a second later."""
+    import socket
+
+    from trino_tpu_torch.server.server import _HTTPServer
+
+    httpd = _HTTPServer(("127.0.0.1", 0), object)  # never accepts: no serve loop
+    socks = []
+    try:
+        for _ in range(32):
+            s = socket.socket()
+            s.settimeout(0.5)
+            s.connect(httpd.server_address)
+            socks.append(s)
+    finally:
+        for s in socks:
+            s.close()
+        httpd.server_close()

@@ -37,22 +37,36 @@ Caches, as in the reference:
   ``planner`` span).  A catalog with a ``plan_version`` (the system
   catalog's growable dictionaries) replans the plans that read it when the
   version moves.  Unlike the reference's, it keeps at most
-  ``PLAN_CACHE_ENTRIES`` plans, least recently used out first: without
-  plan templates every new EXECUTE value is a new text and a new plan;
+  ``PLAN_CACHE_ENTRIES`` plans, least recently used out first: a statement
+  that substitutes its values (an aggregate EXECUTE, a binding a template
+  cannot take) is still a new text and a new plan for every value;
+- plan templates (``_template_cache``, on unless
+  ``TRINO_TPU_PLAN_TEMPLATES=0``): EXECUTE, protocol ``parameters`` and
+  auto-parameterized point SELECTs (``sql/params.parameterize_text``, after
+  a plan-cache miss) plan a statement shape once with ``ir.Parameter``
+  runtime inputs and bind each request's values at execution, keyed on the
+  plan cache's tuple without ``distributed``.  A filter over a parameter
+  prunes splits per binding.  A template whose first execution fails is
+  dropped and its text substitutes; an unbindable text (aggregates, a value
+  consumed while planning, a volatile function) is negative-cached for the
+  literal kinds that failed;
+- the template batcher (``execution/batcher.py``, ``template_batcher``):
+  concurrent requests of one confirmed template fuse into one execution
+  (``LocalExecutor.execute_batched``) where the plan is in the streaming
+  subset;
 - the device buffer pool (``execution/bufferpool.py``, ``buffer_pool``):
   the page and build tiers, read by every executor the engine makes (plan
   time subqueries and the statements' row evaluations included), and the
   result tier, consulted before a SELECT reaches an executor.
 
-``_invalidate`` clears the plan cache and the pool after every DDL and DML
-statement and at ``register_catalog``: no cache serves rows from before a
-write.  The reference's executor pool, whose executors keep jitted
-pipelines, has no counterpart: the port has no compiled pipelines to keep,
-and makes a fresh executor per plan.
+``_invalidate`` clears the plan cache, the templates and the pool after
+every DDL and DML statement and at ``register_catalog``: no cache serves
+rows from before a write.  The reference's executor pool, whose executors
+keep jitted pipelines, has no counterpart: the port has no compiled
+pipelines to keep, and makes a fresh executor per plan.
 
-Not ported: plan templates (EXECUTE always substitutes its parameters as
-literals), batching, adaptive execution, plan history, the flight recorder,
-the memory ladder, fault-tolerant and distributed execution.
+Not ported: adaptive execution, plan history, the flight recorder, the
+memory ladder, fault-tolerant and distributed execution.
 """
 
 from __future__ import annotations
@@ -96,7 +110,10 @@ def _resolve_device(device) -> torch.device:
 
 class Engine:
     def __init__(self, device=None):
+        import os
+
         from .connectors.system import InformationSchemaConnector, SystemConnector
+        from .execution.batcher import TemplateBatcher
         from .execution.bufferpool import DeviceBufferPool
         from .execution.eventlistener import EventListenerManager
         from .execution.query_state import QueryTracker
@@ -122,6 +139,18 @@ class Engine:
         # plan cache: key -> (plan, plan_versions of the catalogs it reads),
         # least recently used first, at most PLAN_CACHE_ENTRIES plans
         self._plan_cache: OrderedDict = OrderedDict()
+        # plan templates: key -> (_PlanTemplate, plan_versions), or
+        # (_TEMPLATE_UNBINDABLE, the literal kinds that failed); least
+        # recently used first, at most PLAN_CACHE_ENTRIES entries, since
+        # every new ad-hoc statement shape adds one
+        self._template_cache: OrderedDict = OrderedDict()
+        self.plan_templates_enabled = os.environ.get(
+            "TRINO_TPU_PLAN_TEMPLATES", "1") not in ("0", "false", "no")
+        # fuses concurrent requests of one template (TRINO_TPU_TEMPLATE_BATCH,
+        # TRINO_TPU_BATCH_WINDOW_MS, TRINO_TPU_BATCH_MAX); on by default as in
+        # the reference, though on the card it lowers same-shape throughput
+        # (execution/batcher.py)
+        self.template_batcher = TemplateBatcher()
         # serializes plan-cache lookup, planning and store, and the system
         # connector's dictionary growth (RLock: the planner asks for
         # dictionaries while a scan of the same table may hold it on this
@@ -155,11 +184,12 @@ class Engine:
 
     # -- the plan cache (reference: Engine._plan_cache) ---------------------------
     def _invalidate(self) -> None:
-        """Drop every cached plan and release the buffer pool: after DDL, DML
-        or a new catalog, no cache may serve what was there before, nor hold
-        device memory for it."""
+        """Drop every cached plan and template and release the buffer pool:
+        after DDL, DML or a new catalog, no cache may serve what was there
+        before, nor hold device memory for it."""
         with self._plan_lock:
             self._plan_cache.clear()
+            self._template_cache.clear()
         self.buffer_pool.clear()
 
     def _plan_versions(self, plan) -> tuple:
@@ -191,7 +221,8 @@ class Engine:
 
     def _evict_stale_plan(self, name) -> None:
         """A catalog's version moved: the pool's entries over it can never
-        serve again, so they release their memory now."""
+        serve again, so they release their memory now (shared by the plan
+        and template caches)."""
         self.buffer_pool.invalidate_catalog(name)
 
     def _cache_lookup(self, key):
@@ -211,15 +242,252 @@ class Engine:
 
     def _cache_store(self, key, plan) -> None:
         """Store a fresh plan, dropping the least recently used past
-        ``PLAN_CACHE_ENTRIES``: EXECUTE and protocol parameters substitute
-        their values into new text (the port has no plan templates), so
-        every new value is a new key.  The caller holds ``_plan_lock``."""
+        ``PLAN_CACHE_ENTRIES``: a statement that substitutes its values
+        (outside the template subset) is a new key for every new value.  The
+        caller holds ``_plan_lock``."""
         # the versions are read AFTER planning: planning itself encodes the
         # current rows into the growable dictionaries
         self._plan_cache[key] = (plan, self._plan_versions(plan))
         self._plan_cache.move_to_end(key)
         while len(self._plan_cache) > PLAN_CACHE_ENTRIES:
             self._plan_cache.popitem(last=False)
+
+    # -- plan templates (reference: Engine._template_*) ---------------------------
+    def _template_key(self, text: str, sess) -> tuple:
+        from .sql.params import normalize_sql
+
+        return (normalize_sql(text), sess.catalog, sess.user, _plan_shape_props(sess))
+
+    def _template_lookup(self, key, kinds=None):
+        """-> _PlanTemplate, _TEMPLATE_UNBINDABLE, or None (absent or stale,
+        with the plan cache's version check).  The negative entry holds the
+        literal kinds that failed: an ill-typed binding does not poison a
+        well-typed one of the same text.  The caller holds ``_plan_lock``."""
+        entry = self._template_cache.get(key)
+        if entry is None:
+            return None
+        tpl, versions = entry
+        if tpl is _TEMPLATE_UNBINDABLE:
+            return tpl if kinds is None or versions == kinds else None
+        stale = self._stale_catalog(versions)
+        if stale is not None:
+            self._evict_stale_plan(stale)
+            self._template_cache.pop(key, None)
+            return None
+        self._template_cache.move_to_end(key)
+        return tpl
+
+    def _template_store(self, key, entry) -> None:
+        """Store a template or a negative entry, dropping the least recently
+        used past ``PLAN_CACHE_ENTRIES``.  The caller holds ``_plan_lock``."""
+        self._template_cache[key] = entry
+        self._template_cache.move_to_end(key)
+        while len(self._template_cache) > PLAN_CACHE_ENTRIES:
+            self._template_cache.popitem(last=False)
+
+    def _maybe_template_execute(self, text: str, param_asts, sess, qsm=None):
+        """Run parameterized statement ``text`` with the EXECUTE literal ASTs
+        through its plan template.  Returns (handled, result); (False, None)
+        sends the caller to the substitution path.  A hit plans nothing: the
+        cache probe and the binding are its only work before execution."""
+        if not self.plan_templates_enabled:
+            return False, None
+        from .sql import params as PRM
+
+        key = self._template_key(text, sess)
+        kinds = PRM.literal_kinds(param_asts)
+        with self._plan_lock:
+            tpl = self._template_lookup(key, kinds)
+        if tpl is _TEMPLATE_UNBINDABLE:
+            return False, None
+        created = False
+        if tpl is None:
+            tpl, created = self._create_template(key, text, param_asts, sess, qsm)
+            if tpl is None:
+                return False, None
+        if tpl.n_params != len(param_asts):
+            # arity errors are the substitution path's to report
+            return False, None
+        try:
+            runtime = PRM.bind_values(tpl.binders, param_asts)
+        except PRM.BindError:
+            # this binding cannot take the template (a value past the slot's
+            # type, a finer timestamp): substitution runs it, the template
+            # stays for the bindings it takes
+            return False, None
+        try:
+            result = self._execute_template(tpl, runtime, param_asts, sess, qsm,
+                                            created, key=key)
+        except BaseException as e:
+            if isinstance(e, (KeyboardInterrupt, SystemExit, GeneratorExit)):
+                raise
+            if not tpl.confirmed:
+                # probation: a template whose first execution fails is never
+                # trusted.  A deterministic failure negative-caches for these
+                # literal kinds, a transient one lets the next request retry
+                with self._plan_lock:
+                    if _is_retryable_failure(e):
+                        self._template_cache.pop(key, None)
+                    else:
+                        self._template_store(key, (_TEMPLATE_UNBINDABLE, kinds))
+                return False, None
+            raise
+        tpl.confirmed = True
+        self._stamp_template(hits=0 if created else 1, misses=1 if created else 0)
+        return True, result
+
+    def _create_template(self, key, text, param_asts, sess, qsm=None):
+        """Plan ``text`` with its markers bound to representative literals
+        and store a _PlanTemplate.  Returns (template or None, created);
+        ``created`` is False where a concurrent creator's template is reused
+        (a hit).  Structural failures (a value consumed while planning, a plan
+        outside the template subset, parse or semantic errors) negative-cache;
+        transient ones (a NULL first binding, a malformed value) and arity
+        problems only fall back."""
+        from .execution.query_state import QueryState
+        from .sql import params as PRM
+        from .sql import parser as A
+        from .sql.frontend import Planner
+
+        kinds = PRM.literal_kinds(param_asts)
+
+        def reject():
+            with self._plan_lock:
+                self._template_store(key, (_TEMPLATE_UNBINDABLE, kinds))
+            return None, False
+
+        if _VOLATILE_SQL_RE.search(text):
+            # volatile calls fold to plan-time constants: a template would
+            # serve the first execution's fold to every later binding
+            return reject()
+        try:
+            ast = A.parse(text)
+        except A.ParseError:
+            return reject()
+        if not isinstance(ast, (A.Select, A.SetOp)):
+            return reject()  # prepared DML substitutes; only SELECTs template
+        ords = PRM.marker_ordinals(ast)
+        if not ords:
+            return None, False  # nothing to bind: the plan cache owns it
+        if ords != set(range(len(param_asts))):
+            return None, False  # arity mismatch: substitution reports it
+        if isinstance(ast, A.Select) and (ast.group_by or ast.distinct
+                                          or ast.having is not None):
+            # outside the template subset (the plan-shape check below decides;
+            # this skips planning twice for the common shapes)
+            return reject()
+        if qsm is not None:
+            qsm.transition(QueryState.PLANNING)
+        reg = PRM.ParamRegistry(len(param_asts))
+        try:
+            bound = PRM.bind_markers(ast, tuple(param_asts))
+            span = (self.tracer.span("planner", trace_id=qsm.query_id)
+                    if qsm is not None else _null_ctx())
+            with span:
+                with self._plan_lock:
+                    # a concurrent creator may have won while this thread
+                    # waited: take its template
+                    cur = self._template_lookup(key, kinds)
+                    if isinstance(cur, _PlanTemplate):
+                        return cur, False
+                    if cur is _TEMPLATE_UNBINDABLE:
+                        return None, False
+                    planner = Planner(self, sess)
+                    planner.param_registry = reg
+                    plan = planner.plan_query(bound)
+                    if not _template_plan_ok(plan):
+                        raise PRM.Unbindable(
+                            "plan shape outside the streaming template subset")
+                    tpl = _PlanTemplate(text=text, plan=plan, binders=tuple(reg.binders),
+                                        n_params=len(param_asts))
+                    self._template_store(key, (tpl, self._plan_versions(plan)))
+        except PRM.Unbindable as e:
+            return (None, False) if e.transient else reject()
+        except Exception:  # noqa: BLE001 - substitution succeeds or reports it
+            return reject()
+        return tpl, True
+
+    def _execute_template(self, tpl, runtime, param_asts, sess, qsm, created, key=None):
+        """A bound template: the result tier first (its key carries the bound
+        values, so a hit never serves another binding's answer; volatility
+        was tested on the template's text), then the plan with the bound
+        slots, through the batcher where the template may fuse."""
+        from .execution.query_state import QueryState
+        from .sql import params as PRM
+
+        self._check_select_access(tpl.plan, sess.user)
+        if qsm is not None:
+            if created:
+                qsm.transition(QueryState.STARTING)
+            qsm.transition(QueryState.RUNNING)
+        rkey = self._result_cache_key(tpl.text, tpl.plan, sess)
+        if rkey is not None:
+            rkey = rkey + (PRM.values_cache_key(param_asts),)
+        epoch = self.buffer_pool.epoch if rkey is not None else None
+        if rkey is not None:
+            served = self._result_cache_fetch(rkey)
+            if served is not None:
+                return served
+        span = (self.tracer.span("execution", trace_id=qsm.query_id)
+                if qsm is not None else _null_ctx())
+        with span:
+            bt = self.template_batcher
+            if bt.enabled and key is not None and tpl.confirmed and tpl.batchable \
+                    and runtime:
+                result, batched_with = bt.execute(
+                    key, runtime,
+                    lambda rt: self._template_serial_execute(tpl, rt, sess),
+                    lambda rts: self._execute_template_batch(tpl, rts, sess))
+                if batched_with:
+                    # a rider's own counters stay empty: the driver's carry
+                    # the batch's device work, once
+                    self._stamp_batched(batched_with)
+            else:
+                result = self._template_serial_execute(tpl, runtime, sess)
+        self._result_cache_finish(rkey, result, epoch, tpl.plan)
+        return result
+
+    def _template_serial_execute(self, tpl, runtime, sess):
+        """One request of a template on its own: the plan with the bound
+        slots staged once for the query."""
+        return self.execute_plan(tpl.plan, page_cache=_effective_page_cache(sess),
+                                 params=runtime)
+
+    def _execute_template_batch(self, tpl, runtimes, sess):
+        """One fused execution for a whole window, on the driver's thread:
+        per-member results or exceptions, in member order.  A plan or page
+        outside the fused path (``BatchUnsupported``) demotes the template
+        to serial lanes for good; the batcher re-runs every member."""
+        from .exec.local_executor import BatchUnsupported
+
+        ex = self._executor(_effective_page_cache(sess))
+        try:
+            return self._run_counted(ex, lambda: ex.execute_batched(tpl.plan, runtimes))[0]
+        except BatchUnsupported:
+            tpl.batchable = False
+            raise
+
+    def _stamp_template(self, hits: int = 0, misses: int = 0) -> None:
+        """Count a template hit or creation on the running statement."""
+        from .execution.tracing import QueryCounters
+
+        self._account_counters(QueryCounters(plan_template_hits=hits,
+                                             plan_template_misses=misses))
+
+    def _stamp_batched(self, batched_with: int) -> None:
+        """Every request a fused batch served, driver and riders alike,
+        counts one ``batched_requests``; the batch's size stays in the
+        thread's slot (``last_batched_with``)."""
+        from .execution.tracing import QueryCounters
+
+        self._account_counters(QueryCounters(batched_requests=1))
+        self._thread_accounting.batched_with = batched_with
+
+    @property
+    def last_batched_with(self):
+        """The size of the fused batch that served this thread's last
+        statement, or None where it ran on its own."""
+        return getattr(self._thread_accounting, "batched_with", None)
 
     def create_session(self, catalog: Optional[str] = None,
                        schema: str = "default") -> Session:
@@ -254,33 +522,48 @@ class Engine:
             self.counters_total.merge(counters)
         acct.snap = counters
 
-    def _run_plan(self, plan, page_cache: Optional[bool] = None):
-        """(result, counters) of one plan on a fresh executor, which reads
-        the engine's buffer pool (``page_cache``: the session's override)."""
+    def _executor(self, page_cache: Optional[bool] = None):
+        """A fresh executor over the engine's buffer pool (``page_cache``:
+        the session's override)."""
         from .exec.local_executor import LocalExecutor
-        from .execution import tracing
 
         ex = LocalExecutor(self.catalogs, self.device, memory_pool=self.memory_pool,
                            buffer_pool=self.buffer_pool)
         ex.page_cache = page_cache
+        return ex
+
+    def _run_counted(self, ex, run):
+        """(run(), counters): ``run`` drives ``ex`` while its launches, host
+        reads and H2D bytes count in one set, folded into the statement."""
+        from .execution import tracing
+
         counters = tracing.QueryCounters()
         try:
             with tracing.track_counters(counters):
-                return ex.execute(plan), counters
+                return run(), counters
         finally:
             counters.host_reads += ex.host_reads
             counters.host_bytes += ex.host_bytes
             counters.h2d_bytes += ex.h2d_bytes
             self._account_counters(counters)
 
-    def execute_plan(self, plan, cache: bool = True, page_cache: Optional[bool] = None):
+    def _run_plan(self, plan, page_cache: Optional[bool] = None, params=None):
+        """(result, counters) of one plan on a fresh executor; ``params``: a
+        template's bound slots."""
+        ex = self._executor(page_cache)
+        ex.exec_params = params
+        return self._run_counted(ex, lambda: ex.execute(plan))
+
+    def execute_plan(self, plan, cache: bool = True, page_cache: Optional[bool] = None,
+                     params: Optional[tuple] = None):
         """Run a plan to a host-side ``MaterializedResult`` (also the
         planner's entry point for eager subqueries, which pass
         ``cache=False``).  As in the reference, ``cache=False`` still reads
         and fills the buffer pool's page and build tiers: the reference's
         flag keeps the plan's compiled pipelines out of its executor pool,
-        and the port keeps none."""
-        return self._run_plan(plan, page_cache)[0]
+        and the port keeps none.  ``params`` is a plan template's bound slot
+        tuple."""
+        return self._run_plan(plan, page_cache, params)[0]
 
     # -- introspection ------------------------------------------------------------
     def memory_info(self) -> list:
@@ -340,7 +623,8 @@ class Engine:
         moves through the query state machine and fires listener events.
 
         ``parameters`` is the protocol-level EXECUTE form: ``sql`` carries
-        ``?`` markers and ``parameters`` the python values, substituted as
+        ``?`` markers and ``parameters`` the python values to bind, through
+        the statement's plan template where it has one, else substituted as
         literals."""
         from .execution import tracing
         from .execution.query_state import QueryState, QueryStateMachine
@@ -351,6 +635,7 @@ class Engine:
         # thread holding the previous statement's counters or trace
         acct.snap = None
         acct.trace = None
+        acct.batched_with = None
         self.access_control.check_can_execute_query(sess.user)
         qid = f"query_{next(_query_ids)}"
         group = self.resource_groups.get_or_create(f"global.{sess.user}")
@@ -412,13 +697,17 @@ class Engine:
         from .sql.frontend import Planner
 
         if parameters is not None:
-            # protocol-level EXECUTE: the values arrived out of band and
-            # substitute as literals (the port has no plan templates)
+            # protocol-level EXECUTE: ``sql`` carries ? markers and the values
+            # arrived out of band.  The template path first; else the values
+            # substitute as literals and the statement runs as any other
             from .server.dbapi import _substitute
             from .sql import params as PRM
 
-            vals = [PRM.literal_param_value(PRM.value_to_literal_ast(v))
-                    for v in parameters]
+            param_asts = tuple(PRM.value_to_literal_ast(v) for v in parameters)
+            handled, res = self._maybe_template_execute(sql, param_asts, sess, qsm=qsm)
+            if handled:
+                return res
+            vals = [PRM.literal_param_value(p) for p in param_asts]
             return self._execute_admitted(_substitute(sql, vals), sess, qsm)
         # the user is in the key (row filters and column masks make plans
         # user-specific), and so are the plan-shaping session properties;
@@ -430,7 +719,21 @@ class Engine:
         if plan is not None:
             self._check_select_access(plan, sess.user)
             return self._run_select(sql, plan, sess, qsm)
-        qsm.transition(QueryState.PLANNING)
+        if self.plan_templates_enabled:
+            # auto-parameterization: SELECTs equal up to their literals share
+            # one template; the extraction is token-level and conservative,
+            # and a misjudged text fails template creation and plans below
+            from .sql import params as PRM
+
+            ext = PRM.parameterize_text(sql)
+            if ext is not None:
+                handled, res = self._maybe_template_execute(ext[0], ext[1], sess, qsm=qsm)
+                if handled:
+                    return res
+        if qsm.state != QueryState.RUNNING:
+            # a failed template probation already moved the machine to
+            # RUNNING: planning again must not move it back
+            qsm.transition(QueryState.PLANNING)
         ast = A.parse(sql)
         if isinstance(ast, (A.Select, A.SetOp)):
             # scalar and EXISTS subqueries execute while the query plans
@@ -441,7 +744,8 @@ class Engine:
                     plan = Planner(self, sess).plan_query(ast)
                     self._cache_store(key, plan)
             self._check_select_access(plan, sess.user)
-            qsm.transition(QueryState.STARTING)
+            if qsm.state != QueryState.RUNNING:
+                qsm.transition(QueryState.STARTING)
             return self._run_select(sql, plan, sess, qsm)
         qsm.transition(QueryState.RUNNING)
         return self._execute_statement(ast, sess)
@@ -665,15 +969,19 @@ class Engine:
         return None
 
     def _execute_prepared(self, ast, sess: Session):
-        """EXECUTE name [USING ...]: the parameters substitute as literals
-        into the prepared text, which runs inside this statement (no second
-        admission)."""
+        """EXECUTE name [USING ...]: through the statement's plan template
+        (no parse, analyze or plan once it exists), else the parameters
+        substitute as literals into the prepared text, which runs inside
+        this statement (no second admission)."""
         from .server.dbapi import _substitute
         from .sql import params as PRM
 
         text = sess.prepared.get(ast.name)
         if text is None:
             raise ValueError(f"prepared statement {ast.name} not found")
+        handled, result = self._maybe_template_execute(text, tuple(ast.parameters), sess)
+        if handled:
+            return result
         # literal extraction raises a typed error for unsupported parameter
         # AST kinds (sql/params) instead of silently mis-substituting
         vals = [PRM.literal_param_value(p) for p in ast.parameters]
@@ -822,28 +1130,45 @@ class Engine:
 
     def _explain_execute(self, ast, sess: Session):
         """EXPLAIN [ANALYZE] EXECUTE name [USING ...]: the statement's plan
-        template disposition, as the reference prints it where no template
-        exists.  The port has no plan templates yet (ROADMAP A2.3), so a
-        plain EXPLAIN prints the line of a template not yet created, whatever
-        parameters follow, and ANALYZE runs the statement by substitution and
-        prints the substitution line and the run's time and row count."""
+        template disposition.  With a template, its plan and the cached line
+        (ANALYZE runs it, and its counters show the hit); an unbindable text,
+        the substitution line; otherwise the line of a template the first
+        EXECUTE creates."""
         import time
 
         from .exec.local_executor import MaterializedResult
+        from .sql.planprinter import format_plan
         from .types import VarcharType
 
         ex_ast = ast.query
-        if ex_ast.name not in sess.prepared:
+        text = sess.prepared.get(ex_ast.name)
+        if text is None:
             raise ValueError(f"prepared statement {ex_ast.name} not found")
+        key = self._template_key(text, sess)
         if ast.analyze:
             t0 = time.perf_counter()
             res = self._execute_prepared(ex_ast, sess)
             dt = time.perf_counter() - t0
-            lines = ["Plan template: unbindable — substitution path",
-                     f"-- executed in {dt * 1000:.1f} ms, "
-                     f"{len(res) if res is not None else 0} output rows"]
+            with self._plan_lock:
+                tpl = self._template_lookup(key)
+            if isinstance(tpl, _PlanTemplate):
+                lines = format_plan(tpl.plan, counters=self._thread_accounting.stmt
+                                    ).split("\n")
+            else:
+                lines = ["Plan template: unbindable — substitution path"]
+            lines += [f"-- executed in {dt * 1000:.1f} ms, "
+                      f"{len(res) if res is not None else 0} output rows"]
         else:
-            lines = ["Plan template: not yet created (first EXECUTE plans it)"]
+            with self._plan_lock:
+                tpl = self._template_lookup(key)
+            if isinstance(tpl, _PlanTemplate):
+                lines = format_plan(tpl.plan).split("\n")
+                lines.append(f"Plan template: cached, {len(tpl.binders)} bound "
+                             f"slot(s) over {tpl.n_params} parameter(s)")
+            elif tpl is _TEMPLATE_UNBINDABLE:
+                lines = ["Plan template: unbindable — substitution path"]
+            else:
+                lines = ["Plan template: not yet created (first EXECUTE plans it)"]
         rows = np.array(lines, dtype=object)
         return MaterializedResult(("query plan",), (VarcharType.of(None),), [rows], [rows])
 
@@ -1320,6 +1645,63 @@ def _effective_result_cache(sess):
 
 # plans the plan cache keeps (least recently used out first)
 PLAN_CACHE_ENTRIES = 256
+
+
+@dataclasses.dataclass
+class _PlanTemplate:
+    """A plan template: the plan holds ``ir.Parameter`` runtime inputs where
+    the statement had its values; ``binders`` (``sql/params.Binder``, slot
+    order) encode each request's literals into the domain its slot was
+    planned in.  ``confirmed`` flips after the first successful execution:
+    until then any failure demotes the text to substitution.  ``batchable``
+    flips off the first time a fused batch raises ``BatchUnsupported``."""
+
+    text: str
+    plan: object
+    binders: tuple
+    n_params: int
+    confirmed: bool = False
+    batchable: bool = True
+
+
+# negative entry: this text cannot template (a parameter consumed while
+# planning, a plan outside the subset); the entry holds the literal kinds
+_TEMPLATE_UNBINDABLE = object()
+
+
+def _template_plan_ok(plan) -> bool:
+    """The template subset, the reference's: scan, filter and project
+    chains, TopN, Sort, Limit, Values and Union.  Aggregates, joins and
+    windows stay on the substitution path."""
+    from .sql import plan as P
+
+    allowed = (P.Output, P.Project, P.Filter, P.TableScan, P.Limit, P.Sort,
+               P.Union, P.Values)
+
+    def walk(n) -> bool:
+        return isinstance(n, allowed) and all(walk(c) for c in n.children)
+
+    return walk(plan)
+
+
+def _is_retryable_failure(e: BaseException) -> bool:
+    """The reference's retry classification (``exec/fte.py``,
+    ``is_retryable_failure``) over the exception classes the port has: a
+    deterministic error (bad SQL, an unsupported feature, a planner fault)
+    fails alike on every attempt; anything else may not."""
+    from .spi.security import AccessDeniedError
+    from .sql.analyzer import SemanticError
+    from .sql.parser import ParseError
+
+    deterministic = (SemanticError, ParseError, AccessDeniedError, NotImplementedError,
+                     AssertionError, AttributeError, NameError)
+    return isinstance(e, Exception) and not isinstance(e, deterministic)
+
+
+def _null_ctx():
+    import contextlib
+
+    return contextlib.nullcontext()
 
 
 # Volatile functions fold to constants while the statement plans, so the

@@ -22,15 +22,26 @@ whole scan (``_scan_pages_source``), and a join whose build fragment was
 built before checks out the finished build page and hash table
 (``_build_cache_key``) instead of running the fragment and inserting its
 rows.
+
+Plan templates: ``exec_params`` holds a query's bound parameter slots (host
+numpy values).  ``execute`` stages them to the device once, counts their
+bytes, and publishes them for the query (``_params_scope``, which also opens
+``ir.bind_params``); a filter over a parameter prunes splits per execution
+from the host values (``_param_pruned_source``).  ``execute_batched`` runs
+one template plan for several bindings at once: one scan feeds every lane,
+each lane's transform runs under its own binding, and each lane's rows are
+exactly what its own serial execution gives.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import enum
 import hashlib
 import itertools
+import threading
 import weakref
 from decimal import Decimal
 from typing import Callable, Optional
@@ -51,11 +62,11 @@ from ..ops.hashjoin import (DIRECT_JOIN_RANGE_MAX, DirectJoinTable,
                             probe_slots)
 from ..page import Page, Schema
 from ..sql import plan as P
-from ..sql.ir import (Call, FieldRef, device_array, device_constants, evaluate,
-                      evaluate_predicate)
+from ..sql.ir import (Call, FieldRef, bind_params, device_array, device_constants,
+                      evaluate, evaluate_predicate)
 from ..types import ArrayType, BIGINT, DecimalType, MapType, TimestampType, torch_dtype
 
-__all__ = ["LocalExecutor", "MaterializedResult"]
+__all__ = ["BatchUnsupported", "LocalExecutor", "MaterializedResult"]
 
 DEFAULT_GROUP_CAPACITY = 1 << 16
 MAX_GROUP_CAPACITY = 1 << 25
@@ -143,6 +154,63 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to trino_tpu_torch")
 
 
+_PARAM_TLS = threading.local()
+
+
+@contextlib.contextmanager
+def _params_scope(values, host_values=(), batch_hosts=()):
+    """Publish the current query's bound parameters on this thread:
+    ``values`` are the staged ``(0-d value, 0-d isnull)`` device pairs, one
+    per template slot, which ``ir.bind_params`` hands to every ``Parameter``
+    leaf (the one place they are kept); ``host_values`` the numpy pairs they
+    were staged from, which bind-time split pruning reads without a device
+    read.  ``batch_hosts`` holds the numpy slot tuples of every member of a
+    fused template batch: split pruning then keeps the union of their kept
+    splits.  A fused batch publishes only ``batch_hosts``: ``values`` stays
+    empty, so a path that evaluates a parameter outside its lane's binding
+    raises instead of computing one member's answer for every lane."""
+    old = (getattr(_PARAM_TLS, "host_values", ()), getattr(_PARAM_TLS, "batch_hosts", ()))
+    _PARAM_TLS.host_values = host_values
+    _PARAM_TLS.batch_hosts = batch_hosts
+    try:
+        with bind_params(values):
+            yield
+    finally:
+        _PARAM_TLS.host_values, _PARAM_TLS.batch_hosts = old
+
+
+def _current_host_params() -> tuple:
+    return getattr(_PARAM_TLS, "host_values", ())
+
+
+def _current_batch_host_params() -> tuple:
+    """Host slot tuples of every member of the current fused template batch,
+    or () outside one (see ``_params_scope``)."""
+    return getattr(_PARAM_TLS, "batch_hosts", ())
+
+
+class BatchUnsupported(Exception):
+    """A plan or page the fused template batch cannot run: a plan outside
+    the streaming subset, or a host (object-dtype) page.  The engine marks
+    the template unbatchable and the batcher runs every member of the
+    window on its own serial path."""
+
+
+# test seam: when set, called (lane, nlanes) before each member's result is
+# decoded; tests raise in one lane to show a member's error is its own
+BATCH_LANE_TEST_HOOK = None
+
+
+def _batchable_plan(node) -> bool:
+    """Can this template plan take the fused path?  The streaming core
+    (scan, filter, project, plus Union and Values) only: Sort and Limit,
+    although templates cover them, stay serial."""
+    allowed = (P.Output, P.Project, P.Filter, P.TableScan, P.Union, P.Values)
+    if not isinstance(node, allowed):
+        return False
+    return all(_batchable_plan(c) for c in node.children)
+
+
 class LocalExecutor:
     """Executes a plan tree on one device (``cuda`` or ``cpu``)."""
 
@@ -165,20 +233,159 @@ class LocalExecutor:
         self.host_bytes = 0
         self.h2d_bytes = 0
         self._reserved: list = []  # join-build bytes held until the query ends
+        # a plan template's bound slots for the query: per slot a (0-d numpy
+        # value in the planned dtype, isnull) pair, or None
+        self.exec_params = None
 
     # ------------------------------------------------------------------ public
     def execute(self, node: P.PlanNode) -> MaterializedResult:
         self.host_reads = 0
         self.host_bytes = 0
         self.h2d_bytes = 0
+        host = tuple(self.exec_params or ())
         try:
             with device_constants(self._count_h2d):
-                page, dicts = self._execute_to_page(node)
-                return self._materialize(page, dicts)
+                # the bound scalars reach the device once per query: one copy
+                # per slot's value and one of every slot's null flag
+                dev = ()
+                if host:
+                    isnull = self._to_device(np.array([bool(n) for _, n in host]))
+                    dev = tuple((self._to_device(np.asarray(v)), isnull[i])
+                                for i, (v, _) in enumerate(host))
+                with _params_scope(dev, host):
+                    page, dicts = self._execute_to_page(node)
+                    return self._materialize(page, dicts)
         finally:
-            for nbytes in self._reserved:
-                self.memory_pool.free(nbytes)
-            self._reserved.clear()
+            self._release_reserved()
+
+    def _release_reserved(self) -> None:
+        for nbytes in self._reserved:
+            self.memory_pool.free(nbytes)
+        self._reserved.clear()
+
+    def execute_batched(self, node: P.PlanNode, runtimes) -> list:
+        """One fused execution of a template plan for R bound runtimes (each a
+        tuple of per-slot ``(numpy value, isnull)`` pairs).  Every slot's R
+        values stage to the device in one copy; each source page is read
+        once, and the stream's transform runs on it once per lane under that
+        lane's binding; each lane's live rows pack through the compaction
+        kernel.  Returns a list aligned with ``runtimes``: a
+        ``MaterializedResult`` per member, or that member's own exception.
+        Raises ``BatchUnsupported`` where the plan or a page cannot take
+        this path."""
+        if not runtimes or not runtimes[0]:
+            raise BatchUnsupported("empty batch or parameterless template")
+        if not _batchable_plan(node):
+            raise BatchUnsupported("plan shape outside the fused template subset")
+        self.host_reads = 0
+        self.host_bytes = 0
+        self.h2d_bytes = 0
+        n = len(runtimes)
+        out_schema = node.schema if isinstance(node, P.Output) else None
+        inner = node.child if isinstance(node, P.Output) else node
+        try:
+            with device_constants(self._count_h2d):
+                stacked = tuple(
+                    (self._to_device(np.stack([np.asarray(r[s][0]) for r in runtimes])),
+                     self._to_device(np.array([bool(r[s][1]) for r in runtimes])))
+                    for s in range(len(runtimes[0])))
+                lanes = [tuple((v[i], nl[i]) for v, nl in stacked) for i in range(n)]
+                # the device-value scope stays empty: only a lane's own
+                # bind_params makes its values visible
+                with _params_scope((), batch_hosts=tuple(tuple(r) for r in runtimes)):
+                    stream = self._compile_stream(inner)
+                    parts = self._batched_parts(stream, lanes)
+                    schema = out_schema if out_schema is not None else stream.schema
+                    return self._demux_batched(schema, stream.dicts, parts, n)
+        finally:
+            self._release_reserved()
+
+    def _batched_parts(self, stream: _Stream, lanes) -> list:
+        """Per lane, the packed live rows of every page, as ``_concat_stream``
+        packs one stream's: the lanes' live counts are read in one read per
+        chunk of eight pages, and each lane's part takes its pow2 bucket."""
+        nc = len(stream.schema.fields)
+        parts: list = [[] for _ in lanes]
+        staged, sums = [], []
+
+        def drain():
+            counts = self._host([torch.stack(sums)], site="batch.counts")[0]
+            counts = counts.reshape(len(staged), len(lanes))
+            for outs, row in zip(staged, counts):
+                for lane, ((cols, nulls, valid), c) in enumerate(zip(outs, row)):
+                    c = int(c)
+                    if c == 0:
+                        continue
+                    bucket = min(max(1 << max(c - 1, 1).bit_length(), 1024),
+                                 valid.shape[0])
+                    packed, _ = compact_rows(tuple(cols) + tuple(nulls), valid, bucket)
+                    parts[lane].append((packed[:nc], packed[nc:], c))
+            staged.clear()
+            sums.clear()
+
+        for page in stream.pages():
+            outs = []
+            for lane in lanes:
+                with bind_params(lane):
+                    cols, nulls, valid = stream.run(page)
+                if any(isinstance(c, np.ndarray) for c in cols):
+                    raise BatchUnsupported("a host (object-dtype) page cannot batch")
+                outs.append((cols, nulls, valid))
+                sums.append(torch.sum(valid, dtype=torch.int32))
+            staged.append(outs)
+            if len(staged) >= 8:
+                drain()
+        if staged:
+            drain()
+        return parts
+
+    def _demux_batched(self, schema, dicts, parts, n: int) -> list:
+        """Per-lane results of a fused batch: every lane's rows and null
+        masks pulled in ONE read, then each lane decoded on its own.  A lane
+        whose decode raises carries its exception in the returned list."""
+        fetch, layout = [], []
+        for lane_parts in parts:
+            if not lane_parts:
+                layout.append(None)
+                continue
+            nc = len(lane_parts[0][0])
+            start = len(fetch)
+            fetch += [torch.cat([cols[ci][:c] for cols, _, c in lane_parts])
+                      for ci in range(nc)]
+            has_null = []
+            for ci in range(nc):
+                if all(nulls[ci] is None for _, nulls, _ in lane_parts):
+                    has_null.append(False)
+                    continue
+                has_null.append(True)
+                fetch.append(torch.cat([
+                    torch.zeros((c,), dtype=torch.bool, device=cols[ci].device)
+                    if nulls[ci] is None else nulls[ci][:c]
+                    for cols, nulls, c in lane_parts]))
+            layout.append((start, nc, has_null))
+        got = self._host(fetch, site="result.batched") if fetch else []
+        results: list = []
+        hook = BATCH_LANE_TEST_HOOK
+        for lane in range(n):
+            try:
+                if hook is not None:
+                    hook(lane, n)
+                lay = layout[lane]
+                if lay is None:
+                    cols = [torch.zeros((0,), dtype=torch_dtype(f.type)).numpy()
+                            for f in schema.fields]
+                    nulls = [None] * len(cols)
+                else:
+                    start, nc, has_null = lay
+                    cols = got[start:start + nc]
+                    rest = iter(got[start + nc:start + nc + sum(has_null)])
+                    nulls = [next(rest) if h else None for h in has_null]
+                rows = len(cols[0]) if cols else 0
+                results.append(_materialize_host(schema, np.ones((rows,), bool), cols,
+                                                 nulls, dicts))
+            except Exception as e:  # noqa: BLE001 - the lane's own error
+                results.append(e)
+        return results
 
     # ------------------------------------------------------- the buffer pool
     def _page_cache_on(self) -> bool:
@@ -431,6 +638,12 @@ class LocalExecutor:
                 pruned = (self._scan_pages_source(psi.conn, psi.catalog, psi.table,
                                                   psi.splits, psi.scan_columns), psi)
             pages, si = pruned if pruned is not None else (up.pages, up.scan_info)
+            # bind-time split pruning: a parameter carries no plan-time value,
+            # so the pass above cannot see it; prune per execution from the
+            # bound values, starting from the statically kept splits
+            rt = self._param_pruned_source(up, pred, si)
+            if rt is not None:
+                pages = rt
             return _Stream(up.schema, up.dicts, pages, transform, si, aux=up.aux,
                            clustered_by=up.clustered_by, compacted=up.compacted)
 
@@ -1565,6 +1778,104 @@ class LocalExecutor:
             out_cols.append(self._to_device(arr))
             out_nulls.append(self._to_device(nm) if nm.any() else None)
         return out_cols, out_nulls
+
+    def _param_pruned_source(self, up: _Stream, pred, si=None):
+        """Page source with bind-time split pruning for a predicate over
+        parameters, or None where it does not apply.  Per execution, each
+        binding's host values replace its parameters in the predicate's
+        conjuncts (constant casts fold), and the kept splits, in split
+        order, run through ``_scan_pages_source``, so each binding keys its
+        own page-tier entry.  A NULL binding or a floating column never
+        prunes.  In a fused batch the scan reads the union of the members'
+        kept splits.  ``si``: the statically pruned scan info, if any."""
+        if si is None:
+            si = up.scan_info
+        if si is None or not si.replayable or not hasattr(si.conn, "split_range"):
+            return None
+        from ..sql import ir as _ir
+
+        def has_params(e) -> bool:
+            if isinstance(e, _ir.Parameter):
+                return True
+            if isinstance(e, _ir.Call):
+                return any(has_params(a) for a in e.args)
+            return False
+
+        if pred is None or not has_params(pred):
+            return None
+        from ..sql.analyzer import _coerce
+        from ..sql.domain_translator import (domain_to_split_pruner, extract_domains,
+                                             split_conjuncts)
+
+        class _NullParam(Exception):
+            pass
+
+        def subst(e, host):
+            """Parameter -> Constant(bound value); constant casts fold so the
+            domain translator sees the bare Constant it matches."""
+            if isinstance(e, _ir.Parameter):
+                v, isnull = host[e.slot]
+                if isnull:
+                    raise _NullParam()  # NULL never prunes
+                return _ir.Constant(v.item() if hasattr(v, "item") else v, e.type)
+            if isinstance(e, _ir.Call):
+                args = tuple(subst(a, host) for a in e.args)
+                if e.op == "cast" and len(args) == 1 \
+                        and isinstance(args[0], _ir.Constant) \
+                        and not isinstance(args[0].value, np.ndarray) \
+                        and args[0].value is not None:
+                    folded = _coerce(args[0], e.type)
+                    if isinstance(folded, _ir.Constant):
+                        return folded
+                return dataclasses.replace(e, args=args)
+            return e
+
+        def kept_idx_for(host):
+            """Indices into si.splits one binding keeps, in split order."""
+            kept = list(range(len(si.splits)))
+            resolved = []
+            for c in split_conjuncts(pred):
+                try:
+                    resolved.append(subst(c, host))
+                except (_NullParam, IndexError):
+                    continue  # this conjunct cannot prune; the filter applies
+            if resolved:
+                td = extract_domains(resolved).tuple_domain
+                if td.is_none:
+                    kept = []
+                elif not td.is_all:
+                    by_col: dict = {}
+                    for ch, dom in td.domains.items():
+                        col = si.columns[ch] if ch < len(si.columns) else None
+                        if col is not None and not up.schema.fields[ch].type.is_floating:
+                            by_col[col] = dom.intersect(by_col[col]) if col in by_col else dom
+                    if by_col:
+                        keep = domain_to_split_pruner(by_col, si.conn)
+                        kept = [i for i, sp in enumerate(si.splits) if keep(sp)]
+            return kept
+
+        def pages(self=self):
+            batch = _current_batch_host_params()
+            if batch:
+                # one scan over the union feeds every lane: rows of a split
+                # one member pruned fail that member's own predicate in its
+                # lane.  Where the members keep different splits, each split
+                # is read through its own page-tier entry, the one a binding
+                # that keeps only it stores, so a window's union (which
+                # rarely repeats) neither misses those entries nor stores
+                # another copy of their rows
+                lists = [kept_idx_for(host) for host in batch]
+                union = sorted(set().union(*lists))
+                parts = [union] if all(lst == lists[0] for lst in lists) \
+                    else [[i] for i in union]
+            else:
+                parts = [kept_idx_for(_current_host_params())]
+            for part in parts:
+                yield from self._scan_pages_source(si.conn, si.catalog, si.table,
+                                                   [si.splits[i] for i in part],
+                                                   si.scan_columns)()
+
+        return pages
 
     def _limited_stream_page(self, node: P.Limit):
         """LIMIT over a streaming child: pull pages only until ``count`` live

@@ -104,11 +104,21 @@ class QueryCounters:
     result_cache_hits: int = 0
     result_cache_misses: int = 0
     result_cache_bytes_saved: int = 0
+    # plan templates (engine._template_cache): a hit answered the statement
+    # through a cached parameterized plan, with no parse, analyze or plan; a
+    # miss counts a template's creation.  batched_requests counts a request
+    # served through a fused same-template batch, on the driver's counters
+    # (which also carry the batch's device spend) and on each rider's
+    # otherwise empty ones, so per-request counters sum to the totals.
+    plan_template_hits: int = 0
+    plan_template_misses: int = 0
+    batched_requests: int = 0
 
-    _CACHE_FIELDS = ("page_cache_hits", "page_cache_misses", "page_cache_bytes_saved",
+    _COUNT_FIELDS = ("page_cache_hits", "page_cache_misses", "page_cache_bytes_saved",
                      "build_cache_hits", "build_cache_misses", "build_cache_bytes_saved",
                      "result_cache_hits", "result_cache_misses",
-                     "result_cache_bytes_saved")
+                     "result_cache_bytes_saved", "plan_template_hits",
+                     "plan_template_misses", "batched_requests")
 
     @property
     def kernel_launches(self) -> int:
@@ -132,7 +142,7 @@ class QueryCounters:
         self.h2d_bytes += other.h2d_bytes
         for k, v in list(other.launches.items()):
             self.launches[k] = self.launches.get(k, 0) + v
-        for f in self._CACHE_FIELDS:
+        for f in self._COUNT_FIELDS:
             setattr(self, f, getattr(self, f) + getattr(other, f))
 
     def as_dict(self) -> dict:
@@ -141,7 +151,7 @@ class QueryCounters:
                 "device_dispatches": self.device_dispatches,
                 "host_transfers": self.host_transfers,
                 "host_bytes_pulled": self.host_bytes_pulled,
-                **{f: getattr(self, f) for f in self._CACHE_FIELDS}}
+                **{f: getattr(self, f) for f in self._COUNT_FIELDS}}
 
 
 _counter_local = threading.local()

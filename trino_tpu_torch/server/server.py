@@ -36,6 +36,9 @@ from typing import Optional
 __all__ = ["CoordinatorServer"]
 
 DATA_ROWS_PER_FETCH = 4096
+# seconds a finished query's results wait for a client that has not fetched
+# its last response before the coordinator may drop them
+UNFETCHED_KEEP_S = 300.0
 
 _qids = itertools.count(1)
 
@@ -172,9 +175,22 @@ class _Query:
     # under the engine lock) — served OTLP-shaped by /v1/query/{id}/trace
     trace: Optional[dict] = None
     # protocol-level EXECUTE: python values bound into a parameterized
-    # statement (sql carries ? markers), substituted as literals by the engine
+    # statement (sql carries ? markers), through the engine's plan template
+    # where it has one, else substituted as literals
     params: Optional[list] = None
+    # the client was sent the query's last response (no nextUri): only then
+    # may the coordinator drop its results
+    delivered: bool = False
     lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    """The standard library's threading server with a listen backlog for
+    many clients: its default of 5 drops the connections past it while the
+    accept loop is busy, and a dropped connect is retried one, then three,
+    seconds later (the reference keeps the default)."""
+
+    request_queue_size = 128
 
 
 class _StatementLock:
@@ -319,7 +335,7 @@ class CoordinatorServer:
         # still serialize exclusively — see _StatementLock
         self._engine_lock = _StatementLock()
         self._queries_lock = threading.Lock()  # guards the queries registry itself
-        self._httpd: Optional[ThreadingHTTPServer] = None
+        self._httpd: Optional[_HTTPServer] = None
         self._thread: Optional[threading.Thread] = None
 
     # -- lifecycle ----------------------------------------------------------------
@@ -386,7 +402,10 @@ class CoordinatorServer:
                     if not server._owns(self.headers, q):
                         self._send(403, {"error": "not your query"})
                         return
-                    self._send(200, server._results_response(q, token))
+                    out = server._results_response(q, token)
+                    if "nextUri" not in out:
+                        q.delivered = True
+                    self._send(200, out)
                     return
                 # /v1/query/{id}/trace — OTLP-shaped span tree of the query
                 # (reference: airlift TracingModule's OTLP export, served
@@ -527,7 +546,7 @@ class CoordinatorServer:
                     return
                 self._send(404, {"error": "not found"})
 
-        self._httpd = ThreadingHTTPServer((self.host, self.port), Handler)
+        self._httpd = _HTTPServer((self.host, self.port), Handler)
         self.port = self._httpd.server_address[1]
         self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True)
         self._thread.start()
@@ -598,8 +617,9 @@ class CoordinatorServer:
         """Prometheus text exposition with # HELP / # TYPE metadata (the
         format openmetrics-strict scrapers require; reference:
         JmxOpenMetricsModule): query states, the device-boundary counters,
-        the launch-latency histogram, the memory pool and the resource
-        groups, under the reference's family names."""
+        the plan templates and the template batcher, the launch-latency
+        histogram, the memory pool and the resource groups, under the
+        reference's family names."""
         esc = self._escape_label
         with self._queries_lock:
             qs = list(self.queries.values())
@@ -643,7 +663,50 @@ class CoordinatorServer:
                 "to host.",
                 "# TYPE trino_tpu_host_bytes_pulled_total counter",
                 f"trino_tpu_host_bytes_pulled_total {ct.host_bytes_pulled}",
+                # plan templates: a hit served a statement through a cached
+                # parameterized plan (no parse, analyze or plan); a miss is a
+                # template's creation
+                "# HELP trino_tpu_plan_template_hits_total Statements served "
+                "through a cached plan template (plan once, bind values per "
+                "request).",
+                "# TYPE trino_tpu_plan_template_hits_total counter",
+                f"trino_tpu_plan_template_hits_total {ct.plan_template_hits}",
+                "# HELP trino_tpu_plan_template_misses_total Plan-template "
+                "creations (first sight of a parameterized statement shape).",
+                "# TYPE trino_tpu_plan_template_misses_total counter",
+                f"trino_tpu_plan_template_misses_total {ct.plan_template_misses}",
             ]
+            # the template batcher: fused same-template windows, the requests
+            # they served, and the fused batch sizes
+            bt = getattr(self.engine, "template_batcher", None)
+            if bt is not None:
+                bi = bt.info()
+                lines += [
+                    "# HELP trino_tpu_template_batches_total Fused "
+                    "same-template execution windows (one execution serving "
+                    "the whole window).",
+                    "# TYPE trino_tpu_template_batches_total counter",
+                    f"trino_tpu_template_batches_total {bi['batches_total']}",
+                    "# HELP trino_tpu_batched_requests_total Requests "
+                    "served through a fused template batch.",
+                    "# TYPE trino_tpu_batched_requests_total counter",
+                    f"trino_tpu_batched_requests_total {ct.batched_requests}",
+                    "# HELP trino_tpu_template_batch_size Fused batch "
+                    "sizes (requests per window).",
+                    "# TYPE trino_tpu_template_batch_size histogram",
+                ]
+                sizes = bi["sizes"]
+                ub = 1
+                while ub <= max(bi["max_batch"], 1):
+                    cum = sum(c for sz, c in sizes.items() if sz <= ub)
+                    lines.append(f'trino_tpu_template_batch_size_bucket{{le="{ub}"}} {cum}')
+                    ub *= 2
+                lines += [
+                    f'trino_tpu_template_batch_size_bucket{{le="+Inf"}} '
+                    f"{bi['batches_total']}",
+                    f"trino_tpu_template_batch_size_sum {bi['batched_requests_total']}",
+                    f"trino_tpu_template_batch_size_count {bi['batches_total']}",
+                ]
         from ..execution.tracing import DISPATCH_LATENCY
 
         h = DISPATCH_LATENCY.as_dict()
@@ -935,10 +998,17 @@ class CoordinatorServer:
 
     def _evict_finished(self, keep: int = 100) -> None:
         """Bound coordinator memory: retain only the most recent terminal queries'
-        results (reference: QueryTracker expiration)."""
+        results (reference: QueryTracker expiration).  Unlike the reference's,
+        a query whose client has not yet fetched its last response stays
+        (until UNFETCHED_KEEP_S after it finished): under many concurrent
+        clients, more than ``keep`` statements may finish while one client
+        waits for its turn to read, and dropping its results answered its
+        next poll with a 404."""
+        now = time.time()
         with self._queries_lock:
             done = [q for q in self.queries.values()
-                    if q.state in ("FINISHED", "FAILED", "CANCELED")]
+                    if q.state in ("FINISHED", "FAILED", "CANCELED")
+                    and (q.delivered or now - (q.finished_at or now) > UNFETCHED_KEEP_S)]
             done.sort(key=lambda q: q.finished_at or 0)
             for q in done[:-keep] if len(done) > keep else []:
                 self.queries.pop(q.query_id, None)

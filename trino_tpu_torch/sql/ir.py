@@ -14,6 +14,12 @@ computing.  Torch would otherwise let a 0-d operand take the dtype of the
 column (an int32 column times an int64 constant would compute in int32);
 explicit promotion gives the reference's x64 results.
 
+Runtime parameters (plan templates): ``bind_params`` publishes a query's
+bound slot values on this thread, each a ``(0-d value tensor, 0-d isnull
+tensor)`` pair the executor staged to the device once per query; a
+``Parameter`` leaf evaluates to its slot's pair.  Outside a scope it raises,
+which is how template creation rejects a plan-time use of a parameter.
+
 Every scalar call of the reference is ported, its array, map and span calls
 included.  Planner-made tables (LIKE lookup tables, element heaps) are numpy
 constants: inside ``device_constants`` (the executor's query scope) each one
@@ -36,7 +42,7 @@ from ..ops.arrays import pack_span, span_len, span_start
 from ..ops.hashing import _lsr, hash_columns
 from ..types import DecimalType, TimestampType, Type, torch_dtype
 
-__all__ = ["Expr", "Constant", "FieldRef", "Call", "Parameter",
+__all__ = ["Expr", "Constant", "FieldRef", "Call", "Parameter", "bind_params",
            "evaluate", "evaluate_predicate", "device_constants", "device_array"]
 
 
@@ -84,14 +90,49 @@ class Call(Expr):
 
 @dataclasses.dataclass(frozen=True)
 class Parameter(Expr):
-    """A runtime statement parameter (plan templates, not ported: evaluating
-    one raises)."""
+    """A runtime statement parameter: a value that is an input of the plan,
+    not a plan-time literal (plan templates, engine ``EXECUTE``).  ``slot``
+    indexes the bound tuple of ``bind_params``.  The value's domain is the
+    one the planner resolved at this position (dictionary ids for strings,
+    scaled ints for decimals, epoch days for dates); ``sql/params.Binder``
+    encodes it at bind time."""
 
     slot: int
     type: Type
 
     def __repr__(self):
         return f"?[{self.slot}]:{self.type.name}"
+
+
+_PARAM_TLS = threading.local()
+
+
+@contextlib.contextmanager
+def bind_params(values):
+    """Make a query's bound parameter values visible to ``evaluate`` on this
+    thread.  Each slot is a ``(value, isnull)`` pair of 0-d tensors on the
+    executor's device, staged once per query: a ``Parameter`` leaf reads its
+    pair and copies nothing.  The pair is always present, so NULL and
+    non-NULL bindings take the same path."""
+    old = getattr(_PARAM_TLS, "values", None)
+    _PARAM_TLS.values = values
+    try:
+        yield
+    finally:
+        _PARAM_TLS.values = old
+
+
+def _param_leaf(expr: Parameter):
+    vals = getattr(_PARAM_TLS, "values", None)
+    if vals is None or expr.slot >= len(vals):
+        # reached from a plan-time evaluation (an eager subquery, a constant
+        # fold): the value does not exist before execution, and template
+        # creation takes this error to fall back to substitution
+        raise RuntimeError(
+            f"parameter slot {expr.slot} evaluated outside bind_params "
+            "(plan-time use of a runtime parameter)")
+    v, isnull = vals[expr.slot]
+    return v.to(torch_dtype(expr.type)), isnull
 
 
 def _combine_nulls(*masks):
@@ -159,8 +200,7 @@ def _evaluate(expr, columns, null_masks, device):
     if isinstance(expr, FieldRef):
         return columns[expr.index], null_masks[expr.index]
     if isinstance(expr, Parameter):
-        raise NotImplementedError(
-            "runtime parameters (plan templates) are not ported")
+        return _param_leaf(expr)
     if isinstance(expr, Call):
         return _eval_call(expr, columns, null_masks, device)
     raise TypeError(f"unknown expression node {expr!r}")
