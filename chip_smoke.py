@@ -125,7 +125,9 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    recorded while the four clients ran.  ``by_path`` gains ``server_sf1``.
 12. The plan cache and the device buffer pool at their defaults
    (``cache_path``; phases 2-11 run with the pool's tiers off, phase 12 with
-   the page tier at a quarter of the card's memory): (a) the 22 queries twice
+   the page tier at a quarter of the card's memory; phases 2-13 with the
+   adaptive advisor off, ``TRINO_TPU_ADAPTIVE=0``, whose re-plans phase 14
+   measures, 14e with every default): (a) the 22 queries twice
    on one SF1 engine, each result equal to phase 2's, with wall, launches,
    H2D bytes, host reads and the pool's hits, misses and bytes saved per
    query and pass; the second pass plans nothing, hits the page tier on
@@ -174,6 +176,37 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    ``templates_sf1``: the launches and shapes of the templates engine's own
    requests at SF1 (13a-13d), counted from zero around each of them, so the
    templates-off comparator and the SF10 engines are left out.
+14. Per-node stats, plan history and adaptive execution (``history_path``),
+   TPC-H SF1 on card engines at their defaults.  (a) The 22 queries with
+   history on (the page and build tiers off, as on the CPU): each result
+   equal to phase 2's, each node's history record (operator, estimate,
+   actual rows, the unestimated marker, split counts) equal to the port's
+   CPU engine's record of the same query in phase 2; bench.py's five warm
+   and T1-T6 template hits with history on and with the store
+   ``TRINO_TPU_PLAN_HISTORY=0`` builds, in turns on one engine: results
+   equal, host reads and launches equal, walls and the history record's own
+   seconds, the adaptive advisor off as in phases 2-13.  (b) EXPLAIN
+   ANALYZE of bench.py's five and of a nation count:
+   every recorded node's ``[rows: N, ms]`` and ``[est ... x actual ...]``,
+   and the ``Misestimates:`` line, as the CPU engine's records give them;
+   the per-operator ``[boundary: ...]`` records sum to the run's totals;
+   nation's plan lines equal the CPU engine's.  (c) The adaptive advisor,
+   at its default (on) from here, on fresh engines with ``price_scale = 0``: ``ADAPTIVE_PROBE`` (a direct
+   group-by) and ``ADAPTIVE_PROBE_HASH`` (a hash group-by) each record,
+   re-plan with a capacity correction and confirm, rows equal in key
+   order; the hash group-by's corrected plan launches ``hash_insert_`` only
+   at the advisor's capacity; warm uncorrected against corrected; the
+   default price's verdict; ``ADAPTIVE_JOIN`` re-planned to
+   ``partitioned``.  (e) The 22 queries three times on one engine with
+   every default, the advisor included: each run's result equal to phase
+   2's (sorted rows where a statement does not order them); which queries
+   re-planned or held, their corrections, whether each confirmed or
+   demoted, and each re-planned query's predicted win and price beside its
+   warm walls, host reads and launches uncorrected and corrected, in
+   turns.  (d) ``hash_insert_`` against its plain version at the
+   corrected shape, ``hash_probe`` and ``compact_rows`` at the phase's
+   largest and most frequent.  ``by_path`` gains ``adaptive_sf1``: the
+   launches of 14a-14c and 14e with history on.
 
 It prints the card line, then one JSON line with every kernel's numbers, and
 last ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -3727,7 +3760,10 @@ def cache_invalidation(engine):
 
 def cache_path(phase2):
     """Phase 12: the plan cache and the buffer pool at their defaults on one
-    card.  ``phase2``: phase 2's result of each of the 22 queries.  Returns
+    card, the adaptive advisor off (``TRINO_TPU_ADAPTIVE=0``, set in
+    ``main``): pass 2 holds that a warm repeat plans nothing, and the
+    advisor's re-plans of a repeat are phase 14e's, where every default
+    holds.  ``phase2``: phase 2's result of each of the 22 queries.  Returns
     (the record, launches of the phase, {kernel: checks at its shapes})."""
     import numpy as np
     import torch
@@ -4397,6 +4433,602 @@ def templates_path():
                            for k, r in checks.items()}
 
 
+# -- phase 14: per-node stats, plan history and adaptive execution at SF1 ---------------
+# the opaque-predicate trick of tests/test_adaptive.py's JOIN_Q applied to a
+# group-by: both conjuncts hold on every row, but the CBO prices each at a
+# comparison's selectivity, so the group-by's input and groups are 16x and
+# 4x under-estimated
+_OPAQUE = "l_orderkey * 2 >= l_orderkey and l_linenumber + l_orderkey >= 0"
+ADAPTIVE_PROBE = (f"select l_orderkey, sum(l_quantity) q from lineitem where {_OPAQUE} "
+                  "group by l_orderkey")
+# the same over an expression key, which has no static range: the group-by
+# takes the hash path, so the advisor's capacity reaches hash_insert_ (the
+# plain key's range makes the probe above a direct group-by)
+ADAPTIVE_PROBE_HASH = (f"select l_orderkey * 2 k, sum(l_quantity) q from lineitem "
+                       f"where {_OPAQUE} group by l_orderkey * 2")
+# tests/test_adaptive.py's JOIN_Q: a join build the CBO under-estimates 16x
+ADAPTIVE_JOIN = ("select count(*) from orders join customer "
+                 "on o_custkey = c_custkey "
+                 "where c_custkey * 2 >= c_custkey and c_nationkey + c_custkey >= 0")
+# 14c: JOIN_Q's distribution thresholds, shrunk as tests/test_adaptive.py
+# shrinks them, under the corrected build (150000 customers at SF1) and
+# above nothing the uncorrected plan can use (its estimate is not confident)
+ADAPTIVE_JOIN_THRESHOLDS = {"BROADCAST_ABS_CAP": 256, "PARTITIONED_JOIN_THRESHOLD": 1024}
+DEFAULT_RUNS = 3  # 14e: runs of the 22 on one engine at its defaults, the advisor included
+DEFAULT_TURNS = 2  # 14e: warm uncorrected and corrected runs of a re-planned query, in turns
+HISTORY_TURNS = 2  # 14a: warm runs per setting, in turns (on, off, off, on)
+HISTORY_TEMPLATE_HITS = 8  # 14a: template hits per statement and setting
+RECORD_KEYS = ("op", "est_rows", "actual_rows", "unestimated", "splits")
+
+
+def record_view(records):
+    """Per node path, what two engines' history records of one statement
+    must agree on: operator, CBO estimate, actual rows, the unestimated
+    marker and split count."""
+    return {p: {k: r.get(k) for k in RECORD_KEYS} for p, r in records.items()}
+
+
+def record_diff(got, want):
+    return {p: (got.get(p), want.get(p)) for p in sorted(set(got) | set(want))
+            if got.get(p) != want.get(p)}
+
+
+def stats_records(records):
+    """The records of the nodes the executor's stats recorded (those EXPLAIN
+    ANALYZE annotates), without the scan and build facts."""
+    return {p: r for p, r in records.items() if not r.get("splits") and not r.get("build")}
+
+
+def history_statement(engine, sql, sess, own=None):
+    """(result, record) of one card statement: wall to a synchronized card,
+    host reads, launches, ``hash_insert`` shapes and the advisor's counts,
+    the launches counted from zero around it (and added to ``own``)."""
+    import torch
+
+    from trino_tpu_torch.ops import cuda_kernels as ck
+
+    engine.last_plan_actuals = None
+    with own.region() if own is not None else contextlib.nullcontext():
+        ck.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.execute_sql(sql, sess)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: st.launches for k, st in ck.STATS.items()}
+        inserts = [tuple(x) for x in ck.STATS["hash_insert"].shapes]
+    c = engine.last_query_counters
+    return res, {"wall_s": wall, "host_reads": c["host_reads"],
+                 "device_dispatches": c["device_dispatches"], "launches": launches,
+                 "insert_shapes": inserts, "replans": c["adaptive_replans"],
+                 "holds": c["adaptive_holds"]}
+
+
+def tierless_session(engine):
+    """A session with the page and build tiers off, as the CPU engine runs:
+    a build-tier hit skips its fragment, whose scans then record no split
+    count (in the reference too), so records compare only tier for tier."""
+    sess = engine.create_session("tpch")
+    engine.execute_sql("set session page_cache = false", sess)
+    return sess
+
+
+def history_queries(engine, phase2, cpu_actuals, own):
+    """14a: the 22 queries once with history on: each result equal to phase
+    2's, and each node's history record equal to the port's CPU engine's for
+    the same SQL in phase 2 (operator, estimate, actual rows, the
+    unestimated marker, split counts), the page and build tiers off as
+    there."""
+    out = {}
+    for q, sql in ALL_QUERIES.items():
+        res, r = history_statement(engine, sql, tierless_session(engine), own)
+        same_result(res, phase2[q], f"history {q} vs phase 2")
+        check(engine.last_plan_actuals is not None, f"history {q}: no plan-history record")
+        got, want = record_view(engine.last_plan_actuals["nodes"]), record_view(cpu_actuals[q])
+        check(got == want, f"history {q}: records differ from the CPU engine's: "
+                           f"{record_diff(got, want)}")
+        out[q] = {"nodes": len(got), "cold_s": r["wall_s"]}
+    print(f"history 14a: the 22 queries equal phase 2's; per-node records equal the CPU "
+          f"engine's ({sum(x['nodes'] for x in out.values())} node records)", flush=True)
+    return out
+
+
+class HistorySwitch:
+    """Turns an engine's plan history on and off between statements: off is
+    the store ``TRINO_TPU_PLAN_HISTORY=0`` builds.  Times each call of the
+    engine's ``_record_plan_history`` (collection, the batched read of the
+    row counts, the store's merge) while on."""
+
+    def __init__(self, engine):
+        from trino_tpu_torch.execution.history import PlanHistoryStore
+
+        self.engine, self.on_store = engine, engine.plan_history
+        os.environ["TRINO_TPU_PLAN_HISTORY"] = "0"
+        try:
+            self.off_store = PlanHistoryStore()
+        finally:
+            os.environ.pop("TRINO_TPU_PLAN_HISTORY")
+        check(self.on_store.enabled and not self.off_store.enabled,
+              "TRINO_TPU_PLAN_HISTORY=0 did not turn the store off")
+        self.record_s = []
+        inner = engine._record_plan_history
+
+        def timed(plan, ex):
+            t0 = time.perf_counter()
+            try:
+                return inner(plan, ex)
+            finally:
+                if engine.plan_history is self.on_store:
+                    self.record_s.append(time.perf_counter() - t0)
+
+        engine._record_plan_history = timed
+
+    def set(self, on: bool) -> None:
+        self.engine.plan_history = self.on_store if on else self.off_store
+
+    def close(self) -> None:
+        self.set(True)
+        del self.engine._record_plan_history
+
+
+def history_cost(engine, switch, own):
+    """14a: bench.py's five warm on one engine, history on and off in turns
+    (on, off, off, on); host reads and launches per statement equal between
+    the two; the seconds the history record took per statement."""
+    sess = engine.create_session("tpch")
+    out = {}
+    for q, sql in QUERIES.items():
+        walls = {True: [], False: []}
+        rec = {}
+        history_statement(engine, sql, sess)  # the tiers' first touch, untimed
+        switch.record_s.clear()
+        for _ in range(HISTORY_TURNS):
+            for on in (True, False, False, True):
+                switch.set(on)
+                _, r = history_statement(engine, sql, sess, own if on else None)
+                walls[on].append(r["wall_s"])
+                rec[on] = r
+        switch.set(True)
+        for k in ("host_reads", "device_dispatches"):
+            check(rec[True][k] == rec[False][k],
+                  f"history cost {q}: {k} {rec[True][k]} with history vs {rec[False][k]}")
+        out[q] = {"on_s": min(walls[True]), "off_s": min(walls[False]),
+                  "record_s": statistics.median(switch.record_s),
+                  "host_reads": rec[True]["host_reads"]}
+        print(f"history 14a {q}: warm wall_s history on {out[q]['on_s']} off "
+              f"{out[q]['off_s']} (min of {2 * HISTORY_TURNS} each, in turns); history "
+              f"record {out[q]['record_s']} s a statement (median); host_reads "
+              f"{rec[True]['host_reads']} both", flush=True)
+    return out
+
+
+def history_templates(engine, switch, own):
+    """14a: phase 13's T1-T6 template hits on one engine, history on and off
+    in turns: results byte-equal, host reads equal; the seconds the history
+    record took per hit."""
+    import numpy as np
+
+    gen = np.random.default_rng(14)
+    (sess,) = template_sessions(engine)
+    plans = {"plans": 0}
+    out = {}
+    for name, text in TEMPLATES.items():
+        vals = [v for i, v in enumerate(template_values(gen, name, TEMPLATE_EXECUTES, SF_MAIN))
+                if i not in (TEMPLATE_NULL_AT, TEMPLATE_OUTSIDE_AT)][:HISTORY_TEMPLATE_HITS + 1]
+        stmts = [f"execute {name} using " + ", ".join(sql_literal(x) for x in v) for v in vals]
+        engine.execute_sql(f"prepare {name} from {text}", sess)
+        engine.execute_sql(stmts[0], sess)  # the miss that creates the template
+        walls = {True: [], False: []}
+        switch.record_s.clear()
+        for i, stmt in enumerate(stmts[1:]):
+            # a binding's first request may read a split the page tier has
+            # not seen (one more host read, to store it): untimed
+            engine.execute_sql(stmt, sess)
+            got = {}
+            for on in ((True, False) if i % 2 == 0 else (False, True)):
+                switch.set(on)
+                with own.region() if on else contextlib.nullcontext():
+                    res, r = timed_statement(engine, stmt, sess, plans)
+                check(r["hits"] == 1, f"history templates {name}: not a template hit ({r})")
+                walls[on].append(r["wall_s"])
+                got[on] = (res, r)
+            same_bytes(got[True][0], got[False][0], f"history templates {name} binding {i}")
+            check(got[True][1]["host_reads"] == got[False][1]["host_reads"],
+                  f"history templates {name}: host reads {got[True][1]['host_reads']} with "
+                  f"history vs {got[False][1]['host_reads']}")
+        switch.set(True)
+        out[name] = {"hit_on_s": statistics.median(walls[True]),
+                     "hit_off_s": statistics.median(walls[False]),
+                     "record_s": statistics.median(switch.record_s),
+                     "host_reads": got[True][1]["host_reads"]}
+        print(f"history 14a {name}: template hit wall_s history on {out[name]['hit_on_s']} "
+              f"off {out[name]['hit_off_s']} (median of {len(walls[True])}, in turns); "
+              f"history record {out[name]['record_s']} s a hit (median); host_reads "
+              f"{out[name]['host_reads']} both", flush=True)
+    return out
+
+
+def explain_lines(engine, sql, sess):
+    return [r[0] for r in engine.execute_sql(f"explain analyze {sql}", sess).rows()]
+
+
+def boundary_sums(lines, what):
+    """Check that the per-operator ``[boundary: ...]`` records and the
+    ``result:`` line sum to the run's ``Device boundary:`` totals."""
+    import re
+
+    total = next(x for x in lines if x.startswith("Device boundary:"))
+    want = [int(x) for x in re.findall(r"(\d+) (?:dispatches|host transfers|bytes pulled)",
+                                       total)]
+    got = [0, 0, 0]
+    for line in lines:
+        for m in re.finditer(r"\[boundary: (\d+) dispatches, (\d+) transfers, (\d+) bytes\]",
+                             line):
+            got = [a + int(b) for a, b in zip(got, m.groups())]
+        m = re.match(r"    result: (\d+) dispatches, (\d+) transfers, (\d+) bytes", line)
+        if m:
+            got = [a + int(b) for a, b in zip(got, m.groups())]
+    check(got == want, f"{what}: boundary records sum to {got}, the run counts {want}")
+    return want
+
+
+def masked_plan_lines(lines):
+    """EXPLAIN ANALYZE's plan lines and Misestimates line, each node's wall
+    and boundary record masked."""
+    import re
+
+    out = []
+    for line in lines:
+        if line.startswith(("Adaptive:", "Wall breakdown:", "Device boundary:")):
+            break
+        line = re.sub(r"\[rows: (\d+), [0-9.]+ ms\]", r"[rows: \1]", line)
+        out.append(re.sub(r" \[boundary: [^\]]*\]", "", line))
+    return out
+
+
+def history_explain(engine, cpu_actuals, own):
+    """14b: EXPLAIN ANALYZE of bench.py's five and of ``select count(*) from
+    nation`` on the card, the page and build tiers off.  Every node the run's stats recorded carries
+    ``[rows: N, ms]``, N and the ``[est ... x actual ...]`` annotations
+    equal the CPU engine's records of the same SQL (phase 2), the
+    ``Misestimates:`` line equals the one those records give, and the
+    boundary records sum to the run's totals.  Nation's text also equals
+    the CPU engine's EXPLAIN ANALYZE, wall and boundary masked."""
+    import re
+
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.execution.history import misestimate
+    from trino_tpu_torch.sql.planprinter import _misestimate_summary
+
+    out = {}
+    for q, sql in QUERIES.items():
+        engine.last_plan_actuals = None
+        with own.region():
+            lines = explain_lines(engine, sql, tierless_session(engine))
+        got, want = record_view(engine.last_plan_actuals["nodes"]), record_view(cpu_actuals[q])
+        check(got == want, f"history explain {q}: the ANALYZE run's records differ from the "
+                           f"CPU engine's: {record_diff(got, want)}")
+        text = "\n".join(lines)
+        recs = stats_records(cpu_actuals[q])
+        rows = sorted(int(n) for n in re.findall(r"\[rows: (\d+), [0-9.]+ ms\]", text))
+        check(rows == sorted(r["actual_rows"] for r in recs.values()),
+              f"history explain {q}: [rows: N] {rows} vs the CPU engine's records")
+        ests = sorted(re.findall(r"\[est ([0-9,]+) x actual ([0-9,]+) -> ([^\]]+)\]", text))
+        want = []
+        for r in recs.values():
+            if r["est_rows"] is None:
+                continue
+            ratio, d = misestimate(r["est_rows"], r["actual_rows"])
+            want.append((f"{int(r['est_rows']):,}", f"{r['actual_rows']:,}",
+                         "on estimate" if d == "exact" else f"{ratio:.1f}x {d}"))
+        check(ests == sorted(want), f"history explain {q}: estimates {ests} vs {sorted(want)}")
+        mis = next((x for x in lines if x.startswith("Misestimates:")), "")
+        want_mis = _misestimate_summary(
+            {i: {"est_rows": r["est_rows"], "rows": r["actual_rows"], "path": p}
+             for i, (p, r) in enumerate(recs.items()) if r["est_rows"] is not None}, {}, {})
+        check(mis == want_mis, f"history explain {q}: {mis!r} vs {want_mis!r}")
+        totals = boundary_sums(lines, f"history explain {q}")
+        out[q] = {"annotated": len(rows), "estimates": len(ests), "misestimates": mis,
+                  "boundary": totals}
+        print(f"history 14b {q}: {len(rows)} breaker lines with [rows: N, ms], "
+              f"{len(ests)} estimates, as the CPU engine's records; boundary sums = "
+              f"{totals}; {mis or 'no Misestimates line'}", flush=True)
+    nation = "select count(*) from nation"
+    cpu = Engine(device="cpu")
+    cpu.register_catalog("tpch", TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS))
+    with own.region():
+        card = explain_lines(engine, nation, tierless_session(engine))
+    ref = explain_lines(cpu, nation, cpu.create_session("tpch"))
+    check(masked_plan_lines(card) == masked_plan_lines(ref),
+          f"history explain nation: {card} vs the CPU engine's {ref}")
+    out["nation"] = {"lines": len(card), "boundary": boundary_sums(card, "nation")}
+    print(f"history 14b nation: {len(card)} lines, the CPU engine's plan lines; "
+          f"{chr(10).join(card)}", flush=True)
+    return out
+
+
+def by_key(res):
+    """A group-by result's raw columns in key order (a hash group-by's
+    output order follows its table's capacity)."""
+    import numpy as np
+
+    cols = [np.asarray(c) for c in res.raw_columns]
+    order = np.argsort(cols[0], kind="stable")
+    return [c[order] for c in cols]
+
+
+def adaptive_runs(engine, name, sql, own):
+    """Three runs of one statement with ``price_scale = 0``: the first
+    records, the second runs the corrected plan, the third (warm) confirms.
+    Then the warm uncorrected plan (a session with adaptive_execution off)
+    and the warm corrected one, in turns.  Every run's rows byte-equal to
+    the first's in key order.  Returns (the three runs, the advisor's
+    trace, {"uncorrected", "corrected"}: the faster warm run of each)."""
+    sess, plain = engine.create_session("tpch"), engine.create_session("tpch")
+    engine.execute_sql("set session adaptive_execution = false", plain)
+    first = None
+
+    def run(s, i):
+        nonlocal first
+        res, r = history_statement(engine, sql, s, own)
+        rows = by_key(res)
+        if first is None:
+            first = rows
+        check(all(a.tobytes() == b.tobytes() for a, b in zip(first, rows)),
+              f"adaptive {name} run {i}: rows differ from run 1's")
+        r["rows"] = len(res)
+        return r
+
+    runs = [run(sess, i) for i in (1, 2, 3)]
+    check([r["replans"] for r in runs] == [0, 1, 1],
+          f"adaptive {name}: replans per run {[r['replans'] for r in runs]}")
+    trace = engine.adaptive_advisor.decision_trace()[-1]
+    check(trace["state"] == "confirmed", f"adaptive {name}: {trace['state']} after run 3")
+    run(plain, "uncorrected cold")
+    warm = {"uncorrected": [], "corrected": []}
+    for key, s in (("uncorrected", plain), ("corrected", sess)) * 2:
+        warm[key].append(run(s, f"{key} warm"))
+    # a warm corrected run slower than 1.5x the uncorrected EWMA demotes the
+    # correction, and the runs after it hold: count only what ran corrected
+    warm["corrected"] = [r for r in warm["corrected"] if r["replans"]]
+    check(warm["corrected"], f"adaptive {name}: demoted during the warm turns "
+                             f"({engine.adaptive_advisor.decision_trace()[-1]})")
+    best = {k: min(v, key=lambda r: r["wall_s"]) for k, v in warm.items()}
+    return runs, trace, best
+
+
+def adaptive_path(conn, own):
+    """14c on a fresh card engine with ``price_scale = 0``: the probe (a
+    direct group-by: its correction has no table to size) and the probe over
+    an expression key (a hash group-by: the corrected plan's hash_insert_
+    runs at the advisor's capacity); then the default price's verdict on a
+    fresh engine, and tests/test_adaptive.py's JOIN_Q, whose corrected plan
+    shows ``partitioned`` and ``Adaptive: replan``.  Returns (the record,
+    the corrected hash_insert_ shapes)."""
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.sql import exchanges
+
+    engine = Engine(device=DEVICE)
+    engine.register_catalog("tpch", conn)
+    engine.adaptive_advisor.price_scale = 0.0
+    rec = {}
+    for name, sql in (("probe", ADAPTIVE_PROBE), ("probe_hash", ADAPTIVE_PROBE_HASH)):
+        runs, trace, best = adaptive_runs(engine, name, sql, own)
+        cap = trace["corrections"]["capacity"]["Aggregate#0.0.0"]
+        check(cap == 1 << (2 * runs[0]["rows"] - 1).bit_length(),
+              f"adaptive {name}: capacity {cap} for {runs[0]['rows']} groups")
+        caps = {k: sorted({C for _, C in r["insert_shapes"]}) for k, r in best.items()}
+        rec[name] = {"corrections": trace["corrections"], "groups": runs[0]["rows"],
+                     "runs_wall_s": [r["wall_s"] for r in runs],
+                     **{k: {"wall_s": r["wall_s"], "hash_insert": r["launches"]["hash_insert"],
+                            "capacities": caps[k], "host_reads": r["host_reads"],
+                            "device_dispatches": r["device_dispatches"]}
+                        for k, r in best.items()}}
+        if name == "probe_hash":
+            check(caps["corrected"] == [cap] and sorted(
+                {C for _, C in runs[1]["insert_shapes"]}) == [cap],
+                f"adaptive {name}: the corrected plan inserted at {caps['corrected']}, "
+                f"not {cap}")
+            check(caps["uncorrected"] and caps["uncorrected"][0] != cap,
+                  f"adaptive {name}: the uncorrected plan started at {caps['uncorrected']}")
+            shapes = runs[1]["insert_shapes"]
+        print(f"adaptive 14c {name}: {runs[0]['rows']} groups; corrections "
+              f"{trace['corrections']}; runs 1-3 wall_s {rec[name]['runs_wall_s']}; warm "
+              f"uncorrected {rec[name]['uncorrected']} against corrected "
+              f"{rec[name]['corrected']}", flush=True)
+    # the default price: a fresh engine, price_scale 1
+    fresh = Engine(device=DEVICE)
+    fresh.register_catalog("tpch", conn)
+    sess = fresh.create_session("tpch")
+    for _ in range(2):
+        history_statement(fresh, ADAPTIVE_PROBE_HASH, sess, own)
+    t = fresh.adaptive_advisor.decision_trace()[-1]
+    rec["default_price"] = {k: t[k] for k in ("last_verdict", "compile_price_s",
+                                              "predicted_win_s", "reasons")}
+    print(f"adaptive 14c default price: verdict {t['last_verdict']}, price (planning) "
+          f"{t['compile_price_s']} s, predicted win {t['predicted_win_s']} s x "
+          f"{fresh.adaptive_advisor.horizon:g}", flush=True)
+    del fresh
+    # JOIN_Q, its distribution thresholds shrunk
+    saved = {k: getattr(exchanges, k) for k in ADAPTIVE_JOIN_THRESHOLDS}
+    try:
+        for k, v in ADAPTIVE_JOIN_THRESHOLDS.items():
+            setattr(exchanges, k, v)
+        sess = engine.create_session("tpch")
+        before = "\n".join(r[0] for r in engine.execute_sql(
+            f"explain {ADAPTIVE_JOIN}", sess).rows())
+        check("partitioned" not in before, f"adaptive join: partitioned before any history")
+        runs, trace, best = adaptive_runs(engine, "join", ADAPTIVE_JOIN, own)
+        after = "\n".join(r[0] for r in engine.execute_sql(
+            f"explain {ADAPTIVE_JOIN}", sess).rows())
+        check("partitioned" in after and "Adaptive: replan" in after,
+              f"adaptive join: the corrected plan's EXPLAIN: {after}")
+    finally:
+        for k, v in saved.items():
+            setattr(exchanges, k, v)
+    rec["join"] = {"corrections": trace["corrections"],
+                   "runs_wall_s": [r["wall_s"] for r in runs],
+                   **{k: {"wall_s": r["wall_s"], "device_dispatches": r["device_dispatches"]}
+                      for k, r in best.items()}}
+    print(f"adaptive 14c join: run 2 replanned to partitioned; corrections "
+          f"{trace['corrections']}; runs 1-3 wall_s {rec['join']['runs_wall_s']}; warm "
+          f"uncorrected {rec['join']['uncorrected']} against corrected "
+          f"{rec['join']['corrected']}", flush=True)
+    return rec, shapes
+
+
+def nonzero(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def default_advisor(conn, phase2, own):
+    """14e: the 22 queries three times on one card engine with everything at
+    its defaults, the advisor included (the page tier at a quarter of the
+    card, the result tier off, history on, planning as a re-plan's price).
+    Every run's result equals phase 2's: in row order where the statement
+    orders its rows, else as sorted rows (a corrected hash group-by's output
+    order follows its capacity).  Per query: the runs that re-planned or
+    held.  For each query the advisor re-planned: its corrections, its
+    state after run 3 (probation, confirmed or demoted), the predicted win
+    and the price beside the warm walls, host reads, dispatches and
+    launches of its uncorrected plan (a session with adaptive_execution
+    off) and of its corrected one, in turns."""
+    from trino_tpu_torch import Engine
+
+    engine = Engine(device=DEVICE)
+    engine.register_catalog("tpch", conn)
+    engine.execute_sql(Q15_VIEW, engine.create_session("tpch"))
+    check(engine.buffer_pool.budget() > 0, "advisor 14e: the page tier is off")
+    sess, plain = engine.create_session("tpch"), engine.create_session("tpch")
+    engine.execute_sql("set session adaptive_execution = false", plain)
+
+    def run(q, s, what):
+        res, r = history_statement(engine, ALL_QUERIES[q], s, own)
+        same_outcome_result(res, phase2[q], ALL_QUERIES[q], f"advisor 14e {q} {what} vs phase 2")
+        return r
+
+    runs = {q: [] for q in ALL_QUERIES}
+    for i in range(DEFAULT_RUNS):
+        for q in ALL_QUERIES:
+            runs[q].append(run(q, sess, f"run {i + 1}"))
+    trace = {t["sql"]: t for t in engine.adaptive_advisor.decision_trace()}
+    out = {}
+    for q, sql in ALL_QUERIES.items():
+        r, t = runs[q], trace.get(sql) or {}
+        check(r[0]["replans"] == 0 and r[0]["holds"] == 0,
+              f"advisor 14e {q}: run 1 had no history, yet {r[0]}")
+        out[q] = {"replans": [x["replans"] for x in r], "holds": [x["holds"] for x in r],
+                  "state_after_run3": t.get("state"), "last_verdict": t.get("last_verdict"),
+                  "corrections": t.get("corrections"),
+                  "predicted_win_s": t.get("predicted_win_s"),
+                  "price_s": t.get("compile_price_s"),
+                  "runs_wall_s": [x["wall_s"] for x in r]}
+    replanned = [q for q, v in out.items() if any(v["replans"])]
+    check(replanned, "advisor 14e: no query re-planned at the defaults")
+    for q in replanned:
+        run(q, plain, "uncorrected cold")  # the uncorrected plan's own plan-cache entry
+        warm = {"uncorrected": [], "corrected": []}
+        for _ in range(DEFAULT_TURNS):
+            for key, s in (("uncorrected", plain), ("corrected", sess)):
+                warm[key].append(run(q, s, f"{key} warm"))
+        # a demoted correction holds: its later runs are uncorrected
+        corrected = [x for x in warm["corrected"] if x["replans"]] or \
+            [x for x in runs[q][2:] if x["replans"]]
+        best = {"uncorrected": min(warm["uncorrected"], key=lambda x: x["wall_s"]),
+                "corrected": min(corrected, key=lambda x: x["wall_s"]) if corrected else None}
+        t = trace.get(ALL_QUERIES[q]) or {}
+        now = next((x for x in engine.adaptive_advisor.decision_trace()
+                    if x["sql"] == ALL_QUERIES[q]), {})
+        v = out[q]
+        v["state_after_turns"] = now.get("state")
+        for key, x in best.items():
+            v[key] = None if x is None else {
+                "wall_s": x["wall_s"], "host_reads": x["host_reads"],
+                "device_dispatches": x["device_dispatches"],
+                "launches": nonzero(x["launches"])}
+        v["measured_win_s"] = None if best["corrected"] is None else \
+            best["uncorrected"]["wall_s"] - best["corrected"]["wall_s"]
+        print(f"advisor 14e {q}: replans per run {v['replans']}, holds {v['holds']}; "
+              f"corrections {v['corrections']}; state after run 3 {v['state_after_run3']}, "
+              f"after the turns {v['state_after_turns']}; predicted win "
+              f"{t.get('predicted_win_s')} s x {engine.adaptive_advisor.horizon:g} against "
+              f"price (planning) {t.get('compile_price_s')} s; warm uncorrected "
+              f"{v['uncorrected']} corrected {v['corrected']}; measured win "
+              f"{v['measured_win_s']} s", flush=True)
+    held = {q: v for q, v in out.items() if any(v["holds"])}
+    for q, v in held.items():
+        print(f"advisor 14e {q}: held, holds per run {v['holds']}; predicted win "
+              f"{v['predicted_win_s']} s against price {v['price_s']} s", flush=True)
+    print(f"advisor 14e: the 22 queries x {DEFAULT_RUNS} at the defaults equal phase 2's; "
+          f"re-planned {replanned}, held {sorted(held)}, advisor "
+          f"{engine.adaptive_advisor.info()}", flush=True)
+    del engine
+    return out
+
+
+def history_path(phase2, cpu_actuals):
+    """Phase 14: per-node stats, plan history and adaptive execution at SF1
+    on card engines at their defaults.  ``phase2``: phase 2's results;
+    ``cpu_actuals``: the CPU engine's history record of each of phase 2's
+    queries.  Returns (the record, launches of the phase's card statements
+    with history on, {kernel: checks at the phase's shapes})."""
+    import numpy as np
+    import torch
+
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.ops.hashing import pack_keys
+
+    t_phase = time.perf_counter()
+    os.environ.pop("TRINO_TPU_PAGE_CACHE", None)
+    os.environ.pop("TRINO_TPU_RESULT_CACHE", None)
+    torch.cuda.empty_cache()
+    conn = TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS)
+    engine = Engine(device=DEVICE)
+    engine.register_catalog("tpch", conn)
+    engine.execute_sql(Q15_VIEW, engine.create_session("tpch"))
+    own = OwnLaunches()
+    rec = {"queries": history_queries(engine, phase2, cpu_actuals, own)}
+    switch = HistorySwitch(engine)
+    try:
+        rec["cost"] = history_cost(engine, switch, own)
+        rec["templates"] = history_templates(engine, switch, own)
+    finally:
+        switch.close()
+    rec["explain"] = history_explain(engine, cpu_actuals, own)
+    del engine
+    torch.cuda.empty_cache()
+    # 14c: the advisor at its default, on
+    os.environ.pop("TRINO_TPU_ADAPTIVE", None)
+    rec["adaptive"], shapes = adaptive_path(conn, own)
+    torch.cuda.empty_cache()
+    rec["defaults"] = default_advisor(conn, phase2, own)
+    torch.cuda.empty_cache()
+    launches = dict(own.launches)
+    check(launches["hash_insert"] > 0 and launches["hash_probe"] > 0
+          and launches["compact_rows"] > 0,
+          f"the history path launched no hash_insert, hash_probe or compact_rows: {launches}")
+    # 14d: hash_insert_ at the corrected run's shape and on its own keys;
+    # the probe and compaction at the phase's largest and most frequent
+    page = conn.generate(conn.splits("lineitem")[0], ["l_orderkey"])
+    packed, _ = pack_keys((page.columns[0] * 2,), (page.schema.fields[0].type,))
+    gen = np.random.default_rng(41)
+    checks = {"hash_insert": insert_checks(shapes, ("lineitem_orderkey_x2", packed,
+                                                    page.valid_mask()), gen),
+              "hash_probe": probe_checks(own.shapes["hash_probe"], gen),
+              "compact_rows": compact_checks(own.shapes["compact_rows"], gen)}
+    del page, packed
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"history path: {rec['seconds']:.1f} s, launches of the card statements with "
+          f"history on {launches}", flush=True)
+    print(json.dumps({"adaptive_sf1": rec}, default=str), flush=True)
+    torch.cuda.empty_cache()
+    return rec, launches, {k: {"max_abs_err": r["max_abs_err"], "shapes": r["shapes"]}
+                           for k, r in checks.items()}
+
+
 def main() -> int:
     import torch
 
@@ -4418,9 +5050,15 @@ def main() -> int:
     t_start = time.perf_counter()
     # phases 2-11 measure the port with the buffer pool's tiers off, as their
     # launch tables and H2D checks were recorded (every scan generated);
-    # phase 12 measures the defaults
+    # phase 12 measures the pool's and the plan cache's defaults.  Phases
+    # 2-13 and 14a-14b run with the adaptive advisor off: its re-plans (a
+    # statement with a material misestimate is planned again on its second
+    # run) are phase 14c's and 14e's to measure, 14e with every default, and
+    # the earlier phases hold plan-cache hits and per-statement counts
+    # recorded without them
     os.environ["TRINO_TPU_PAGE_CACHE"] = "0"
     os.environ["TRINO_TPU_RESULT_CACHE"] = "0"
+    os.environ["TRINO_TPU_ADAPTIVE"] = "0"
     try:
         card = card_line()
         print(f"card: {card}", flush=True)
@@ -4458,9 +5096,13 @@ def main() -> int:
         cpu.register_catalog("tpch", TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS))
         cpu.execute_sql(Q15_VIEW, cpu.create_session("tpch"))
         t_cpu = time.perf_counter()
+        cpu_actuals = {}  # phase 14's reference per-node records
         for q, sql in ALL_QUERIES.items():
             t0 = time.perf_counter()
+            cpu.last_plan_actuals = None
             ref = cpu.execute_sql(sql, cpu.create_session("tpch"))
+            check(cpu.last_plan_actuals is not None, f"{q}: the CPU run left no history record")
+            cpu_actuals[q] = cpu.last_plan_actuals["nodes"]
             same_result(main[q]["result"], ref, f"sf{SF_MAIN:g} {q} card vs CPU")
             check(len(ref) > 0, f"{q} returned no rows")
             print(f"sf{SF_MAIN:g} {q}: equal to the port's CPU result "
@@ -4543,10 +5185,13 @@ def main() -> int:
         # -- phase 11: the coordinator entry point, TPC-H SF1 over the protocol -
         torch.cuda.empty_cache()
         _, sv_launches, sv_checks = server_path(direct)
-        # -- phase 12: the plan cache and the buffer pool at their defaults ----
+        # -- phase 12: the plan cache and the buffer pool at their defaults, ---
+        # the advisor off (phase 14e runs the 22 with the advisor on)
         _, ca_launches, ca_checks = cache_path(phase2)
         # -- phase 13: plan templates and the template batcher -----------------
         _, tp_launches, tp_checks = templates_path()
+        # -- phase 14: per-node stats, plan history and adaptive execution -----
+        _, ad_launches, ad_checks = history_path(phase2, cpu_actuals)
 
         # per path: its launches, and the checks at its own shapes (the
         # top-level times stay the TPC-H path's largest shape's)
@@ -4568,14 +5213,16 @@ def main() -> int:
                 "cache_sf1": {"launches": ca_launches[name],
                               **ca_checks.get(name, {"max_abs_err": None, "shapes": []})},
                 "templates_sf1": {"launches": tp_launches[name],
-                                  **tp_checks.get(name, {"max_abs_err": None, "shapes": []})}}
+                                  **tp_checks.get(name, {"max_abs_err": None, "shapes": []})},
+                "adaptive_sf1": {"launches": ad_launches[name],
+                                 **ad_checks.get(name, {"max_abs_err": None, "shapes": []})}}
             for checks in (ds_checks, mem_checks, fn_checks, ar_checks, sv_checks, ca_checks,
-                           tp_checks):
+                           tp_checks, ad_checks):
                 if name in checks:
                     r["max_abs_err"] = max(r["max_abs_err"], checks[name]["max_abs_err"])
             r["launches"] += (ds_launches[name] + mem_launches[name] + fn_launches[name]
                               + ar_launches[name] + sv_launches[name] + ca_launches[name]
-                              + tp_launches[name])
+                              + tp_launches[name] + ad_launches[name])
         print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

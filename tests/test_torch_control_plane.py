@@ -13,7 +13,10 @@ Restates, against ``trino_tpu_torch``:
 Where the reference and the port both answer a statement, the results must
 agree: integers, decimals, dates and strings exactly, DOUBLE within rtol 1e-9.
 Also the per-statement accounting under concurrent statements (ROADMAP C5):
-two threads inside ``execute_plan`` at once each read their own counters.
+two threads inside ``execute_plan`` at once each read their own counters;
+and the plan-cache key's process defaults (ROADMAP C9): with
+``TRINO_TPU_ADAPTIVE`` and ``TRINO_TPU_DISPATCH_BATCH`` set, both packages
+resolve the plan-shaping properties alike.
 """
 
 import datetime
@@ -659,3 +662,30 @@ def test_verifier_reference_control_port_test(ref):
     results = Verifier(lambda q: _rows(ref.execute_sql(q, rs)),
                        lambda q: _rows(e.execute_sql(q, s))).run(qs)
     assert all(r.status == "MATCH" for r in results), Verifier.report(results)
+
+
+@pytest.mark.parametrize("env,props", [
+    ({"TRINO_TPU_ADAPTIVE": "0", "TRINO_TPU_DISPATCH_BATCH": "8"}, {}),
+    ({"TRINO_TPU_ADAPTIVE": "0", "TRINO_TPU_DISPATCH_BATCH": "8"},
+     {"adaptive_execution": True, "dispatch_batch": 2}),
+    ({"TRINO_TPU_ADAPTIVE": "1", "TRINO_TPU_DISPATCH_BATCH": "1"}, {}),
+    ({"TRINO_TPU_DISPATCH_BATCH": "junk"}, {}),
+    ({}, {}),
+], ids=["env_off_8", "session_overrides", "env_on_1", "junk_batch", "unset"])
+def test_plan_shape_env_defaults_equal_the_reference(monkeypatch, env, props):
+    """ROADMAP C9: the port ignored both variables, giving ('AUTOMATIC', 4,
+    True) where the reference gives ('AUTOMATIC', 8, False)."""
+    from trino_tpu.engine import Session as JaxSession
+    from trino_tpu.engine import _plan_shape_props as jax_props
+    from trino_tpu_torch.engine import Session as TorchSession
+    from trino_tpu_torch.engine import _plan_shape_props as torch_props
+
+    for name in ("TRINO_TPU_ADAPTIVE", "TRINO_TPU_DISPATCH_BATCH"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    want = jax_props(JaxSession(catalog="tpch", properties=dict(props)))
+    got = torch_props(TorchSession(catalog="tpch", properties=dict(props)))
+    assert got == want
+    if env.get("TRINO_TPU_ADAPTIVE") == "0" and not props:
+        assert got == ("AUTOMATIC", 8, False)

@@ -498,11 +498,14 @@ def test_explain_execute_lines_equal_the_reference(eng):
     assert cached[-1] == "Plan template: cached, 1 bound slot(s) over 1 parameter(s)"
     assert _explain_lines(t, sessions[1], "explain execute q") == [
         "Plan template: unbindable — substitution path"]
-    # ANALYZE: the reference's lines but its per-site attribution (A2.4)
+    # ANALYZE: the reference's lines; each package attributes its launches
+    # and reads to its own call sites, so the site lines are compared apart
     a = _explain_lines(j, sessions[0], "explain analyze execute p using 5")
     r = _explain_lines(t, sessions[1], "explain analyze execute p using 5")
     assert "Plan template: 1 hits, 0 misses" in r
-    assert r == [x for x in a if not x.startswith("    site ")], (r, a)
+    assert [x for x in r if not x.startswith("    site ")] == \
+        [x for x in a if not x.startswith("    site ")], (r, a)
+    assert any(x.startswith("    site Result/") for x in r), r
 
 
 def test_protocol_parameters_and_metrics(eng):

@@ -318,10 +318,14 @@ def test_metrics_exposes_device_boundary_counters(servers):
 
 
 def test_disabled_services_answer_as_the_reference(servers):
+    """The services the port lacks answer as the reference's do when off;
+    plan history is ported, and its payload has the reference's keys."""
     for path in ("/v1/flight", "/v1/compiles", "/v1/history", "/v1/info"):
         got = [_get(s.url + path) for s in servers]
         if path == "/v1/history":
-            assert got[1] == {"plans": []}
+            assert set(got[1]) == set(got[0]) == {"max_plans", "misestimates_total",
+                                                  "worst", "plans"}
+            assert got[1]["max_plans"] == got[0]["max_plans"]
         else:
             assert got[1] == got[0] or got[1]["info"] == {"enabled": False}
     with pytest.raises(urllib.error.HTTPError) as exc:

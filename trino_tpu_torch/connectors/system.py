@@ -4,15 +4,15 @@
 Reference: connector/system/ (GlobalSystemConnector) — system.runtime.queries,
 system.runtime.nodes, system.metadata.catalogs etc., backed live by coordinator
 state.  Flat table namespace here: `queries`, `nodes`, `catalogs`, `tables`,
-`resource_groups`; and `InformationSchemaConnector`'s `schemata`, `tables`,
-`columns`, `views`.
+`resource_groups`, `plan_history`; and `InformationSchemaConnector`'s
+`schemata`, `tables`, `columns`, `views`.
 
 Pages are built fresh per scan as torch tensors on the engine's device,
 padded to power-of-two buckets as in the reference.  String columns keep ONE
 persistent Dictionary per column whose values array grows in place — plans
-keep decoding correctly.  The reference's `query_log`, `compilations` and
-`plan_history` tables read services the port does not have yet (the flight
-recorder, the compile log, plan history).
+keep decoding correctly.  The reference's `query_log` and `compilations`
+tables read services the port does not have yet (the flight recorder, the
+compile log).
 """
 
 from __future__ import annotations
@@ -60,6 +60,18 @@ SCHEMAS = {
         Field("name", _V), Field("running", BIGINT), Field("queued", BIGINT),
         Field("hard_concurrency_limit", BIGINT), Field("max_queued", BIGINT),
         Field("scheduling_weight", BIGINT),
+    )),
+    # the plan-actuals history (execution/history.py): one row per recorded
+    # plan node, merged across executions; est_rows is NULL where the CBO
+    # could not estimate the node
+    "plan_history": Schema((
+        Field("fingerprint", _V), Field("node_path", _V), Field("op", _V),
+        Field("plan_executions", BIGINT), Field("executions", BIGINT),
+        Field("est_rows", DOUBLE), Field("actual_rows", BIGINT),
+        Field("actual_rows_ewma", DOUBLE),
+        Field("misestimate_ratio", DOUBLE), Field("direction", _V),
+        Field("wall_s", DOUBLE), Field("spilled_bytes", BIGINT),
+        Field("cache_hits", BIGINT),
     )),
 }
 
@@ -191,6 +203,16 @@ class SystemConnector:
             return [(g["name"], g["running"], g["queued"], g["hard_concurrency_limit"],
                      g["max_queued"], g["scheduling_weight"])
                     for g in e.resource_groups.info()]
+        if table == "plan_history":
+            ph = getattr(e, "plan_history", None)
+            if ph is None:
+                return []
+            return [(r["fingerprint"], r["node_path"], r["op"],
+                     r["plan_executions"], r["executions"], r["est_rows"],
+                     r["actual_rows"], r["actual_rows_ewma"],
+                     r["misestimate_ratio"], r["direction"], r["wall_s"],
+                     r["spilled_bytes"], r["cache_hits"])
+                    for r in ph.rows()]
         raise KeyError(table)
 
     def generate(self, split: SystemSplit, columns=None) -> Page:

@@ -63,10 +63,26 @@ Caches, as in the reference:
 every DDL and DML statement and at ``register_catalog``: no cache serves
 rows from before a write.  The reference's executor pool, whose executors
 keep jitted pipelines, has no counterpart: the port has no compiled
-pipelines to keep, and makes a fresh executor per plan.
+pipelines to keep, and makes a fresh executor per plan.  What the
+reference's executors memoize per plan root (node paths, CBO estimates,
+the structural fingerprint) lives on the engine instead (``_plan_memo``,
+bounded, cleared by ``_invalidate``), so a warm statement walks none of it.
 
-Not ported: adaptive execution, plan history, the flight recorder, the
-memory ladder, fault-tolerant and distributed execution.
+Plan history and adaptive execution, as in the reference: every clean
+completion of a cached-plan path (``execute_plan``) folds its per-node
+actuals into ``plan_history`` (``execution/history.py``;
+``TRINO_TPU_PLAN_HISTORY``, 256 plans, 0 off), published as
+``last_plan_actuals`` and on the completion event.  Before the plan-cache
+lookup a SELECT asks ``adaptive_advisor`` (``execution/adaptive.py``;
+``TRINO_TPU_ADAPTIVE=0`` or the ``adaptive_execution`` session property
+off); a frozen "replan" decision runs the plan the planner makes with the
+advisor's corrections, cached under the key plus the decision's token.
+The advisor's price of a re-plan is the statement's planning seconds on a
+plan-cache miss (a CUDA engine compiles no plans; see
+``execution/adaptive.py``).
+
+Not ported: the flight recorder, the memory ladder, fault-tolerant and
+distributed execution.
 """
 
 from __future__ import annotations
@@ -75,6 +91,7 @@ import dataclasses
 import itertools
 import re
 import threading
+import time
 from collections import OrderedDict
 from typing import Optional
 
@@ -113,8 +130,11 @@ class Engine:
         import os
 
         from .connectors.system import InformationSchemaConnector, SystemConnector
+        from .exec.local_executor import PlanMemo
+        from .execution.adaptive import AdaptiveAdvisor
         from .execution.batcher import TemplateBatcher
         from .execution.bufferpool import DeviceBufferPool
+        from .execution.history import PlanHistoryStore
         from .execution.eventlistener import EventListenerManager
         from .execution.query_state import QueryTracker
         from .execution.resourcegroups import ResourceGroupManager
@@ -151,6 +171,16 @@ class Engine:
         # the reference, though on the card it lowers same-shape throughput
         # (execution/batcher.py)
         self.template_batcher = TemplateBatcher()
+        # per plan root: node paths, CBO estimates and the structural
+        # fingerprint its executions compute (LocalExecutor.begin_plan,
+        # plan_fingerprint), bounded like the plan and template caches
+        self._plan_memo = PlanMemo(max_entries=2 * PLAN_CACHE_ENTRIES)
+        # per-node est-vs-actual records, merged per structural plan
+        # fingerprint on every clean completion (TRINO_TPU_PLAN_HISTORY);
+        # the advisor turns them into plan decisions at admission
+        self.plan_history = PlanHistoryStore()
+        self.last_plan_actuals: Optional[dict] = None
+        self.adaptive_advisor = AdaptiveAdvisor(history=self.plan_history)
         # serializes plan-cache lookup, planning and store, and the system
         # connector's dictionary growth (RLock: the planner asks for
         # dictionaries while a scan of the same table may hold it on this
@@ -190,6 +220,7 @@ class Engine:
         with self._plan_lock:
             self._plan_cache.clear()
             self._template_cache.clear()
+        self._plan_memo.clear()
         self.buffer_pool.clear()
 
     def _plan_versions(self, plan) -> tuple:
@@ -461,6 +492,7 @@ class Engine:
         from .exec.local_executor import BatchUnsupported
 
         ex = self._executor(_effective_page_cache(sess))
+        ex.plan_memo = self._plan_memo
         try:
             return self._run_counted(ex, lambda: ex.execute_batched(tpl.plan, runtimes))[0]
         except BatchUnsupported:
@@ -547,12 +579,20 @@ class Engine:
             counters.h2d_bytes += ex.h2d_bytes
             self._account_counters(counters)
 
-    def _run_plan(self, plan, page_cache: Optional[bool] = None, params=None):
-        """(result, counters) of one plan on a fresh executor; ``params``: a
-        template's bound slots."""
+    def _run_plan(self, plan, page_cache: Optional[bool] = None, params=None,
+                  memo: bool = False):
+        """(result, counters, executor) of one plan on a fresh executor;
+        ``params``: a template's bound slots; ``memo``: the plan runs again
+        (a statement's cached plan), so its estimates and fingerprint go
+        through the engine's plan memo.  One-off plans (eager subqueries,
+        DML row evaluation, EXPLAIN ANALYZE) compute them for the run
+        alone, and push no statement's plan out of the memo."""
         ex = self._executor(page_cache)
         ex.exec_params = params
-        return self._run_counted(ex, lambda: ex.execute(plan))
+        if memo:
+            ex.plan_memo = self._plan_memo
+        result, counters = self._run_counted(ex, lambda: ex.execute(plan))
+        return result, counters, ex
 
     def execute_plan(self, plan, cache: bool = True, page_cache: Optional[bool] = None,
                      params: Optional[tuple] = None):
@@ -561,9 +601,135 @@ class Engine:
         ``cache=False``).  As in the reference, ``cache=False`` still reads
         and fills the buffer pool's page and build tiers: the reference's
         flag keeps the plan's compiled pipelines out of its executor pool,
-        and the port keeps none.  ``params`` is a plan template's bound slot
-        tuple."""
-        return self._run_plan(plan, page_cache, params)[0]
+        and the port keeps none.  As in the reference, only ``cache=True``
+        runs feed the plan history, on clean completion.  ``params`` is a
+        plan template's bound slot tuple."""
+        result, _, ex = self._run_plan(plan, page_cache, params, memo=cache)
+        if cache:
+            self._record_plan_history(plan, ex)
+        return result
+
+    # -- plan history and adaptive execution (reference: Engine._record_plan_history)
+    def _record_plan_history(self, plan, ex) -> None:
+        """Fold one cleanly completed execution's per-node actuals into
+        ``plan_history`` and publish the statement's payload (this thread's
+        slot for the completion event, and ``last_plan_actuals``).  A host
+        walk plus one batched read of the row counts the executor kept on
+        the device: no launch, no counted host read.  A failure here leaves
+        the statement successful and the store unchanged."""
+        acct = self._thread_accounting
+        sql = getattr(acct, "history_sql", None)
+        acct.history_sql = None
+        ph = self.plan_history
+        if ph is None or not ph.enabled:
+            return
+        try:
+            from .execution.history import collect_plan_actuals
+
+            recs = collect_plan_actuals(
+                plan, ex.stats, boundary=ex.boundary, catalogs=self.catalogs,
+                paths=ex._node_paths, ests=ex._node_ests, facts=ex._plan_facts)
+            if not recs:
+                return
+            fp = ex.plan_fingerprint(plan)
+            payload = ph.record(fp, recs, sql=sql)
+            acct.plan_actuals = payload
+            with self._totals_lock:
+                self.last_plan_actuals = payload
+            self._adaptive_observe(fp, recs, sql)
+        except Exception:  # noqa: BLE001 - history never fails a statement
+            pass
+
+    def _adaptive_observe(self, fp, recs, sql) -> None:
+        """Feed one clean completion back to the advisor: the node walls'
+        sum is the wall, and the price of a re-plan is what this statement
+        spent planning on a plan-cache miss (``compiles=1``, ``compile_s``
+        the planner's seconds) and nothing on a hit.  The key, corrected and
+        planning slots are one-shot: read and cleared here."""
+        acct = self._thread_accounting
+        akey = getattr(acct, "adaptive_key", None)
+        corrected = bool(getattr(acct, "adaptive_corrected", False))
+        plan_s = getattr(acct, "plan_s", None)
+        acct.adaptive_key = None
+        acct.adaptive_corrected = False
+        acct.plan_s = None
+        adv = self.adaptive_advisor
+        if adv is None or akey is None:
+            return
+        try:
+            wall = sum(float(r.get("wall_s") or 0.0)
+                       for r in recs.values() if isinstance(r, dict))
+            adv.observe(akey, fp, corrected=corrected, wall_s=wall,
+                        compiles=1 if plan_s is not None else 0,
+                        compile_s=float(plan_s or 0.0), sql=sql)
+        except Exception:  # noqa: BLE001 - advisory
+            pass
+
+    def _adaptive_consult(self, key, sess, peek: bool = False):
+        """The advisor's decision for this statement key: None unless
+        adaptive execution is on for the session and history holds a
+        material, actionable misestimate."""
+        adv = self.adaptive_advisor
+        if adv is None or not _effective_adaptive(sess):
+            return None
+        try:
+            return adv.consult(key, peek=peek)
+        except Exception:  # noqa: BLE001 - advisory
+            return None
+
+    def _adaptive_note_base(self, key, sess) -> None:
+        """Mark this execution as the statement's uncorrected run: the
+        observe hook anchors the advisor's history address, wall EWMA and
+        price on it."""
+        if self.adaptive_advisor is None or not _effective_adaptive(sess):
+            return
+        self._thread_accounting.adaptive_key = key
+        self._thread_accounting.adaptive_corrected = False
+
+    def _plan_timed(self, sess, ast, key, qsm):
+        """Plan ``ast`` under a ``planner`` span and store it under ``key``;
+        its seconds are this statement's re-plan price for the advisor."""
+        from .sql.frontend import Planner
+
+        with self.tracer.span("planner", trace_id=qsm.query_id) as span:
+            # planning and the version snapshot are atomic with respect to
+            # the system catalog's dictionary growth
+            with self._plan_lock:
+                plan = Planner(self, sess).plan_query(ast)
+                self._cache_store(key, plan)
+        self._thread_accounting.plan_s = span.duration_s
+        return plan
+
+    def _execute_corrected(self, sql, key, adaptive, sess, qsm):
+        """Run the statement on its corrected plan: the frozen corrections
+        ride the planner's session as ``_adaptive_corrections``
+        (``sql/exchanges``), and the plan caches under ``key`` plus the
+        correction token, so corrected and uncorrected plans never share a
+        plan-cache or result-tier entry.  NotImplemented when the statement
+        is not a SELECT after all."""
+        from .execution.query_state import QueryState
+        from .sql import parser as A
+
+        akey = key + (("adaptive", adaptive["token"]),)
+        with self._plan_lock:
+            plan = self._cache_lookup(akey)
+        if plan is None:
+            if qsm.state != QueryState.RUNNING:
+                qsm.transition(QueryState.PLANNING)
+            ast = A.parse(sql)
+            if not isinstance(ast, (A.Select, A.SetOp)):
+                return NotImplemented
+            plan = self._plan_timed(
+                _session_with_corrections(sess, adaptive.get("corrections") or {}),
+                ast, akey, qsm)
+        self._check_select_access(plan, sess.user)
+        acct = self._thread_accounting
+        acct.adaptive = adaptive
+        acct.adaptive_key = key
+        acct.adaptive_corrected = True
+        if qsm.state != QueryState.RUNNING:
+            qsm.transition(QueryState.STARTING)
+        return self._run_select(sql, plan, sess, qsm, adaptive=adaptive)
 
     # -- introspection ------------------------------------------------------------
     def memory_info(self) -> list:
@@ -636,6 +802,16 @@ class Engine:
         acct.snap = None
         acct.trace = None
         acct.batched_with = None
+        # the statement's plan-history payload, and the advisor's slots: its
+        # admission decision, the key its feedback keys on, whether this
+        # execution runs a corrected plan, and the planning seconds (the
+        # re-plan price); the statement text for consumers that see the AST
+        acct.plan_actuals = None
+        acct.adaptive = None
+        acct.adaptive_key = None
+        acct.adaptive_corrected = False
+        acct.plan_s = None
+        acct.stmt_sql = None
         self.access_control.check_can_execute_query(sess.user)
         qid = f"query_{next(_query_ids)}"
         group = self.resource_groups.get_or_create(f"global.{sess.user}")
@@ -663,14 +839,30 @@ class Engine:
             return result
         except BaseException as e:
             qsm.fail(str(e))
+            # a corrected plan that fails is demoted at once (the advisor's
+            # cooldown); the bookkeeping never masks the error
+            if acct.adaptive_corrected and acct.adaptive_key is not None:
+                try:
+                    self.adaptive_advisor.failed(acct.adaptive_key)
+                except Exception:  # noqa: BLE001
+                    pass
             raise
         finally:
             acct.stmt = outer
+            acct.history_sql = None
+            adec = acct.adaptive
+            if adec is not None:
+                # decided at admission, stamped on the statement's counters
+                field = "adaptive_replans" if adec.get("verdict") == "replan" \
+                    else "adaptive_holds"
+                setattr(totals, field, getattr(totals, field) + 1)
             with self._totals_lock:
                 self.counters_total.merge(totals)
             acct.snap = totals
             root = self._finish_query_trace(qid, queued_s=qsm.info().queued_s or 0)
             qsm.counters = totals.as_dict()
+            qsm.plan_actuals = acct.plan_actuals
+            qsm.adaptive = adec
             qsm.root_span_duration_s = root.duration_s if root else None
             self.resource_groups.finish(group)
             self.event_listeners.query_completed(qsm)
@@ -694,7 +886,6 @@ class Engine:
     def _execute_admitted(self, sql: str, sess: Session, qsm, parameters=None):
         from .execution.query_state import QueryState
         from .sql import parser as A
-        from .sql.frontend import Planner
 
         if parameters is not None:
             # protocol-level EXECUTE: ``sql`` carries ? markers and the values
@@ -714,10 +905,22 @@ class Engine:
         # the text is normalized, so reformatted repeats share a plan
         key = (_normalize_statement(sql), sess.catalog, False, sess.user,
                _plan_shape_props(sess))
+        # the advisor first: a frozen "replan" diverts even a warm statement
+        # to its corrected plan
+        adaptive = self._adaptive_consult(key, sess)
+        if adaptive is not None and adaptive.get("verdict") == "replan":
+            res = self._execute_corrected(sql, key, adaptive, sess, qsm)
+            if res is not NotImplemented:
+                return res
+            adaptive = None  # not a SELECT after all
+        if adaptive is not None:
+            # a counted hold: a material misestimate the advisor declined
+            self._thread_accounting.adaptive = adaptive
         with self._plan_lock:
             plan = self._cache_lookup(key)
         if plan is not None:
             self._check_select_access(plan, sess.user)
+            self._adaptive_note_base(key, sess)
             return self._run_select(sql, plan, sess, qsm)
         if self.plan_templates_enabled:
             # auto-parameterization: SELECTs equal up to their literals share
@@ -737,28 +940,30 @@ class Engine:
         ast = A.parse(sql)
         if isinstance(ast, (A.Select, A.SetOp)):
             # scalar and EXISTS subqueries execute while the query plans
-            with self.tracer.span("planner", trace_id=qsm.query_id):
-                # planning and the version snapshot are atomic with respect
-                # to the system catalog's dictionary growth
-                with self._plan_lock:
-                    plan = Planner(self, sess).plan_query(ast)
-                    self._cache_store(key, plan)
+            plan = self._plan_timed(sess, ast, key, qsm)
             self._check_select_access(plan, sess.user)
+            self._adaptive_note_base(key, sess)
             if qsm.state != QueryState.RUNNING:
                 qsm.transition(QueryState.STARTING)
             return self._run_select(sql, plan, sess, qsm)
         qsm.transition(QueryState.RUNNING)
+        # the statement's text for consumers that see only its AST (EXPLAIN
+        # recovers its inner statement's plan-cache key from it)
+        self._thread_accounting.stmt_sql = sql
         return self._execute_statement(ast, sess)
 
-    def _run_select(self, sql: str, plan, sess: Session, qsm):
+    def _run_select(self, sql: str, plan, sess: Session, qsm, adaptive=None):
         """A planned SELECT, cached plan or fresh: the result tier first (a
         hit answers with no launch, no host read and no H2D copy, after
         admission, so the statement is tracked and access-checked like any
         other), else the plan runs and its result is stored on clean
-        completion."""
+        completion.  A corrected run (``adaptive``) keys its result by the
+        correction token."""
         from .execution.query_state import QueryState
 
         rkey = self._result_cache_key(sql, plan, sess)
+        if rkey is not None and adaptive is not None:
+            rkey = rkey + (("adaptive", adaptive["token"]),)
         # the epoch the statement starts under: an invalidation while it runs
         # refuses its late store
         epoch = self.buffer_pool.epoch if rkey is not None else None
@@ -768,6 +973,9 @@ class Engine:
                 qsm.transition(QueryState.RUNNING)
                 return served
         qsm.transition(QueryState.RUNNING)
+        # the statement text for the plan-history record (read and cleared
+        # by _record_plan_history)
+        self._thread_accounting.history_sql = sql
         with self.tracer.span("execution", trace_id=qsm.query_id):
             result = self.execute_plan(plan, page_cache=_effective_page_cache(sess))
         self._result_cache_finish(rkey, result, epoch, plan)
@@ -1089,10 +1297,11 @@ class Engine:
 
     def _explain(self, ast, sess: Session):
         """EXPLAIN renders the physical plan (the distribution pass's
-        Exchange markers included); EXPLAIN ANALYZE runs the plan and adds
-        its counters, wall breakdown and timing."""
-        import time
-
+        Exchange markers included; under a frozen correction, the corrected
+        plan the next execution runs); EXPLAIN ANALYZE runs the plan, feeds
+        the plan history as any clean run does, and adds the per-node rows,
+        walls, estimates and boundary records, its counters, the advisor's
+        decision, the wall breakdown and the timing."""
         from .exec.local_executor import MaterializedResult
         from .sql.frontend import Planner
         from .sql.planprinter import format_plan
@@ -1100,20 +1309,50 @@ class Engine:
 
         plan = Planner(self, sess).plan_query(ast.query)
         self._check_select_access(plan, sess.user)  # ANALYZE executes the query
+        # the advisor keys the inner statement by its plan-cache key,
+        # recovered from the statement text; plain EXPLAIN only peeks
+        decision, akey = None, None
+        acct = self._thread_accounting
+        stmt = getattr(acct, "stmt_sql", None)
+        if stmt is not None:
+            m = re.match(r"\s*EXPLAIN\s+(?:ANALYZE\s+)?", stmt, re.IGNORECASE)
+            if m:
+                akey = (_normalize_statement(stmt[m.end():]), sess.catalog, False,
+                        sess.user, _plan_shape_props(sess))
+                decision = self._adaptive_consult(akey, sess, peek=not ast.analyze)
         if ast.analyze:
+            if decision is not None and decision.get("verdict") == "replan":
+                # ANALYZE runs what the serving path would: the corrected plan
+                plan = Planner(self, _session_with_corrections(
+                    sess, decision.get("corrections") or {})).plan_query(ast.query)
+                self._check_select_access(plan, sess.user)
+                acct.adaptive = decision
+                acct.adaptive_key = akey
+                acct.adaptive_corrected = True
+            elif akey is not None:
+                if decision is not None:
+                    acct.adaptive = decision
+                self._adaptive_note_base(akey, sess)
             t0 = time.perf_counter()
             t0_wall = time.time()
-            res, counters = self._run_plan(plan, _effective_page_cache(sess))
+            res, counters, ex = self._run_plan(plan, _effective_page_cache(sess))
             dt = time.perf_counter() - t0
-            lines = format_plan(plan, counters=counters,
-                                breakdown=self._analyze_breakdown(t0_wall, time.time())
-                                ).split("\n")
+            t1_wall = time.time()
+            self._record_plan_history(plan, ex)
+            lines = format_plan(plan, ex.stats, counters=counters, boundary=ex.boundary,
+                                ests=ex._node_ests, paths=ex._node_paths,
+                                breakdown=self._analyze_breakdown(t0_wall, t1_wall),
+                                adaptive=decision).split("\n")
             lines += [f"-- executed in {dt * 1000:.1f} ms, {len(res)} output rows"]
         else:
             from .sql.exchanges import physical_plan
 
-            phys = physical_plan(plan, self.catalogs, getattr(sess, "properties", None))
-            lines = format_plan(phys).split("\n")
+            props = getattr(sess, "properties", None)
+            if decision is not None and decision.get("verdict") == "replan":
+                props = dict(props or {})
+                props["_adaptive_corrections"] = decision.get("corrections") or {}
+            phys = physical_plan(plan, self.catalogs, props)
+            lines = format_plan(phys, adaptive=decision).split("\n")
         rows = np.array(lines, dtype=object)
         return MaterializedResult(("query plan",), (VarcharType.of(None),), [rows], [rows])
 
@@ -1601,32 +1840,55 @@ def _plan_shape_props(sess) -> tuple:
     """The session properties that change a plan, in every plan-cache and
     result-tier key: SET SESSION of one of them must replan a cached
     statement.  The tuple is the reference's: ``join_distribution_type``
-    (the physical plan's joins), and ``dispatch_batch`` and
-    ``adaptive_execution``, which the port acts on neither, resolved as the
-    reference resolves them (4 and on by default), so that the keys of both
-    packages move together."""
+    (the physical plan's joins), ``dispatch_batch`` (which the port's
+    executor does not act on) and ``adaptive_execution``, resolved as the
+    reference resolves them (the session, else ``TRINO_TPU_DISPATCH_BATCH``,
+    4, and ``TRINO_TPU_ADAPTIVE``, on), so that the keys of both packages
+    move together."""
     props = getattr(sess, "properties", None) or {}
     return (str(props.get("join_distribution_type", "AUTOMATIC")).upper(),
             _effective_dispatch_batch(sess), _effective_adaptive(sess))
 
 
 def _effective_dispatch_batch(sess) -> int:
-    """``dispatch_batch`` when the session set it above 0, else the
-    reference's default, 4."""
+    """``dispatch_batch`` when the session set it above 0, else the process
+    default ``TRINO_TPU_DISPATCH_BATCH`` (4), as the reference resolves it."""
+    from .exec.local_executor import _dispatch_batch_default
+
     props = getattr(sess, "properties", None) or {}
     try:
         v = int(props.get("dispatch_batch", 0) or 0)
     except (TypeError, ValueError):
         v = 0
-    return v if v > 0 else 4
+    return v if v > 0 else _dispatch_batch_default()
 
 
 def _effective_adaptive(sess) -> bool:
-    """``adaptive_execution`` when the session set it, else on, the
-    reference's default."""
+    """``adaptive_execution`` when the session set it, else the
+    ``TRINO_TPU_ADAPTIVE`` process default (on unless "0").  Plan-shaping:
+    sessions with the advisor on and off never share a cache key, so SET
+    SESSION adaptive_execution = false escapes a corrected plan."""
+    import os
+
     props = getattr(sess, "properties", None) or {}
     v = props.get("adaptive_execution")
-    return True if v is None else bool(v)
+    if v is not None:
+        return bool(v)
+    return os.environ.get("TRINO_TPU_ADAPTIVE", "1") != "0"
+
+
+def _session_with_corrections(sess, corrections):
+    """A shallow copy of ``sess`` carrying the advisor's frozen corrections
+    for the planner (``sql/exchanges`` reads ``_adaptive_corrections``).  The
+    session itself is never changed: the corrected plan's cache key carries
+    the correction token instead."""
+    import copy
+
+    corr_sess = copy.copy(sess)
+    props = dict(getattr(sess, "properties", None) or {})
+    props["_adaptive_corrections"] = corrections
+    corr_sess.properties = props
+    return corr_sess
 
 
 def _effective_page_cache(sess):

@@ -31,6 +31,18 @@ from the host values (``_param_pruned_source``).  ``execute_batched`` runs
 one template plan for several bindings at once: one scan feeds every lane,
 each lane's transform runs under its own binding, and each lane's rows are
 exactly what its own serial execution gives.
+
+Per-node execution stats, as in the reference: ``stats`` (id(node) ->
+rows, cumulative wall, structural path and CBO estimate) at pipeline-breaker
+granularity, registered only through ``_node_stats``; ``boundary``
+(id(node) -> launches plus host reads, host reads and their bytes charged
+while that operator ran, innermost scope wins, plus a ``"Result"`` entry
+for the final read); ``_plan_facts`` (scan split counts, join build rows and
+walls) for the plan history.  Row counts stay on the device as 0-d tensors:
+recording them reads nothing.  ``begin_plan`` stamps the node paths and
+estimates, and ``plan_fingerprint`` the structural fingerprint, through
+``plan_memo``: the engine hands the executors of statements that run again
+its memo keyed by plan root, so a warm statement walks neither again.
 """
 
 from __future__ import annotations
@@ -42,7 +54,9 @@ import enum
 import hashlib
 import itertools
 import threading
+import time
 import weakref
+from collections import OrderedDict
 from decimal import Decimal
 from typing import Callable, Optional
 
@@ -154,6 +168,54 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to trino_tpu_torch")
 
 
+def _dispatch_batch_default() -> int:
+    """The process default of the ``dispatch_batch`` session property:
+    ``TRINO_TPU_DISPATCH_BATCH`` (4 unset, at least 1), read as the reference
+    reads it.  It enters the plan-cache key (``engine._plan_shape_props``)
+    and the adaptive advisor's ``dispatch_batch`` correction; the port's
+    executor coalesces no dispatches, so nothing else reads it."""
+    import os
+
+    try:
+        v = int(os.environ.get("TRINO_TPU_DISPATCH_BATCH", "4"))
+    except ValueError:
+        return 4
+    return max(v, 1)
+
+
+class PlanMemo:
+    """Bounded map from a plan root to what its executions compute from it
+    alone (``{"est": (paths, estimates), "fp": fingerprint}``), least
+    recently used out first.  Keyed by ``id(root)``; each entry holds its
+    root, so the id stays the plan's while the entry lives.  The engine
+    keeps one, hands it to the executors of plans that run again, and
+    clears it in ``_invalidate`` (estimates read connector statistics)."""
+
+    def __init__(self, max_entries: int = 512):
+        self.max_entries = max_entries
+        self._lock = threading.Lock()
+        self._entries: OrderedDict = OrderedDict()  # id(root) -> (root, dict)
+
+    def entry(self, root) -> dict:
+        with self._lock:
+            hit = self._entries.get(id(root))
+            if hit is not None and hit[0] is root:
+                self._entries.move_to_end(id(root))
+                return hit[1]
+            ent: dict = {}
+            self._entries[id(root)] = (root, ent)
+            while len(self._entries) > self.max_entries:
+                self._entries.popitem(last=False)
+            return ent
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+
 _PARAM_TLS = threading.local()
 
 
@@ -236,12 +298,101 @@ class LocalExecutor:
         # a plan template's bound slots for the query: per slot a (0-d numpy
         # value in the planned dtype, isnull) pair, or None
         self.exec_params = None
+        # per-node stats of the current plan: id(node) -> {"rows" (a 0-d
+        # device tensor or an int), "wall_s", "op", "path", "est_rows"}
+        self.stats: dict = {}
+        # the current plan's structural node paths and CBO row estimates,
+        # stamped by begin_plan for _node_stats to capture
+        self._node_paths: dict = {}
+        self._node_ests: dict = {}
+        # plan-history facts: id(node) -> (node, {"splits": n} or
+        # {"build_rows": device count, "wall_s": s}) for the scans and join
+        # build sides that stats never records
+        self._plan_facts: dict = {}
+        # per-operator attribution: id(node) -> {"label", "dispatches",
+        # "transfers", "bytes"}, plus "result" for the final read
+        self.boundary: dict = {}
+        self._op_labels: dict = {}  # id(node) -> "<Type>#<k>" in execution order
+        # the engine's per-plan-root memo of estimates and fingerprint, for
+        # plans that run again (None: computed for this run alone)
+        self.plan_memo = None
+
+    # ------------------------------------------------------------------ stats
+    def begin_plan(self, root: P.PlanNode) -> None:
+        """Stamp the structural node paths and CBO row estimates of the plan
+        about to run (``execution/history.py``), so ``_node_stats`` captures
+        them at registration.  A host walk, memoized per plan root."""
+        ent = self.plan_memo.entry(root) if self.plan_memo is not None else {}
+        hit = ent.get("est")
+        if hit is None:
+            from ..execution.history import estimate_plan_rows, plan_node_paths
+
+            try:
+                hit = (plan_node_paths(root), estimate_plan_rows(root, self.catalogs))
+            except Exception:  # noqa: BLE001 - estimation is advisory
+                hit = ({}, {})
+            ent["est"] = hit
+        self._node_paths, self._node_ests = hit
+
+    def plan_fingerprint(self, root: P.PlanNode) -> str:
+        """Memoized structural fingerprint of ``root`` (the history key)."""
+        ent = self.plan_memo.entry(root) if self.plan_memo is not None else {}
+        fp = ent.get("fp")
+        if fp is None:
+            fp = ent["fp"] = _plan_fingerprint(root, self.catalogs)
+        return fp
+
+    def _reset_stats(self, root: P.PlanNode) -> None:
+        self.stats = {}
+        self.boundary = {}
+        self._op_labels = {}
+        self._plan_facts = {}
+        self.begin_plan(root)
+
+    def _op_label(self, node) -> str:
+        lbl = self._op_labels.get(id(node))
+        if lbl is None:
+            lbl = self._op_labels[id(node)] = f"{type(node).__name__}#{len(self._op_labels)}"
+        return lbl
+
+    def _boundary_sink(self, key, label: str) -> dict:
+        sink = self.boundary.get(key)
+        if sink is None:
+            sink = self.boundary[key] = {"label": label, "dispatches": 0,
+                                         "transfers": 0, "bytes": 0}
+        return sink
+
+    def _node_stats(self, node) -> dict:
+        """THE per-node stats registration point: the first registration
+        captures the node's structural path and CBO estimate from the
+        begin_plan maps (tests/test_torch_isolation.py holds that nothing
+        else writes ``stats``)."""
+        s = self.stats.get(id(node))
+        if s is None:
+            s = self.stats[id(node)] = {"rows": 0, "wall_s": 0.0}  # stats-ok: the registration point
+            s["op"] = type(node).__name__
+            path = self._node_paths.get(id(node))
+            if path is not None:
+                s["path"] = path
+            est = self._node_ests.get(id(node))
+            if est is not None:
+                s["est_rows"] = est
+        return s
+
+    def _record(self, node, page: Page, t0: float) -> None:
+        """Pipeline-breaker stats: the output's live rows, kept on the
+        device (no read), and the wall since ``t0``, cumulative over the
+        node's subtree."""
+        s = self._node_stats(node)
+        s["rows"] = _live_rows(page)
+        s["wall_s"] += time.perf_counter() - t0
 
     # ------------------------------------------------------------------ public
     def execute(self, node: P.PlanNode) -> MaterializedResult:
         self.host_reads = 0
         self.host_bytes = 0
         self.h2d_bytes = 0
+        self._reset_stats(node)
         host = tuple(self.exec_params or ())
         try:
             with device_constants(self._count_h2d):
@@ -254,7 +405,11 @@ class LocalExecutor:
                                 for i, (v, _) in enumerate(host))
                 with _params_scope(dev, host):
                     page, dicts = self._execute_to_page(node)
-                    return self._materialize(page, dicts)
+                    # the final read belongs to no plan node: a "Result"
+                    # operator keeps the per-operator sums equal the totals
+                    with tracing.operator_scope(
+                            "Result", self._boundary_sink("result", "Result")):
+                        return self._materialize(page, dicts)
         finally:
             self._release_reserved()
 
@@ -280,6 +435,7 @@ class LocalExecutor:
         self.host_reads = 0
         self.host_bytes = 0
         self.h2d_bytes = 0
+        self._reset_stats(node)
         n = len(runtimes)
         out_schema = node.schema if isinstance(node, P.Output) else None
         inner = node.child if isinstance(node, P.Output) else node
@@ -293,10 +449,14 @@ class LocalExecutor:
                 # the device-value scope stays empty: only a lane's own
                 # bind_params makes its values visible
                 with _params_scope((), batch_hosts=tuple(tuple(r) for r in runtimes)):
-                    stream = self._compile_stream(inner)
-                    parts = self._batched_parts(stream, lanes)
+                    label = self._op_label(inner)
+                    with tracing.operator_scope(label, self._boundary_sink(id(inner), label)):
+                        stream = self._compile_stream(inner)
+                        parts = self._batched_parts(stream, lanes)
                     schema = out_schema if out_schema is not None else stream.schema
-                    return self._demux_batched(schema, stream.dicts, parts, n)
+                    with tracing.operator_scope(
+                            "Result", self._boundary_sink("result", "Result")):
+                        return self._demux_batched(schema, stream.dicts, parts, n)
         finally:
             self._release_reserved()
 
@@ -498,12 +658,15 @@ class LocalExecutor:
         every array in ``arrays`` (``site`` names the caller)."""
         self.host_reads += 1
         out = []
+        nbytes = 0
         for a in arrays:
             if isinstance(a, torch.Tensor):
-                self.host_bytes += a.numel() * a.element_size()
+                nbytes += a.numel() * a.element_size()
                 out.append(a.cpu().numpy())
             else:
                 out.append(None if a is None else np.asarray(a))
+        self.host_bytes += nbytes
+        tracing.record_host_read(nbytes, site)
         return out
 
     def _count_h2d(self, nbytes: int):
@@ -527,37 +690,55 @@ class LocalExecutor:
 
     # ---------------------------------------------------------------- internal
     def _execute_to_page(self, node: P.PlanNode):
-        """Run a (sub)plan to completion: one Page + its dictionaries."""
+        """Run a (sub)plan to completion: one Page + its dictionaries.  Every
+        launch and host read while the node runs charges its boundary record
+        (innermost node wins: a streaming chain charges the breaker that
+        drives it)."""
+        label = self._op_label(node)
+        with tracing.operator_scope(label, self._boundary_sink(id(node), label)):
+            return self._execute_node(node)
+
+    def _execute_node(self, node: P.PlanNode):
+        t0 = time.perf_counter()
         if isinstance(node, P.Output):
             child, dicts = self._execute_to_page(node.child)
             return Page(node.schema, child.columns, child.null_masks, child.valid), dicts
         if isinstance(node, P.Sort):
             child, dicts = self._execute_to_page(node.child)
-            return self._sort_or_topn(child, node.keys, None, dicts), dicts
+            page = self._sort_or_topn(child, node.keys, None, dicts)
+            self._record(node, page, t0)
+            return page, dicts
         if isinstance(node, P.Limit):
             if isinstance(node.child, P.Sort):
                 # TopN: select the top rows before pulling them
                 child, dicts = self._execute_to_page(node.child.child)
-                return self._sort_or_topn(child, node.child.keys, node.count,
-                                          dicts), dicts
+                page = self._sort_or_topn(child, node.child.keys, node.count, dicts)
+                self._record(node, page, t0)
+                return page, dicts
             if not isinstance(node.child, _BLOCKING):
                 # streaming child: stop pulling pages once the limit is reached
-                return self._limited_stream_page(node)
+                page, dicts = self._limited_stream_page(node)
+                self._record(node, page, t0)
+                return page, dicts
             child, dicts = self._execute_to_page(node.child)
             return self._limit_page(child, node.count), dicts
         if isinstance(node, P.Aggregate):
-            return self._run_aggregate(node)
-        if isinstance(node, P.Window):
-            return self._run_window(node)
-        if isinstance(node, P.Unnest):
-            child, dicts = self._execute_to_page(node.child)
-            return self._run_unnest(node, child, dicts)
-        if isinstance(node, P.MatchRecognize):
-            child, dicts = self._execute_to_page(node.child)
-            return self._run_match_recognize(node, child, dicts)
-        # streaming leaf reached directly (scan/filter/project/join-probe): materialize
-        stream = self._compile_stream(node)
-        return self._concat_stream(stream), stream.dicts
+            page, dicts = self._run_aggregate(node)
+        elif isinstance(node, P.Window):
+            page, dicts = self._run_window(node)
+        elif isinstance(node, P.Unnest):
+            child, cdicts = self._execute_to_page(node.child)
+            page, dicts = self._run_unnest(node, child, cdicts)
+        elif isinstance(node, P.MatchRecognize):
+            child, cdicts = self._execute_to_page(node.child)
+            page, dicts = self._run_match_recognize(node, child, cdicts)
+        else:
+            # streaming leaf reached directly (scan/filter/project/join-probe):
+            # materialize
+            stream = self._compile_stream(node)
+            page, dicts = self._concat_stream(stream), stream.dicts
+        self._record(node, page, t0)
+        return page, dicts
 
     # -- page compaction at pipeline boundaries ------------------------------
     def _compactable_fraction(self, node) -> bool:
@@ -615,6 +796,9 @@ class LocalExecutor:
             conn = self.catalogs[node.catalog]
             dicts = tuple(conn.dictionaries(node.table).get(c) for c in node.columns)
             splits = conn.splits(node.table)
+            # plan-history fact: the split count the advisor tunes
+            # dispatch_batch from
+            self._plan_facts[id(node)] = (node, {"splits": len(splits)})
             si = _ScanInfo(conn, splits, tuple(node.columns), tuple(node.columns),
                            catalog=node.catalog, table=node.table)
             clustered = tuple(conn.clustered_by(node.table)) \
@@ -1235,8 +1419,16 @@ class LocalExecutor:
                 bytes_saved=cached["nbytes"] if cached is not None else 0)
         if cached is not None:
             build_page, build_dicts = cached["page"], cached["dicts"]
+            build_wall = 0.0
         else:
+            t0 = time.perf_counter()
             build_page, build_dicts = self._execute_to_page_streamed(node.right)
+            build_wall = time.perf_counter() - t0
+        # plan-history fact: the build side's live rows (kept on the device,
+        # read with the other counts at collection) and wall; nothing else
+        # records a streaming build side
+        self._plan_facts[id(node.right)] = (node.right, {
+            "build_rows": _live_rows(build_page), "wall_s": build_wall})
         probe_stream = self._compile_stream(node.left)
         build_key_types = tuple(node.right.schema.fields[i].type for i in node.right_keys)
         if node.kind in ("inner", "semi") and node.filter is None:
@@ -2331,6 +2523,18 @@ def _null_aware_anti(node, anti_valid, nulls, build_has_null, build_nonempty):
             if nulls[i] is not None:
                 anti_valid = anti_valid & ~nulls[i]
     return anti_valid
+
+
+def _live_rows(page: Page):
+    """A page's live-row count: a 0-d int64 tensor for a device page (no
+    read), an int for a host one."""
+    if not page.capacity:
+        return 0
+    if page.valid is None:
+        return page.capacity
+    if isinstance(page.valid, torch.Tensor):
+        return torch.sum(page.valid, dtype=torch.int64)
+    return int(np.count_nonzero(page.valid))
 
 
 def _page_bytes(page: Page) -> int:

@@ -51,6 +51,9 @@ class QueryCompletedEvent:
     # per-execution payload engine.plan_history merged.  None for DDL,
     # non-local execution paths, or a disabled history store.
     plan_actuals: Optional[dict] = None
+    # the adaptive advisor's admission-time decision for the statement
+    # (verdict, corrections, predicted win and price, reasons), or None
+    adaptive: Optional[dict] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,4 +104,5 @@ class EventListenerManager:
             qsm.error,
             counters=getattr(qsm, "counters", None),
             root_span_s=getattr(qsm, "root_span_duration_s", None),
-            plan_actuals=getattr(qsm, "plan_actuals", None)))
+            plan_actuals=getattr(qsm, "plan_actuals", None),
+            adaptive=getattr(qsm, "adaptive", None)))

@@ -16,6 +16,15 @@ statement's thread; the kernel wrappers charge their launches to the set
 open on the thread that launches them (``record_launch``), so concurrent
 statements on other threads never see each other's counts.
 
+Attribution, as in the reference: the executor opens an ``operator_scope``
+around each plan node it runs (innermost scope wins) and every kernel
+launch and every host read charges that scope's sink (the executor's
+per-operator ``boundary`` record) and the counter set's ``sites`` map under
+``"<Op>#<k>/<site>"``.  A site's ``dispatches`` counts what
+``device_dispatches`` counts, kernel launches plus host reads; its
+``transfers`` and ``bytes`` the host reads and their bytes.  The per-operator
+sums therefore equal the execution's totals.
+
 Not ported yet: the reference's XLA compile log (here it would be a log of
 kernel builds), its in-flight registry and the stall watchdog.
 """
@@ -29,8 +38,8 @@ import time
 from typing import Optional
 
 __all__ = ["Span", "Tracer", "NOOP_TRACER", "QueryCounters", "track_counters",
-           "record_launch", "record_page_cache", "record_build_cache",
-           "record_result_cache", "DISPATCH_LATENCY", "LatencyHistogram",
+           "record_launch", "record_host_read", "operator_scope", "record_page_cache",
+           "record_build_cache", "record_result_cache", "DISPATCH_LATENCY", "LatencyHistogram",
            "LATENCY_BUCKETS_S", "activate_tracer", "current_tracer", "maybe_span",
            "span_dict", "spans_to_otlp", "query_scope", "current_query_id",
            "live_query_counters", "WALL_BUCKETS", "wall_breakdown",
@@ -77,13 +86,22 @@ class LatencyHistogram:
 # -- per-statement device-boundary counters ------------------------------------
 
 
+def _site_entry(sites: dict, key: str) -> dict:
+    rec = sites.get(key)
+    if rec is None:
+        rec = sites[key] = {"dispatches": 0, "transfers": 0, "bytes": 0}
+    return rec
+
+
 @dataclasses.dataclass
 class QueryCounters:
     """Host reads, their bytes, H2D bytes and kernel launches of one plan
     execution or statement (or, in ``Engine.counters_total``, of the engine's
     lifetime).  The reference's names read through the properties:
     ``device_dispatches`` counts kernel launches plus host reads,
-    ``host_transfers`` the host reads, ``host_bytes_pulled`` their bytes."""
+    ``host_transfers`` the host reads, ``host_bytes_pulled`` their bytes.
+    ``sites`` breaks them down per ``"<Op>#<k>/<site>"`` (a kernel's name or
+    a host read's site tag under the operator scope that made it)."""
 
     host_reads: int = 0
     host_bytes: int = 0
@@ -113,12 +131,20 @@ class QueryCounters:
     plan_template_hits: int = 0
     plan_template_misses: int = 0
     batched_requests: int = 0
+    # adaptive execution (execution/adaptive.py): a replan means the
+    # statement ran a plan the advisor corrected from its history; a hold
+    # means a material misestimate existed and the advisor declined
+    adaptive_replans: int = 0
+    adaptive_holds: int = 0
+    # "<Op>#<k>/<site>" -> {"dispatches", "transfers", "bytes"}
+    sites: dict = dataclasses.field(default_factory=dict)
 
     _COUNT_FIELDS = ("page_cache_hits", "page_cache_misses", "page_cache_bytes_saved",
                      "build_cache_hits", "build_cache_misses", "build_cache_bytes_saved",
                      "result_cache_hits", "result_cache_misses",
                      "result_cache_bytes_saved", "plan_template_hits",
-                     "plan_template_misses", "batched_requests")
+                     "plan_template_misses", "batched_requests", "adaptive_replans",
+                     "adaptive_holds")
 
     @property
     def kernel_launches(self) -> int:
@@ -144,6 +170,10 @@ class QueryCounters:
             self.launches[k] = self.launches.get(k, 0) + v
         for f in self._COUNT_FIELDS:
             setattr(self, f, getattr(self, f) + getattr(other, f))
+        for key, rec in list(other.sites.items()):
+            mine = _site_entry(self.sites, key)
+            for k, v in rec.items():
+                mine[k] = mine.get(k, 0) + v
 
     def as_dict(self) -> dict:
         return {"host_reads": self.host_reads, "host_bytes": self.host_bytes,
@@ -151,7 +181,8 @@ class QueryCounters:
                 "device_dispatches": self.device_dispatches,
                 "host_transfers": self.host_transfers,
                 "host_bytes_pulled": self.host_bytes_pulled,
-                **{f: getattr(self, f) for f in self._COUNT_FIELDS}}
+                **{f: getattr(self, f) for f in self._COUNT_FIELDS},
+                "sites": {k: dict(v) for k, v in list(self.sites.items())}}
 
 
 _counter_local = threading.local()
@@ -195,14 +226,57 @@ def track_counters(counters: QueryCounters):
 DISPATCH_LATENCY = LatencyHistogram()
 
 
+@contextlib.contextmanager
+def operator_scope(label: str, sink: Optional[dict] = None):
+    """Charge every launch and host read recorded on this thread to
+    ``label`` until exit (innermost scope wins: a streaming chain charges
+    the operator that drives it).  ``sink`` also accumulates
+    {"dispatches", "transfers", "bytes"} in place: the executor's
+    per-operator record that EXPLAIN ANALYZE prints."""
+    prev = getattr(_counter_local, "op", None)
+    _counter_local.op = (label, sink)
+    try:
+        yield sink
+    finally:
+        _counter_local.op = prev
+
+
+def _attribute(site: str, dispatches: int = 0, transfers: int = 0, nbytes: int = 0,
+               counters: Optional[QueryCounters] = None) -> None:
+    """Charge one record to the open operator scope's sink and to the
+    counter set's ``sites`` under "<op>/<site>"."""
+    op = getattr(_counter_local, "op", None)
+    if counters is not None:
+        key = f"{op[0]}/{site}" if op is not None else site
+        rec = _site_entry(counters.sites, key)
+        rec["dispatches"] += dispatches
+        rec["transfers"] += transfers
+        rec["bytes"] += nbytes
+    if op is not None and op[1] is not None:
+        sink = op[1]
+        sink["dispatches"] += dispatches
+        sink["transfers"] += transfers
+        sink["bytes"] += nbytes
+
+
 def record_launch(kernel: str, seconds: float) -> None:
     """One launch of ``kernel`` whose C entry took ``seconds`` of host time,
     charged to the counter set open on this thread (none open: only the
-    process-wide histogram records it)."""
+    process-wide histogram records it) and to the open operator scope."""
     DISPATCH_LATENCY.record(seconds)
     c = getattr(_counter_local, "counters", None)
     if c is not None:
         c.launches[kernel] = c.launches.get(kernel, 0) + 1
+    _attribute(kernel, dispatches=1, counters=c)
+
+
+def record_host_read(nbytes: int, site: str) -> None:
+    """One synchronising host read of ``nbytes`` at ``site``, attributed to
+    the open operator scope and the counter set's ``sites``.  The totals
+    (``host_reads``, ``host_bytes``) are the executor's own count, folded
+    into the statement's counters when its plan finishes."""
+    _attribute(site, dispatches=1, transfers=1, nbytes=nbytes,
+               counters=getattr(_counter_local, "counters", None))
 
 
 def record_page_cache(hits: int = 0, misses: int = 0, bytes_saved: int = 0) -> None:

@@ -12,13 +12,14 @@ reference's token-addressed result pages (server/TaskResource.java:331 token pro
 
 Counterpart of ``trino_tpu/server/server.py``, serving a ``trino_tpu_torch``
 engine: the protocol, the pages, the statement gate, authentication, spooling,
-the status, trace and UI endpoints are the reference's.  Device memory comes
-from ``torch.cuda`` on the engine's device; ``/v1/metrics`` exports the
-families whose source the port has (query states, kernel launches and host
-reads, host bytes, the launch-latency histogram, the buffer pool's page,
-build and result tiers, memory, resource groups);
-``/v1/history``, ``/v1/flight`` and ``/v1/compiles`` answer as the reference
-does when plan history, the flight recorder or the compile log is off.
+the status, trace, history and UI endpoints are the reference's.  Device
+memory comes from ``torch.cuda`` on the engine's device; ``/v1/metrics``
+exports the families whose source the port has (query states, kernel
+launches and host reads, host bytes, the launch-latency histogram, the
+buffer pool's page, build and result tiers, plan history and the adaptive
+advisor, memory, resource groups); ``/v1/flight`` and ``/v1/compiles``
+answer as the reference does when the flight recorder or the compile log is
+off.
 """
 
 from __future__ import annotations
@@ -437,9 +438,12 @@ class CoordinatorServer:
                     self._send(200, server._status_json())
                     return
                 if parts == ["v1", "history"]:
-                    # the plan-actuals history: the reference's answer
-                    # without one (the port keeps no plan history yet)
-                    self._send(200, {"plans": []})
+                    # the plan-actuals history: per-node est-vs-actual
+                    # records merged across executions (the JSON twin of
+                    # system.runtime.plan_history)
+                    ph = getattr(server.engine, "plan_history", None)
+                    self._send(200, ph.as_dict() if ph is not None
+                               else {"plans": []})
                     return
                 if parts == ["v1", "flight"]:
                     self._send(200, server._flight_index())
@@ -706,6 +710,44 @@ class CoordinatorServer:
                     f"{bi['batches_total']}",
                     f"trino_tpu_template_batch_size_sum {bi['batched_requests_total']}",
                     f"trino_tpu_template_batch_size_count {bi['batches_total']}",
+                ]
+            # the plan-actuals history: the worst est-vs-actual factor on
+            # record (a gauge: it moves as records merge and plans evict)
+            # and the node executions recorded past the misestimate threshold
+            ph = getattr(self.engine, "plan_history", None)
+            if ph is not None:
+                lines += [
+                    "# HELP trino_tpu_cardinality_misestimate_ratio Worst "
+                    "est-vs-actual row factor in the plan-actuals history "
+                    "(1.0 = everything on estimate).",
+                    "# TYPE trino_tpu_cardinality_misestimate_ratio gauge",
+                    f"trino_tpu_cardinality_misestimate_ratio {ph.worst_ratio():.3f}",
+                    "# HELP trino_tpu_misestimated_nodes_total Plan-node "
+                    "executions recorded past the misestimate threshold "
+                    "(2x over/under).",
+                    "# TYPE trino_tpu_misestimated_nodes_total counter",
+                    f"trino_tpu_misestimated_nodes_total {ph.misestimates_total}",
+                ]
+            # the adaptive advisor: statements diverted to a corrected plan,
+            # counted holds, and demoted corrections
+            adv = getattr(self.engine, "adaptive_advisor", None)
+            if adv is not None:
+                ai = adv.info()
+                lines += [
+                    "# HELP trino_tpu_adaptive_replans_total Statements "
+                    "diverted to a history-corrected plan by the adaptive "
+                    "advisor.",
+                    "# TYPE trino_tpu_adaptive_replans_total counter",
+                    f"trino_tpu_adaptive_replans_total {ct.adaptive_replans}",
+                    "# HELP trino_tpu_adaptive_holds_total Material "
+                    "misestimates the advisor declined to re-plan "
+                    "(win under the re-plan price, or cooling down).",
+                    "# TYPE trino_tpu_adaptive_holds_total counter",
+                    f"trino_tpu_adaptive_holds_total {ct.adaptive_holds}",
+                    "# HELP trino_tpu_adaptive_demotions_total Corrections "
+                    "demoted after regressing or failing on probation.",
+                    "# TYPE trino_tpu_adaptive_demotions_total counter",
+                    f"trino_tpu_adaptive_demotions_total {ai['demotions_total']}",
                 ]
         from ..execution.tracing import DISPATCH_LATENCY
 

@@ -4,10 +4,7 @@ Reference: sql/planner/planprinter/PlanPrinter.java (text mode).  Channel-based 
 print one operator per line with indentation, output schema, and the operator-specific
 details (predicates, join keys, aggregate calls).
 
-Counterpart of ``trino_tpu/sql/planprinter.py``.  The port has no plan history
-and no adaptive advisor yet (``execution/history.py``, ``execution/adaptive.py``):
-where the reference reads them, this prints what the reference prints for a
-plan without history or a decision, nothing.
+Counterpart of ``trino_tpu/sql/planprinter.py``, copied.
 """
 
 from __future__ import annotations
@@ -57,11 +54,9 @@ def format_plan(node: P.PlanNode, stats: dict = None, counters=None,
     if sk:
         lines.append(sk)
     if adaptive:
-        try:
-            from ..execution.adaptive import describe_decision
-        except ImportError:  # no adaptive advisor in the port yet: no line
-            describe_decision = None
-        desc = describe_decision(adaptive) if describe_decision else None
+        from ..execution.adaptive import describe_decision
+
+        desc = describe_decision(adaptive)
         if desc:
             lines.append(f"Adaptive: {desc}")
     if breakdown:
@@ -154,10 +149,7 @@ def _misestimate_summary(stats: dict, ests: dict, paths: dict) -> str:
     (execution/adaptive.py) consumes through the history store.  Empty
     string when every node is within threshold (non-
     analyze prints and on-estimate plans are unchanged)."""
-    try:
-        from ..execution.history import MISESTIMATE_THRESHOLD, misestimate
-    except ImportError:  # no plan history in the port yet: no line
-        return ""
+    from ..execution.history import MISESTIMATE_THRESHOLD, misestimate
 
     worst: list = []
     for nid, s in stats.items():
@@ -302,14 +294,11 @@ def _fmt(node: P.PlanNode, lines: list, depth: int, stats: dict,
             # the probe scan collapsed to a connector keyed lookup
             lines[before] += f" [index lookup: {s['index_join_keys']} keys]"
         est = s.get("est_rows", ests.get(id(node)))
-        try:
-            from ..execution.history import misestimate
-        except ImportError:  # no plan history in the port yet: no annotation
-            est = None
         if est is not None:
             # est-vs-actual drift annotation (round 15): what the CBO
             # promised against what arrived, with the over/under factor —
             # the per-node view of the plan-history record this run fed
+            from ..execution.history import misestimate
 
             actual = int(s["rows"])
             ratio, direction = misestimate(est, actual)
