@@ -45,7 +45,11 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    query must launch the kernels that ``TPCDS_REQUIRED`` names (those the
    JAX reference's SF1 path reaches), and the run as a whole must launch
    every one of them.  Queries that run a Window, Union, Values or a Limit
-   over anything but a Sort are also held against the port's CPU run at SF1.
+   over anything but a Sort are also held against the port's CPU run, both
+   at ``TPCDS_SF_HELD`` (0.25: the CPU's SF1 generation alone took 111 s)
+   with ``TPCDS_SPLIT_HELD`` (2^18) rows a split, so that store_sales spans
+   three pages there as it spans two at SF1 and windows and streaming LIMITs
+   are held across a page boundary; the run fails if it spans fewer than two.
    Then each kernel the run launched is held against its plain version at
    this path's own shapes, as in phase 3 (``tpcds_kernel_checks``; the
    most selective compaction is a streaming LIMIT's; insert also on
@@ -112,7 +116,7 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    from four at once (each runs them twice, in its own order): statements/s,
    peak memory, every result equal to the serial one, each statement's
    launches equal to its serial run's and the summed launches 8x the
-   serial ones; (c) the 1,500,000 rows of SF1 orders pulled inline and
+   serial ones; (c) 300,000 rows of SF1 orders pulled inline and
    spooled (json+zlib), rows/s at the client, row count and column sums
    equal to the direct run's; (d) SHOW, EXPLAIN [ANALYZE], PREPARE /
    EXECUTE and protocol parameters of Q3, SET SESSION of
@@ -207,6 +211,31 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    corrected shape, ``hash_probe`` and ``compact_rows`` at the phase's
    largest and most frequent.  ``by_path`` gains ``adaptive_sf1``: the
    launches of 14a-14c and 14e with history on.
+15. The flight recorder, the kernel-build log, the in-flight registry and
+   the stall watchdog at SF1 (``flight_path``; the tiers and the advisor
+   off, as phase 2 ran).  (a) The 22 queries on an engine whose recorder
+   is at its default with an on-disk ring in a temporary directory, and on
+   one built with ``TRINO_TPU_FLIGHT_RECORDS=0``: each result equal to
+   phase 2's, one FINISHED record per statement, host reads, H2D bytes and
+   launches equal between the two; then bench.py's five warm and T1-T6
+   template hits with the recorder off, in memory and with its disk ring,
+   in turns (``FlightSwitch``), and ``_record_flight``'s seconds.  (b) An
+   erroring statement's record holds its error, in memory and on disk.
+   (c) ``COMPILE_LOG`` holds one record per CUDA library from the build at
+   startup, with its nvcc seconds or ``cached``.  (d) An engine armed with
+   ``TRINO_TPU_STALL_S=0.05``: the test hook holds one host read of a warm
+   Q1 for 0.5 s; ``health()`` reads "stalled" at that site, a stall event
+   lands in the recorder, ``health()`` is "ok" after.  (e) A child process
+   runs bench.py's five into a disk ring and is killed with SIGKILL;
+   ``read_flight_dir`` reads the five records back.  (f) ``hash_insert_``,
+   ``hash_probe`` and ``compact_rows`` against their plain versions at the
+   phase's largest and most frequent shapes.  (g) The in-flight registry's
+   host cost on the main path: a timed loop of ``INFLIGHT.enter``/``exit``
+   pairs against no-op stand-ins, the entries each of bench.py's five and
+   of a T1-T6 hit makes, and their warm walls with the registry live and
+   stubbed out, in turns (``InflightStub``).  ``by_path`` gains
+   ``flight_sf1``: the launches of 15a's statements on the recorder's
+   engine.  Every phase prints its seconds on a line of its own.
 
 It prints the card line, then one JSON line with every kernel's numbers, and
 last ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -1447,6 +1476,15 @@ FUNCTIONS_BIG = ("f1_percentiles", "f3_date_keys", "f5_wide_sums")
 FUNCTIONS_SF_PARITY = 0.01  # the parity corpora's scale, as the CPU tests run them
 TPCDS_SF_PARITY = 0.1  # every corpus query on the card and the CPU
 TPCDS_SF_MAIN = 1.0
+# phase 6: the scale at which the queries that run a Window, Union, Values or
+# non-Sort Limit node are held against the CPU (on the 8-core host of an
+# H100 machine their CPU runs took 111 s at SF1 and 12 s at SF0.25; the
+# card's SF1 runs keep their scale), and the split size of both sides there:
+# small enough that store_sales spans several pages, so windows and streaming
+# LIMITs are held across a page boundary as at SF1
+TPCDS_SF_HELD = 0.25
+TPCDS_SPLIT_HELD = 1 << 18
+TPCDS_HELD_MIN_SPLITS = 2
 TPCDS_SF_BIG = 10.0
 # the star join, cumulative frames, the rollup union, windows over an aggregate
 TPCDS_BIG = ("q3_brand_by_year", "q51_cumulative_channel_windows",
@@ -2356,11 +2394,12 @@ def tpcds_parity(card, cpu, queries):
     return nodes
 
 
-def tpcds_main(card, cpu, queries, nodes, fact_rows):
+def tpcds_main(card, held_card, cpu, queries, nodes, fact_rows):
     """Phase 6: every query at SF1 on the card (cold, warm, launches, host
-    reads, peak memory); the queries that run a node this slice ported are
-    held against the CPU.  Returns (per-query results, launches of the run,
-    launch shapes of the run)."""
+    reads, peak memory); the queries that run a Window, Union, Values or
+    non-Sort Limit node are held against the CPU at TPCDS_SF_HELD
+    (``held_card`` and ``cpu``).  Returns (per-query results, launches of
+    the SF1 run, launch shapes of the SF1 run)."""
     from trino_tpu_torch.ops import cuda_kernels as ck
 
     ck.reset_stats()
@@ -2374,13 +2413,16 @@ def tpcds_main(card, cpu, queries, nodes, fact_rows):
     for k in sorted({k for ks in TPCDS_REQUIRED.values() for k in ks}):
         check(launches[k] > 0, f"the TPC-DS path launched no {k} kernel")
     held = [q for q in queries if nodes[q] & set(TPCDS_NEW_NODES)]
-    t0 = time.perf_counter()
+    cpu_s = 0.0
     for q in held:
+        res = held_card.execute_sql(queries[q], held_card.create_session("tpcds"))
+        t0 = time.perf_counter()
         ref = cpu.execute_sql(queries[q], cpu.create_session("tpcds"))
-        same_result(got[q]["result"], ref, f"tpcds sf{TPCDS_SF_MAIN:g} {q} card vs CPU")
-    print(f"tpcds sf{TPCDS_SF_MAIN:g}: {len(held)} queries with "
+        cpu_s += time.perf_counter() - t0
+        same_result(res, ref, f"tpcds sf{TPCDS_SF_HELD:g} {q} card vs CPU")
+    print(f"tpcds sf{TPCDS_SF_HELD:g}: {len(held)} queries with "
           f"{'/'.join(TPCDS_NEW_NODES)} equal the port's CPU results "
-          f"(CPU {time.perf_counter() - t0:.1f} s): {' '.join(held)}", flush=True)
+          f"(CPU {cpu_s:.1f} s): {' '.join(held)}", flush=True)
     for q in queries:
         print(f"tpcds nodes {q}: {' '.join(sorted(nodes[q]))}", flush=True)
     return got, launches, shapes
@@ -3017,8 +3059,11 @@ def arrays_path():
 # requires of it (REQUIRED)
 SERVER_REQUIRED = REQUIRED
 SERVER_CLIENTS = 4
+# 11c's extract: 300,000 of SF1's 1.5M orders (the generated keys are dense;
+# from a server over an H100 engine the pull runs 58-92K rows/s at the
+# client, so the whole table took 41 s)
 BIG_RESULT = ("select o_orderkey, o_custkey, o_orderstatus, o_totalprice, o_orderdate "
-              "from orders")
+              "from orders where o_orderkey <= 300000")
 SPOOL_THRESHOLD = 10_000
 VERIFIER_SF = 0.1
 # Q3 with ``?`` for the segment and the date; Q6 with ``?`` for the discount
@@ -3227,7 +3272,7 @@ def column_sums(names, rows):
 
 
 def server_big_result(engine, srv, spool_srv):
-    """11c: the 1,500,000 rows of SF1 orders pulled inline (pages of
+    """11c: 300,000 rows of SF1 orders pulled inline (pages of
     DATA_ROWS_PER_FETCH rows) and spooled (json+zlib segments); the row
     count and per-column sums equal the direct run's."""
     import torch
@@ -3883,7 +3928,8 @@ TEMPLATE_FUSED = (4, 16)  # fused window sizes of 13c
 TEMPLATE_FUSED_STATEMENTS = ("t1", "t3", "t4")
 TEMPLATE_SERVER_STATEMENTS = ("t3", "t4")
 TEMPLATE_SERVER_CLIENTS = (1, 4, 16)
-TEMPLATE_SERVER_REQUESTS = 200
+# requests per setting of 13d (200 before the 700 s budget of the whole script)
+TEMPLATE_SERVER_REQUESTS = 64
 TEMPLATE_SERVER_POOL = 50  # distinct bindings per statement in 13d
 TEMPLATE_SERVER_POLL_S = 0.005  # the DB-API client's poll, so the engine and not the poll sets the rate
 TEMPLATE_BIG_EXECUTES = 8  # 13e: bindings of T4 and T1 at SF10
@@ -5029,6 +5075,566 @@ def history_path(phase2, cpu_actuals):
                            for k, r in checks.items()}
 
 
+# -- phase 15: the flight recorder, the build log, the in-flight registry --------------
+FLIGHT_TURNS = 2  # 15a: warm runs per recorder mode and statement, in turns
+FLIGHT_TEMPLATE_HITS = 6  # 15a: template hits per statement, each mode in turns
+FLIGHT_ERROR = "select no_such_column from lineitem"
+FLIGHT_STALL_S = 0.05  # 15d: TRINO_TPU_STALL_S
+FLIGHT_STALL_HOLD_S = 0.5  # 15d: how long the hook holds one host read
+FLIGHT_INFLIGHT_PAIRS = 200_000  # 15g: enter/exit pairs in the timed loop
+FLIGHT_INFLIGHT_TURNS = 3  # 15g: warm runs per side and statement, in turns
+FLIGHT_CHILD = """
+import sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+from trino_tpu_torch import Engine
+from trino_tpu_torch.connectors.tpch import TpchConnector
+e = Engine()
+e.register_catalog("tpch", TpchConnector(sf={sf}, split_rows={split}))
+s = e.create_session("tpch")
+for sql in chip_smoke.QUERIES.values():
+    e.execute_sql(sql, s)
+print("ran", flush=True)
+sys.stdin.read()
+"""
+
+
+class FlightSwitch:
+    """Swaps an engine's flight recorder between ``off`` (what
+    ``TRINO_TPU_FLIGHT_RECORDS=0`` builds), ``memory`` (the in-memory ring
+    alone) and ``disk`` (the engine's own recorder: the ring and its
+    on-disk JSONL ring), and times each ``_record_flight`` call per mode."""
+
+    MODES = ("off", "memory", "disk")
+
+    def __init__(self, engine):
+        from trino_tpu_torch.execution.flightrecorder import FlightRecorder
+
+        self.engine = engine
+        os.environ["TRINO_TPU_FLIGHT_RECORDS"] = "0"
+        try:
+            off = FlightRecorder(flight_dir="")
+        finally:
+            os.environ.pop("TRINO_TPU_FLIGHT_RECORDS")
+        self.recorders = {"off": off, "memory": FlightRecorder(flight_dir=""),
+                          "disk": engine.flight_recorder}
+        check(not off.enabled and not self.recorders["memory"].flight_dir
+              and self.recorders["disk"].flight_dir,
+              "flight switch: the three recorders are not off, memory and disk")
+        self.record_s = {m: [] for m in self.MODES}
+        self.mode = "disk"
+        inner = engine._record_flight
+
+        def timed(qsm, snap):
+            mode = self.mode
+            t0 = time.perf_counter()
+            try:
+                return inner(qsm, snap)
+            finally:
+                self.record_s[mode].append(time.perf_counter() - t0)
+
+        engine._record_flight = timed
+
+    def set(self, mode: str) -> None:
+        self.mode = mode
+        self.engine.flight_recorder = self.recorders[mode]
+
+    def close(self) -> None:
+        self.set("disk")
+        del self.engine._record_flight
+
+
+def flight_statement(engine, sql, sess, own=None):
+    """history_statement's record plus the statement's H2D bytes."""
+    res, r = history_statement(engine, sql, sess, own)
+    r["h2d_bytes"] = engine.last_query_counters["h2d_bytes"]
+    return res, r
+
+
+def flight_queries(engine, off, phase2, own):
+    """15a: the 22 queries on the recorder's engine (its disk ring on) and on
+    one built with TRINO_TPU_FLIGHT_RECORDS=0: each result equal to phase 2's;
+    each statement leaves one query record, FINISHED, with its rows and its
+    host reads; host reads, H2D bytes and launches equal between the two."""
+    fr = engine.flight_recorder
+    out = {}
+    for q, sql in ALL_QUERIES.items():
+        before = fr.records_total
+        res, on_r = flight_statement(engine, sql, engine.create_session("tpch"), own)
+        rec = fr.snapshot(kind="query")[-1]
+        _, off_r = flight_statement(off, sql, off.create_session("tpch"))
+        same_result(res, phase2[q], f"flight {q} vs phase 2")
+        check(fr.records_total == before + 1,
+              f"flight {q}: {fr.records_total - before} records for one statement")
+        check(rec["state"] == "FINISHED" and rec["rows"] == len(res)
+              and rec["counters"]["host_reads"] == on_r["host_reads"],
+              f"flight {q}: record {rec['state']} rows {rec['rows']} reads "
+              f"{rec['counters']['host_reads']} vs the run's {len(res)}, {on_r['host_reads']}")
+        for k in ("host_reads", "h2d_bytes", "launches"):
+            check(on_r[k] == off_r[k],
+                  f"flight {q}: {k} {on_r[k]} with the recorder vs {off_r[k]} without")
+        out[q] = {"cold_on_s": on_r["wall_s"], "cold_off_s": off_r["wall_s"],
+                  "host_reads": on_r["host_reads"], "h2d_bytes": on_r["h2d_bytes"],
+                  "launches": nonzero(on_r["launches"]),
+                  "spans": len(rec["trace"]["spans"])}
+    print(f"flight 15a: the 22 queries equal phase 2's; one record each; host reads, H2D "
+          f"bytes and launches equal with TRINO_TPU_FLIGHT_RECORDS=0", flush=True)
+    return out
+
+
+def flight_cost(engine, switch):
+    """15a: bench.py's five warm, the recorder off, in memory and with its
+    disk ring, in turns; host reads equal; the seconds ``_record_flight``
+    took a statement in each mode."""
+    sess = engine.create_session("tpch")
+    out = {}
+    order = ("memory", "disk", "off", "off", "disk", "memory")
+    for q, sql in QUERIES.items():
+        history_statement(engine, sql, sess)  # warm, untimed
+        walls = {m: [] for m in FlightSwitch.MODES}
+        reads = {}
+        for m in switch.MODES:
+            switch.record_s[m].clear()
+        for _ in range(FLIGHT_TURNS):
+            for m in order:
+                switch.set(m)
+                _, r = history_statement(engine, sql, sess)
+                walls[m].append(r["wall_s"])
+                reads[m] = r["host_reads"]
+        switch.set("disk")
+        check(len(set(reads.values())) == 1, f"flight cost {q}: host reads {reads}")
+        out[q] = {"wall_s": {m: min(v) for m, v in walls.items()},
+                  "record_s": {m: statistics.median(switch.record_s[m])
+                               for m in switch.MODES},
+                  "host_reads": reads["off"]}
+        print(f"flight 15a {q}: warm wall_s {out[q]['wall_s']} (min of "
+              f"{2 * FLIGHT_TURNS} each, in turns); _record_flight s a statement "
+              f"(median) {out[q]['record_s']}; host_reads {reads['off']} in every mode",
+              flush=True)
+    return out
+
+
+def flight_templates(engine, switch, keep):
+    """15a: phase 13's T1-T6 template hits, each mode in turns: results
+    byte-equal, host reads equal; the seconds ``_record_flight`` took a hit.
+    ``keep`` gets the session and each template's hit statements (for 15g)."""
+    import numpy as np
+
+    gen = np.random.default_rng(15)
+    (sess,) = template_sessions(engine)
+    plans = {"plans": 0}
+    out = {}
+    for name, text in TEMPLATES.items():
+        vals = [v for i, v in enumerate(template_values(gen, name, TEMPLATE_EXECUTES, SF_MAIN))
+                if i not in (TEMPLATE_NULL_AT, TEMPLATE_OUTSIDE_AT)][:FLIGHT_TEMPLATE_HITS + 1]
+        stmts = [f"execute {name} using " + ", ".join(sql_literal(x) for x in v) for v in vals]
+        engine.execute_sql(f"prepare {name} from {text}", sess)
+        engine.execute_sql(stmts[0], sess)  # the miss that creates the template
+        keep[name] = (sess, stmts[1:])
+        walls = {m: [] for m in switch.MODES}
+        for m in switch.MODES:
+            switch.record_s[m].clear()
+        for i, stmt in enumerate(stmts[1:]):
+            engine.execute_sql(stmt, sess)  # the binding's first request, untimed
+            got = {}
+            modes = switch.MODES if i % 2 == 0 else tuple(reversed(switch.MODES))
+            for m in modes:
+                switch.set(m)
+                res, r = timed_statement(engine, stmt, sess, plans)
+                check(r["hits"] == 1, f"flight templates {name}: not a template hit ({r})")
+                walls[m].append(r["wall_s"])
+                got[m] = (res, r)
+            for m in ("memory", "disk"):
+                same_bytes(got[m][0], got["off"][0], f"flight templates {name} {m} binding {i}")
+                check(got[m][1]["host_reads"] == got["off"][1]["host_reads"],
+                      f"flight templates {name}: host reads {got[m][1]['host_reads']} "
+                      f"({m}) vs {got['off'][1]['host_reads']} off")
+        switch.set("disk")
+        out[name] = {"hit_s": {m: statistics.median(v) for m, v in walls.items()},
+                     "record_s": {m: statistics.median(switch.record_s[m])
+                                  for m in switch.MODES}}
+        print(f"flight 15a {name}: template hit wall_s {out[name]['hit_s']} (median of "
+              f"{len(walls['off'])}, in turns); _record_flight s a hit (median) "
+              f"{out[name]['record_s']}", flush=True)
+    return out
+
+
+class InflightStub:
+    """15g: the process registry ``INFLIGHT`` live, or with ``enter`` and
+    ``exit`` replaced on the instance by no-ops (what a port without the
+    registry pays per launch and host read: one Python call each)."""
+
+    SIDES = ("live", "stub")
+
+    def __init__(self):
+        from trino_tpu_torch.execution.tracing import INFLIGHT
+
+        self.reg = INFLIGHT
+
+    def set(self, side: str) -> None:
+        if side == "live":
+            self.reg.__dict__.pop("enter", None)
+            self.reg.__dict__.pop("exit", None)
+        else:
+            self.reg.enter = lambda kind, site=None, compiling=False: 0
+            self.reg.exit = lambda token: None
+
+    def count(self, run) -> int:
+        """Entries ``run()`` makes with the registry live."""
+        live = type(self.reg).enter
+        n = [0]
+
+        def counted(kind, site=None, compiling=False):
+            n[0] += 1
+            return live(self.reg, kind, site, compiling)
+
+        self.reg.enter = counted
+        try:
+            run()
+        finally:
+            self.set("live")
+        return n[0]
+
+    def pair_s(self, side: str) -> float:
+        """Seconds of one enter/exit pair, a timed loop on this thread."""
+        self.set(side)
+        reg = self.reg
+        try:
+            t0 = time.perf_counter()
+            for _ in range(FLIGHT_INFLIGHT_PAIRS):
+                reg.exit(reg.enter("dispatch", "hash_probe"))
+            return (time.perf_counter() - t0) / FLIGHT_INFLIGHT_PAIRS
+        finally:
+            self.set("live")
+
+
+def flight_inflight_cost(engine, templates):
+    """15g: the in-flight registry's host cost.  A timed loop of enter/exit
+    pairs live and with no-op stand-ins; per statement of bench.py's five
+    and per T1-T6 hit the entries it makes, their cost by the loop's
+    difference, and warm walls live and stubbed out in turns (min of
+    FLIGHT_INFLIGHT_TURNS for the five, median of the hits); results and
+    host reads equal on both sides."""
+    stub = InflightStub()
+    check(stub.reg.depth() == 0, f"flight 15g: {stub.reg.depth()} entries open at the start")
+    live_s, stub_s = stub.pair_s("live"), stub.pair_s("stub")
+    pair = live_s - stub_s
+    print(f"flight 15g: enter/exit pair {live_s * 1e6:.4f} us live, {stub_s * 1e6:.4f} us "
+          f"with no-op stand-ins, registry cost {pair * 1e6:.4f} us a pair (loop of "
+          f"{FLIGHT_INFLIGHT_PAIRS})", flush=True)
+    out = {"pair_live_us": live_s * 1e6, "pair_stub_us": stub_s * 1e6,
+           "pair_cost_us": pair * 1e6, "statements": {}, "hits": {}}
+    sess = engine.create_session("tpch")
+    plans = {"plans": 0}
+    try:
+        for q, sql in QUERIES.items():
+            history_statement(engine, sql, sess)  # warm, untimed
+            entries = stub.count(lambda: engine.execute_sql(sql, sess))
+            walls = {s: [] for s in stub.SIDES}
+            got = {}
+            for i in range(FLIGHT_INFLIGHT_TURNS):
+                for side in stub.SIDES if i % 2 == 0 else tuple(reversed(stub.SIDES)):
+                    stub.set(side)
+                    got[side] = history_statement(engine, sql, sess)
+                    walls[side].append(got[side][1]["wall_s"])
+            stub.set("live")
+            same_result(got["stub"][0], got["live"][0], f"flight 15g {q} stub vs live")
+            check(got["stub"][1]["host_reads"] == got["live"][1]["host_reads"],
+                  f"flight 15g {q}: host reads differ between the sides")
+            w = {s: min(v) for s, v in walls.items()}
+            out["statements"][q] = {"entries": entries, "est_ms": entries * pair * 1e3,
+                                    "wall_s": w}
+            print(f"flight 15g {q}: {entries} entries, {entries * pair * 1e3:.4f} ms by the "
+                  f"loop; warm wall_s live {w['live']} stub {w['stub']} (min of "
+                  f"{FLIGHT_INFLIGHT_TURNS}, in turns)", flush=True)
+        for name, (tsess, stmts) in templates.items():
+            entries = stub.count(lambda: engine.execute_sql(stmts[0], tsess))
+            walls = {s: [] for s in stub.SIDES}
+            for i, stmt in enumerate(stmts):
+                got = {}
+                for side in stub.SIDES if i % 2 == 0 else tuple(reversed(stub.SIDES)):
+                    stub.set(side)
+                    got[side] = timed_statement(engine, stmt, tsess, plans)
+                    check(got[side][1]["hits"] == 1,
+                          f"flight 15g {name}: not a template hit ({got[side][1]})")
+                    walls[side].append(got[side][1]["wall_s"])
+                stub.set("live")
+                same_bytes(got["stub"][0], got["live"][0], f"flight 15g {name} binding {i}")
+            w = {s: statistics.median(v) for s, v in walls.items()}
+            out["hits"][name] = {"entries": entries, "est_ms": entries * pair * 1e3,
+                                 "hit_s": w}
+            print(f"flight 15g {name}: {entries} entries a hit, {entries * pair * 1e3:.4f} ms "
+                  f"by the loop; hit wall_s live {w['live']} stub {w['stub']} (median of "
+                  f"{len(stmts)}, in turns)", flush=True)
+    finally:
+        stub.set("live")
+    return out
+
+
+def flight_error(engine, ring):
+    """15b: an erroring statement's record, in memory and in the disk ring."""
+    from trino_tpu_torch.execution.flightrecorder import read_flight_dir
+
+    fr = engine.flight_recorder
+    before = fr.records_total
+    try:
+        engine.execute_sql(FLIGHT_ERROR, engine.create_session("tpch"))
+        raised = None
+    except Exception as e:  # noqa: BLE001 - the error is what 15b records
+        raised = str(e)
+    check(raised is not None, "flight 15b: the erroring statement did not raise")
+    rec = fr.snapshot(kind="query")[-1]
+    check(fr.records_total == before + 1 and rec["state"] == "FAILED"
+          and rec["error"] == raised and "no_such_column" in raised,
+          f"flight 15b: record {rec['state']} error {rec['error']!r} vs raised {raised!r}")
+    on_disk = [r for r in read_flight_dir(ring) if r.get("query_id") == rec["query_id"]]
+    check(on_disk and on_disk[-1]["error"] == raised,
+          f"flight 15b: the disk ring holds {len(on_disk)} records of the statement")
+    print(f"flight 15b: {rec['query_id']} FAILED, its record's error {raised!r}, in memory "
+          f"and on disk", flush=True)
+    return {"error": raised, "query_id": rec["query_id"]}
+
+
+def flight_compiles(ck):
+    """15c: one build-log record per CUDA library, from the build at
+    startup: its nvcc seconds, or cached."""
+    from trino_tpu_torch.execution.tracing import COMPILE_LOG
+
+    recs = COMPILE_LOG.snapshot()
+    libs = sorted({src for src, _ in ck._SIGNATURES.values()})
+    got = sorted(r.get("library") for r in recs)
+    check(got == libs, f"flight 15c: build records for {got}, the libraries are {libs}")
+    for r in recs:
+        check(r["duration_s"] >= 0 and r["exe_bytes"] > 0 and r["signature"],
+              f"flight 15c: build record {r}")
+        print(f"flight 15c: {r['library']}: {'cached' if r['cached'] else 'nvcc'} "
+              f"{r['duration_s']} s, {r['exe_bytes']} bytes, digest {r['signature']}, "
+              f"site {r['site']}, query {r['query_id']}", flush=True)
+    return [{k: r.get(k) for k in ("library", "cached", "duration_s", "exe_bytes",
+                                   "signature", "site", "query_id")} for r in recs]
+
+
+def flight_stall(conn):
+    """15d: an engine armed with TRINO_TPU_STALL_S: one host read of a warm
+    statement held FLIGHT_STALL_HOLD_S by the test hook; health() turns
+    "stalled" naming the read's site, a stall event lands in the recorder,
+    and health() is "ok" afterwards."""
+    import threading
+
+    import torch
+
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.execution import tracing
+
+    os.environ["TRINO_TPU_STALL_S"] = str(FLIGHT_STALL_S)
+    try:
+        engine = Engine(device=DEVICE)
+    finally:
+        os.environ.pop("TRINO_TPU_STALL_S")
+    wd = engine.stall_watchdog
+    try:
+        check(wd.enabled and wd._thread is not None, "flight 15d: the watchdog is not armed")
+        engine.register_catalog("tpch", conn)
+        sess = engine.create_session("tpch")
+        sql = QUERIES["q1"]
+        engine.execute_sql(sql, sess)
+        check(engine.health()["status"] == "ok", f"flight 15d: before {engine.health()}")
+        held = threading.Event()
+        t_hold = []
+
+        def hook(label):
+            if not held.is_set():
+                t_hold.append(time.perf_counter())
+                held.set()
+                time.sleep(FLIGHT_STALL_HOLD_S)
+
+        seen = []
+        tracing.DISPATCH_TEST_HOOK = hook
+        try:
+            th = threading.Thread(target=engine.execute_sql, args=(sql, sess))
+            t0 = time.perf_counter()
+            th.start()
+            check(held.wait(30), "flight 15d: the statement made no host read")
+            while th.is_alive() and not seen:
+                h = engine.health()
+                if h["status"] == "stalled":
+                    seen.append((time.perf_counter(), h, list(tracing.INFLIGHT.snapshot())))
+                time.sleep(0.002)
+            th.join(60)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            tracing.DISPATCH_TEST_HOOK = None
+        check(seen, "flight 15d: health() never read stalled while the read was held")
+        t_seen, h, entries = seen[0]
+        report = engine.last_stall_report
+        check(report is not None and report["stalled"]
+              and report["stalled"][0]["kind"] == "host_pull",
+              f"flight 15d: stall report {report}")
+        site = report["stalled"][0]["label"]
+        stalls = engine.flight_recorder.snapshot(kind="stall")
+        check(stalls and stalls[-1]["stalled"][0]["label"] == site,
+              f"flight 15d: {len(stalls)} stall events in the recorder")
+        after = engine.health()
+        check(after["status"] == "ok", f"flight 15d: after the hold {after}")
+        rec = {"stalled_site": site, "health_stalled": h,
+               "detect_s": t_seen - t_hold[0], "statement_wall_s": wall,
+               "stall_events": len(stalls), "health_after": after["status"],
+               "reports": wd.reports}
+        print(f"flight 15d: health() stalled {rec['detect_s']:.4f} s into a "
+              f"{FLIGHT_STALL_HOLD_S} s hold (TRINO_TPU_STALL_S={FLIGHT_STALL_S}) at {site}; "
+              f"{len(stalls)} stall event(s) recorded; statement wall {wall:.4f} s; "
+              f"health after: {after['status']}", flush=True)
+        return rec
+    finally:
+        wd.stop()
+        del engine
+
+
+def flight_dead_process():
+    """15e: a child process runs bench.py's five at SF1 on the card into a
+    disk ring and is killed with SIGKILL; read_flight_dir reads the five
+    records back."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="trino-flight-child-") as ring:
+        return dead_process_ring(ring)
+
+
+def dead_process_ring(ring):
+    """15e in ``ring``, a directory its caller removes."""
+    import signal
+
+    from trino_tpu_torch.execution.flightrecorder import read_flight_dir
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, TRINO_TPU_FLIGHT_DIR=ring)
+    t0 = time.perf_counter()
+    child = subprocess.Popen([sys.executable, "-c", FLIGHT_CHILD.format(
+        root=root, sf=SF_MAIN, split=SPLIT_ROWS)], env=env, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = child.stdout.readline()
+        check(line.strip() == "ran", f"flight 15e: the child said {line!r}: "
+              f"{child.stderr.read()[-2000:] if child.poll() is not None else ''}")
+        child.send_signal(signal.SIGKILL)
+        child.wait(30)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(30)
+    check(child.returncode == -signal.SIGKILL, f"flight 15e: child exit {child.returncode}")
+    recs = [r for r in read_flight_dir(ring) if r.get("kind") == "query"]
+    from trino_tpu_torch.engine import _normalize_statement
+
+    want = [_normalize_statement(sql) for sql in QUERIES.values()]
+    check([r["sql"] for r in recs] == want and all(r["state"] == "FINISHED" for r in recs),
+          f"flight 15e: read back {[(r['sql'][:20], r['state']) for r in recs]}")
+    rec = {"records": len(recs), "child_s": time.perf_counter() - t0,
+           "ring_bytes": sum(os.path.getsize(os.path.join(ring, n)) for n in os.listdir(ring))}
+    print(f"flight 15e: a child killed by SIGKILL left {len(recs)} records in its ring "
+          f"({rec['ring_bytes']} bytes), all read back; {rec['child_s']:.1f} s", flush=True)
+    return rec
+
+
+def flight_path(phase2):
+    """Phase 15: the flight recorder, the kernel-build log, the in-flight
+    registry and the stall watchdog on card engines at SF1, the tiers and
+    the advisor off (as phase 2 ran).  Returns (the record, launches of 15a's
+    card statements on the recorder's engine, {kernel: checks at their
+    shapes})."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    os.environ["TRINO_TPU_PAGE_CACHE"] = "0"
+    os.environ["TRINO_TPU_RESULT_CACHE"] = "0"
+    os.environ["TRINO_TPU_ADAPTIVE"] = "0"
+    # the disk ring lives in a temporary directory, removed once the
+    # recorder's engine is gone
+    with tempfile.TemporaryDirectory(prefix="trino-flight-") as ring:
+        torch.cuda.empty_cache()
+        conn = TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS)
+        os.environ["TRINO_TPU_FLIGHT_DIR"] = ring
+        try:
+            engine = Engine(device=DEVICE)
+        finally:
+            os.environ.pop("TRINO_TPU_FLIGHT_DIR")
+        os.environ["TRINO_TPU_FLIGHT_RECORDS"] = "0"
+        try:
+            off = Engine(device=DEVICE)
+        finally:
+            os.environ.pop("TRINO_TPU_FLIGHT_RECORDS")
+        check(engine.flight_recorder.enabled and engine.flight_recorder.flight_dir == ring
+              and engine.flight_recorder.max_records == 256 and not off.flight_recorder.enabled,
+              "flight: the recorder is not at its default with a disk ring, or not off")
+        for e in (engine, off):
+            e.register_catalog("tpch", conn)
+            e.execute_sql(Q15_VIEW, e.create_session("tpch"))
+        own = OwnLaunches()
+        rec = {"ring": ring, "queries": flight_queries(engine, off, phase2, own)}
+        del off
+        switch = FlightSwitch(engine)
+        try:
+            rec["cost"] = flight_cost(engine, switch)
+            templates = {}
+            rec["templates"] = flight_templates(engine, switch, templates)
+            switch.set("memory")
+            rec["inflight"] = flight_inflight_cost(engine, templates)
+        finally:
+            switch.close()
+        rec["error"] = flight_error(engine, ring)
+        rec["disk"] = engine.flight_recorder.info()
+        del engine
+    rec["compiles"] = flight_compiles(ck)
+    torch.cuda.empty_cache()
+    rec["stall"] = flight_stall(conn)
+    rec["dead_process"] = flight_dead_process()
+    launches = dict(own.launches)
+    check(launches["hash_insert"] > 0 and launches["hash_probe"] > 0
+          and launches["compact_rows"] > 0,
+          f"the flight path launched no hash_insert, hash_probe or compact_rows: {launches}")
+    # 15f: each kernel the path launched against its plain version at the
+    # path's largest and most frequent shapes
+    li_keys = lineitem_keys(conn)
+    gen = np.random.default_rng(47)
+    checks = {"hash_insert": insert_checks(own.shapes["hash_insert"],
+                                           ("lineitem_orderkey", *li_keys), gen),
+              "hash_probe": probe_checks(own.shapes["hash_probe"], gen),
+              "compact_rows": compact_checks(own.shapes["compact_rows"], gen)}
+    del li_keys
+    for k in ("TRINO_TPU_PAGE_CACHE", "TRINO_TPU_RESULT_CACHE", "TRINO_TPU_ADAPTIVE"):
+        os.environ.pop(k, None)
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"flight path: {rec['seconds']:.1f} s, launches of 15a's statements on the "
+          f"recorder's engine {launches}", flush=True)
+    print(json.dumps({"flight_sf1": rec}, default=str), flush=True)
+    torch.cuda.empty_cache()
+    return rec, launches, {k: {"max_abs_err": r["max_abs_err"], "shapes": r["shapes"]}
+                           for k, r in checks.items()}
+
+
+class PhaseClock:
+    """Seconds of each phase, printed on a line of its own as it ends."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.seconds = {}
+
+    def done(self, phase: int) -> None:
+        now = time.perf_counter()
+        self.seconds[phase] = now - self.t
+        self.t = now
+        print(f"phase {phase}: {self.seconds[phase]:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -5048,6 +5654,7 @@ def main() -> int:
         return 3
 
     t_start = time.perf_counter()
+    clock = PhaseClock()
     # phases 2-11 measure the port with the buffer pool's tiers off, as their
     # launch tables and H2D checks were recorded (every scan generated);
     # phase 12 measures the pool's and the plan cache's defaults.  Phases
@@ -5071,6 +5678,7 @@ def main() -> int:
             for line in log.splitlines():
                 if "registers" in line or "error" in line.lower():
                     print(f"  {src}: {line.strip()}")
+        clock.done(1)
 
         # -- phase 2: the main path at SF1 -------------------------------------
         conn = TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS)
@@ -5118,12 +5726,14 @@ def main() -> int:
                       "host_reads": r["host_reads"],
                       "launches": {k: v for k, v in r["launches"].items() if v}}
                   for q, r in main.items()}
+        clock.done(2)
 
         # -- phase 3: kernels against their plain versions ---------------------
         q1_page = conn.generate(conn.splits("lineitem")[0], Q1_COLUMNS)
         li_keys = lineitem_keys(conn)
         kernels = kernel_checks(shapes, launches, q1_page, li_keys)
         del q1_page, li_keys
+        clock.done(3)
 
         # -- phase 4: SF10 on the card alone -----------------------------------
         del engine, main, conn
@@ -5137,6 +5747,7 @@ def main() -> int:
             check(r["rows"] > 0, f"sf{SF_BIG:g} {q} returned no rows")
         print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
               flush=True)
+        clock.done(4)
 
         # -- phase 5: TPC-DS parity at SF0.1 ------------------------------------
         del engine, big_res, big
@@ -5149,18 +5760,29 @@ def main() -> int:
                                                      split_rows=SPLIT_ROWS))
         tpcds_queries = corpus()
         nodes = tpcds_parity(gpu, cpu, tpcds_queries)
+        clock.done(5)
 
         # -- phase 6: TPC-DS at SF1 ----------------------------------------------
         ds = TpcdsConnector(sf=TPCDS_SF_MAIN, split_rows=SPLIT_ROWS)
         gpu = Engine(device=DEVICE)
         gpu.register_catalog("tpcds", ds)
+        held_gpu = Engine(device=DEVICE)
+        held_ds = TpcdsConnector(sf=TPCDS_SF_HELD, split_rows=TPCDS_SPLIT_HELD)
+        held_gpu.register_catalog("tpcds", held_ds)
+        held_splits = len(held_ds.splits("store_sales"))
+        check(held_splits >= TPCDS_HELD_MIN_SPLITS,
+              f"tpcds sf{TPCDS_SF_HELD:g}: store_sales spans {held_splits} split(s)")
+        print(f"tpcds sf{TPCDS_SF_HELD:g}: store_sales "
+              f"{held_ds.exact_row_count('store_sales')} rows in {held_splits} splits "
+              f"of {TPCDS_SPLIT_HELD} on both sides", flush=True)
         cpu = Engine(device="cpu")
-        cpu.register_catalog("tpcds", TpcdsConnector(sf=TPCDS_SF_MAIN,
-                                                     split_rows=SPLIT_ROWS))
-        ds_main, ds_launches, ds_shapes = tpcds_main(gpu, cpu, tpcds_queries, nodes,
-                                                     ds.exact_row_count("store_sales"))
-        del cpu, ds_main
+        cpu.register_catalog("tpcds", TpcdsConnector(sf=TPCDS_SF_HELD,
+                                                     split_rows=TPCDS_SPLIT_HELD))
+        ds_main, ds_launches, ds_shapes = tpcds_main(gpu, held_gpu, cpu, tpcds_queries,
+                                                     nodes, ds.exact_row_count("store_sales"))
+        del cpu, held_gpu, ds_main
         ds_checks = tpcds_kernel_checks(ds_shapes, ds)
+        clock.done(6)
 
         # -- phase 7: TPC-DS SF10 on the card alone ------------------------------
         del gpu, ds
@@ -5173,25 +5795,37 @@ def main() -> int:
                               f"tpcds sf{TPCDS_SF_BIG:g}", "tpcds", "store_sales")
         for q, r in big_res.items():
             check(r["rows"] > 0, f"tpcds sf{TPCDS_SF_BIG:g} {q} returned no rows")
+        clock.done(7)
         # -- phase 8: the memory catalog at SF1, TPC-H's refresh path -----------
         del gpu, ds_big, big_res
         torch.cuda.empty_cache()
         mem_launches, mem_checks = memory_path(tpch_ref)
+        clock.done(8)
         # -- phase 9: the function library at SF0.01, SF1 and SF10 ------------
         fn_launches, fn_checks = functions_path()
+        clock.done(9)
         # -- phase 10: arrays, maps, UNNEST and MATCH_RECOGNIZE -----------------
         torch.cuda.empty_cache()
         ar_launches, ar_checks = arrays_path()
+        clock.done(10)
         # -- phase 11: the coordinator entry point, TPC-H SF1 over the protocol -
         torch.cuda.empty_cache()
         _, sv_launches, sv_checks = server_path(direct)
+        clock.done(11)
         # -- phase 12: the plan cache and the buffer pool at their defaults, ---
         # the advisor off (phase 14e runs the 22 with the advisor on)
         _, ca_launches, ca_checks = cache_path(phase2)
+        clock.done(12)
         # -- phase 13: plan templates and the template batcher -----------------
         _, tp_launches, tp_checks = templates_path()
+        clock.done(13)
         # -- phase 14: per-node stats, plan history and adaptive execution -----
         _, ad_launches, ad_checks = history_path(phase2, cpu_actuals)
+        clock.done(14)
+        # -- phase 15: the flight recorder, the build log, the in-flight -------
+        # registry and the stall watchdog
+        _, fl_launches, fl_checks = flight_path(phase2)
+        clock.done(15)
 
         # per path: its launches, and the checks at its own shapes (the
         # top-level times stay the TPC-H path's largest shape's)
@@ -5215,14 +5849,18 @@ def main() -> int:
                 "templates_sf1": {"launches": tp_launches[name],
                                   **tp_checks.get(name, {"max_abs_err": None, "shapes": []})},
                 "adaptive_sf1": {"launches": ad_launches[name],
-                                 **ad_checks.get(name, {"max_abs_err": None, "shapes": []})}}
+                                 **ad_checks.get(name, {"max_abs_err": None, "shapes": []})},
+                "flight_sf1": {"launches": fl_launches[name],
+                               **fl_checks.get(name, {"max_abs_err": None, "shapes": []})}}
             for checks in (ds_checks, mem_checks, fn_checks, ar_checks, sv_checks, ca_checks,
-                           tp_checks, ad_checks):
+                           tp_checks, ad_checks, fl_checks):
                 if name in checks:
                     r["max_abs_err"] = max(r["max_abs_err"], checks[name]["max_abs_err"])
             r["launches"] += (ds_launches[name] + mem_launches[name] + fn_launches[name]
                               + ar_launches[name] + sv_launches[name] + ca_launches[name]
-                              + tp_launches[name] + ad_launches[name])
+                              + tp_launches[name] + ad_launches[name] + fl_launches[name])
+        print(f"phases: {json.dumps({k: round(v, 1) for k, v in clock.seconds.items()})}",
+              flush=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

@@ -4,9 +4,9 @@ the engine's consult / observe loop) against the JAX package on the CPU.
 Restates tests/test_adaptive.py: its advisor unit cases run against the
 port's module with their bodies unchanged; its engine cases (the
 misestimated join re-plans, confirms and shows ``partitioned`` and
-``Adaptive: replan``; a hold keeps the plan and the counters; the property
-off never consults) without the flight-recorder assertion (the port has no
-flight recorder yet); and the plan-shaping property and the
+``Adaptive: replan``, and its decision rides the flight record; a hold
+keeps the plan and the counters; the property off never consults); and the
+plan-shaping property and the
 ``TRINO_TPU_ADAPTIVE`` default.  Adds the probe statements of
 ``chip_smoke.py`` phase 14 (a group-by whose input the CBO under-estimates
 16x, on its direct and on its hash path): with ``price_scale = 0`` both
@@ -304,6 +304,11 @@ def test_misestimated_join_replans_and_improves(small_thresholds):
 
     text = _text(e, f"explain analyze {JOIN_Q}", s)
     assert "Adaptive: replan" in text and "predicted win" in text, text
+
+    # the decision rides the flight record
+    recs = [r for r in e.flight_recorder.snapshot(kind="query") if r.get("adaptive")]
+    assert recs, "no flight record carried the adaptive decision"
+    assert recs[-1]["adaptive"]["verdict"] == "replan"
 
 
 def test_hold_keeps_plan_and_counters_stable(small_thresholds):

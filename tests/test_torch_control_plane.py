@@ -689,3 +689,31 @@ def test_plan_shape_env_defaults_equal_the_reference(monkeypatch, env, props):
     assert got == want
     if env.get("TRINO_TPU_ADAPTIVE") == "0" and not props:
         assert got == ("AUTOMATIC", 8, False)
+
+
+def test_query_max_memory_kills_query_as_the_reference(tpch_sf001):
+    """C10: tests/test_memory_spill.py's per-query kill.  Past
+    ``query_max_memory`` both packages raise QueryMemoryLimitError naming
+    the property; after a reset the join's count is the reference's; the
+    limit is the statement's own and leaves the pool as it found it."""
+    from trino_tpu.memory import QueryMemoryLimitError as JaxLimit
+    from trino_tpu_torch.memory import QueryMemoryLimitError
+
+    sql = ("select count(*) c from lineitem, orders "
+           "where l_orderkey = o_orderkey")
+    j = JaxEngine()
+    j.register_catalog("tpch", tpch_sf001)
+    t = TorchEngine(device="cpu")
+    t.register_catalog("tpch", TorchTpch(sf=0.01))
+    counts = []
+    for e, err in ((j, JaxLimit), (t, QueryMemoryLimitError)):
+        s = e.create_session("tpch")
+        e.execute_sql("set session query_max_memory = 1024", s)
+        with pytest.raises(err, match="query_max_memory"):
+            e.execute_sql(sql, s)
+        e.execute_sql("reset session query_max_memory", s)
+        counts.append(int(e.execute_sql(sql, s).rows()[0][0]))
+    assert counts[1] == counts[0] > 0
+    assert t.memory_pool.reserved == 0
+    assert t.flight_recorder.snapshot(kind="query")[-3]["state"] == "FAILED"
+    j._invalidate()

@@ -17,8 +17,8 @@ the batched read of the row counts, the engine's plan memo (a warm statement
 walks neither estimation nor the fingerprint again; ``_invalidate`` clears
 it; a one-off plan stays out of it), and the per-operator boundary records summing to the run's counters.
 
-Left out: the cluster harvest (the port has no cluster yet) and the stall
-watchdog (the port has no watchdog yet).
+Left out: the cluster harvest (the port has no cluster yet).  The stall
+watchdog's case is in tests/test_torch_stall.py.
 """
 
 import os

@@ -14,8 +14,8 @@ substitution and still give the right rows: the hits and misses, and the
 
 Where the reference counts dispatches, the port holds its host reads and
 their bytes to the templates-off engine's for the same binding.  The
-reference's flight records and compile counts have no port counterpart
-(ROADMAP A2.6).
+reference's compile counts have no port counterpart: the port compiles no
+plans.
 """
 
 import os

@@ -318,16 +318,21 @@ def test_metrics_exposes_device_boundary_counters(servers):
 
 
 def test_disabled_services_answer_as_the_reference(servers):
-    """The services the port lacks answer as the reference's do when off;
-    plan history is ported, and its payload has the reference's keys."""
+    """The observability services answer with the reference's payloads:
+    plan history, the flight recorder and the compile log are ported, and
+    their payloads have the reference's keys."""
     for path in ("/v1/flight", "/v1/compiles", "/v1/history", "/v1/info"):
         got = [_get(s.url + path) for s in servers]
         if path == "/v1/history":
             assert set(got[1]) == set(got[0]) == {"max_plans", "misestimates_total",
                                                   "worst", "plans"}
             assert got[1]["max_plans"] == got[0]["max_plans"]
+        elif path == "/v1/info":
+            assert got[1] == got[0]
         else:
-            assert got[1] == got[0] or got[1]["info"] == {"enabled": False}
+            assert set(got[1]) == set(got[0]) == {"info", "records"}
+            assert set(got[1]["info"]) == set(got[0]["info"])
+            assert got[1]["info"]["enabled"] == got[0]["info"]["enabled"]
     with pytest.raises(urllib.error.HTTPError) as exc:
         urllib.request.urlopen(f"{servers[1].url}/v1/flight/nope", timeout=10)
     assert exc.value.code == 404

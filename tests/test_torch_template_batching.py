@@ -11,9 +11,9 @@ member's error is its own; a Sort/Limit template demotes to serial lanes;
 a warm fused window of four reads the host at most twice as often as one
 warm serial request (the port's counterpart of the reference's 2x-dispatch
 bound); the ``Batched:`` EXPLAIN ANALYZE line; the ``/v1/metrics`` series;
-and the batcher's protocol on its own.  The reference's flight records are
-not ported (ROADMAP A2.6): the port keeps each request's batch size in the
-engine's thread slot (``last_batched_with``), and the tests read it there.
+and the batcher's protocol on its own.  Each request's batch size is in
+the engine's thread slot (``last_batched_with``) and, as in the reference,
+on its flight record (``batched_with``).
 
 Fusion is made, never raced: the template's lane is marked busy, the
 members enqueue, and a handoff makes the first of them the driver.
@@ -139,6 +139,10 @@ def test_fused_window_byte_identity(eng):
         assert bw == len(params) and c["batched_requests"] == 1
     after = t.counters_total.as_dict()
     assert after["batched_requests"] - before["batched_requests"] == len(params)
+    # flight records: each member's record carries the window's size
+    recs = [r for r in t.flight_recorder.snapshot(kind="query")
+            if r.get("batched_with") == len(params)]
+    assert len(recs) >= len(params)
     bi = t.template_batcher.info()
     assert bi["batches_total"] == 1 and bi["sizes"] == {len(params): 1}
     assert j.template_batcher.info()["sizes"] == bi["sizes"]

@@ -4,15 +4,16 @@
 Reference: connector/system/ (GlobalSystemConnector) — system.runtime.queries,
 system.runtime.nodes, system.metadata.catalogs etc., backed live by coordinator
 state.  Flat table namespace here: `queries`, `nodes`, `catalogs`, `tables`,
-`resource_groups`, `plan_history`; and `InformationSchemaConnector`'s
-`schemata`, `tables`, `columns`, `views`.
+`resource_groups`, `query_log`, `compilations`, `plan_history`; and
+`InformationSchemaConnector`'s `schemata`, `tables`, `columns`, `views`.
 
 Pages are built fresh per scan as torch tensors on the engine's device,
 padded to power-of-two buckets as in the reference.  String columns keep ONE
 persistent Dictionary per column whose values array grows in place — plans
-keep decoding correctly.  The reference's `query_log` and `compilations`
-tables read services the port does not have yet (the flight recorder, the
-compile log).
+keep decoding correctly.  `query_log` reads the flight recorder and
+`compilations` the compile log (kernel builds in the port); their counter
+columns carry the port's own counters under the reference's names, as
+``/v1/metrics`` does.
 """
 
 from __future__ import annotations
@@ -60,6 +61,35 @@ SCHEMAS = {
         Field("name", _V), Field("running", BIGINT), Field("queued", BIGINT),
         Field("hard_concurrency_limit", BIGINT), Field("max_queued", BIGINT),
         Field("scheduling_weight", BIGINT),
+    )),
+    # the flight recorder (execution/flightrecorder.py): one row per
+    # recorded statement, completed or errored, with its counters and the
+    # wall breakdown flattened into per-bucket seconds (NULL buckets: no
+    # breakdown could be established, never a fabricated zero).  The skew
+    # columns are NULL on one device
+    "query_log": Schema((
+        Field("query_id", _V), Field("state", _V), Field("query", _V),
+        Field("user", _V), Field("error", _V),
+        Field("wall_s", DOUBLE), Field("queued_s", DOUBLE),
+        Field("device_dispatches", BIGINT), Field("host_transfers", BIGINT),
+        Field("host_bytes_pulled", BIGINT),
+        Field("compiles", BIGINT),
+        Field("faults_injected", BIGINT), Field("task_retries", BIGINT),
+        Field("pressure_rung", _V), Field("spans", BIGINT),
+        Field("plan_s", DOUBLE), Field("compile_s", DOUBLE),
+        Field("split_generation_s", DOUBLE),
+        Field("h2d_s", DOUBLE), Field("device_dispatch_s", DOUBLE),
+        Field("host_pull_s", DOUBLE), Field("exchange_wait_s", DOUBLE),
+        Field("retry_backoff_s", DOUBLE), Field("unattributed_s", DOUBLE),
+        Field("skew_ratio", DOUBLE), Field("skew_imbalance_s", DOUBLE),
+    )),
+    # the compile log (execution/tracing.CompileLog): one row per retained
+    # kernel build, the kernel wrapper that triggered it, the query that
+    # paid it, the library's source digest, its nvcc seconds and its bytes
+    "compilations": Schema((
+        Field("site", _V), Field("label", _V), Field("query_id", _V),
+        Field("signature", _V), Field("duration_s", DOUBLE),
+        Field("exe_bytes", BIGINT), Field("recorded_at", DOUBLE),
     )),
     # the plan-actuals history (execution/history.py): one row per recorded
     # plan node, merged across executions; est_rows is NULL where the CBO
@@ -203,6 +233,34 @@ class SystemConnector:
             return [(g["name"], g["running"], g["queued"], g["hard_concurrency_limit"],
                      g["max_queued"], g["scheduling_weight"])
                     for g in e.resource_groups.info()]
+        if table == "query_log":
+            out = []
+            for rec in e.flight_recorder.snapshot(kind="query"):
+                c = rec.get("counters") or {}
+                bd = rec.get("wall_breakdown") or {}
+                shard = rec.get("shard_stats") or c.get("shard_stats") or []
+                skew_ratio = skew_imb = None
+                if shard:
+                    skew_ratio = max(float(x.get("ratio") or 1.0) for x in shard)
+                    skew_imb = sum(float(x.get("imbalance_s") or 0.0) for x in shard)
+                out.append((
+                    rec.get("query_id"), rec.get("state"), rec.get("sql"),
+                    rec.get("user"), rec.get("error"),
+                    rec.get("wall_s"), rec.get("queued_s"),
+                    c.get("device_dispatches"), c.get("host_transfers"),
+                    c.get("host_bytes_pulled"), c.get("compiles"),
+                    c.get("faults_injected"), c.get("task_retries"),
+                    rec.get("pressure_rung"),
+                    len((rec.get("trace") or {}).get("spans") or ()),
+                    bd.get("plan"), bd.get("compile"), bd.get("split_generation"),
+                    bd.get("h2d"), bd.get("device_dispatch"), bd.get("host_pull"),
+                    bd.get("exchange_wait"), bd.get("retry_backoff"),
+                    bd.get("unattributed"), skew_ratio, skew_imb))
+            return out
+        if table == "compilations":
+            return [(r.get("site"), r.get("label"), r.get("query_id"), r.get("signature"),
+                     r.get("duration_s"), r.get("exe_bytes"), r.get("at"))
+                    for r in e.compile_log.snapshot()]
         if table == "plan_history":
             ph = getattr(e, "plan_history", None)
             if ph is None:

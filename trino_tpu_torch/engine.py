@@ -81,8 +81,17 @@ The advisor's price of a re-plan is the statement's planning seconds on a
 plan-cache miss (a CUDA engine compiles no plans; see
 ``execution/adaptive.py``).
 
-Not ported: the flight recorder, the memory ladder, fault-tolerant and
-distributed execution.
+Observability, as in the reference: ``flight_recorder``
+(``execution/flightrecorder.py``) keeps one record per completed or
+errored statement (``_record_flight``) and the stall watchdog's reports;
+``compile_log`` is the process's log of kernel builds; ``inflight`` the
+registry of launches, host reads, split generation and cache stores in
+progress, which ``stall_watchdog`` samples (``TRINO_TPU_STALL_S``) and
+``health()`` reads.  ``query_max_memory`` is enforced per statement by the
+memory pool (``QueryMemoryLimitError``).
+
+Not ported: the memory ladder's spill and admission rungs, fault-tolerant
+and distributed execution.
 """
 
 from __future__ import annotations
@@ -136,10 +145,12 @@ class Engine:
         from .execution.bufferpool import DeviceBufferPool
         from .execution.history import PlanHistoryStore
         from .execution.eventlistener import EventListenerManager
+        from .execution.flightrecorder import FlightRecorder
         from .execution.query_state import QueryTracker
         from .execution.resourcegroups import ResourceGroupManager
         from .execution.session_properties import SessionPropertyManager
-        from .execution.tracing import QueryCounters, Tracer
+        from .execution.tracing import (COMPILE_LOG, INFLIGHT, QueryCounters,
+                                        StallWatchdog, Tracer)
         from .memory import MemoryPool
         from .spi.security import AllowAllAccessControl
 
@@ -180,7 +191,14 @@ class Engine:
         # the advisor turns them into plan decisions at admission
         self.plan_history = PlanHistoryStore()
         self.last_plan_actuals: Optional[dict] = None
-        self.adaptive_advisor = AdaptiveAdvisor(history=self.plan_history)
+        # one record per completed or errored statement, and the stall
+        # reports (TRINO_TPU_FLIGHT_RECORDS, TRINO_TPU_FLIGHT_DIR,
+        # TRINO_TPU_FLIGHT_BYTES)
+        self.flight_recorder = FlightRecorder()
+        # the process's kernel builds (TRINO_TPU_COMPILE_LOG)
+        self.compile_log = COMPILE_LOG
+        self.adaptive_advisor = AdaptiveAdvisor(history=self.plan_history,
+                                                compile_log=self.compile_log)
         # serializes plan-cache lookup, planning and store, and the system
         # connector's dictionary growth (RLock: the planner asks for
         # dictionaries while a scan of the same table may hold it on this
@@ -195,6 +213,16 @@ class Engine:
         self.tracer = Tracer()
         # every statement's counters summed, for /v1/metrics
         self.counters_total = QueryCounters()
+        # launches, host reads, split generation and cache stores in
+        # progress; the watchdog samples it when TRINO_TPU_STALL_S is set
+        # (unset: no thread), a build's launch judged against
+        # TRINO_TPU_STALL_COMPILE_S
+        self.inflight = INFLIGHT
+        self.last_stall_report: Optional[dict] = None
+        self.stall_watchdog = StallWatchdog(on_stall=self._on_stall,
+                                            extra_info=self._stall_extra)
+        if self.stall_watchdog.enabled:
+            self.stall_watchdog.start()
         # per-thread slots: the running statement's counters (stmt) and the
         # last finished statement's counters (snap) and trace
         self._thread_accounting = threading.local()
@@ -482,7 +510,8 @@ class Engine:
         """One request of a template on its own: the plan with the bound
         slots staged once for the query."""
         return self.execute_plan(tpl.plan, page_cache=_effective_page_cache(sess),
-                                 params=runtime)
+                                 params=runtime,
+                                 query_max_memory=_query_mem_limit(self, sess))
 
     def _execute_template_batch(self, tpl, runtimes, sess):
         """One fused execution for a whole window, on the driver's thread:
@@ -493,6 +522,7 @@ class Engine:
 
         ex = self._executor(_effective_page_cache(sess))
         ex.plan_memo = self._plan_memo
+        ex.memory_pool.begin_query(_query_mem_limit(self, sess))
         try:
             return self._run_counted(ex, lambda: ex.execute_batched(tpl.plan, runtimes))[0]
         except BatchUnsupported:
@@ -580,14 +610,16 @@ class Engine:
             self._account_counters(counters)
 
     def _run_plan(self, plan, page_cache: Optional[bool] = None, params=None,
-                  memo: bool = False):
+                  memo: bool = False, query_max_memory: Optional[int] = None):
         """(result, counters, executor) of one plan on a fresh executor;
         ``params``: a template's bound slots; ``memo``: the plan runs again
         (a statement's cached plan), so its estimates and fingerprint go
         through the engine's plan memo.  One-off plans (eager subqueries,
         DML row evaluation, EXPLAIN ANALYZE) compute them for the run
-        alone, and push no statement's plan out of the memo."""
+        alone, and push no statement's plan out of the memo.
+        ``query_max_memory``: the statement's limit in bytes (None: none)."""
         ex = self._executor(page_cache)
+        ex.memory_pool.begin_query(query_max_memory)
         ex.exec_params = params
         if memo:
             ex.plan_memo = self._plan_memo
@@ -595,7 +627,8 @@ class Engine:
         return result, counters, ex
 
     def execute_plan(self, plan, cache: bool = True, page_cache: Optional[bool] = None,
-                     params: Optional[tuple] = None):
+                     params: Optional[tuple] = None,
+                     query_max_memory: Optional[int] = None):
         """Run a plan to a host-side ``MaterializedResult`` (also the
         planner's entry point for eager subqueries, which pass
         ``cache=False``).  As in the reference, ``cache=False`` still reads
@@ -603,8 +636,10 @@ class Engine:
         flag keeps the plan's compiled pipelines out of its executor pool,
         and the port keeps none.  As in the reference, only ``cache=True``
         runs feed the plan history, on clean completion.  ``params`` is a
-        plan template's bound slot tuple."""
-        result, _, ex = self._run_plan(plan, page_cache, params, memo=cache)
+        plan template's bound slot tuple; ``query_max_memory`` the
+        statement's limit in bytes, as in the reference."""
+        result, _, ex = self._run_plan(plan, page_cache, params, memo=cache,
+                                       query_max_memory=query_max_memory)
         if cache:
             self._record_plan_history(plan, ex)
         return result
@@ -752,11 +787,30 @@ class Engine:
             out.append(b)
         return out
 
+    def _on_stall(self, report: dict) -> None:
+        """The watchdog's report: kept for /v1/status, and recorded as a
+        flight event so it outlives the process in the disk ring."""
+        self.last_stall_report = report
+        self.flight_recorder.record_event(dict(report, kind="stall"))
+
+    def _stall_extra(self) -> dict:
+        """Memory context attached to every stall report."""
+        return {"memory": self.memory_info()}
+
     def health(self) -> dict:
-        """Live health verdict.  The port has no stall watchdog yet: always
-        "ok", with the watchdog reported as disabled."""
-        return {"status": "ok", "stalled": 0, "compiling": 0, "inflight": 0,
-                "watchdog": {"enabled": False}}
+        """Live health verdict: "stalled" when the watchdog's threshold is
+        set and an in-flight entry is past it (recomputed from the registry,
+        not the last poll); "compiling" when everything past it is a launch
+        that triggered the kernel build, still under the build threshold;
+        else "ok"."""
+        wd = self.stall_watchdog
+        status, stalled_n, compiling_n = wd.status()
+        return {"status": status, "stalled": stalled_n, "compiling": compiling_n,
+                "inflight": self.inflight.depth(),
+                "watchdog": {"enabled": wd.enabled, "stall_s": wd.stall_s,
+                             "compile_stall_s": wd.compile_stall_s,
+                             "kill_s": wd.kill_s, "reports": wd.reports,
+                             "kills": wd.kills}}
 
     def _check_select_access(self, plan, user: str) -> None:
         """Every table the plan scans needs SELECT (reference: the analyzer's
@@ -864,6 +918,12 @@ class Engine:
             qsm.plan_actuals = acct.plan_actuals
             qsm.adaptive = adec
             qsm.root_span_duration_s = root.duration_s if root else None
+            # completed and errored statements alike; a recorder failure
+            # never fails the statement
+            try:
+                self._record_flight(qsm, totals)
+            except Exception:  # noqa: BLE001
+                pass
             self.resource_groups.finish(group)
             self.event_listeners.query_completed(qsm)
 
@@ -882,6 +942,57 @@ class Engine:
             trace["wall_breakdown"] = bd
         self._thread_accounting.trace = trace
         return root
+
+    def _record_flight(self, qsm, snap) -> None:
+        """One flight record of a finished statement, from what this thread
+        already holds: the counters, the trace and its wall breakdown, the
+        plan actuals, the advisor's decision, the fused batch size, and the
+        statement's kernel builds from the compile log.  Dict assembly on
+        the host: no launch, no host read."""
+        from .execution.flightrecorder import pressure_rung
+
+        fr = self.flight_recorder
+        if not fr.enabled:
+            return
+        acct = self._thread_accounting
+        info = qsm.info()
+        trace = getattr(acct, "trace", None) or {}
+        try:
+            sql = _normalize_statement(qsm.sql)
+        except Exception:  # noqa: BLE001
+            sql = qsm.sql
+        try:
+            compile_events = self.compile_log.for_query(qsm.query_id)
+        except Exception:  # noqa: BLE001
+            compile_events = []
+        counters = snap.as_dict()
+        fr.record_query({
+            "query_id": qsm.query_id,
+            "state": info.state,
+            "sql": sql,
+            "user": info.user,
+            "catalog": info.catalog,
+            "error": info.error,
+            "created_s": info.created_s,
+            "ended_s": info.ended_s,
+            "wall_s": info.wall_s,
+            "queued_s": info.queued_s,
+            "rows": info.rows,
+            "counters": counters,
+            "compiles": snap.compiles,
+            "compile_s": round(snap.compile_s, 6),
+            "compile_events": compile_events,
+            "shard_stats": [dict(r) for r in snap.shard_stats] or None,
+            "pressure_rung": pressure_rung(counters),
+            "trace": {"root_span_s": trace.get("root_span_s"),
+                      "spans": trace.get("spans") or []},
+            "wall_breakdown": trace.get("wall_breakdown"),
+            "plan_actuals": getattr(acct, "plan_actuals", None),
+            "adaptive": getattr(acct, "adaptive", None),
+            "batched_with": getattr(acct, "batched_with", None),
+            "stall_report": self.last_stall_report
+            if self.health().get("status") == "stalled" else None,
+        })
 
     def _execute_admitted(self, sql: str, sess: Session, qsm, parameters=None):
         from .execution.query_state import QueryState
@@ -977,7 +1088,8 @@ class Engine:
         # by _record_plan_history)
         self._thread_accounting.history_sql = sql
         with self.tracer.span("execution", trace_id=qsm.query_id):
-            result = self.execute_plan(plan, page_cache=_effective_page_cache(sess))
+            result = self.execute_plan(plan, page_cache=_effective_page_cache(sess),
+                                       query_max_memory=_query_mem_limit(self, sess))
         self._result_cache_finish(rkey, result, epoch, plan)
         return result
 
@@ -1834,6 +1946,15 @@ def _normalize_statement(sql: str) -> str:
     from .sql.params import normalize_sql
 
     return normalize_sql(sql)
+
+
+def _query_mem_limit(engine, sess):
+    """query_max_memory session property -> bytes limit (None = unlimited)."""
+    try:
+        v = int(engine.session_properties.get(sess, "query_max_memory"))
+    except Exception:  # noqa: BLE001
+        return None
+    return v if v > 0 else None
 
 
 def _plan_shape_props(sess) -> tuple:

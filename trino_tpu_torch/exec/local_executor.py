@@ -597,7 +597,10 @@ class LocalExecutor:
                         acc.append(pg)
                 yield pg
             if acc:
-                bp.put_page(key, self._stage_scan_entry(acc), self._pool_epoch)
+                # staging launches and allocates: an entry lets the watchdog
+                # see a store that hangs
+                with tracing.inflight("cache-store", site=f"scan.{table}.store"):
+                    bp.put_page(key, self._stage_scan_entry(acc), self._pool_epoch)
 
         return pages
 
@@ -655,16 +658,25 @@ class LocalExecutor:
     # ------------------------------------------------------ device -> host reads
     def _host(self, arrays, site: str):
         """THE device -> host chokepoint: one call is one counted read of
-        every array in ``arrays`` (``site`` names the caller)."""
+        every array in ``arrays`` (``site`` names the caller).  It holds an
+        in-flight ``host_pull`` entry while it reads: each read synchronises,
+        so a kernel that hangs shows here to the stall watchdog."""
         self.host_reads += 1
         out = []
         nbytes = 0
-        for a in arrays:
-            if isinstance(a, torch.Tensor):
-                nbytes += a.numel() * a.element_size()
-                out.append(a.cpu().numpy())
-            else:
-                out.append(None if a is None else np.asarray(a))
+        reg = tracing.current_inflight()
+        tok = reg.enter("host_pull", site)
+        try:
+            if tracing.DISPATCH_TEST_HOOK is not None:
+                tracing.DISPATCH_TEST_HOOK(tracing.full_site_label(site))
+            for a in arrays:
+                if isinstance(a, torch.Tensor):
+                    nbytes += a.numel() * a.element_size()
+                    out.append(a.cpu().numpy())
+                else:
+                    out.append(None if a is None else np.asarray(a))
+        finally:
+            reg.exit(tok)
         self.host_bytes += nbytes
         tracing.record_host_read(nbytes, site)
         return out
@@ -795,7 +807,8 @@ class LocalExecutor:
         if isinstance(node, P.TableScan):
             conn = self.catalogs[node.catalog]
             dicts = tuple(conn.dictionaries(node.table).get(c) for c in node.columns)
-            splits = conn.splits(node.table)
+            with tracing.inflight("split-generation", site=f"scan.{node.table}"):
+                splits = conn.splits(node.table)
             # plan-history fact: the split count the advisor tunes
             # dispatch_batch from
             self._plan_facts[id(node)] = (node, {"splits": len(splits)})

@@ -37,6 +37,16 @@ of the statement running on its thread too (``execution/tracing``), and, while a
 records, opens a ``torch.profiler.record_function`` range named after its
 kernel, so a profile attributes the wrapper's host time and every device
 operation it causes (allocations' fills, copies) to it.
+
+Every launch goes through ``_launch``, which holds an in-flight ``dispatch``
+entry (``tracing.INFLIGHT``) around the C entry's call: the enqueue, not the
+kernel's run (launches are asynchronous; a hung kernel shows at the next
+synchronising host read).  The launch that finds the libraries unbuilt runs
+``build_kernels`` inside its entry, flagged ``compiling``, and each library
+built or loaded then is one record of the compile log
+(``tracing.record_compile``: its nvcc seconds, its bytes, its source digest,
+``cached`` when the build cache served it), charged to the statement and the
+wrapper that triggered it.
 """
 
 from __future__ import annotations
@@ -173,63 +183,105 @@ def source_digest(path: str) -> str:
     return h.hexdigest()[:16]
 
 
-def build_kernels() -> dict:
+def build_kernels(site: str = "build") -> dict:
     """Compile every source not yet built (one nvcc each, all started
     together) and load the C entries.  Returns {"seconds": build wall time,
-    "log": per source, ``-Xptxas -v``'s register and shared-memory report}.
-    The report is kept beside each library (``<lib>.log``), so a build served
-    from the cache returns it too."""
+    "log": per source, ``-Xptxas -v``'s register and shared-memory report,
+    "libraries": per source {"seconds", "bytes", "digest", "cached"}}.  The
+    report is kept beside each library (``<lib>.log``), so a build served
+    from the cache returns it too.  Each library is one compile-log record
+    under ``site`` (the kernel wrapper whose launch triggered the build):
+    its nvcc seconds, or, served from the cache, the seconds it took to
+    load.  Once every entry is loaded it returns at once and records
+    nothing: a thread that lost the race to build waits on the lock and
+    leaves the winner's records alone."""
     with _lock:
+        if all(entry in _entries for entry in _SIGNATURES):
+            return {"seconds": 0.0, "log": {}, "libraries": {}}
         t0 = time.perf_counter()
         os.makedirs(_BUILD, exist_ok=True)
         sources = sorted({src for src, _ in _SIGNATURES.values()})
-        libs, procs = {}, {}
+        libs, digests, procs, ends = {}, {}, {}, {}
         for src in sources:
             path = os.path.join(_CSRC, src)
-            out = os.path.join(_BUILD, f"{src[:-3]}_{source_digest(path)}.so")
+            digests[src] = source_digest(path)
+            out = os.path.join(_BUILD, f"{src[:-3]}_{digests[src]}.so")
             libs[src] = out
             if os.path.exists(out) and os.path.exists(out[:-3] + ".log"):
                 continue
             cmd = [_nvcc(), "-Xptxas", "-v", "-gencode", "arch=compute_90a,code=sm_90a",
                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                    "-o", out + ".tmp", path]
-            procs[src] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT, text=True)
+            # the report goes to a file, so a full pipe never stalls a build
+            # while another is waited on, and each build's end is its own
+            report = open(out[:-3] + ".log.tmp", "w")
+            procs[src] = (subprocess.Popen(cmd, stdout=report, stderr=subprocess.STDOUT),
+                          report)
+        while len(ends) < len(procs):
+            for src, (p, _) in procs.items():
+                if src not in ends and p.poll() is not None:
+                    ends[src] = time.perf_counter()
+            if len(ends) < len(procs):
+                time.sleep(0.005)
         failed = []
-        for src, p in procs.items():
-            out_text, _ = p.communicate()
+        for src, (p, report) in procs.items():
+            report.close()
+            log_tmp = libs[src][:-3] + ".log.tmp"
             if p.returncode != 0:
-                failed.append(f"{src}:\n{out_text}")
+                with open(log_tmp) as f:
+                    failed.append(f"{src}:\n{f.read()}")
                 continue
-            with open(libs[src][:-3] + ".log", "w") as f:
-                f.write(out_text)
             os.replace(libs[src] + ".tmp", libs[src])
+            os.replace(log_tmp, libs[src][:-3] + ".log")
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-        log = {}
+        log, loaded, built = {}, {}, {}
         for src, path in libs.items():
             with open(path[:-3] + ".log") as f:
                 log[src] = f.read()
-        loaded = {src: ctypes.CDLL(path) for src, path in libs.items()}
+            t_load = time.perf_counter()
+            loaded[src] = ctypes.CDLL(path)
+            cached = src not in procs
+            built[src] = {"seconds": (time.perf_counter() - t_load) if cached
+                          else ends[src] - t0,
+                          "bytes": os.path.getsize(path), "digest": digests[src],
+                          "cached": cached}
         for entry, (src, argtypes) in _SIGNATURES.items():
             fn = getattr(loaded[src], entry)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _entries[entry] = fn
-        return {"seconds": time.perf_counter() - t0, "log": log}
+        for src, b in built.items():
+            tracing.record_compile(b["seconds"], site=site, signature=b["digest"],
+                                   sig_key=b["digest"], exe_bytes=b["bytes"],
+                                   library=src, cached=b["cached"])
+        return {"seconds": time.perf_counter() - t0, "log": log, "libraries": built}
 
 
-def _entry(name: str):
-    fn = _entries.get(name)
-    if fn is None:
-        build_kernels()
-        fn = _entries[name]
-    return fn
-
-
-def _check(rc: int, name: str) -> None:
+def _launch(kernel: str, entry: str, shape: tuple, *args, count: bool = True) -> None:
+    """Launch C entry ``entry`` for ``kernel`` with ``args`` inside an
+    in-flight ``dispatch`` entry labelled with the kernel (the enqueue
+    only), and with ``count`` count it at ``shape``.  The launch that finds
+    the libraries unbuilt builds them inside its entry, flagged
+    ``compiling``.  A failing launch raises; nothing falls back."""
+    fn = _entries.get(entry)
+    reg = tracing.current_inflight()
+    tok = reg.enter("dispatch", kernel, compiling=fn is None)
+    try:
+        if tracing.DISPATCH_TEST_HOOK is not None:
+            tracing.DISPATCH_TEST_HOOK(tracing.full_site_label(kernel))
+        if fn is None:
+            build_kernels(site=kernel)
+            fn = _entries[entry]
+        t0 = time.perf_counter()
+        rc = fn(*args)
+        dt = time.perf_counter() - t0
+    finally:
+        reg.exit(tok)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+        raise RuntimeError(f"{kernel} launch failed: cudaError {rc}")
+    if count:
+        STATS[kernel].record(shape, dt)
 
 
 def _on_card(*tensors) -> bool:
@@ -311,12 +363,9 @@ def _insert_into(table, packed, valid, max_probes):
     placed = torch.empty((n,), dtype=torch.bool, device=table.device)
     if n == 0:
         return slot, placed
-    t0 = time.perf_counter()
-    rc = _entry("trino_hash_insert")(table.data_ptr(), packed.data_ptr(), valid.data_ptr(),
-                                     n, C, int(max_probes), slot.data_ptr(),
-                                     placed.data_ptr(), _stream())
-    _check(rc, "hash_insert")
-    STATS["hash_insert"].record((n, C), time.perf_counter() - t0)
+    _launch("hash_insert", "trino_hash_insert", (n, C), table.data_ptr(), packed.data_ptr(),
+            valid.data_ptr(), n, C, int(max_probes), slot.data_ptr(), placed.data_ptr(),
+            _stream())
     return slot, placed
 
 
@@ -389,14 +438,9 @@ def hash_probe(table, vals, packed, valid, max_probes: int = MAX_PROBES):
     matched = torch.empty((n,), dtype=torch.bool, device=table.device)
     if n == 0:
         return out, matched
-    t0 = time.perf_counter()
-    rc = _entry("trino_hash_probe")(table.data_ptr(),
-                                    None if vals is None else vals.data_ptr(),
-                                    packed.data_ptr(), valid.data_ptr(), n, C,
-                                    int(max_probes), out.data_ptr(), matched.data_ptr(),
-                                    _stream())
-    _check(rc, "hash_probe")
-    STATS["hash_probe"].record((n, C), time.perf_counter() - t0)
+    _launch("hash_probe", "trino_hash_probe", (n, C), table.data_ptr(),
+            None if vals is None else vals.data_ptr(), packed.data_ptr(), valid.data_ptr(),
+            n, C, int(max_probes), out.data_ptr(), matched.data_ptr(), _stream())
     return out, matched
 
 
@@ -455,12 +499,9 @@ def compact_rows(arrays, valid, out_len: int):
     src_ptrs = (ctypes.c_void_p * k)(*[a.data_ptr() for a in srcs])
     dst_ptrs = (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs])
     widths = (ctypes.c_int * k)(*[a.element_size() for a in srcs])
-    t0 = time.perf_counter()
-    rc = _entry("trino_compact_rows")(valid.data_ptr(), n, int(out_len), k, src_ptrs,
-                                      dst_ptrs, widths, scratch.data_ptr(), _stream())
-    _check(rc, "compact_rows")
-    STATS["compact_rows"].record((n, int(out_len), tuple(a.element_size() for a in srcs)),
-                                 time.perf_counter() - t0)
+    _launch("compact_rows", "trino_compact_rows",
+            (n, int(out_len), tuple(a.element_size() for a in srcs)), valid.data_ptr(), n,
+            int(out_len), k, src_ptrs, dst_ptrs, widths, scratch.data_ptr(), _stream())
     it = iter(outs)
     return tuple(None if a is None else next(it) for a in arrays), scratch[ntiles + 1]
 
@@ -508,12 +549,9 @@ def fused_segment_agg(slot, valid, value_cols, n_slots: int):
     k = len(cols)
     out = torch.empty((n_slots * (k + 1),), dtype=torch.int32, device=slot.device)
     ptrs = (ctypes.c_void_p * max(k, 1))(*[c.data_ptr() for c in cols])
-    t0 = time.perf_counter()
-    rc = _entry("trino_segment_agg")(slot.data_ptr(), valid.data_ptr(), ptrs, k, n,
-                                     int(n_slots), out.data_ptr(), _stream())
-    _check(rc, "fused_segment_agg")
-    if n:
-        STATS["fused_segment_agg"].record((n, int(n_slots), k), time.perf_counter() - t0)
+    # an empty input launches only to zero the outputs, and is not counted
+    _launch("fused_segment_agg", "trino_segment_agg", (n, int(n_slots), k), slot.data_ptr(),
+            valid.data_ptr(), ptrs, k, n, int(n_slots), out.data_ptr(), _stream(), count=bool(n))
     sums = out[n_slots:].view(torch.float32).view(k, n_slots)
     return out[:n_slots], tuple(sums[j] for j in range(k))
 

@@ -16,10 +16,12 @@ the status, trace, history and UI endpoints are the reference's.  Device
 memory comes from ``torch.cuda`` on the engine's device; ``/v1/metrics``
 exports the families whose source the port has (query states, kernel
 launches and host reads, host bytes, the launch-latency histogram, the
-buffer pool's page, build and result tiers, plan history and the adaptive
-advisor, memory, resource groups); ``/v1/flight`` and ``/v1/compiles``
-answer as the reference does when the flight recorder or the compile log is
-off.
+in-flight registry and the stall watchdog, the kernel-build log, the flight
+recorder, the buffer pool's page, build and result tiers, plan history and
+the adaptive advisor, memory, resource groups).  ``/v1/flight`` and
+``/v1/flight/{id}`` serve the flight recorder, ``/v1/compiles`` the log of
+kernel builds, and ``/v1/query/{id}/trace`` a completed statement's trace
+from the recorder.
 """
 
 from __future__ import annotations
@@ -449,12 +451,15 @@ class CoordinatorServer:
                     self._send(200, server._flight_index())
                     return
                 if len(parts) == 3 and parts[:2] == ["v1", "flight"]:
-                    # /v1/flight/{id}: no record is ever kept
-                    self._send(404, {"error": "unknown query"})
+                    # /v1/flight/{id}: one statement's full flight record
+                    rec = server.engine.flight_recorder.get(parts[2])
+                    if rec is None:
+                        self._send(404, {"error": "unknown query"})
+                        return
+                    self._send(200, rec)
                     return
                 if parts == ["v1", "compiles"]:
-                    # the compile observatory: the reference's answer with
-                    # its log off
+                    # the log of kernel builds: its state and its records
                     self._send(200, server._compiles_json())
                     return
                 # /v1/spooled/{qid}/{seg} — spooled result segment payload
@@ -762,6 +767,7 @@ class CoordinatorServer:
         lines.append(f'trino_tpu_dispatch_latency_seconds_bucket{{le="+Inf"}} {h["count"]}')
         lines.append(f"trino_tpu_dispatch_latency_seconds_sum {h['sum_s']}")
         lines.append(f"trino_tpu_dispatch_latency_seconds_count {h['count']}")
+        lines += self._observability_metrics()
         # the device buffer pool: entries and bytes are gauges (they shrink on
         # eviction and invalidation), hits and misses lifetime counters
         bp = getattr(self.engine, "buffer_pool", None)
@@ -848,6 +854,82 @@ class CoordinatorServer:
                              f'{{group="{esc(g["name"])}"}} {g["queued"]}')
         return "\n".join(lines) + "\n"
 
+    def _observability_metrics(self) -> list:
+        """The in-flight and stall gauges (a wedge shows as a nonzero stalled
+        gauge while it lasts), the kernel-build log's counters and histogram,
+        and the flight recorder's gauges and counters, under the reference's
+        family names."""
+        from ..execution import tracing
+
+        _, stalled_n, compiling_n = self.engine.stall_watchdog.status()
+        lines = [
+            "# HELP trino_tpu_inflight_entries Device-boundary operations "
+            "currently executing (kernel launches, host reads, split "
+            "generation, cache stores).",
+            "# TYPE trino_tpu_inflight_entries gauge",
+            f"trino_tpu_inflight_entries {tracing.INFLIGHT.depth()}",
+            "# HELP trino_tpu_stalled_dispatches In-flight entries older "
+            "than the TRINO_TPU_STALL_S threshold, excluding tolerated "
+            "builds (0 when the watchdog is disabled).",
+            "# TYPE trino_tpu_stalled_dispatches gauge",
+            f"trino_tpu_stalled_dispatches {stalled_n}",
+            "# HELP trino_tpu_compiling_dispatches Launches that triggered the "
+            "kernel build, past the stall threshold but under "
+            "TRINO_TPU_STALL_COMPILE_S (verdict: compiling, not stalled).",
+            "# TYPE trino_tpu_compiling_dispatches gauge",
+            f"trino_tpu_compiling_dispatches {compiling_n}",
+        ]
+        cl = self.engine.compile_log
+        ci = cl.info()
+        lines += [
+            "# HELP trino_tpu_compiles_total Kernel libraries built with nvcc "
+            "or loaded from the build cache.",
+            "# TYPE trino_tpu_compiles_total counter",
+            f"trino_tpu_compiles_total {ci['compiles_total']}",
+            "# HELP trino_tpu_recompile_storms_total Sites that crossed the "
+            "distinct-signature storm threshold.",
+            "# TYPE trino_tpu_recompile_storms_total counter",
+            f"trino_tpu_recompile_storms_total {ci['storms_total']}",
+            "# HELP trino_tpu_compile_seconds Wall time of each kernel build.",
+            "# TYPE trino_tpu_compile_seconds histogram"]
+        h = cl.latency.as_dict()
+        cum = 0
+        for ub, c in zip(cl.latency.buckets, h["buckets"]):
+            cum += c
+            lines.append(f'trino_tpu_compile_seconds_bucket{{le="{ub}"}} {cum}')
+        lines.append(f'trino_tpu_compile_seconds_bucket{{le="+Inf"}} {h["count"]}')
+        lines.append(f"trino_tpu_compile_seconds_sum {h['sum_s']}")
+        lines.append(f"trino_tpu_compile_seconds_count {h['count']}")
+        fi = self.engine.flight_recorder.info()
+        lines += [
+            "# HELP trino_tpu_flight_records Statement/event records "
+            "resident in the flight recorder's in-memory ring.",
+            "# TYPE trino_tpu_flight_records gauge",
+            f"trino_tpu_flight_records {fi['records']}",
+            "# HELP trino_tpu_flight_disk_bytes Bytes resident in the "
+            "flight recorder's on-disk JSONL ring (0 = disk ring off).",
+            "# TYPE trino_tpu_flight_disk_bytes gauge",
+            f"trino_tpu_flight_disk_bytes {fi['disk_bytes']}",
+            "# HELP trino_tpu_flight_records_total Flight records "
+            "appended over this process's lifetime.",
+            "# TYPE trino_tpu_flight_records_total counter",
+            f"trino_tpu_flight_records_total {fi['records_total']}",
+            "# HELP trino_tpu_flight_spans_total Trace spans recorded "
+            "into flight records.",
+            "# TYPE trino_tpu_flight_spans_total counter",
+            f"trino_tpu_flight_spans_total {fi['spans_total']}",
+            "# HELP trino_tpu_flight_worker_spans_total Harvested worker "
+            "spans stitched into query traces (0 on one device).",
+            "# TYPE trino_tpu_flight_worker_spans_total counter",
+            f"trino_tpu_flight_worker_spans_total {fi['worker_spans_total']}",
+            "# HELP trino_tpu_flight_record_failures_total Flight "
+            "records dropped by the recorder's guard (a failure never "
+            "fails the query it records).",
+            "# TYPE trino_tpu_flight_record_failures_total counter",
+            f"trino_tpu_flight_record_failures_total {fi['failures']}",
+        ]
+        return lines
+
     def _status_json(self) -> dict:
         """GET /v1/status payload: engine health, the running statements with
         their counters so far, the memory pool and the device's memory
@@ -855,7 +937,9 @@ class CoordinatorServer:
         from ..execution import tracing
 
         e = self.engine
+        health = e.health()
         live = tracing.live_query_counters()
+        inflight = tracing.INFLIGHT.snapshot()
         queries = []
         for q in e.query_tracker.all_queries():
             if q.is_done:
@@ -866,10 +950,10 @@ class CoordinatorServer:
                 "elapsed_s": round(i.elapsed_s or 0.0, 3),
                 "sql": i.sql[:500],
                 "counters": live.get(i.query_id),
-                "inflight": []})
-        return {"health": e.health(),
-                "stall_report": None,
-                "inflight": [],
+                "inflight": [f for f in inflight if f.get("query_id") == i.query_id]})
+        return {"health": health,
+                "stall_report": e.last_stall_report,
+                "inflight": inflight,
                 "queries": queries,
                 "memory": e.memory_info(),
                 "buffer_pool": e.buffer_pool.info(),
@@ -1135,19 +1219,32 @@ class CoordinatorServer:
             return f.read()
 
     def _flight_index(self) -> dict:
-        """GET /v1/flight: the reference's answer with its recorder off (the
-        port has no flight recorder yet)."""
-        return {"info": {"enabled": False}, "records": []}
+        """GET /v1/flight: the recorder's info and one summary per retained
+        record (the full record at /v1/flight/{id})."""
+        fr = self.engine.flight_recorder
+        out = []
+        for rec in fr.snapshot():
+            out.append({
+                "kind": rec.get("kind"), "query_id": rec.get("query_id"),
+                "state": rec.get("state"), "wall_s": rec.get("wall_s"),
+                "error": (rec.get("error") or "")[:200] or None,
+                "recorded_at": rec.get("recorded_at"),
+                "spans": len((rec.get("trace") or {}).get("spans") or ()),
+                "sql": (rec.get("sql") or "")[:200] or None})
+        return {"info": fr.info(), "records": out}
 
     def _compiles_json(self) -> dict:
-        """GET /v1/compiles: the reference's answer with its compile log off
-        (the port has no log of kernel builds yet)."""
-        return {"info": {"enabled": False}, "records": []}
+        """GET /v1/compiles: the build log's state (lifetime totals, storm
+        detections) and its retained records."""
+        cl = self.engine.compile_log
+        return {"info": cl.info(), "records": cl.snapshot()}
 
     def _query_trace(self, qid: str):
         """OTLP/JSON trace for a server query id (the trace captured at
-        completion), else a live lookup of an engine query id in the
-        engine's tracer."""
+        completion); an engine query id from the flight recorder, so a
+        completed statement's trace resolves after later statements pushed
+        it out of the live tracer; else a live lookup in the engine's tracer
+        (a running statement, or the recorder off)."""
         from ..execution.tracing import spans_to_otlp
 
         q = self.queries.get(qid)
@@ -1155,6 +1252,10 @@ class CoordinatorServer:
             if not q.trace:
                 return None
             return spans_to_otlp(q.trace.get("spans", ()))
+        rec = self.engine.flight_recorder.get(qid)
+        spans = (rec.get("trace") or {}).get("spans") if rec else None
+        if spans:
+            return spans_to_otlp(spans)
         spans = self.engine.tracer.spans_for(qid)
         return spans_to_otlp(spans) if spans else None
 
