@@ -235,7 +235,36 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    of a T1-T6 hit makes, and their warm walls with the registry live and
    stubbed out, in turns (``InflightStub``).  ``by_path`` gains
    ``flight_sf1``: the launches of 15a's statements on the recorder's
-   engine.  Every phase prints its seconds on a line of its own.
+   engine.
+16. Memory-bounded execution (``spill_path``; the tiers and the advisor
+   off, as phase 2 ran; spill files in a temporary directory the phase
+   removes).  (a) ``chaos_matrix.PRESSURE``'s eight scenarios over SF1
+   orders in ``SPILL_SPLIT_ROWS`` (65,536) rows a split (1.5M groups
+   against a 512 KiB pool: Grace aggregation over the
+   device, host, disk and mixed tiers, a denied device tier, a write error,
+   a full disk and a denied read), each held against the unconstrained card
+   run or to its typed error, the leak check after each.  (b) Q18 at SF1
+   (``SPILL_SPLIT_ROWS`` rows a split) under a 1 MiB pool, a 96 KiB host
+   watermark and a 128 KiB buffer pool: the device, host and disk tiers all
+   take bytes, the result byte-identical to the unconstrained card run and
+   equal to phase 2's (the port's CPU result); Q18 at SF10 under a 256 MiB
+   pool (device and host tiers) against the unconstrained SF10 run.
+   (c) The reference's at-scale test at full size: SF34 orders grouped by
+   ``o_orderkey`` under the default pool, 51,000,000 groups (1.5x
+   ``MAX_GROUP_CAPACITY``), counts exactly ``(51000000, 51000000)``, at least
+   four partitions and spilled bytes.  (d) orders joined with lineitem at
+   SF10 by ``o_orderpriority``, and lineitem joined with partsupp on two
+   keys (a hashed table, so the probe kernel runs), under a pool neither
+   build fits (the partitioned join), each against its unconstrained run.
+   (e) The admission
+   rung: a hog past ``BLOCKED_FRACTION`` on the engine's pool queues a
+   second statement, which completes once the hog is freed with
+   ``admission_queued`` 1.  (f) ``hash_insert_``, ``hash_probe`` and
+   ``compact_rows`` against their plain versions at the phase's largest and
+   most frequent shapes.  Per step: the wall, peak device memory, bytes and
+   host seconds per tier (write and readback GB/s) and the forced wall over
+   the unconstrained one.  ``by_path`` gains ``spill_sf1``: the launches of
+   the forced runs.  Every phase prints its seconds on a line of its own.
 
 It prints the card line, then one JSON line with every kernel's numbers, and
 last ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -5621,6 +5650,416 @@ def flight_path(phase2):
                            for k, r in checks.items()}
 
 
+# -- phase 16: memory-bounded execution: the tiered spill, Grace partitioning, admission --
+# 16a and 16b at SF1: splits of 65,536 rows, so that one partition's share of a
+# routed page (16,384 orderkeys, 128 KiB) fits the 512 KiB pool's host tier and
+# small routed pages fit 16b's 128 KiB device tier, as the reference's tests
+# split SF0.02 by 4,096 rows and SF0.1 by 65,536 (at 2^21 rows a split every
+# chunk of 16a went past the pool to disk)
+SPILL_SPLIT_ROWS = 1 << 16
+SPILL_Q18 = {"pool": 1 << 20, "host": 96 << 10, "buffer": 128 << 10}  # 16b at SF1
+SPILL_Q18_BIG = {"pool": 256 << 20, "buffer": 8 << 30}  # 16b at SF10: device and host
+SPILL_SF_GROUPS = 34.0  # 16c: 51,000,000 orders, 1.5x MAX_GROUP_CAPACITY groups
+SPILL_GROUPS_SQL = ("select count(*) c, sum(n) rows_total from "
+                    "(select o_orderkey, count(*) n from orders group by o_orderkey)")
+SPILL_JOIN_SQL = ("select o_orderpriority, count(*) c from orders, lineitem "
+                  "where o_orderkey = l_orderkey group by o_orderpriority "
+                  "order by o_orderpriority")
+# a join on two keys: its table is hashed (a one-key join over a dense key
+# range takes the direct table, which launches no probe kernel)
+SPILL_JOIN2_SQL = ("select count(*) c, sum(ps_supplycost) s from lineitem, partsupp "
+                   "where l_partkey = ps_partkey and l_suppkey = ps_suppkey")
+SPILL_JOIN = {"pool": 256 << 20, "buffer": 2 << 30}  # 16d at SF10: the builds do not fit
+
+
+class SpillLog:
+    """Each spill's partitions, bytes and seconds per tier, recorded as it
+    closes (``SpilledPartitions.close`` wrapped); ``take`` sums and empties
+    what was recorded since the last call."""
+
+    def __init__(self):
+        from trino_tpu_torch.exec import spill
+
+        self._cls = spill.SpilledPartitions
+        self._orig = self._cls.close
+        self._seen: list = []
+        orig, seen = self._orig, self._seen
+
+        def close(sp):
+            if not sp._closed:
+                seen.append({"parts": sp.parts, "columns": list(sp.schema.names),
+                             "rows": sum(sp.rows), "bytes": dict(sp.tier_bytes),
+                             "write_s": dict(sp.write_s), "read_s": dict(sp.read_s)})
+            orig(sp)
+
+        self._cls.close = close
+
+    def take(self) -> dict:
+        seen, self._seen[:] = list(self._seen), []
+        out = {"spills": len(seen), "parts": [s["parts"] for s in seen],
+               "each": [{"parts": s["parts"], "columns": s["columns"], "rows": s["rows"],
+                         "bytes": s["bytes"]} for s in seen]}
+        for tier in ("hbm", "host", "disk"):
+            b = sum(s["bytes"][tier] for s in seen)
+            w = sum(s["write_s"][tier] for s in seen)
+            r = sum(s["read_s"][tier] for s in seen)
+            out[tier] = {"bytes": b, "write_s": w, "read_s": r,
+                         "write_gb_s": b / w / 1e9 if w else None,
+                         "read_gb_s": b / r / 1e9 if r and tier != "hbm" else None}
+        return out
+
+    def close(self):
+        self._cls.close = self._orig
+
+
+def tier_text(t: dict) -> str:
+    def gbs(x):
+        return "-" if x is None else f"{x:.3f}"
+
+    return " ".join(f"{tier}={t[tier]['bytes']}B w{t[tier]['write_s']:.4f}s/"
+                    f"{gbs(t[tier]['write_gb_s'])}GB/s r{t[tier]['read_s']:.4f}s/"
+                    f"{gbs(t[tier]['read_gb_s'])}GB/s" for tier in ("hbm", "host", "disk"))
+
+
+def timed_execute(ex, plan):
+    """(result, counters, wall seconds, peak device bytes) of one execution
+    on executor ``ex``, synchronised, its counters in a set of their own."""
+    import torch
+
+    from trino_tpu_torch.execution import tracing
+
+    c = tracing.QueryCounters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with tracing.track_counters(c):
+        res = ex.execute(plan)
+    torch.cuda.synchronize()
+    return res, c, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def unconstrained(engine, plan):
+    """The unconstrained card run (default pool, no buffer pool): a warm-up,
+    then the timed run.  -> (result, wall, peak)."""
+    from trino_tpu_torch.exec.local_executor import LocalExecutor
+
+    timed_execute(LocalExecutor(engine.catalogs, DEVICE), plan)
+    res, _, wall, peak = timed_execute(LocalExecutor(engine.catalogs, DEVICE), plan)
+    return res, wall, peak
+
+
+@contextlib.contextmanager
+def spill_env(spill_dir, host_bytes=None):
+    """TRINO_TPU_SPILL_DIR and TRINO_TPU_SPILL_HOST_BYTES for a forced run;
+    ``spill_dir`` must be empty after it."""
+    prev = {k: os.environ.get(k) for k in ("TRINO_TPU_SPILL_DIR",
+                                           "TRINO_TPU_SPILL_HOST_BYTES")}
+    os.makedirs(spill_dir, exist_ok=True)
+    os.environ["TRINO_TPU_SPILL_DIR"] = spill_dir
+    if host_bytes is None:
+        os.environ.pop("TRINO_TPU_SPILL_HOST_BYTES", None)
+    else:
+        os.environ["TRINO_TPU_SPILL_HOST_BYTES"] = str(host_bytes)
+    try:
+        yield
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(not os.listdir(spill_dir), f"spill files survived the query: {os.listdir(spill_dir)}")
+
+
+def forced_run(engine, plan, label, own, log, pool, buffer, spill_dir, host_bytes=None):
+    """One forced execution of ``plan`` on a fresh executor with a pool of
+    ``pool`` bytes and a buffer pool of ``buffer`` (None: none); counted in
+    ``own``; its spills from ``log``.  The leak check follows."""
+    from trino_tpu_torch.exec.local_executor import LocalExecutor
+    from trino_tpu_torch.execution import chaos_matrix as cm
+    from trino_tpu_torch.execution.bufferpool import DeviceBufferPool
+    from trino_tpu_torch.memory import MemoryPool
+
+    bp = None if buffer is None else DeviceBufferPool(budget_bytes=buffer, device=DEVICE)
+    ex = LocalExecutor(engine.catalogs, DEVICE, memory_pool=MemoryPool(max_bytes=pool),
+                       buffer_pool=bp)
+    log.take()
+    with spill_env(spill_dir, host_bytes), own.region():
+        res, c, wall, peak = timed_execute(ex, plan)
+    tiers = log.take()
+    check(not ex._spills and ex.memory_pool.info()["by_tag"].get("spill", 0) == 0,
+          f"{label}: a spill or its reservation outlived the query")
+    check(bp is None or bp.memory_pool is None
+          or bp.memory_pool.info()["by_tag"].get("spill", 0) == 0,
+          f"{label}: a device spill reservation outlived the query")
+    leaks = cm.leak_report(engine)
+    check(not leaks, f"{label}: leak check {leaks}")
+    parts = sorted(st["spill_partitions"] for st in ex.stats.values()
+                   if st.get("spill_partitions"))
+    return {"result": res, "counters": c, "wall_s": wall, "peak_bytes": peak,
+            "tiers": tiers, "spill_partitions": parts}
+
+
+def spill_pressure(engine, scratch, own, log):
+    """16a: PRESSURE's eight scenarios over SF1 orders, each held against
+    the unconstrained card run, the leak check after each."""
+    import torch
+
+    from trino_tpu_torch.execution import chaos_matrix as cm
+    from trino_tpu_torch.sql.frontend import compile_sql
+
+    plan = compile_sql(cm.PRESSURE_QUERY, engine, engine.create_session("tpch"))
+    base_res, base_wall, base_peak = unconstrained(engine, plan)
+    base = cm.result_signature(base_res)
+    out = {"unconstrained_s": base_wall, "unconstrained_peak_bytes": base_peak}
+    print(f"spill 16a unconstrained: wall_s={base_wall:.4f} peak_bytes={base_peak}",
+          flush=True)
+    for name, cfg, spec, kind in cm.PRESSURE:
+        d = os.path.join(scratch, name)
+        os.makedirs(d)
+        log.take()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with own.region():
+            r = cm.run_pressure_scenario(engine, plan, base, name, cfg, spec, kind, d)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tiers = log.take()
+        check(r["ok"], f"16a {name}: {({k: v for k, v in r.items() if k not in ('signature', 'counters')})}")
+        leaks = cm.leak_report(engine)
+        check(not leaks, f"16a {name}: leak check {leaks}")
+        out[name] = {"kind": kind, "wall_s": wall, "ratio": wall / base_wall,
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "error_type": r.get("error_type"), "fires": r.get("fires"),
+                     "spill_partitions": r["spill_partitions"], "tiers": tiers}
+        print(f"spill 16a {name} ({kind}): wall_s={wall:.4f} x{wall / base_wall:.2f} "
+              f"peak_bytes={out[name]['peak_bytes']} parts={r['spill_partitions']} "
+              f"error={r.get('error_type')} fires={r.get('fires')} {tier_text(tiers)}",
+              flush=True)
+    return out
+
+
+def spill_q18(phase2, scratch, own, log):
+    """16b: Q18 at SF1 under a 1 MiB pool, a 96 KiB host watermark and a
+    128 KiB buffer pool (device, host and disk tiers), byte-identical to the
+    unconstrained card run and equal to phase 2's (the port's CPU result);
+    Q18 at SF10 under a 256 MiB pool (device and host tiers) against the
+    unconstrained SF10 run."""
+    import torch
+
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.execution import chaos_matrix as cm
+    from trino_tpu_torch.sql.frontend import compile_sql
+
+    out = {}
+    for sf, split, cfg in ((SF_MAIN, SPILL_SPLIT_ROWS, SPILL_Q18),
+                           (SF_BIG, SPLIT_ROWS, SPILL_Q18_BIG)):
+        label = f"16b q18 sf{sf:g}"
+        engine = Engine(device=DEVICE)
+        engine.register_catalog("tpch", TpchConnector(sf=sf, split_rows=split))
+        plan = compile_sql(ALL_QUERIES["q18"], engine, engine.create_session("tpch"))
+        full, full_wall, full_peak = unconstrained(engine, plan)
+        r = forced_run(engine, plan, label, own, log, cfg["pool"], cfg["buffer"],
+                       os.path.join(scratch, f"q18-sf{sf:g}"), cfg.get("host"))
+        check(cm.result_signature(r["result"]) == cm.result_signature(full),
+              f"{label}: the forced run differs from the unconstrained one")
+        if sf == SF_MAIN:
+            same_result(full, phase2["q18"], f"{label} unconstrained vs phase 2")
+            same_result(r["result"], phase2["q18"], f"{label} forced vs phase 2")
+        want = ("hbm", "host", "disk") if sf == SF_MAIN else ("hbm", "host")
+        for tier in want:
+            check(r["tiers"][tier]["bytes"] > 0, f"{label}: the {tier} tier took no bytes: "
+                  f"{r['tiers']}")
+        out[f"sf{sf:g}"] = {"rows": len(full), "unconstrained_s": full_wall,
+                            "unconstrained_peak_bytes": full_peak, "wall_s": r["wall_s"],
+                            "ratio": r["wall_s"] / full_wall, "peak_bytes": r["peak_bytes"],
+                            "spill_partitions": r["spill_partitions"], "tiers": r["tiers"],
+                            "config": cfg}
+        print(f"spill {label}: rows={len(full)} unconstrained_s={full_wall:.4f} "
+              f"forced_s={r['wall_s']:.4f} x{r['wall_s'] / full_wall:.2f} "
+              f"peak {full_peak} -> {r['peak_bytes']} parts={r['spill_partitions']} "
+              f"{tier_text(r['tiers'])}", flush=True)
+        del engine, plan, full, r
+        torch.cuda.empty_cache()
+    return out
+
+
+def spill_groups(scratch, own, log):
+    """16c: the reference's at-scale test at full size: SF34 orders grouped
+    by o_orderkey (51,000,000 groups, 1.5x MAX_GROUP_CAPACITY) under the
+    default pool, which Grace-partitions."""
+    import torch
+
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.exec.local_executor import MAX_GROUP_CAPACITY, LocalExecutor
+    from trino_tpu_torch.sql.frontend import compile_sql
+
+    engine = Engine(device=DEVICE)
+    engine.register_catalog("tpch", TpchConnector(sf=SPILL_SF_GROUPS, split_rows=SPLIT_ROWS))
+    plan = compile_sql(SPILL_GROUPS_SQL, engine, engine.create_session("tpch"))
+    ex = LocalExecutor(engine.catalogs, DEVICE)
+    d = os.path.join(scratch, "groups")
+    log.take()
+    with spill_env(d), own.region():
+        res, _c, wall, peak = timed_execute(ex, plan)
+    tiers = log.take()
+    n = int(SPILL_SF_GROUPS * 1_500_000)
+    got = [tuple(int(x) for x in row) for row in res.rows()]
+    check(got == [(n, n)], f"16c: {got} != {[(n, n)]}")
+    spilled = [st for st in ex.stats.values() if st.get("spill_partitions")]
+    check(spilled and spilled[0]["spill_partitions"] >= 4
+          and spilled[0].get("spilled_bytes", 0) > 0,
+          f"16c: the Grace-partitioned aggregation did not engage: {spilled}")
+    out = {"groups": n, "max_group_capacity": MAX_GROUP_CAPACITY, "wall_s": wall,
+           "peak_bytes": peak, "spill_partitions": spilled[0]["spill_partitions"],
+           "spilled_bytes": spilled[0]["spilled_bytes"], "tiers": tiers,
+           "groups_per_s": n / wall}
+    print(f"spill 16c sf{SPILL_SF_GROUPS:g} orders by o_orderkey: {got} wall_s={wall:.3f} "
+          f"groups/s={n / wall:.4g} peak_bytes={peak} parts={out['spill_partitions']} "
+          f"spilled_bytes={out['spilled_bytes']} {tier_text(tiers)}", flush=True)
+    del engine, ex, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def spill_join(scratch, own, log):
+    """16d: orders joined with lineitem at SF10, grouped by o_orderpriority,
+    and lineitem joined with partsupp on two keys, under a pool neither build
+    fits: the partitioned join, each against its unconstrained run."""
+    import torch
+
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.execution import chaos_matrix as cm
+    from trino_tpu_torch.sql.frontend import compile_sql
+
+    engine = Engine(device=DEVICE)
+    engine.register_catalog("tpch", TpchConnector(sf=SF_BIG, split_rows=SPLIT_ROWS))
+    out = {}
+    for name, sql in (("orders_lineitem", SPILL_JOIN_SQL),
+                      ("lineitem_partsupp", SPILL_JOIN2_SQL)):
+        label = f"16d {name}"
+        plan = compile_sql(sql, engine, engine.create_session("tpch"))
+        full, full_wall, full_peak = unconstrained(engine, plan)
+        r = forced_run(engine, plan, label, own, log, SPILL_JOIN["pool"],
+                       SPILL_JOIN["buffer"], os.path.join(scratch, name))
+        check(cm.result_signature(r["result"]) == cm.result_signature(full),
+              f"{label}: the partitioned join differs from the unconstrained run")
+        check(any(p > 1 for p in r["spill_partitions"]),
+              f"{label}: no partitioned join: {r['spill_partitions']}")
+        out[name] = {"unconstrained_s": full_wall, "unconstrained_peak_bytes": full_peak,
+                     "wall_s": r["wall_s"], "ratio": r["wall_s"] / full_wall,
+                     "peak_bytes": r["peak_bytes"], "spill_partitions": r["spill_partitions"],
+                     "tiers": r["tiers"], "config": SPILL_JOIN}
+        print(f"spill {label} sf{SF_BIG:g}: unconstrained_s={full_wall:.4f} "
+              f"forced_s={r['wall_s']:.4f} x{r['wall_s'] / full_wall:.2f} peak {full_peak} "
+              f"-> {r['peak_bytes']} parts={r['spill_partitions']} {tier_text(r['tiers'])}",
+              flush=True)
+        del plan, full, r
+        torch.cuda.empty_cache()
+    return out
+
+
+def spill_admission(engine):
+    """16e: a hog reservation on the engine's pool past BLOCKED_FRACTION and a
+    running statement: a second statement queues, completes once the hog is
+    freed, and carries admission_queued 1."""
+    import threading
+
+    from trino_tpu_torch.execution.memory_killer import BLOCKED_FRACTION
+
+    sess = engine.create_session("tpch")
+    engine.execute_sql("select count(*) from nation", sess)
+    pool = engine.memory_pool
+    before = engine.counters_total.admission_queued
+    hog = int(pool.max_bytes * (BLOCKED_FRACTION + 0.05)) - pool.reserved
+    check(pool.try_reserve(hog, "hog"), "16e: the hog reservation was refused")
+    group = engine.resource_groups.get_or_create("global.holder")
+    engine.resource_groups.submit(group, lambda: None)
+    done = {}
+    t0 = time.perf_counter()
+    t = threading.Thread(target=lambda: done.update(
+        r=engine.execute_sql("select count(*) from nation", sess)))
+    t.start()
+    deadline = time.time() + 10
+    while time.time() < deadline and engine.resource_groups.memory_queued_total == 0:
+        time.sleep(0.005)
+    queued = engine.resource_groups.memory_queued_total
+    early = "r" in done
+    time.sleep(0.05)
+    pool.free(hog, "hog")
+    engine.resource_groups.finish(group)
+    t.join(timeout=60)
+    wall = time.perf_counter() - t0
+    check(not t.is_alive() and not early and queued >= 1,
+          f"16e: queued={queued} finished early={early}")
+    entry = engine.query_tracker.all_queries()[-1]
+    check(entry.counters["admission_queued"] == 1
+          and engine.counters_total.admission_queued == before + 1,
+          f"16e: admission_queued {entry.counters['admission_queued']}")
+    check(done["r"].rows()[0][0] == 25, "16e: the queued statement's result")
+    info = entry.info()
+    out = {"queued": queued, "wall_s": wall, "queued_s": info.queued_s}
+    print(f"spill 16e admission: queued={queued} queued_s={info.queued_s} "
+          f"wall_s={wall:.3f} admission_queued=1", flush=True)
+    return out
+
+
+def spill_path(phase2):
+    """Phase 16: memory-bounded execution at SF1 to SF34 (the tiers and the
+    advisor off, as phase 2 ran).  Returns (the record, launches of the
+    phase's forced runs, {kernel: checks at their shapes})."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    t_phase = time.perf_counter()
+    own = OwnLaunches()
+    log = SpillLog()
+    rec = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="trino-spill-") as scratch:
+            torch.cuda.empty_cache()
+            conn = TpchConnector(sf=SF_MAIN, split_rows=SPILL_SPLIT_ROWS)
+            engine = Engine(device=DEVICE)
+            engine.register_catalog("tpch", conn)
+            rec["pressure"] = spill_pressure(engine, scratch, own, log)
+            rec["q18"] = spill_q18(phase2, scratch, own, log)
+            rec["groups"] = spill_groups(scratch, own, log)
+            rec["join"] = spill_join(scratch, own, log)
+            rec["admission"] = spill_admission(engine)
+    finally:
+        log.close()
+    launches = dict(own.launches)
+    check(launches["hash_insert"] > 0 and launches["hash_probe"] > 0
+          and launches["compact_rows"] > 0,
+          f"the spill path launched no hash_insert, hash_probe or compact_rows: {launches}")
+    # 16f: each kernel the path launched against its plain version at the
+    # path's largest and most frequent shapes
+    gen = np.random.default_rng(53)
+    checks = {"hash_insert": insert_checks(own.shapes["hash_insert"],
+                                           ("orders_orderkey",
+                                            *split_keys(conn, "orders", "o_orderkey")), gen),
+              "hash_probe": probe_checks(own.shapes["hash_probe"], gen),
+              "compact_rows": compact_checks(own.shapes["compact_rows"], gen)}
+    del engine
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"spill path: {rec['seconds']:.1f} s, launches of the forced runs {launches}",
+          flush=True)
+    print(json.dumps({"spill_sf1": rec}, default=str), flush=True)
+    torch.cuda.empty_cache()
+    return rec, launches, {k: {"max_abs_err": r["max_abs_err"], "shapes": r["shapes"]}
+                           for k, r in checks.items()}
+
+
 class PhaseClock:
     """Seconds of each phase, printed on a line of its own as it ends."""
 
@@ -5826,6 +6265,10 @@ def main() -> int:
         # registry and the stall watchdog
         _, fl_launches, fl_checks = flight_path(phase2)
         clock.done(15)
+        # -- phase 16: memory-bounded execution: the tiered spill, Grace -------
+        # partitioning and the admission rung
+        _, sp_launches, sp_checks = spill_path(phase2)
+        clock.done(16)
 
         # per path: its launches, and the checks at its own shapes (the
         # top-level times stay the TPC-H path's largest shape's)
@@ -5851,14 +6294,17 @@ def main() -> int:
                 "adaptive_sf1": {"launches": ad_launches[name],
                                  **ad_checks.get(name, {"max_abs_err": None, "shapes": []})},
                 "flight_sf1": {"launches": fl_launches[name],
-                               **fl_checks.get(name, {"max_abs_err": None, "shapes": []})}}
+                               **fl_checks.get(name, {"max_abs_err": None, "shapes": []})},
+                "spill_sf1": {"launches": sp_launches[name],
+                              **sp_checks.get(name, {"max_abs_err": None, "shapes": []})}}
             for checks in (ds_checks, mem_checks, fn_checks, ar_checks, sv_checks, ca_checks,
-                           tp_checks, ad_checks, fl_checks):
+                           tp_checks, ad_checks, fl_checks, sp_checks):
                 if name in checks:
                     r["max_abs_err"] = max(r["max_abs_err"], checks[name]["max_abs_err"])
             r["launches"] += (ds_launches[name] + mem_launches[name] + fn_launches[name]
                               + ar_launches[name] + sv_launches[name] + ca_launches[name]
-                              + tp_launches[name] + ad_launches[name] + fl_launches[name])
+                              + tp_launches[name] + ad_launches[name] + fl_launches[name]
+                              + sp_launches[name])
         print(f"phases: {json.dumps({k: round(v, 1) for k, v in clock.seconds.items()})}",
               flush=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -948,3 +948,130 @@ def test_fused_template_window_on_the_card_equals_serial(dev, monkeypatch):
         cs.same_bytes(got, want, "fused lane vs serial")
         assert r["batched_with"] == len(keys)
     assert any(len(r) for r in serial)
+
+
+# -- memory-bounded execution (phase 16 of chip_smoke.py at SF0.02) --------------
+def _spill_engines(sf=0.02, split_rows=1 << 12):
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        e = Engine(device=device)
+        e.register_catalog("tpch", TpchConnector(sf=sf, split_rows=split_rows))
+        out[device] = e
+    return out
+
+
+def _spill_rows(monkeypatch):
+    """Rows per partition of every spill, recorded as it closes."""
+    from trino_tpu_torch.exec import spill
+
+    seen = []
+    orig = spill.SpilledPartitions.close
+
+    def close(self):
+        if not self._closed:
+            seen.append((self.parts, list(self.rows)))
+        orig(self)
+
+    monkeypatch.setattr(spill.SpilledPartitions, "close", close)
+    return seen
+
+
+def test_pressure_scenarios_on_the_card_equal_the_cpu(dev, tmp_path, monkeypatch):
+    """The eight pressure scenarios on a card engine: each recovers to the
+    unconstrained card result (equal to the CPU's) or fails typed, its
+    spills partition row for row as on the CPU, and the leak check is clean."""
+    from trino_tpu_torch.exec.local_executor import LocalExecutor
+    from trino_tpu_torch.execution import chaos_matrix as cm
+    from trino_tpu_torch.sql.frontend import compile_sql
+
+    engines = _spill_engines()
+    seen = _spill_rows(monkeypatch)
+    base, recs = {}, {}
+    for device, e in engines.items():
+        plan = compile_sql(cm.PRESSURE_QUERY, e, e.create_session("tpch"))
+        base[device] = cm.result_signature(LocalExecutor(e.catalogs, device).execute(plan))
+        for name, cfg, spec, kind in cm.PRESSURE:
+            d = tmp_path / f"{device}-{name}"
+            d.mkdir()
+            seen.clear()
+            r = cm.run_pressure_scenario(e, plan, base[device], name, cfg, spec, kind, str(d))
+            assert r["ok"], (device, name, r.get("detail"), r.get("leaks"))
+            assert cm.leak_report(e, timeout=2.0) == []
+            recs[(device, name)] = (list(seen), r.get("error_type"),
+                                    sorted(t for t, b in r["tiers"].items() if b))
+    assert base["cuda"] == base["cpu"]
+    for name, *_ in cm.PRESSURE:
+        assert recs[("cuda", name)] == recs[("cpu", name)], name
+
+
+def test_prefetch_staging_on_the_card_is_byte_equal(dev):
+    """Host pages staged to the card by the prefetch producer (pinned
+    buffers, a side stream, an event the consumer waits on) arrive equal to
+    their sources, run after run, and their bytes count as H2D."""
+    import numpy as np
+
+    from trino_tpu_torch.exec.local_executor import LocalExecutor, _prefetched_pages
+    from trino_tpu_torch.page import Page, Schema
+    from trino_tpu_torch.types import BIGINT
+
+    rng = np.random.default_rng(5)
+    schema = Schema.of(("k", BIGINT), ("v", BIGINT))
+    pages = [(rng.integers(-2**62, 2**62, n), rng.integers(0, 1000, n), rng.random(n) < 0.1)
+             for n in rng.integers(1, 300_000, 24)]
+
+    def source():
+        for k, v, m in pages:
+            yield Page(schema, (k, v), (None, m), None)
+
+    ex = LocalExecutor({}, "cuda")
+    want = sum(k.nbytes + v.nbytes + m.nbytes for k, v, m in pages)
+    for _ in range(3):
+        ex.h2d_bytes = 0
+        got = []
+        for page in _prefetched_pages(source, to_device=True, owner=ex)():
+            # work on the consumer's stream between pages
+            got.append((page.columns[0] * 1, page.columns[1] + 0, page.null_masks[1].clone()))
+        torch.cuda.synchronize()
+        assert len(got) == len(pages)
+        for (k, v, m), (gk, gv, gm) in zip(pages, got):
+            assert gk.is_cuda and np.array_equal(gk.cpu().numpy(), k)
+            assert np.array_equal(gv.cpu().numpy(), v) and np.array_equal(gm.cpu().numpy(), m)
+        assert ex.h2d_bytes == want
+        assert ex.close_producers() == 1
+
+
+@pytest.mark.parametrize("sql,pool", [
+    ("""select o_orderpriority, count(*) c from orders, lineitem
+        where o_orderkey = l_orderkey group by o_orderpriority order by o_orderpriority""",
+     200_000),
+    ("""select count(*) c, sum(ps_supplycost) s from lineitem, partsupp
+        where l_partkey = ps_partkey and l_suppkey = ps_suppkey""", 150_000),
+    ("""select l_orderkey, count(*) c from lineitem group by l_orderkey
+        order by c desc, l_orderkey limit 5""", 100_000),
+])
+def test_grace_paths_on_the_card_equal_the_cpu(dev, tmp_path, monkeypatch, sql, pool):
+    """The partitioned join (one key and two) and the Grace aggregation
+    under tiny pools on the card: the unconstrained card result, the CPU's,
+    and the CPU's rows per partition; no spill file is left."""
+    from trino_tpu_torch.exec.local_executor import LocalExecutor
+    from trino_tpu_torch.memory import MemoryPool
+    from trino_tpu_torch.sql.frontend import compile_sql
+
+    monkeypatch.setenv("TRINO_TPU_SPILL_DIR", str(tmp_path))
+    engines = _spill_engines()
+    seen = _spill_rows(monkeypatch)
+    got = {}
+    for device, e in engines.items():
+        plan = compile_sql(sql, e, e.create_session("tpch"))
+        full = LocalExecutor(e.catalogs, device).execute(plan)
+        seen.clear()
+        ex = LocalExecutor(e.catalogs, device, memory_pool=MemoryPool(max_bytes=pool))
+        small = ex.execute(plan)
+        _same(small, full)
+        got[device] = (small, list(seen))
+    _same(got["cuda"][0], got["cpu"][0])
+    assert got["cuda"][1] == got["cpu"][1] and got["cuda"][1]
+    assert not list(tmp_path.iterdir())

@@ -134,13 +134,21 @@ def test_chip_smoke_copies_the_tests_tpch_sql():
 
 
 def test_plan_outside_the_slice_raises_naming_the_path(torch_engine, monkeypatch):
-    # MATCH_RECOGNIZE and UNNEST are ported; a join build that does not fit
-    # the memory pool would take the reference's Grace partitioning, which is not
+    # a join build that does not fit the memory pool takes the Grace
+    # partitioning the port now has; a plan of the distributed path (its
+    # exchanges, ROADMAP A7) is still outside the port
+    from trino_tpu_torch.exec.local_executor import LocalExecutor
+    from trino_tpu_torch.sql.exchanges import physical_plan
+    from trino_tpu_torch.sql.frontend import compile_sql
+
+    sql = "select count(*) from lineitem join orders on l_orderkey = o_orderkey"
+    session = torch_engine.create_session("tpch")
+    full = torch_engine.execute_sql(sql, session).rows()
     monkeypatch.setattr(torch_engine.memory_pool, "max_bytes", 0)
-    with pytest.raises(NotImplementedError, match="Grace-partitioned join"):
-        torch_engine.execute_sql(
-            "select count(*) from lineitem join orders on l_orderkey = o_orderkey",
-            torch_engine.create_session("tpch"))
+    assert torch_engine.execute_sql(sql, session).rows() == full
+    plan = physical_plan(compile_sql(sql, torch_engine, session), torch_engine.catalogs)
+    with pytest.raises(NotImplementedError, match="Exchange node"):
+        LocalExecutor(torch_engine.catalogs, "cpu").execute(plan)
 
 
 def test_engine_defaults_to_the_card(monkeypatch):

@@ -90,8 +90,15 @@ progress, which ``stall_watchdog`` samples (``TRINO_TPU_STALL_S``) and
 ``health()`` reads.  ``query_max_memory`` is enforced per statement by the
 memory pool (``QueryMemoryLimitError``).
 
-Not ported: the memory ladder's spill and admission rungs, fault-tolerant
-and distributed execution.
+The memory ladder, as in the reference: an operator whose device state
+does not fit the pool Grace-partitions over the tiered spill
+(``exec/spill.py``: device, host RAM, disk), and while the engine's pool is
+past ``execution/memory_killer.BLOCKED_FRACTION`` a new statement queues at
+its resource group (``_memory_admission_ok``) until a running one finishes;
+a statement that queued so carries ``admission_queued`` 1 on its counters.
+
+Not ported: the cluster rungs (cache eviction and the low-memory killer),
+fault-tolerant and distributed execution.
 """
 
 from __future__ import annotations
@@ -207,7 +214,10 @@ class Engine:
         # control plane (reference: DispatchManager + QueryTracker + resource
         # groups + EventListenerManager + TracingModule)
         self.query_tracker = QueryTracker()
-        self.resource_groups = ResourceGroupManager()
+        # the ladder's admission rung: new statements queue while the pool is
+        # blocked, and finished ones drain the queue as memory frees
+        self.resource_groups = ResourceGroupManager(
+            admission_gate=self._memory_admission_ok)
         self.event_listeners = EventListenerManager()
         self.session_properties = SessionPropertyManager()
         self.tracer = Tracer()
@@ -787,6 +797,15 @@ class Engine:
             out.append(b)
         return out
 
+    def _memory_admission_ok(self) -> bool:
+        """The resource groups' admission gate: False while the engine's
+        pool, which every executor the engine makes reserves from, is past
+        the killer's ``BLOCKED_FRACTION``.  Called under the group manager's
+        lock; the pool's own lock is the only one it takes."""
+        from .execution.memory_killer import BLOCKED_FRACTION
+
+        return not self.memory_pool.blocked(BLOCKED_FRACTION)
+
     def _on_stall(self, report: dict) -> None:
         """The watchdog's report: kept for /v1/status, and recorded as a
         flight event so it outlives the process in the disk ring."""
@@ -873,9 +892,11 @@ class Engine:
         self.query_tracker.register(qsm)
         self.event_listeners.query_created(qsm)
         admitted = threading.Event()
+        queued_on_memory: list = []  # the admission gate deferred it
         self.resource_groups.submit(
             group, admitted.set,
-            queued=lambda: qsm.transition(QueryState.WAITING_FOR_RESOURCES))
+            queued=lambda: qsm.transition(QueryState.WAITING_FOR_RESOURCES),
+            queued_on_memory=lambda: queued_on_memory.append(1))
         admitted.wait()
         totals = tracing.QueryCounters()
         outer = getattr(acct, "stmt", None)
@@ -904,6 +925,9 @@ class Engine:
         finally:
             acct.stmt = outer
             acct.history_sql = None
+            if queued_on_memory:
+                # deferred before the statement's counters existed
+                totals.admission_queued += 1
             adec = acct.adaptive
             if adec is not None:
                 # decided at admission, stamped on the statement's counters

@@ -51,6 +51,7 @@ import contextlib
 import dataclasses
 import datetime
 import enum
+import functools
 import hashlib
 import itertools
 import threading
@@ -295,6 +296,14 @@ class LocalExecutor:
         self.host_bytes = 0
         self.h2d_bytes = 0
         self._reserved: list = []  # join-build bytes held until the query ends
+        # live prefetch producers of the current query, (stop flag, thread)
+        # pairs registered by _prefetched_pages, and the tiered spills
+        # (exec/spill.SpilledPartitions) its Grace-partitioned operators
+        # made: close_producers stops and closes them on every exit path, so
+        # an error cannot strand a producer thread, a "spill" reservation or
+        # a spill file behind its traceback
+        self._producers: list = []
+        self._spills: list = []
         # a plan template's bound slots for the query: per slot a (0-d numpy
         # value in the planned dtype, isnull) pair, or None
         self.exec_params = None
@@ -411,12 +420,31 @@ class LocalExecutor:
                             "Result", self._boundary_sink("result", "Result")):
                         return self._materialize(page, dicts)
         finally:
+            self.close_producers()
             self._release_reserved()
 
     def _release_reserved(self) -> None:
         for nbytes in self._reserved:
-            self.memory_pool.free(nbytes)
+            self.memory_pool.free(nbytes, "join-build")
         self._reserved.clear()
+
+    def close_producers(self, join_timeout: float = 2.0) -> int:
+        """Stop every prefetch producer this executor started for the query
+        (set each stop flag, then briefly join the threads) and close every
+        spill it registered (``close`` is idempotent).  Called on every exit
+        of ``execute`` and ``execute_batched``; returns the number of
+        producers that were registered."""
+        procs, self._producers = self._producers, []
+        for stop, _t in procs:
+            stop.set()
+        deadline = time.monotonic() + join_timeout
+        for _stop, t in procs:
+            if t.is_alive():
+                t.join(timeout=max(deadline - time.monotonic(), 0.05))
+        spills, self._spills = self._spills, []
+        for sp in spills:
+            sp.close()
+        return len(procs)
 
     def execute_batched(self, node: P.PlanNode, runtimes) -> list:
         """One fused execution of a template plan for R bound runtimes (each a
@@ -458,6 +486,7 @@ class LocalExecutor:
                             "Result", self._boundary_sink("result", "Result")):
                         return self._demux_batched(schema, stream.dicts, parts, n)
         finally:
+            self.close_producers()
             self._release_reserved()
 
     def _batched_parts(self, stream: _Stream, lanes) -> list:
@@ -970,12 +999,7 @@ class LocalExecutor:
             return self._run_global_aggregate(node)
         stream = self._compile_stream(node.child)
         key_types = tuple(stream.schema.fields[i].type for i in node.keys)
-        acc_specs, acc_exprs, acc_kinds = [], [], []
-        for spec in node.aggs:
-            for kind, dtype, init in _accumulators_for(spec):
-                acc_specs.append((dtype, init))
-                acc_exprs.append(_acc_input_expr(spec))
-                acc_kinds.append(kind)
+        acc_specs, acc_exprs, acc_kinds = self._agg_accumulators(node)
         capacity = node.capacity or DEFAULT_GROUP_CAPACITY
 
         # transformed pages: the first one is computed up front because its
@@ -1000,24 +1024,32 @@ class LocalExecutor:
         outs = itertools.chain([first_out], (stream.run(p) for p in page_iter)) \
             if first is not None else iter(())
 
-        order = self._streaming_agg_order(stream, node) if cfg is None else None
-        if order is not None:
-            raise _not_ported(f"streaming aggregation over input clustered by {order}")
-
         key_w = sum(np.dtype(t.dtype).itemsize + 1 for t in key_types)
         acc_w = sum(np.dtype(dt).itemsize for dt, _ in acc_specs)
-        capacity = ceil_pow2(capacity)
 
         def state_bytes(cap):
             return (cap + 1) * (8 + key_w + acc_w)
 
-        if cfg is not None and not self.memory_pool.try_reserve(state_bytes(cfg.capacity)):
+        # streaming aggregation: the scan's clustering makes every group's
+        # rows contiguous, so segmented reduces replace the probe loop; the
+        # direct table still wins where it applies
+        if cfg is None and self._streaming_agg_order(stream, node) is not None:
+            return self._run_streaming_aggregate(node, stream, key_types, acc_specs,
+                                                 acc_exprs, acc_kinds, capacity, outs,
+                                                 state_bytes)
+
+        # memory gate: group-by state lives on the device; when it cannot fit
+        # the pool, Grace-partition (the spill).  Growth re-checks it.
+        capacity = ceil_pow2(capacity)
+        grace = node.grace_parts or 4
+        if cfg is not None and not self.memory_pool.try_reserve(
+                state_bytes(cfg.capacity), "group-by"):
             cfg = None  # direct table too large: try the (smaller) hash table
         resv = {"bytes": 0 if cfg is None else state_bytes(cfg.capacity)}
         if cfg is None:
-            if not self.memory_pool.try_reserve(state_bytes(capacity)):
-                raise _not_ported("Grace-partitioned aggregation (group-by state "
-                                  "does not fit the memory pool)")
+            if not self.memory_pool.try_reserve(state_bytes(capacity), "group-by"):
+                # no pass read the input yet: route the pages already begun
+                return self._run_aggregate_partitioned(node, grace, stream, outs)
             resv["bytes"] = state_bytes(capacity)
         key_dtypes = tuple(t.dtype for t in key_types)
         try:
@@ -1034,10 +1066,10 @@ class LocalExecutor:
                     if not bool(self._host([state.overflow], "agg.direct.overflow")[0]):
                         break
                     # stale stats put keys out of range: hash mode
-                    self.memory_pool.free(resv["bytes"])
+                    self.memory_pool.free(resv["bytes"], "group-by")
                     cfg, resv["bytes"] = None, 0
-                    if not self.memory_pool.try_reserve(state_bytes(capacity)):
-                        raise _not_ported("Grace-partitioned aggregation")
+                    if not self.memory_pool.try_reserve(state_bytes(capacity), "group-by"):
+                        return self._run_aggregate_partitioned(node, grace, stream)
                     resv["bytes"] = state_bytes(capacity)
                     outs = (stream.run(p) for p in stream.pages())
                     continue
@@ -1047,11 +1079,150 @@ class LocalExecutor:
                                                state, outs, state_bytes, resv)
                 if not bool(self._host([state.overflow], "agg.hash.overflow")[0]):
                     break
-                raise _not_ported("Grace-partitioned aggregation (group count past "
-                                  "the capacity ceiling)")
+                # growth stopped at the capacity or memory ceiling
+                return self._run_aggregate_partitioned(node, grace, stream)
             return self._finalize_groups(node, stream, state)
         finally:
-            self.memory_pool.free(resv["bytes"])
+            self.memory_pool.free(resv["bytes"], "group-by")
+
+    def _agg_accumulators(self, node: P.Aggregate):
+        """(acc_specs, acc_exprs, acc_kinds) of a grouped aggregation."""
+        acc_specs, acc_exprs, acc_kinds = [], [], []
+        for spec in node.aggs:
+            for kind, dtype, init in _accumulators_for(spec):
+                acc_specs.append((dtype, init))
+                acc_exprs.append(_acc_input_expr(spec))
+                acc_kinds.append(kind)
+        return acc_specs, acc_exprs, acc_kinds
+
+    def _run_streaming_aggregate(self, node, stream, key_types, acc_specs, acc_exprs,
+                                 acc_kinds, capacity, outs, state_bytes):
+        """Aggregation over clustered input (reference: the streaming
+        aggregation over pre-grouped input).  Per page the live rows pack to
+        the front in order (the compaction kernel), key changes mark
+        segments, every accumulator reduces per segment, and the per-segment
+        partial rows merge into a hash table with the merge kinds, which
+        also joins groups that span pages.  A merge table past the capacity
+        or memory ceiling Grace-partitions."""
+        merge_kinds = [_MERGE_KIND[k] for k in acc_kinds]
+        key_dtypes = tuple(t.dtype for t in key_types)
+        capacity = ceil_pow2(capacity)
+        grace = node.grace_parts or 4
+        if not self.memory_pool.try_reserve(state_bytes(capacity), "group-by"):
+            return self._run_aggregate_partitioned(node, grace, stream, outs)
+        resv = state_bytes(capacity)
+        try:
+            while True:
+                state = hashagg.groupby_init(capacity, key_dtypes, acc_specs,
+                                             device=self.device)
+                for cols, nulls, valid in outs:
+                    kcols, knulls, accs, new = _segment_partials(
+                        node, cols, nulls, valid, acc_exprs, acc_specs, acc_kinds)
+                    state = hashagg.groupby_insert(state, kcols, key_types, new,
+                                                   [(a, None) for a in accs],
+                                                   merge_kinds, knulls)
+                if not bool(self._host([state.overflow], "agg.stream.overflow")[0]):
+                    return self._finalize_groups(node, stream, state)
+                # the merge table overflowed: grow and stream again
+                grown = ceil_pow2(capacity * 4)
+                delta = state_bytes(grown) - resv
+                if grown > MAX_GROUP_CAPACITY \
+                        or not self.memory_pool.try_reserve(delta, "group-by"):
+                    return self._run_aggregate_partitioned(node, grace, stream)
+                resv += delta
+                capacity = grown
+                outs = (stream.run(p) for p in stream.pages())
+        finally:
+            self.memory_pool.free(resv, "group-by")
+
+    # -- Grace-partitioned aggregation ------------------------------------------
+    def _run_aggregate_partitioned(self, node: P.Aggregate, parts: int, stream,
+                                   outs=None):
+        """Grace-partitioned aggregation over the tiered spill
+        (``exec/spill.py``): one pass transforms the input and routes its
+        rows by the hash of the group keys into per-partition tier buffers;
+        the partitions then aggregate one at a time (reference:
+        SpillableHashAggregationBuilder).  ``stream`` is the aggregation's
+        compiled input; ``outs`` its transformed pages when no pass has read
+        them yet (the memory gate refused the first table), else the input
+        is read again from its source.  Unlike the reference, which reads it
+        again in both cases, a source that is itself a spill pass (a
+        partitioned join's probe) then runs once."""
+        from ..ops.exchange import partition_ids
+        from .spill import SpilledPartitions
+
+        key_types = tuple(stream.schema.fields[i].type for i in node.keys)
+        acc_specs, acc_exprs, acc_kinds = self._agg_accumulators(node)
+
+        def route(cols, nulls):
+            # NULL key lanes are made canonical before hashing, as the
+            # insert does: the NULL group lands in one partition
+            routed = tuple(cols[i] if nulls[i] is None
+                           else torch.where(nulls[i], torch.zeros_like(cols[i]), cols[i])
+                           for i in node.keys)
+            return partition_ids(routed, parts)
+
+        spill = SpilledPartitions(stream.schema, parts, self,
+                                  memory_pool=self.memory_pool,
+                                  buffer_pool=self.buffer_pool)
+        if outs is None:
+            outs = (stream.run(p) for p in stream.pages())
+        try:
+            return self._consume_partitioned_agg(node, stream, spill, parts, key_types,
+                                                 acc_specs, acc_exprs, acc_kinds, route,
+                                                 outs)
+        finally:
+            spill.close()
+
+    def _consume_partitioned_agg(self, node, stream, spill, parts, key_types,
+                                 acc_specs, acc_exprs, acc_kinds, route, outs):
+        for cols, nulls, valid in outs:
+            spill.add_page(cols, nulls, valid, route(cols, nulls))
+        st = self._node_stats(node)
+        st["spilled_bytes"] = spill.spilled_bytes
+        st["spill_partitions"] = parts
+        st["spill_tiers"] = dict(spill.tier_bytes)
+        key_dtypes = tuple(t.dtype for t in key_types)
+        pages_out, dicts = [], None
+        for p in range(parts):
+            # the spill pass counted this partition's rows exactly: seed its
+            # table from them (groups <= rows; 2x for probe headroom); the
+            # overflow loop covers the rest, MAX_GROUP_CAPACITY caps it
+            capacity = min(MAX_GROUP_CAPACITY // 4,
+                           ceil_pow2(max(2 * spill.rows[p], 1024)))
+            while True:
+                state = hashagg.groupby_init(capacity, key_dtypes, acc_specs,
+                                             device=self.device)
+                # a capacity retry replays from the spill tiers, never the
+                # source; host and disk chunks stage through the prefetch
+                # producer, device chunks are already on the device
+                src = functools.partial(spill.partition_pages, p)
+                if spill.needs_staging(p):
+                    src = _prefetched_pages(src, to_device=True, owner=self)
+                for page in src():
+                    cols, nulls, valid = page.columns, page.null_masks, page.valid_mask()
+                    inputs = [(None, None) if e is None else _broadcast(
+                        evaluate(e, cols, nulls), valid) for e in acc_exprs]
+                    state = hashagg.groupby_insert(
+                        state, tuple(cols[i] for i in node.keys), key_types, valid,
+                        inputs, acc_kinds, tuple(nulls[i] for i in node.keys))
+                if not bool(self._host([state.overflow], "agg.partition.overflow")[0]):
+                    break
+                if capacity >= MAX_GROUP_CAPACITY:
+                    if parts >= 1 << 16:
+                        raise MemoryError(
+                            f"aggregation exceeds {MAX_GROUP_CAPACITY} groups per "
+                            f"partition even at {parts} partitions")
+                    # a partition still passed the ceiling: free this spill
+                    # first (the restart routes the whole input again), then
+                    # run again with 4x the partitions
+                    spill.close()
+                    return self._run_aggregate_partitioned(node, parts * 4, stream)
+                capacity *= 4
+            page, dicts = self._finalize_groups(node, stream, state)
+            pages_out.append(page)
+            spill.release_partition(p)  # consumed: its host bytes and file go
+        return _concat_pages(node.schema, pages_out, self._host), dicts
 
     def _run_global_aggregate(self, node: P.Aggregate):
         """Ungrouped aggregation: every page folds into one accumulator per
@@ -1059,12 +1230,7 @@ class LocalExecutor:
         envelope of wide decimal sums.  The one-row result stays on the
         device."""
         stream = self._compile_stream(node.child)
-        acc_specs, acc_exprs, acc_kinds = [], [], []
-        for spec in node.aggs:
-            for kind, dtype, init in _accumulators_for(spec):
-                acc_specs.append((dtype, init))
-                acc_exprs.append(_acc_input_expr(spec))
-                acc_kinds.append(kind)
+        acc_specs, acc_exprs, acc_kinds = self._agg_accumulators(node)
         state = _global_init_state(acc_specs, self.device)
         for page in stream.pages():
             cols, nulls, valid = stream.run(page)
@@ -1458,8 +1624,9 @@ class LocalExecutor:
             # probe cost scales with lanes: do not drag dead rows through the probe
             probe_stream = self._compacted_stream(probe_stream)
         # memory gate: build columns (+ compaction copies) and the 4x-pow2 table.
-        # Shapes the reference would Grace-partition raise; the others proceed
-        # unreserved, as the reference's do.  A build in the buffer pool is
+        # A build that does not fit Grace-partitions where the join's kind
+        # allows (inner, left, semi on keys, no residual filter); the others
+        # proceed unreserved, as the reference's do.  A build in the buffer pool is
         # held by the pool's reservation: a checked-out one reserves nothing
         # here (it fit when it was built), and a fresh one gives its
         # reservation back once the pool took it (_join_with_build), so no
@@ -1468,13 +1635,16 @@ class LocalExecutor:
         if cached is None:
             need = _page_bytes(build_page) * 2 \
                 + 12 * 4 * ceil_pow2(max(build_page.capacity, 16))
-            if self.memory_pool.try_reserve(need):
+            if self.memory_pool.try_reserve(need, "join-build"):
                 self._reserved.append(need)
                 reserved = need
             elif node.kind in ("inner", "left", "semi") and node.left_keys \
                     and node.filter is None:
-                raise _not_ported("Grace-partitioned join (build side does not fit "
-                                  "the memory pool)")
+                parts, free = 2, max(self.memory_pool.free_bytes(), 1)
+                while need // parts > free // 2 and parts < 64:
+                    parts *= 2
+                return self._compile_partitioned_local_join(
+                    node, build_page, build_dicts, probe_stream, build_key_types, parts)
         return self._join_with_build(node, build_page, build_dicts, probe_stream,
                                      build_key_types, bkey, cached, reserved)
 
@@ -1504,7 +1674,7 @@ class LocalExecutor:
                     "span": span, "table": table, "multi": mt},
                     self._pool_epoch, node.right) and reserved:
                 self._reserved.remove(reserved)
-                self.memory_pool.free(reserved)
+                self.memory_pool.free(reserved, "join-build")
         if table is None:
             # an empty build, duplicate build keys or a residual filter
             return self._compile_multi_join(node, mt, build_dicts, probe_stream,
@@ -1541,6 +1711,69 @@ class LocalExecutor:
         return _Stream(node.schema, _join_dicts(node, probe_stream, build_dicts),
                        probe_stream.pages, transform, si,
                        aux=(probe_stream.aux, table), compacted=probe_stream.compacted)
+
+    def _compile_partitioned_local_join(self, node: P.Join, build_page, build_dicts,
+                                        probe_stream, build_key_types,
+                                        parts: int) -> _Stream:
+        """Grace-partitioned join over the tiered spill (``exec/spill.py``):
+        both sides route by the hash of the join keys, the build page at
+        once (its device columns free once the caller lets go) and the probe in one
+        transformed pass per execution, then each partition joins on its
+        own.  A probe row lands in exactly one partition, so inner, left and
+        semi joins hold partition by partition (reference:
+        PartitionedConsumption.java over FileSingleStreamSpiller).
+
+        The build spill keeps its host chunks out of the executor's pool, as
+        the reference's does (a reservation there must mean live per-query
+        state), and honours the host watermark.  The reference keeps it with
+        the compiled stream across executions; the port compiles no stream,
+        so it closes with the query (``close_producers``)."""
+        from ..ops.exchange import partition_ids
+        from .spill import SpilledPartitions
+
+        def route(cols, nulls, keys):
+            # NULL key lanes canonical: they never match, and land in one part
+            return partition_ids(tuple(
+                cols[i] if nulls[i] is None
+                else torch.where(nulls[i], torch.zeros_like(cols[i]), cols[i])
+                for i in keys), parts)
+
+        build_spill = SpilledPartitions(build_page.schema, parts, self, tag="spill-build")
+        build_spill.add_page(build_page.columns, build_page.null_masks,
+                             build_page.valid_mask(),
+                             route(build_page.columns, build_page.null_masks,
+                                   node.right_keys))
+
+        def pages(self=self, node=node):
+            probe_spill = SpilledPartitions(probe_stream.schema, parts, self,
+                                            memory_pool=self.memory_pool,
+                                            buffer_pool=self.buffer_pool)
+            try:
+                for page in probe_stream.pages():
+                    cols, nulls, valid = probe_stream.run(page)
+                    probe_spill.add_page(cols, nulls, valid,
+                                         route(cols, nulls, node.left_keys))
+                st = self._node_stats(node)
+                st["spilled_bytes"] = build_spill.spilled_bytes + probe_spill.spilled_bytes
+                st["spill_partitions"] = parts
+                st["spill_tiers"] = {t: build_spill.tier_bytes[t] + probe_spill.tier_bytes[t]
+                                     for t in probe_spill.tier_bytes}
+                for p in range(parts):
+                    src = functools.partial(probe_spill.partition_pages, p)
+                    if probe_spill.needs_staging(p):
+                        src = _prefetched_pages(src, to_device=True, owner=self)
+                    sub_stream = _Stream(probe_stream.schema, probe_stream.dicts, src,
+                                         _identity)
+                    sub = self._join_with_build(node, build_spill.partition_page(p),
+                                                build_dicts, sub_stream, build_key_types)
+                    for page in sub.pages():
+                        yield Page(node.schema, *sub.run(page))
+                    probe_spill.release_partition(p)
+            finally:
+                probe_spill.close()
+
+        return _Stream(node.schema, _join_dicts(node, probe_stream, build_dicts), pages,
+                       _identity)
 
     def _multi_join_table(self, node: P.Join, build_page, build_key_types, span):
         """The multi-match layout of a build: rows grouped by slot, direct or
@@ -2536,6 +2769,202 @@ def _null_aware_anti(node, anti_valid, nulls, build_has_null, build_nonempty):
             if nulls[i] is not None:
                 anti_valid = anti_valid & ~nulls[i]
     return anti_valid
+
+
+# how per-segment partial accumulators merge (streaming aggregation): a
+# partial count adds, the two limbs of an exact decimal sum add as they are
+_MERGE_KIND = {"sum": "sum", "count": "sum", "count_star": "sum",
+               "min": "min", "max": "max", "sum_sq": "sum",
+               "sum_hi32": "sum", "sum_lo32": "sum"}
+
+
+def _segment_partials(node, cols, nulls, valid, acc_exprs, acc_specs, acc_kinds):
+    """One page of clustered input reduced per key segment: the live rows
+    pack to the front in order (the compaction kernel), a row whose key
+    (value or null flag) differs from the previous live row starts a
+    segment, and each accumulator reduces per segment.  -> (keys, key null
+    flags, per-row totals of the row's segment, segment-start mask)."""
+    n = valid.shape[0]
+    vn_raw = []
+    for e in acc_exprs:
+        if e is None:
+            vn_raw.append(None)
+            continue
+        v, nu = evaluate(e, cols, nulls)
+        v = v.expand(valid.shape) if v.ndim == 0 else v
+        if nu is not None and nu.ndim == 0:
+            nu = nu.expand(valid.shape)
+        vn_raw.append((v, nu))
+    to_pack = [cols[ch] for ch in node.keys] + [nulls[ch] for ch in node.keys] \
+        + [a for vn in vn_raw if vn is not None for a in vn]
+    packed, count = compact_rows(tuple(to_pack), valid, n)
+    live = torch.arange(n, device=valid.device) < count
+    it = iter(packed)
+    kcols = [next(it) for _ in node.keys]
+    knulls = [kn if kn is not None else torch.zeros((n,), dtype=torch.bool,
+                                                     device=valid.device)
+              for kn in (next(it) for _ in node.keys)]
+    new = torch.zeros((n,), dtype=torch.bool, device=valid.device)
+    if n:
+        new[0] = True
+    for k, kn in zip(kcols, knulls):
+        kv = torch.where(kn, torch.zeros((), dtype=k.dtype, device=k.device), k)
+        new[1:] |= (kv[1:] != kv[:-1]) | (kn[1:] != kn[:-1])
+    new &= live
+    seg = torch.clamp(torch.cumsum(new, 0) - 1, 0, max(n - 1, 0)).to(torch.int32)
+    accs = []
+    for vn_r, (dt, init), kind in zip(vn_raw, acc_specs, acc_kinds):
+        vn = None if vn_r is None else (next(it), next(it))
+        acc0 = torch.full((n + 1,), init, dtype=torch_dtype(dt), device=valid.device)
+        accs.append(hashagg.agg_update(acc0, kind, seg, live, vn)[seg])
+    return tuple(kcols), tuple(knulls), tuple(accs), new
+
+
+def _concat_pages(schema, pages, host) -> Page:
+    """The partitions' finalized pages as one page, every row live: device
+    columns concatenate on the device; where a partition's finalize left a
+    column on the host (an exact wide-decimal sum), every page comes to the
+    host in one counted read (``host``) and concatenates there."""
+    w = len(schema.fields)
+    if not pages:
+        return Page(schema, tuple(np.empty((0,), np.dtype(f.type.dtype))
+                                  for f in schema.fields), (None,) * w, None)
+    if all(isinstance(c, torch.Tensor) for pg in pages for c in pg.columns):
+        cols = tuple(torch.cat([pg.columns[i] for pg in pages]) for i in range(w))
+        nulls = []
+        for i in range(w):
+            if all(pg.null_masks[i] is None for pg in pages):
+                nulls.append(None)
+            else:
+                nulls.append(torch.cat([
+                    pg.null_masks[i] if pg.null_masks[i] is not None
+                    else torch.zeros((pg.columns[i].shape[0],), dtype=torch.bool,
+                                     device=pg.columns[i].device)
+                    for pg in pages]))
+        return Page(schema, cols, tuple(nulls), None)
+    flat = host([a for pg in pages for a in tuple(pg.columns) + tuple(pg.null_masks)],
+                site="agg.partition.pull")
+    hp = [(flat[k * 2 * w:k * 2 * w + w], flat[k * 2 * w + w:(k + 1) * 2 * w])
+          for k in range(len(pages))]
+    from .spill import concat_host_chunks
+
+    cols, nulls = concat_host_chunks(schema, hp)
+    return Page(schema, tuple(cols), tuple(nulls), None)
+
+
+def _prefetched_pages(pages_fn, depth: int = 2, to_device: bool = False, owner=None):
+    """``pages_fn`` with its pages made up to ``depth`` ahead on a producer
+    thread; ``to_device`` also stages each page's host (numpy) arrays to
+    ``owner``'s device there, so the copy overlaps the consumer's work.
+    Exceptions re-raise at the consumer.  The producer carries the
+    consumer's counter set and query id, so what it records (fault
+    firings) charges the query; the H2D bytes it staged are counted by the
+    consumer.  ``owner`` (the executor) registers the producer's stop flag
+    and thread so ``close_producers`` stops it on every exit path, and the
+    producer stops when the consumer is closed.
+
+    On a CUDA device the copies run on a side stream from pinned buffers;
+    the consumer's stream waits on an event recorded after them, and each
+    staged tensor is marked as used by the consumer's stream so the caching
+    allocator does not hand its memory out while the consumer's kernels
+    may still read it."""
+    import queue as _queue
+
+    device = owner.device if owner is not None else torch.device("cpu")
+    cuda = to_device and device.type == "cuda"
+
+    def pages():
+        it = pages_fn()
+        q: _queue.Queue = _queue.Queue(maxsize=depth)
+        done = object()
+        closed = threading.Event()
+        counters = tracing.current_counters()
+        qid = tracing.current_query_id()
+        side = torch.cuda.Stream(device=device) if cuda else None
+
+        def producer():
+            def put(item) -> bool:
+                while not closed.is_set():
+                    try:
+                        q.put(item, timeout=0.1)
+                        return True
+                    except _queue.Full:
+                        continue
+                return False
+
+            with contextlib.ExitStack() as scopes:
+                if counters is not None:
+                    scopes.enter_context(tracing.track_counters(counters))
+                if qid is not None:
+                    scopes.enter_context(tracing.query_scope(qid))
+                if side is not None:
+                    scopes.enter_context(torch.cuda.stream(side))
+                try:
+                    for p in it:
+                        item = _page_to_device(p, device, side) if to_device \
+                            else (p, 0, None)
+                        if not put(item):
+                            return
+                    put(done)
+                except BaseException as e:  # noqa: BLE001 - surfaces in the consumer
+                    put(e)
+                finally:
+                    close = getattr(it, "close", None)
+                    if close is not None:
+                        close()
+
+        t = threading.Thread(target=producer, daemon=True, name="prefetch-producer")
+        if owner is not None:
+            owner._producers.append((closed, t))
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                page, nbytes, event = item
+                if event is not None:
+                    cur = torch.cuda.current_stream(device)
+                    cur.wait_event(event)
+                    for a in tuple(page.columns) + tuple(page.null_masks) + (page.valid,):
+                        if isinstance(a, torch.Tensor):
+                            a.record_stream(cur)
+                if nbytes and owner is not None:
+                    owner._count_h2d(nbytes)
+                yield page
+        finally:
+            closed.set()
+
+    return pages
+
+
+def _page_to_device(page: Page, device, side):
+    """(page on ``device``, bytes staged, event or None): every numpy array
+    of ``page`` copied to the device (object columns stay on the host).  On
+    a CUDA ``side`` stream the copies are asynchronous from pinned memory
+    and an event recorded after them comes back with the page."""
+    nbytes = 0
+
+    def up(a):
+        nonlocal nbytes
+        if isinstance(a, np.ndarray) and a.dtype != object:
+            nbytes += a.nbytes
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if side is not None:
+                return t.pin_memory().to(device, non_blocking=True)
+            return t.to(device)
+        return a
+
+    out = Page(page.schema, tuple(up(c) for c in page.columns),
+               tuple(None if m is None else up(m) for m in page.null_masks),
+               None if page.valid is None else up(page.valid))
+    event = None
+    if side is not None:
+        event = torch.cuda.Event()
+        event.record(side)
+    return out, nbytes, event
 
 
 def _live_rows(page: Page):

@@ -43,10 +43,14 @@ Budgets, each read at first use, never at import:
 The ``page_cache`` and ``result_cache`` session properties opt single
 queries out of (or back into) a configured pool.
 
+The tiered spill's first tier (``exec/spill.py``) claims device memory
+from the page and build budget (``reserve_spill`` / ``release_spill``, under
+the ``spill`` tag): page and build entries evict, oldest first, to make
+room, since the cache gives way to live query state; a spill chunk never
+takes the pool past its budget (it overflows to the host tier instead).
+
 The reference's fault-injection sites (``cache_checkout``, ``cache_store``)
-come with ``execution/faults.py`` (ROADMAP A6), which is not ported; so do
-its device-resident spill reservations (``reserve_spill`` /
-``release_spill``, ROADMAP A3).
+are wired with the rest of ``execution/faults.py`` (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -165,6 +169,7 @@ class DeviceBufferPool:
     PAGE_TAG = "page-cache"
     BUILD_TAG = "build-cache"
     RESULT_TAG = "result-cache"
+    SPILL_TAG = "spill"
 
     def __init__(self, budget_bytes: Optional[int] = None,
                  result_budget_bytes: Optional[int] = None, device="cpu"):
@@ -362,7 +367,7 @@ class DeviceBufferPool:
             if entry.nbytes > pool.max_bytes:
                 return False  # can never fit: evict nothing for it
             if entry.kind in ("page", "build"):
-                while self._device_bytes + entry.nbytes > self.budget():
+                while self._device_usage() + entry.nbytes > self.budget():
                     if not self._evict_oldest(("page", "build")):
                         return False
             while not pool.try_reserve(entry.nbytes, tag):
@@ -375,6 +380,14 @@ class DeviceBufferPool:
             else:
                 self._device_bytes += entry.nbytes
             return True
+
+    def _device_usage(self) -> int:
+        """Caller holds the lock: resident page and build bytes plus the live
+        device spill reservations, what the page and build budget bounds."""
+        spill = 0
+        if self.memory_pool is not None:
+            spill = self.memory_pool.info()["by_tag"].get(self.SPILL_TAG, 0)
+        return self._device_bytes + spill
 
     def _forget(self, e: _Entry) -> None:
         """Caller holds the lock: a removed entry's bytes and reservation."""
@@ -401,6 +414,31 @@ class DeviceBufferPool:
         _key, e = self._entries.popitem(last=False)
         self.evictions += 1
         self._forget(e)
+
+    # -- the spill's device tier ------------------------------------------------
+    def reserve_spill(self, nbytes: int) -> bool:
+        """Claim device memory for one spill chunk: page and build entries
+        evict, oldest first, to make room; False when the chunk cannot fit
+        the page and build budget (the spill overflows to the host)."""
+        if not self.enabled or nbytes <= 0:
+            return False
+        pool = self._pool()
+        with self._lock:
+            if nbytes > self.budget():
+                return False
+            while self._device_usage() + nbytes > self.budget():
+                if not self._evict_oldest(("page", "build")):
+                    return False
+            while not pool.try_reserve(nbytes, self.SPILL_TAG):
+                if not self._entries:
+                    return False
+                self._evict_lru()
+            return True
+
+    def release_spill(self, nbytes: int) -> None:
+        """Return a spill reservation (the spill closed)."""
+        if nbytes and self.memory_pool is not None:
+            self.memory_pool.free(nbytes, self.SPILL_TAG)
 
     def evict_bytes(self, nbytes: int) -> int:
         """Evict entries, oldest first, until ``nbytes`` are freed or the

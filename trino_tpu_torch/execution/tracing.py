@@ -167,10 +167,12 @@ class QueryCounters:
     # set recorded, and their seconds.  A warm statement records none
     compiles: int = 0
     compile_s: float = 0.0
-    # the reference's chaos, spill-ladder and admission counters, read by
-    # the flight record (pressure_rung) and system.runtime.query_log.  The
-    # services that feed them (fault injection, exec/spill, the admission
-    # gate, the distributed path's shard_stats) are not ported: they stay 0
+    # the chaos, spill-ladder and admission counters, read by the flight
+    # record (pressure_rung) and system.runtime.query_log: fault firings
+    # (record_fault), bytes spilled per tier (record_spill), a statement
+    # deferred at the admission gate (stamped by the engine).  task_retries
+    # and shard_stats are fed by the retry and distributed paths, which are
+    # not ported: they stay 0
     faults_injected: int = 0
     task_retries: int = 0
     spilled_bytes: int = 0
@@ -238,6 +240,11 @@ class QueryCounters:
 
 
 _counter_local = threading.local()
+
+
+def current_counters() -> Optional[QueryCounters]:
+    """The counter set recording on this thread (None outside one)."""
+    return getattr(_counter_local, "counters", None)
 
 # qid -> [QueryCounters...] currently recording (counters-so-far of running
 # statements), for system.queries
@@ -360,6 +367,28 @@ def record_result_cache(hits: int = 0, misses: int = 0, bytes_saved: int = 0) ->
         c.result_cache_hits += hits
         c.result_cache_misses += misses
         c.result_cache_bytes_saved += bytes_saved
+
+
+def record_fault(site: Optional[str] = None) -> None:
+    """One fault-injector firing (execution/faults), attributed like the
+    cache events so EXPLAIN ANALYZE's site table names where it landed."""
+    c = getattr(_counter_local, "counters", None)
+    if c is not None:
+        c.faults_injected += 1
+    _attribute_extra(site, faults_injected=1)
+
+
+def record_spill(tier: str, nbytes: int, site: Optional[str] = None) -> None:
+    """One tiered-spill chunk admission (exec/spill): ``nbytes`` landed in
+    ``tier`` (one of SPILL_TIERS), attributed to the operator that spilled.
+    The admission gate's deferral has no helper: it happens before the
+    statement's counters exist, so the engine stamps it on them."""
+    c = getattr(_counter_local, "counters", None)
+    if c is not None:
+        c.spilled_bytes += nbytes
+        field = f"spill_tier_{tier}"
+        setattr(c, field, getattr(c, field) + nbytes)
+    _attribute_extra(site or f"spill.{tier}", spilled_bytes=nbytes)
 
 
 def live_query_counters() -> dict:

@@ -1,10 +1,17 @@
-"""Device memory pool (counterpart of ``trino_tpu/memory.py``).
+"""Device memory pool and memory contexts (counterpart of
+``trino_tpu/memory.py``).
 
 Operators reserve before they allocate device state (group-by tables, join
-builds) and learn from a refusal that the state would not fit.  On the card
-the pool is sized from ``torch.cuda.mem_get_info``, or by ``max_bytes``.
-Reservations may carry a tag (the buffer pool's ``page-cache``,
-``build-cache`` and ``result-cache``), summed per tag in ``info()``.
+builds) and learn from a refusal that the state would not fit: they switch
+to their Grace-partitioned strategy, whose buffers walk the tiered spill
+(``exec/spill.py``: device, host RAM under this pool's ``spill`` tag, disk).
+On the card the pool is sized from ``torch.cuda.mem_get_info``, or by
+``max_bytes``.  Reservations may carry a tag (the buffer pool's
+``page-cache``, ``build-cache``, ``result-cache`` and ``spill``; the
+executor's ``group-by``, ``join-build`` and ``spill``), summed per tag in
+``info()["by_tag"]``.  ``blocked(fraction)`` is the one definition of a
+pressured pool that the engine's admission gate reads
+(``execution/memory_killer.BLOCKED_FRACTION``).
 
 Per-query limit (``query_max_memory``), as in the reference: the engine
 calls ``begin_query(limit)`` before each plan execution, and a reservation
@@ -15,6 +22,10 @@ runs one query on it at a time; the port's engine shares one pool between
 the statements that run at once on the server's threads, and a statement
 runs on one thread, so ``query_limit`` and ``query_reserved`` are kept per
 thread.
+
+Not ported yet: the cluster killer's surfaces (``query_scope``,
+``kill_query``, ``check_killed``, ``by_query``, ``QueryKilledError``), which
+come with the cluster (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -24,7 +35,12 @@ from typing import Optional
 
 import torch
 
-__all__ = ["MemoryPool", "QueryMemoryLimitError", "device_memory_budget"]
+__all__ = ["AggregatedMemoryContext", "LocalMemoryContext", "MemoryPool",
+           "MemoryPoolExhaustedError", "QueryMemoryLimitError", "device_memory_budget"]
+
+
+class MemoryPoolExhaustedError(MemoryError):
+    pass
 
 
 class QueryMemoryLimitError(MemoryError):
@@ -83,12 +99,27 @@ class MemoryPool:
         self._query.reserved = held + nbytes
         return True
 
+    def reserve(self, nbytes: int, tag: str = "") -> None:
+        if not self.try_reserve(nbytes, tag):
+            raise MemoryPoolExhaustedError(
+                f"memory pool exhausted: requested {nbytes} bytes, "
+                f"{self.max_bytes - self.reserved} free of {self.max_bytes}")
+
     def free(self, nbytes: int, tag: str = "") -> None:
         with self._lock:
             self.reserved = max(self.reserved - nbytes, 0)
             if tag and tag in self._by_tag:
                 self._by_tag[tag] = max(self._by_tag[tag] - nbytes, 0)
         self._query.reserved = max(self.query_reserved - nbytes, 0)
+
+    def free_bytes(self) -> int:
+        with self._lock:
+            return self.max_bytes - self.reserved
+
+    def blocked(self, fraction: float) -> bool:
+        """Is this pool past ``fraction`` of its capacity?"""
+        with self._lock:
+            return bool(self.max_bytes) and self.reserved > fraction * self.max_bytes
 
     def info(self) -> dict:
         """Snapshot dict: what /v1/status and /v1/metrics serve
@@ -98,3 +129,81 @@ class MemoryPool:
                     "free": self.max_bytes - self.reserved,
                     "query_reserved": self.query_reserved,
                     "by_tag": dict(self._by_tag)}
+
+
+class AggregatedMemoryContext:
+    """Parent context summing its children; the root feeds a MemoryPool."""
+
+    def __init__(self, pool: Optional[MemoryPool] = None,
+                 parent: Optional["AggregatedMemoryContext"] = None, tag: str = ""):
+        self.pool = pool
+        self.parent = parent
+        self.tag = tag
+        self.bytes = 0
+        self._lock = threading.Lock()
+
+    def new_child(self, tag: str = "") -> "AggregatedMemoryContext":
+        return AggregatedMemoryContext(parent=self, tag=tag or self.tag)
+
+    def new_local(self, tag: str = "") -> "LocalMemoryContext":
+        return LocalMemoryContext(self, tag or self.tag)
+
+    def _root(self) -> "AggregatedMemoryContext":
+        root = self
+        while root.parent is not None:
+            root = root.parent
+        return root
+
+    def _add(self, delta: int) -> None:
+        node = self
+        while node is not None:
+            with node._lock:
+                node.bytes += delta
+            node = node.parent
+
+    def _update(self, delta: int) -> None:
+        """Add ``delta`` up the chain; the root reserves or frees it in the
+        pool under the root's tag, raising when the pool refuses."""
+        with self._lock:
+            self.bytes += delta
+        if self.parent is not None:
+            self.parent._update(delta)
+        elif self.pool is not None:
+            if delta > 0:
+                self.pool.reserve(delta, self.tag)
+            elif delta < 0:
+                self.pool.free(-delta, self.tag)
+
+    def try_update(self, delta: int) -> bool:
+        """Reserve without raising, under this context's tag: False when the
+        pool refuses."""
+        pool = self._root().pool
+        if delta > 0 and pool is not None and not pool.try_reserve(delta, self.tag):
+            return False
+        self._add(delta)
+        if delta < 0 and pool is not None:
+            pool.free(-delta, self.tag)
+        return True
+
+
+class LocalMemoryContext:
+    """Leaf context with set-bytes semantics."""
+
+    def __init__(self, parent: AggregatedMemoryContext, tag: str = ""):
+        self.parent = parent
+        self.tag = tag
+        self.bytes = 0
+
+    def set_bytes(self, nbytes: int) -> None:
+        delta = nbytes - self.bytes
+        self.parent._update(delta)
+        self.bytes = nbytes
+
+    def try_set_bytes(self, nbytes: int) -> bool:
+        if self.parent.try_update(nbytes - self.bytes):
+            self.bytes = nbytes
+            return True
+        return False
+
+    def close(self) -> None:
+        self.set_bytes(0)

@@ -626,7 +626,8 @@ class CoordinatorServer:
         """Prometheus text exposition with # HELP / # TYPE metadata (the
         format openmetrics-strict scrapers require; reference:
         JmxOpenMetricsModule): query states, the device-boundary counters,
-        the plan templates and the template batcher, the launch-latency
+        the plan templates and the template batcher, the spill per tier and
+        the admission gate's deferrals, the launch-latency
         histogram, the memory pool and the resource groups, under the
         reference's family names."""
         esc = self._escape_label
@@ -684,6 +685,23 @@ class CoordinatorServer:
                 "creations (first sight of a parameterized statement shape).",
                 "# TYPE trino_tpu_plan_template_misses_total counter",
                 f"trino_tpu_plan_template_misses_total {ct.plan_template_misses}",
+                # the memory ladder: bytes the tiered spill routed out of
+                # operator state, per tier, and statements deferred at the
+                # admission gate
+                "# HELP trino_tpu_spilled_bytes_total Bytes spilled by "
+                "Grace-partitioned operators, by destination tier.",
+                "# TYPE trino_tpu_spilled_bytes_total counter",
+            ]
+            from ..execution.tracing import SPILL_TIERS
+
+            for tier in SPILL_TIERS:
+                lines.append(f'trino_tpu_spilled_bytes_total{{tier="{tier}"}} '
+                             f'{getattr(ct, f"spill_tier_{tier}")}')
+            lines += [
+                "# HELP trino_tpu_admission_queued_total Queries deferred "
+                "at admission under memory pressure.",
+                "# TYPE trino_tpu_admission_queued_total counter",
+                f"trino_tpu_admission_queued_total {ct.admission_queued}",
             ]
             # the template batcher: fused same-template windows, the requests
             # they served, and the fused batch sizes
