@@ -17,7 +17,12 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    ``REQUIRED`` names (the kernels the JAX reference's SF1 path reaches), and
    every kernel but ``fused_segment_agg`` (which has no caller in the engine,
    as in the reference) must launch.  Each result is held against the same
-   query run by the port on the CPU.
+   query run by the port on the CPU: that CPU pass runs in a child process
+   (``CpuPass``, ``cpu_pass_child``: spawned at the top of ``main`` before
+   the card is touched, half the host's cores for its torch threads), and
+   its 22 card-vs-CPU checks are made when it is joined, just before phase
+   14, which reads its per-node records; a child that fails, runs past
+   ``CPU_PASS_TIMEOUT_S`` of waiting or returns nothing fails the run.
 3. Each kernel against its plain PyTorch version on the card: insert, probe
    and compaction at the largest and the most frequent shape they launched
    at in phase 2, compaction also at its most selective shape with rows
@@ -264,7 +269,34 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    most frequent shapes.  Per step: the wall, peak device memory, bytes and
    host seconds per tier (write and readback GB/s) and the forced wall over
    the unconstrained one.  ``by_path`` gains ``spill_sf1``: the launches of
-   the forced runs.  Every phase prints its seconds on a line of its own.
+   the forced runs.
+17. The fault injector at the port's local chokepoints and the chaos matrix
+   (``chaos_path``; the advisor off).  (a) ``chaos_matrix.SCENARIOS`` (cache
+   checkout deny, cache store error, reservation deny, dispatch delay,
+   dispatch error, generation error, fatal host read, H2D error) x
+   ``chaos_matrix.QUERIES`` (q1, q3, q9, q18) at SF1 on one engine with the
+   reference fixture's 6 GiB page tier (``CHAOS_PAGE_TIER``; a ``page_cache
+   = false`` session for the generation and H2D classes): each scenario
+   fires at least once; a recoverable one is byte-identical to the query's
+   fault-free baseline on the engine, an unrecoverable one raises
+   ``InjectedFaultError`` or ``FatalInjectedFaultError``; the leak check is
+   clean and a fault-free rerun equals the baseline after each; per run the
+   fires, wall and error type.  (b) ``RESULT_SCENARIOS`` over q1 and q3 on a
+   result-enabled engine through ``run_result_scenario``.  (c) Faults that
+   land on the spill readback's producer thread (``producer_faults``:
+   ``spill_read`` and ``h2d``) on phase 16a's setup, the host tier forced
+   and then the disk tier: each statement fails typed with
+   ``faults_injected`` 1 charged to it, and no producer thread outlives
+   it.  (d) An errored statement's flight record after a ``fatal`` at
+   ``dispatch``, the ``/v1/metrics`` fault and retry series, EXPLAIN
+   ANALYZE's ``N faults injected``.  (e) bench.py's five on an engine
+   configured as phase 2's, the injector disarmed: launches, host reads and
+   H2D bytes per query equal phase 2's; the host time of a disarmed
+   ``maybe_inject`` call beside phase 3's wrapper host times.  (f)
+   ``hash_insert_``, ``hash_probe`` and ``compact_rows`` against their plain
+   versions at the phase's largest and most frequent shapes.  ``by_path``
+   gains ``chaos_sf1``: the launches of 17a-17c.  Every phase prints its
+   seconds on a line of its own.
 
 It prints the card line, then one JSON line with every kernel's numbers, and
 last ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -5749,17 +5781,14 @@ def unconstrained(engine, plan):
 
 
 @contextlib.contextmanager
-def spill_env(spill_dir, host_bytes=None):
-    """TRINO_TPU_SPILL_DIR and TRINO_TPU_SPILL_HOST_BYTES for a forced run;
-    ``spill_dir`` must be empty after it."""
-    prev = {k: os.environ.get(k) for k in ("TRINO_TPU_SPILL_DIR",
-                                           "TRINO_TPU_SPILL_HOST_BYTES")}
-    os.makedirs(spill_dir, exist_ok=True)
-    os.environ["TRINO_TPU_SPILL_DIR"] = spill_dir
-    if host_bytes is None:
-        os.environ.pop("TRINO_TPU_SPILL_HOST_BYTES", None)
-    else:
-        os.environ["TRINO_TPU_SPILL_HOST_BYTES"] = str(host_bytes)
+def env_vars(**values):
+    """Set (a string) or unset (None) environment variables for a block."""
+    prev = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     try:
         yield
     finally:
@@ -5768,6 +5797,16 @@ def spill_env(spill_dir, host_bytes=None):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+@contextlib.contextmanager
+def spill_env(spill_dir, host_bytes=None):
+    """TRINO_TPU_SPILL_DIR and TRINO_TPU_SPILL_HOST_BYTES for a forced run;
+    ``spill_dir`` must be empty after it."""
+    os.makedirs(spill_dir, exist_ok=True)
+    with env_vars(TRINO_TPU_SPILL_DIR=spill_dir,
+                  TRINO_TPU_SPILL_HOST_BYTES=None if host_bytes is None else str(host_bytes)):
+        yield
     check(not os.listdir(spill_dir), f"spill files survived the query: {os.listdir(spill_dir)}")
 
 
@@ -6060,6 +6099,420 @@ def spill_path(phase2):
                            for k, r in checks.items()}
 
 
+# -- phase 17: the fault injector at the local chokepoints and the chaos matrix --
+CHAOS_PAGE_TIER = 6 << 30  # the page tier of the reference's chaos fixture (tests/test_chaos.py)
+CHAOS_RESULT_TIER = 256 << 20  # 17b's result tier
+CHAOS_RESULT_QUERIES = ("q1", "q3")
+CHAOS_DISARMED_CALLS = 1_000_000  # 17e: timed disarmed maybe_inject calls
+CPU_PASS_TIMEOUT_S = 600.0  # the most the join of phase 2's CPU pass may wait
+
+
+def timed_sync(fn):
+    """(fn(), seconds), synchronised on both ends."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def chaos_local(engine, own):
+    """17a: the eight ``SCENARIOS`` x ``QUERIES`` on one engine with the
+    reference fixture's page tier.  A ``recover`` run is byte-identical to
+    the query's fault-free baseline on the engine, a ``fail`` one raises
+    the typed error; each fires at least once, the leak check is
+    clean after each, and a fault-free rerun equals the baseline."""
+    from trino_tpu_torch.execution import chaos_matrix as cm
+    from trino_tpu_torch.execution import faults
+    from trino_tpu_torch.execution.faults import InjectedFaultError
+
+    session = engine.create_session("tpch")
+    nocache = engine.create_session("tpch")
+    engine.session_properties.set_property(nocache, "page_cache", False)
+    out = {}
+    for q, sql in cm.QUERIES.items():
+        with own.region():
+            engine.execute_sql(sql, session)  # cold: plans, fills the page tier
+            base, base_s = timed_sync(lambda: cm.result_signature(
+                engine.execute_sql(sql, session)))
+        out[q] = {"baseline_s": base_s}
+        print(f"chaos 17a {q}: fault-free warm wall_s={base_s:.4f}", flush=True)
+        for name, spec, kind, clear_pool, cache_on in cm.SCENARIOS:
+            if clear_pool:
+                engine.buffer_pool.clear()  # the run regenerates and stores
+            sess = session if cache_on else nocache
+            with own.region(), faults.injected(spec) as plan:
+                def run():
+                    try:
+                        return cm.result_signature(engine.execute_sql(sql, sess)), None
+                    except InjectedFaultError as e:
+                        return None, e
+                (got, err), wall = timed_sync(run)
+            fires = plan.total_fires()
+            what = f"chaos 17a {q} {name}"
+            check(fires >= 1, f"{what}: never fired: {plan.stats()}")
+            if kind == "recover":
+                check(err is None, f"{what}: a recoverable fault raised {err!r}")
+                check(got == base, f"{what}: the result differs from the fault-free baseline")
+            else:
+                check(err is not None, f"{what}: no typed error was raised")
+            leaks = cm.leak_report(engine)
+            check(not leaks, f"{what}: leak check {leaks}")
+            with own.region():
+                again = cm.result_signature(engine.execute_sql(sql, session))
+            check(again == base, f"{what}: the fault-free rerun differs from the baseline")
+            out[q][name] = {"kind": kind, "fires": fires, "wall_s": wall,
+                            "error_type": None if err is None else type(err).__name__}
+            print(f"chaos 17a {q} {name} ({kind}): fires={fires} wall_s={wall:.4f} "
+                  f"error={out[q][name]['error_type']}", flush=True)
+    return out
+
+
+def chaos_results(conn, own):
+    """17b: ``RESULT_SCENARIOS`` on a result-enabled engine over q1 and q3,
+    through ``run_result_scenario``."""
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.execution import chaos_matrix as cm
+
+    with env_vars(TRINO_TPU_PAGE_CACHE="0", TRINO_TPU_RESULT_CACHE=str(CHAOS_RESULT_TIER)):
+        engine = Engine(device=DEVICE)
+        engine.register_catalog("tpch", conn)
+        engine.buffer_pool.budget()  # both budgets are read at first use
+        engine.buffer_pool.result_budget()
+    s = engine.create_session("tpch")
+    out = {}
+    for q in CHAOS_RESULT_QUERIES:
+        sql = cm.QUERIES[q]
+        with own.region():
+            engine.execute_sql(sql, s)
+            base = cm.result_signature(engine.execute_sql(sql, s))
+        for name, spec, kind in cm.RESULT_SCENARIOS:
+            with own.region():
+                rec, wall = timed_sync(lambda: cm.run_result_scenario(
+                    engine, sql, s, base, name, spec, kind))
+            check(rec.get("ok"), f"chaos 17b {q} {name}: {rec}")
+            out[f"{q}/{name}"] = {"fires": rec["fires"], "wall_s": wall}
+            print(f"chaos 17b {q} {name}: fires={rec['fires']} wall_s={wall:.4f} "
+                  f"(byte-identical, no entry under a store fault, no leak)", flush=True)
+    engine._invalidate()
+    return out
+
+
+def chaos_producer(scratch, own):
+    """17c: faults that land on the spill readback's producer thread, on
+    phase 16a's setup (``PRESSURE_QUERY`` over SF1 orders in
+    ``SPILL_SPLIT_ROWS`` rows a split, the 512 KiB pool, the host tier and
+    then the disk tier forced): each statement fails typed with one firing
+    charged to it, and no producer thread outlives it."""
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.execution import chaos_matrix as cm
+    from trino_tpu_torch.sql.frontend import compile_sql
+
+    conn = TpchConnector(sf=SF_MAIN, split_rows=SPILL_SPLIT_ROWS)
+    engine = Engine(device=DEVICE)
+    engine.register_catalog("tpch", conn)
+    plan = compile_sql(cm.PRESSURE_QUERY, engine, engine.create_session("tpch"))
+    base_res, _, _ = unconstrained(engine, plan)
+    base = cm.result_signature(base_res)
+    out = {}
+    for name, cfg, spec in cm.producer_faults(len(conn.splits("orders"))):
+        d = os.path.join(scratch, f"chaos-{name}")
+        os.makedirs(d)
+        with own.region():
+            r, wall = timed_sync(lambda: cm.run_pressure_scenario(
+                engine, plan, base, name, cfg, spec, "fail", d))
+        what = f"chaos 17c {name} ({spec})"
+        check(r["ok"], f"{what}: {({k: v for k, v in r.items() if k != 'counters'})}")
+        check(r["error_type"] == "InjectedFaultError" and r["fires"] == 1
+              and r["counters"].faults_injected == 1,
+              f"{what}: error {r['error_type']} fires {r['fires']} faults_injected "
+              f"{r['counters'].faults_injected}")
+        left = cm.settle()
+        check(not left, f"{what}: a producer outlived the statement: {left}")
+        leaks = cm.leak_report(engine)
+        check(not leaks, f"{what}: leak check {leaks}")
+        out[name] = {"spec": spec, "wall_s": wall, "error_type": r["error_type"],
+                     "faults_injected": r["counters"].faults_injected}
+        print(f"chaos 17c {name}: {r['error_type']}, faults_injected="
+              f"{r['counters'].faults_injected}, no producer left, wall_s={wall:.4f}",
+              flush=True)
+    return out
+
+
+def chaos_observability(engine):
+    """17d: the errored flight record of a ``fatal`` at ``dispatch``, the
+    ``/v1/metrics`` fault and retry series, and EXPLAIN ANALYZE's clause."""
+    import re
+
+    from trino_tpu_torch.execution import chaos_matrix as cm
+    from trino_tpu_torch.execution import faults
+    from trino_tpu_torch.execution.faults import FatalInjectedFaultError
+    from trino_tpu_torch.server.server import CoordinatorServer
+
+    s = engine.create_session("tpch")
+    # warm: the page tier holds q1's scan again (17a's store scenarios
+    # cleared it), so the fault lands on the statement's own first dispatch
+    # and not on the page store's staging, whose guard keeps a store
+    # failure from failing a query, as the reference's does
+    engine.execute_sql(cm.QUERIES["q1"], s)
+    raised = None
+    with faults.injected("point=dispatch,action=fatal,nth=1") as plan:
+        try:
+            engine.execute_sql(cm.QUERIES["q1"], s)
+        except FatalInjectedFaultError as e:
+            raised = str(e)
+    check(raised is not None, f"chaos 17d: the fatal dispatch fault raised nothing: "
+          f"{plan.stats()}")
+    rec = engine.flight_recorder.snapshot(kind="query")[-1]
+    check(rec["state"] == "FAILED" and rec["error"] == raised
+          and "injected fatal at dispatch" in raised
+          and rec["counters"]["faults_injected"] == 1,
+          f"chaos 17d: record {rec['state']} error {rec['error']!r} faults "
+          f"{rec['counters'].get('faults_injected')}")
+    text = CoordinatorServer(engine)._metrics_text()
+    series = {}
+    for name in ("trino_tpu_faults_injected_total", "trino_tpu_task_retries_total"):
+        m = re.search(rf"^{name} (\d+)$", text, re.M)
+        check(m is not None and f"# TYPE {name} counter" in text,
+              f"chaos 17d: /v1/metrics has no {name} series")
+        series[name] = int(m.group(1))
+    check(series["trino_tpu_faults_injected_total"] > 0,
+          f"chaos 17d: the fault series reads {series}")
+    with faults.injected("point=dispatch,action=delay,s=0,every=1"):
+        r = engine.execute_sql(f"explain analyze {cm.QUERIES['q1']}", s)
+    n = engine.last_query_counters["faults_injected"]
+    text = "\n".join(str(row[0]) for row in r.rows())
+    check(n > 0 and f"{n} faults injected" in text,
+          f"chaos 17d: EXPLAIN ANALYZE names no faults ({n})")
+    print(f"chaos 17d: flight record FAILED {raised!r}; metrics {series}; EXPLAIN ANALYZE "
+          f"'{n} faults injected'", flush=True)
+    return {"record_error": raised, "metrics": series, "explain_faults": n}
+
+
+def wrapper_host_ms(kernels) -> dict:
+    """Phase 3's host time of one call of each wrapper, at its first
+    checked shape."""
+    out = {}
+    for r in kernels:
+        shapes = r.get("shapes") or []
+        split = shapes[0].get("split") if shapes else None
+        out[r["name"]] = None if not split else split.get("host_ms")
+    return out
+
+
+def chaos_disarmed(counts2, host_ms):
+    """17e: bench.py's five at SF1 on an engine configured as phase 2's
+    (the tiers and the advisor off, the injector disarmed): launches, host
+    reads and H2D bytes per query equal phase 2's; and the host time of a
+    disarmed ``maybe_inject`` call."""
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.execution import faults
+
+    check(faults.active() is None, "chaos 17e: the injector is armed")
+    with env_vars(TRINO_TPU_PAGE_CACHE="0", TRINO_TPU_RESULT_CACHE="0"):
+        engine = Engine(device=DEVICE)
+        engine.register_catalog("tpch", TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS))
+        engine.buffer_pool.budget()
+    out = {}
+    for q, sql in QUERIES.items():
+        before = launch_counts()
+        engine.execute_sql(sql, engine.create_session("tpch"))
+        c = engine.last_query_counters
+        got = {"launches": {k: v - before[k] for k, v in launch_counts().items()},
+               "host_reads": c["host_reads"], "h2d_bytes": c["h2d_bytes"]}
+        check(got == counts2[q], f"chaos 17e {q}: {got} against phase 2's {counts2[q]}")
+        out[q] = got
+        print(f"chaos 17e {q}: launches, host reads ({got['host_reads']}) and H2D bytes "
+              f"({got['h2d_bytes']}) equal phase 2's", flush=True)
+    del engine
+    mi = faults.maybe_inject
+
+    def noop(point, site=None):
+        return None
+
+    timed = {}
+    for label, fn in (("maybe_inject", mi), ("empty call", noop)):
+        t0 = time.perf_counter_ns()
+        for _ in range(CHAOS_DISARMED_CALLS):
+            fn("dispatch", "hash_insert")
+        timed[label] = (time.perf_counter_ns() - t0) / CHAOS_DISARMED_CALLS
+    print(f"chaos 17e: a disarmed maybe_inject call {timed['maybe_inject']:.1f} ns "
+          f"({timed['empty call']:.1f} ns for an empty call of the same arguments) over "
+          f"{CHAOS_DISARMED_CALLS} calls; phase 3's wrapper host ms per call {host_ms}",
+          flush=True)
+    return {"queries": out, "maybe_inject_ns": timed["maybe_inject"],
+            "empty_call_ns": timed["empty call"], "wrapper_host_ms": host_ms}
+
+
+def chaos_path(counts2, host_ms):
+    """Phase 17: the fault injector at the port's local chokepoints and the
+    chaos matrix on the card at SF1 (the advisor off).  Returns (the
+    record, launches of 17a-17c's statements, {kernel: checks at their
+    shapes})."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    t_phase = time.perf_counter()
+    own = OwnLaunches()
+    rec = {}
+    torch.cuda.empty_cache()
+    conn = TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS)
+    with env_vars(TRINO_TPU_ADAPTIVE="0", TRINO_TPU_RESULT_CACHE="0"):
+        with env_vars(TRINO_TPU_PAGE_CACHE=str(CHAOS_PAGE_TIER)):
+            engine = Engine(device=DEVICE)
+            engine.register_catalog("tpch", conn)
+            check(engine.buffer_pool.budget() == CHAOS_PAGE_TIER,
+                  "chaos: the page tier is not the fixture's")
+        t0 = time.perf_counter()
+        rec["local"] = chaos_local(engine, own)
+        rec["local_s"] = time.perf_counter() - t0
+        rec["observability"] = chaos_observability(engine)
+        engine._invalidate()
+        del engine
+        torch.cuda.empty_cache()
+        rec["results"] = chaos_results(conn, own)
+        with tempfile.TemporaryDirectory(prefix="trino-chaos-") as scratch, \
+                env_vars(TRINO_TPU_PAGE_CACHE="0"):
+            rec["producer"] = chaos_producer(scratch, own)
+        rec["disarmed"] = chaos_disarmed(counts2, host_ms)
+    launches = dict(own.launches)
+    check(launches["hash_insert"] > 0 and launches["hash_probe"] > 0
+          and launches["compact_rows"] > 0,
+          f"the chaos path launched no hash_insert, hash_probe or compact_rows: {launches}")
+    # 17f: each kernel the path launched against its plain version at the
+    # path's largest and most frequent shapes
+    li_keys = lineitem_keys(conn)
+    gen = np.random.default_rng(59)
+    checks = {"hash_insert": insert_checks(own.shapes["hash_insert"],
+                                           ("lineitem_orderkey", *li_keys), gen),
+              "hash_probe": probe_checks(own.shapes["hash_probe"], gen),
+              "compact_rows": compact_checks(own.shapes["compact_rows"], gen)}
+    del li_keys
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"chaos path: {rec['seconds']:.1f} s, launches of 17a-17c {launches}", flush=True)
+    print(json.dumps({"chaos_sf1": rec}, default=str), flush=True)
+    torch.cuda.empty_cache()
+    return rec, launches, {k: {"max_abs_err": r["max_abs_err"], "shapes": r["shapes"]}
+                           for k, r in checks.items()}
+
+
+# -- phase 2's CPU parity pass, in a child process ----------------------------------
+def cpu_pass_child(out_path: str, threads: int, sf: float, split_rows: int) -> None:
+    """Phase 2's CPU pass: the port on the CPU over ``ALL_QUERIES`` at
+    scale ``sf`` in ``split_rows`` splits (phase 2's), with ``threads``
+    torch intra-op threads; pickles each query's result and ``last_plan_actuals["nodes"]``
+    (phase 14's reference records), and the seconds, to ``out_path``."""
+    import pickle
+
+    import torch
+
+    torch.set_num_threads(threads)
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    t0 = time.perf_counter()
+    cpu = Engine(device="cpu")
+    cpu.register_catalog("tpch", TpchConnector(sf=sf, split_rows=split_rows))
+    cpu.execute_sql(Q15_VIEW, cpu.create_session("tpch"))
+    out = {}
+    for q, sql in ALL_QUERIES.items():
+        t1 = time.perf_counter()
+        cpu.last_plan_actuals = None
+        res = cpu.execute_sql(sql, cpu.create_session("tpch"))
+        out[q] = {"result": res, "seconds": time.perf_counter() - t1,
+                  "nodes": None if cpu.last_plan_actuals is None
+                  else cpu.last_plan_actuals["nodes"]}
+    tmp = out_path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump({"queries": out, "seconds": time.perf_counter() - t0,
+                     "threads": threads}, f)
+    os.replace(tmp, out_path)
+
+
+class CpuPass:
+    """Phase 2's CPU pass in a spawned child process, started at the top of
+    ``main`` (before this process touches the card) and joined before the
+    first phase that needs its results; the child gets half the host's
+    cores for its torch threads.  ``stop`` ends the child, whatever state
+    it is in, and removes its output."""
+
+    def __init__(self):
+        import multiprocessing
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="trino-cpu-pass-")
+        self.path = os.path.join(self.dir, "cpu_pass.pkl")
+        self.threads = max(1, len(os.sched_getaffinity(0)) // 2)
+        ctx = multiprocessing.get_context("spawn")
+        self.proc = ctx.Process(target=cpu_pass_child,
+                                args=(self.path, self.threads, SF_MAIN, SPLIT_ROWS),
+                                name="cpu-pass", daemon=True)
+        self.started = time.perf_counter()
+        self.proc.start()
+
+    def join(self, timeout: float):
+        """(the child's record, seconds this join waited); fails the run if
+        the child failed, ran past ``timeout`` or returned nothing."""
+        import pickle
+
+        t0 = time.perf_counter()
+        self.proc.join(timeout)
+        waited = time.perf_counter() - t0
+        check(not self.proc.is_alive(),
+              f"phase 2's CPU pass ran past {timeout:.0f} s of waiting")
+        check(self.proc.exitcode == 0,
+              f"phase 2's CPU pass exited with code {self.proc.exitcode}")
+        check(os.path.exists(self.path), "phase 2's CPU pass returned nothing")
+        with open(self.path, "rb") as f:
+            data = pickle.load(f)
+        check(list(data["queries"]) == list(ALL_QUERIES),
+              f"phase 2's CPU pass returned {sorted(data['queries'])}")
+        return data, waited
+
+    def stop(self) -> None:
+        import shutil
+
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(5)
+            if self.proc.is_alive():
+                self.proc.kill()
+                self.proc.join(5)
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def cpu_parity(cpu_pass, phase2):
+    """Phase 2's card-vs-CPU checks over the child's results: each of the
+    22 equal to the card's result, non-empty, with a history record.
+    Returns phase 14's reference records."""
+    data, waited = cpu_pass.join(CPU_PASS_TIMEOUT_S)
+    cpu_actuals = {}
+    for q in ALL_QUERIES:
+        ent = data["queries"][q]
+        ref = ent["result"]
+        check(ent["nodes"] is not None, f"{q}: the CPU run left no history record")
+        cpu_actuals[q] = ent["nodes"]
+        same_result(phase2[q], ref, f"sf{SF_MAIN:g} {q} card vs CPU")
+        check(len(ref) > 0, f"{q} returned no rows")
+        print(f"sf{SF_MAIN:g} {q}: equal to the port's CPU result "
+              f"({len(ref)} rows, CPU {ent['seconds']:.2f} s)", flush=True)
+    began = time.perf_counter() - cpu_pass.started - waited
+    print(f"CPU pass: {data['seconds']:.1f} s in the child ({data['threads']} torch threads); "
+          f"the join began {began:.1f} s after the child started and waited {waited:.1f} s",
+          flush=True)
+    return cpu_actuals
+
+
 class PhaseClock:
     """Seconds of each phase, printed on a line of its own as it ends."""
 
@@ -6105,6 +6558,9 @@ def main() -> int:
     os.environ["TRINO_TPU_PAGE_CACHE"] = "0"
     os.environ["TRINO_TPU_RESULT_CACHE"] = "0"
     os.environ["TRINO_TPU_ADAPTIVE"] = "0"
+    # phase 2's CPU parity pass runs beside the card phases, in a child
+    # started before this process touches the card; phase 14 joins it
+    cpu_pass = CpuPass()
     try:
         card = card_line()
         print(f"card: {card}", flush=True)
@@ -6139,25 +6595,12 @@ def main() -> int:
             else:
                 check(n > 0, f"main path launched no {k} kernel")
 
-        cpu = Engine(device="cpu")
-        cpu.register_catalog("tpch", TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS))
-        cpu.execute_sql(Q15_VIEW, cpu.create_session("tpch"))
-        t_cpu = time.perf_counter()
-        cpu_actuals = {}  # phase 14's reference per-node records
-        for q, sql in ALL_QUERIES.items():
-            t0 = time.perf_counter()
-            cpu.last_plan_actuals = None
-            ref = cpu.execute_sql(sql, cpu.create_session("tpch"))
-            check(cpu.last_plan_actuals is not None, f"{q}: the CPU run left no history record")
-            cpu_actuals[q] = cpu.last_plan_actuals["nodes"]
-            same_result(main[q]["result"], ref, f"sf{SF_MAIN:g} {q} card vs CPU")
-            check(len(ref) > 0, f"{q} returned no rows")
-            print(f"sf{SF_MAIN:g} {q}: equal to the port's CPU result "
-                  f"({len(ref)} rows, CPU {time.perf_counter() - t0:.2f} s)", flush=True)
-        print(f"CPU pass: {time.perf_counter() - t_cpu:.1f} s", flush=True)
-        del cpu
-        # phase 12's oracle, and phase 8's after RF1
+        # phase 12's oracle, and phase 8's after RF1 (each held against the
+        # CPU pass when it is joined, before phase 14)
         phase2 = {q: main[q]["result"] for q in ALL_QUERIES}
+        # phase 17e's: bench.py's five's launches, host reads and H2D bytes
+        counts2 = {q: {"launches": main[q]["launches"], "host_reads": main[q]["host_reads"],
+                       "h2d_bytes": main[q]["h2d_bytes"]} for q in QUERIES}
         tpch_ref = {q: phase2[q] for q in MEMORY_QUERIES}
         # phase 11's: each query's rows as the server sends them, its host
         # reads and its launches
@@ -6258,6 +6701,8 @@ def main() -> int:
         # -- phase 13: plan templates and the template batcher -----------------
         _, tp_launches, tp_checks = templates_path()
         clock.done(13)
+        # -- phase 2's card-vs-CPU checks: the CPU pass joined ----------------
+        cpu_actuals = cpu_parity(cpu_pass, phase2)  # phase 14's reference records
         # -- phase 14: per-node stats, plan history and adaptive execution -----
         _, ad_launches, ad_checks = history_path(phase2, cpu_actuals)
         clock.done(14)
@@ -6269,6 +6714,10 @@ def main() -> int:
         # partitioning and the admission rung
         _, sp_launches, sp_checks = spill_path(phase2)
         clock.done(16)
+        # -- phase 17: the fault injector at the local chokepoints and the ----
+        # chaos matrix
+        _, ch_launches, ch_checks = chaos_path(counts2, wrapper_host_ms(kernels))
+        clock.done(17)
 
         # per path: its launches, and the checks at its own shapes (the
         # top-level times stay the TPC-H path's largest shape's)
@@ -6296,21 +6745,25 @@ def main() -> int:
                 "flight_sf1": {"launches": fl_launches[name],
                                **fl_checks.get(name, {"max_abs_err": None, "shapes": []})},
                 "spill_sf1": {"launches": sp_launches[name],
-                              **sp_checks.get(name, {"max_abs_err": None, "shapes": []})}}
+                              **sp_checks.get(name, {"max_abs_err": None, "shapes": []})},
+                "chaos_sf1": {"launches": ch_launches[name],
+                              **ch_checks.get(name, {"max_abs_err": None, "shapes": []})}}
             for checks in (ds_checks, mem_checks, fn_checks, ar_checks, sv_checks, ca_checks,
-                           tp_checks, ad_checks, fl_checks, sp_checks):
+                           tp_checks, ad_checks, fl_checks, sp_checks, ch_checks):
                 if name in checks:
                     r["max_abs_err"] = max(r["max_abs_err"], checks[name]["max_abs_err"])
             r["launches"] += (ds_launches[name] + mem_launches[name] + fn_launches[name]
                               + ar_launches[name] + sv_launches[name] + ca_launches[name]
                               + tp_launches[name] + ad_launches[name] + fl_launches[name]
-                              + sp_launches[name])
+                              + sp_launches[name] + ch_launches[name])
         print(f"phases: {json.dumps({k: round(v, 1) for k, v in clock.seconds.items()})}",
               flush=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    finally:
+        cpu_pass.stop()
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -16,7 +16,10 @@ Also the per-statement accounting under concurrent statements (ROADMAP C5):
 two threads inside ``execute_plan`` at once each read their own counters;
 and the plan-cache key's process defaults (ROADMAP C9): with
 ``TRINO_TPU_ADAPTIVE`` and ``TRINO_TPU_DISPATCH_BATCH`` set, both packages
-resolve the plan-shaping properties alike.
+resolve the plan-shaping properties alike; and the retry classification of
+a template's probation failure (ROADMAP C11): a first run killed by
+``query_max_memory``, or failed by a fatal injected fault, stores the
+template as unbindable in both packages.
 """
 
 import datetime
@@ -717,3 +720,53 @@ def test_query_max_memory_kills_query_as_the_reference(tpch_sf001):
     assert t.memory_pool.reserved == 0
     assert t.flight_recorder.snapshot(kind="query")[-3]["state"] == "FAILED"
     j._invalidate()
+
+
+@pytest.mark.parametrize("failure", ["query_max_memory", "fatal_fault"])
+def test_template_probation_failure_is_classified_as_the_reference(monkeypatch, failure):
+    """C11: a template whose first execution fails deterministically (a
+    QueryMemoryLimitError, a FatalInjectedFaultError) is stored as
+    unbindable for those literal kinds, as in the reference; the statement
+    itself is answered by substitution.  The port's classifier is
+    ``exec/fte.is_retryable_failure``, the reference's."""
+    import trino_tpu.engine as JE
+    import trino_tpu_torch.engine as TE
+    from trino_tpu.exec.local_executor import LocalExecutor as JaxExecutor
+    from trino_tpu.execution import faults as jfaults
+    from trino_tpu.memory import QueryMemoryLimitError as JaxLimit
+    from trino_tpu.sql.params import parameterize_text as jax_parameterize
+    from trino_tpu_torch.exec.local_executor import LocalExecutor
+    from trino_tpu_torch.execution import faults
+    from trino_tpu_torch.memory import QueryMemoryLimitError
+    from trino_tpu_torch.sql.params import parameterize_text
+
+    sql = "select c_name from customer where c_custkey = 7"
+    sides = (("jax", JaxEngine(), JaxTpch, JaxExecutor, JaxLimit, jfaults, JE,
+              jax_parameterize),
+             ("torch", TorchEngine(device="cpu"), TorchTpch, LocalExecutor,
+              QueryMemoryLimitError, faults, TE, parameterize_text))
+    rows = []
+    for _pkg, e, conn, ex_cls, limit, mod, eng_mod, parameterize in sides:
+        e.register_catalog("tpch", conn(sf=0.01, split_rows=1 << 11))
+        s = e.create_session("tpch")
+        with pytest.MonkeyPatch.context() as mp:
+            if failure == "query_max_memory":
+                real, calls = ex_cls.execute, []
+
+                def execute(self, *a, _real=real, _calls=calls, _limit=limit, **k):
+                    _calls.append(1)
+                    if len(_calls) == 1:
+                        raise _limit("query exceeded query_max_memory: the first run")
+                    return _real(self, *a, **k)
+
+                mp.setattr(ex_cls, "execute", execute)
+                r = e.execute_sql(sql, s)
+            else:
+                with mod.injected("point=dispatch,action=fatal,nth=1") as plan:
+                    r = e.execute_sql(sql, s)
+                assert plan.total_fires() == 1
+        entry = e._template_cache.get(e._template_key(parameterize(sql)[0], s))
+        assert entry is not None and entry[0] is eng_mod._TEMPLATE_UNBINDABLE, entry
+        assert entry[1] == ("NumberLit",)
+        rows.append(r.rows())
+    assert [str(v) for v in rows[1][0]] == [str(v) for v in rows[0][0]]

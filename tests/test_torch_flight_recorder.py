@@ -21,8 +21,11 @@ and launches as many kernels.  A child process that runs bench.py's five
 into a disk ring and is killed with SIGKILL leaves all five records
 readable.
 
-Left out: the chaos record (``faults`` is not ported) and the stitched
-cluster trace (the port has no cluster).
+And the chaos record: a statement failed by an injected ``fatal`` at
+``dispatch`` leaves a FAILED record naming the fault with its firing
+counted, as the reference's does, and the leak check is clean after it.
+
+Left out: the stitched cluster trace (the port has no cluster).
 """
 
 import json
@@ -242,6 +245,37 @@ def test_record_shape_success_and_error(engine):
     assert engine.flight_recorder.records_total == before + 1
     err = engine.flight_recorder.snapshot(kind="query")[-1]
     assert err["state"] == "FAILED" and "no_such_column" in err["error"]
+
+
+def test_chaos_fatal_injection_record_and_leak_clean():
+    """The flight record of a statement that an injected ``fatal`` failed
+    is present and typed in both packages, and the engine passes the
+    chaos leak check after it."""
+    from trino_tpu.execution import faults as jfaults
+    from trino_tpu_torch.execution import faults
+    from trino_tpu_torch.execution.chaos_matrix import leak_report
+
+    j = JaxEngine()
+    j.register_catalog("tpch", JaxTpch(sf=SF, split_rows=SPLIT_ROWS))
+    recs = []
+    for e, mod in ((j, jfaults), (_engine(), faults)):
+        s = e.create_session("tpch")
+        e.execute_sql(QUERY, s)  # warm
+        with mod.injected("point=dispatch,action=fatal,nth=1"):
+            with pytest.raises(mod.FatalInjectedFaultError):
+                e.execute_sql(QUERY, s)
+        recs.append(e.flight_recorder.snapshot(kind="query")[-1])
+    jrec, rec = recs
+    for r in recs:
+        assert r["state"] == "FAILED"
+        # typed: the record carries the raised error's text, which names
+        # the point and the rule
+        assert "injected fatal at dispatch" in (r["error"] or "")
+        assert r["counters"]["faults_injected"] == 1
+    assert rec["error"].split("(")[-1] == jrec["error"].split("(")[-1]
+    assert not leak_report(e), leak_report(e)
+    e._invalidate()
+    j._invalidate()
 
 
 def test_recorder_failure_never_fails_query(engine):

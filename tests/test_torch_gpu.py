@@ -7,7 +7,9 @@ aggregation runner, the function corpora and the exact wide sums; and the
 array, map, UNNEST and MATCH_RECOGNIZE corpora, UNNEST's expansion map and
 the vectorized matcher; the coordinator server over a card engine; the
 buffer pool's page, build and result tiers on the card (phase 12 of
-chip_smoke.py at SF0.01); a fused template window on the card (phase 13).
+chip_smoke.py at SF0.01); a fused template window on the card (phase 13);
+a ``dispatch`` fault inside each kernel wrapper on CUDA tensors, after which
+the wrapper launches nothing (phase 17).
 
 They skip without a card.  This file imports no jax, so on a machine with a
 card (which has no jax) it runs without the repo's conftest:
@@ -1075,3 +1077,34 @@ def test_grace_paths_on_the_card_equal_the_cpu(dev, tmp_path, monkeypatch, sql, 
     _same(got["cuda"][0], got["cpu"][0])
     assert got["cuda"][1] == got["cpu"][1] and got["cuda"][1]
     assert not list(tmp_path.iterdir())
+
+
+def test_dispatch_fault_in_a_kernel_wrapper_launches_nothing(dev):
+    """An armed ``dispatch`` rule fires inside each kernel wrapper on CUDA
+    tensors and raises there: the wrapper launches no kernel (its count
+    stays) and runs no plain version; disarmed, the same call launches."""
+    from trino_tpu_torch.execution import faults
+
+    rng = np.random.default_rng(5)
+    keys = torch.as_tensor(_keys(rng, 4096, 1000), device=dev)
+    valid = torch.ones(4096, dtype=torch.bool, device=dev)
+    table = torch.full((4097,), EMPTY_KEY, dtype=torch.int64, device=dev)
+    slots = torch.as_tensor(rng.integers(0, 8, 4096), dtype=torch.int32, device=dev)
+    vals = torch.as_tensor(rng.random(4096), dtype=torch.float32, device=dev)
+    calls = {
+        "hash_insert": lambda: ck.hash_insert(table, keys, valid),
+        "hash_probe": lambda: ck.hash_probe(table[:4096], None, keys, valid),
+        "compact_rows": lambda: ck.compact_rows((keys,), valid, 4096),
+        "fused_segment_agg": lambda: ck.fused_segment_agg(slots, valid, [vals], 8),
+    }
+    for name, call in calls.items():
+        before = ck.STATS[name].launches
+        with faults.injected(f"point=dispatch,site={name},action=error,nth=1") as plan:
+            with pytest.raises(faults.InjectedFaultError, match=f"dispatch/{name}"):
+                call()
+        torch.cuda.synchronize()
+        assert plan.total_fires() == 1
+        assert ck.STATS[name].launches == before, f"{name} launched under the fault"
+        call()
+        torch.cuda.synchronize()
+        assert ck.STATS[name].launches == before + 1, name

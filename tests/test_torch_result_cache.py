@@ -9,15 +9,15 @@ property misses; volatile functions and connectors stay out; LRU and the
 per-entry cap under a tiny budget; concurrent runs of one statement store
 once; a store is refused after an invalidation while the statement ran;
 errors never store; the EXPLAIN ANALYZE line, the /v1/metrics series and
-``system.queries``; the tier off by default.
+``system.queries``; the tier off by default; the chaos matrix's three
+``RESULT_SCENARIOS`` (checkout and store faults recover byte-identical, no
+entry is admitted under a store fault, the leak check is clean).
 
 Budgets are set with ``monkeypatch.setenv`` on both packages before their
 engines first use the pool.  Where both packages answer a statement, their
 results agree: integers, decimals, dates and strings exactly, DOUBLE within
-rtol 1e-9.  Left out: test_chaos_result_scenarios needs the fault injector
-(``execution/faults.py``, ROADMAP A6), and
-test_cluster_coordinator_serves_from_result_cache the cluster coordinator
-(ROADMAP A7).
+rtol 1e-9.  Left out: test_cluster_coordinator_serves_from_result_cache
+needs the cluster coordinator (ROADMAP A7).
 """
 
 import os
@@ -33,6 +33,8 @@ from trino_tpu.connectors.tpch import TpchConnector as JaxTpch
 from trino_tpu_torch import Engine
 from trino_tpu_torch.connectors.memory import MemoryConnector
 from trino_tpu_torch.connectors.tpch import TpchConnector
+from trino_tpu_torch.execution.chaos_matrix import (RESULT_SCENARIOS, result_signature,
+                                                    run_result_scenario)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the comparison helpers; imports no torch at load)
@@ -337,6 +339,24 @@ def test_errors_never_store(monkeypatch, ref):
     r = e.execute_sql(Q_AGG, s)
     _hit_only(e.last_query_counters)
     _same_ref(r, ref(Q_AGG), Q_AGG)
+
+
+@pytest.mark.parametrize("scenario", [n for n, _s, _k in RESULT_SCENARIOS])
+def test_chaos_result_scenarios(monkeypatch, ref, scenario):
+    """The chaos matrix's result-tier rows: checkout and store faults are
+    recoverable and byte-identical, no entry is admitted under a store
+    fault, the leak check passes, and the result is the reference's."""
+    spec, kind = next((s, k) for n, s, k in RESULT_SCENARIOS if n == scenario)
+    e = _engine(monkeypatch)
+    s = e.create_session("tpch")
+    e.execute_sql(Q_AGG, s)  # cold
+    r = e.execute_sql(Q_AGG, s)
+    base = result_signature(r)
+    rec = run_result_scenario(e, Q_AGG, s, base, scenario, spec, kind)
+    assert rec.get("ok"), rec
+    assert rec["fires"] >= 1
+    _same_ref(r, ref(Q_AGG), Q_AGG)
+    e._invalidate()
 
 
 def test_explain_analyze_metrics_and_system_queries(monkeypatch):

@@ -394,8 +394,10 @@ class Engine:
                 # probation: a template whose first execution fails is never
                 # trusted.  A deterministic failure negative-caches for these
                 # literal kinds, a transient one lets the next request retry
+                from .exec.fte import is_retryable_failure
+
                 with self._plan_lock:
-                    if _is_retryable_failure(e):
+                    if is_retryable_failure(e):
                         self._template_cache.pop(key, None)
                     else:
                         self._template_store(key, (_TEMPLATE_UNBINDABLE, kinds))
@@ -2089,20 +2091,6 @@ def _template_plan_ok(plan) -> bool:
         return isinstance(n, allowed) and all(walk(c) for c in n.children)
 
     return walk(plan)
-
-
-def _is_retryable_failure(e: BaseException) -> bool:
-    """The reference's retry classification (``exec/fte.py``,
-    ``is_retryable_failure``) over the exception classes the port has: a
-    deterministic error (bad SQL, an unsupported feature, a planner fault)
-    fails alike on every attempt; anything else may not."""
-    from .spi.security import AccessDeniedError
-    from .sql.analyzer import SemanticError
-    from .sql.parser import ParseError
-
-    deterministic = (SemanticError, ParseError, AccessDeniedError, NotImplementedError,
-                     AssertionError, AttributeError, NameError)
-    return isinstance(e, Exception) and not isinstance(e, deterministic)
 
 
 def _null_ctx():

@@ -1,4 +1,5 @@
-"""The page codec of fault-tolerant execution (counterpart of the codec in
+"""The page codec and the retry classifier of fault-tolerant execution
+(counterpart of the codec and ``is_retryable_failure`` in
 ``trino_tpu/exec/fte.py``; reference: PagesSerdeUtil.java and
 CompressingEncryptingPageSerializer.java).
 
@@ -15,8 +16,12 @@ where it is not (the card machine has none); an explicit ``zstd`` without
 the binding fails at the first frame.  ``TRINO_TPU_EXCHANGE_KEY`` (hex, 16,
 24 or 32 bytes) encrypts and authenticates frames.
 
-Not ported yet: the spooling exchange, the fault-tolerant executor and the
-retry classifier (ROADMAP A7).
+``is_retryable_failure`` is the one retry classification of the port: a
+template's probation failure (``engine._maybe_template_execute``) consults
+it, as the reference's engine does.
+
+Not ported yet: the spooling exchange and the fault-tolerant executor
+(ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import zlib
 import numpy as np
 import torch
 
-__all__ = ["PAGE_CODEC", "serialize_page", "deserialize_page"]
+__all__ = ["PAGE_CODEC", "serialize_page", "deserialize_page", "is_retryable_failure"]
 
 _MAGIC = b"TTPG"
 _CODECS = {"none": 0, "zlib": 1, "zstd": 2}
@@ -129,3 +134,25 @@ def deserialize_page(data: bytes):
     cols = [z[f"c{i}"] for i in range(n)]
     nulls = [z[f"n{i}"] if f"n{i}" in z.files else None for i in range(n)]
     return cols, nulls
+
+
+def is_retryable_failure(e: BaseException) -> bool:
+    """Task-retry classification, the reference's (retry policies consult
+    the error kind: USER_ERROR against INTERNAL and EXTERNAL, spi/ErrorType
+    .java).  A deterministic error (bad SQL, an unsupported feature, a
+    planner fault, a query past its memory limit, a fatal injected fault)
+    fails alike on every attempt, so a retry burns the budget and hides the
+    message; anything else (connector IO, a transient device error, a
+    retryable injected fault) may retry.  The reference's set also holds
+    ``QueryKilledError``, which the port gets with the cluster's killer
+    (ROADMAP A7): it joins the set then."""
+    from ..execution.faults import FatalInjectedFaultError
+    from ..memory import QueryMemoryLimitError
+    from ..spi.security import AccessDeniedError
+    from ..sql.analyzer import SemanticError
+    from ..sql.parser import ParseError
+
+    deterministic = (SemanticError, ParseError, AccessDeniedError, NotImplementedError,
+                     AssertionError, AttributeError, NameError, QueryMemoryLimitError,
+                     FatalInjectedFaultError)
+    return isinstance(e, Exception) and not isinstance(e, deterministic)

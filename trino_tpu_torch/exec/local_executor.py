@@ -64,7 +64,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..execution import tracing
+from ..execution import faults, tracing
 from ..ops import hashagg
 from ..ops.arrays import (ArrayData, MapData, compact_rows, pack_span, span_len,
                           span_start, unnest_indices)
@@ -596,7 +596,9 @@ class LocalExecutor:
         or an error leaves the generator before the store.  The lookup, its
         accounting and the store run on the query's thread."""
         splits, columns = list(splits), tuple(columns)
-        raw = _scan_pages(conn, splits, columns)
+        raw = _scan_pages(conn, table, splits, columns)
+        if len(splits) > 1 and _dispatch_batch_default() > 1:
+            raw = _staged_scan_pages(raw)
         bp = self.buffer_pool
 
         def pages(self=self):
@@ -627,9 +629,17 @@ class LocalExecutor:
                 yield pg
             if acc:
                 # staging launches and allocates: an entry lets the watchdog
-                # see a store that hangs
-                with tracing.inflight("cache-store", site=f"scan.{table}.store"):
-                    bp.put_page(key, self._stage_scan_entry(acc), self._pool_epoch)
+                # see a store that hangs.  A store that fails (an injected
+                # fault, a staging error) does not fail a query whose scan
+                # completed, and admits nothing: put_page takes only the
+                # fully staged page
+                try:
+                    with tracing.inflight("cache-store", site=f"scan.{table}.store"):
+                        bp.put_page(key, self._stage_scan_entry(acc), self._pool_epoch)
+                except tracing.StallKilledError:
+                    raise  # a watchdog kill is never neutralized here
+                except Exception:  # noqa: BLE001 - uncached, not failed
+                    pass
 
         return pages
 
@@ -638,7 +648,11 @@ class LocalExecutor:
         split order, then, where lanes are dead (generated tables mask rows
         past their bound), the live rows packed in order by the compaction
         kernel, every lane of the stored page live.  Row order is split
-        order either way, so the page gives exactly what the splits give."""
+        order either way, so the page gives exactly what the splits give.
+        Each page is an ``h2d`` fault point, as the reference stages each
+        through ``_page_to_device`` here."""
+        for _ in pages:
+            faults.maybe_inject("h2d", "page_to_device")
         nc = len(pages[0].columns)
         cols = [torch.cat([p.columns[ci] for p in pages]) for ci in range(nc)]
         nulls = [None if all(p.null_masks[ci] is None for p in pages) else torch.cat([
@@ -655,6 +669,17 @@ class LocalExecutor:
             return Page(pages[0].schema, tuple(cols), tuple(nulls), valid)
         packed, _ = compact_rows(tuple(cols) + tuple(nulls), valid, live)
         return Page(pages[0].schema, packed[:nc], packed[nc:], None)
+
+    def _store_build(self, key, payload, anchor) -> bool:
+        """Admit a finished build to the build tier.  A store that fails (an
+        injected fault, a pool error) does not fail a join whose build is
+        done: the build is then not shared, and nothing is admitted."""
+        try:
+            return self.buffer_pool.put_build(key, payload, self._pool_epoch, anchor)
+        except tracing.StallKilledError:
+            raise  # a watchdog kill is never neutralized here
+        except Exception:  # noqa: BLE001 - unshared, not failed
+            return False
 
     def _build_cache_key(self, node: P.Join):
         """Build-tier key of this join's build fragment, or None when it must
@@ -689,8 +714,9 @@ class LocalExecutor:
         """THE device -> host chokepoint: one call is one counted read of
         every array in ``arrays`` (``site`` names the caller).  It holds an
         in-flight ``host_pull`` entry while it reads: each read synchronises,
-        so a kernel that hangs shows here to the stall watchdog."""
-        self.host_reads += 1
+        so a kernel that hangs shows here to the stall watchdog.  It is a
+        ``dispatch`` and a ``host_pull`` fault point (``execution/faults``),
+        inside that entry."""
         out = []
         nbytes = 0
         reg = tracing.current_inflight()
@@ -698,6 +724,9 @@ class LocalExecutor:
         try:
             if tracing.DISPATCH_TEST_HOOK is not None:
                 tracing.DISPATCH_TEST_HOOK(tracing.full_site_label(site))
+            faults.maybe_inject("dispatch", site)
+            faults.maybe_inject("host_pull", site)
+            self.host_reads += 1
             for a in arrays:
                 if isinstance(a, torch.Tensor):
                     nbytes += a.numel() * a.element_size()
@@ -1669,10 +1698,9 @@ class LocalExecutor:
                                                build_key_types, span)
             if table is None:
                 mt = self._multi_join_table(node, build_page, build_key_types, span)
-            if cache_key is not None and self.buffer_pool.put_build(cache_key, {
+            if cache_key is not None and self._store_build(cache_key, {
                     "page": build_page, "dicts": build_dicts, "null_stats": null_stats,
-                    "span": span, "table": table, "multi": mt},
-                    self._pool_epoch, node.right) and reserved:
+                    "span": span, "table": table, "multi": mt}, node.right) and reserved:
                 self._reserved.remove(reserved)
                 self.memory_pool.free(reserved, "join-build")
         if table is None:
@@ -2678,13 +2706,31 @@ def _sort_lex(page: Page, keys, dicts):
     return lex
 
 
-def _scan_pages(conn, splits, columns):
-    """Page source over ``splits``: one generated page per split."""
+def _scan_pages(conn, table: str, splits, columns):
+    """Page source over ``splits``: one generated page per split, each
+    generation a ``generate`` fault point (site ``scan.<table>``)."""
     splits, columns = list(splits), list(columns)
 
     def pages():
         for s in splits:
+            faults.maybe_inject("generate", f"scan.{table}")
             yield conn.generate(s, columns)
+
+    return pages
+
+
+def _staged_scan_pages(pages_fn):
+    """``pages_fn`` with each page an ``h2d`` fault point, where the
+    reference's scan stages a generated page to the device (its prefetch
+    wrap of a multi-split scan while dispatches coalesce,
+    ``_rewrap_pruned_pages``; the port reads the process default,
+    ``TRINO_TPU_DISPATCH_BATCH``).  The port generates on the engine's
+    device, so there is nothing to copy: the point keeps the reference's
+    chokepoint and its count."""
+    def pages():
+        for p in pages_fn():
+            faults.maybe_inject("h2d", "page_to_device")
+            yield p
 
     return pages
 
@@ -2944,7 +2990,10 @@ def _page_to_device(page: Page, device, side):
     """(page on ``device``, bytes staged, event or None): every numpy array
     of ``page`` copied to the device (object columns stay on the host).  On
     a CUDA ``side`` stream the copies are asynchronous from pinned memory
-    and an event recorded after them comes back with the page."""
+    and an event recorded after them comes back with the page.  Every page
+    passed in is an ``h2d`` fault point, host arrays or not, as in the
+    reference."""
+    faults.maybe_inject("h2d", "page_to_device")
     nbytes = 0
 
     def up(a):

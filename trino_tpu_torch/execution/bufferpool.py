@@ -49,8 +49,12 @@ the ``spill`` tag): page and build entries evict, oldest first, to make
 room, since the cache gives way to live query state; a spill chunk never
 takes the pool past its budget (it overflows to the host tier instead).
 
-The reference's fault-injection sites (``cache_checkout``, ``cache_store``)
-are wired with the rest of ``execution/faults.py`` (ROADMAP A6).
+Fault points (``execution/faults``), as in the reference: ``cache_checkout``
+in ``get_page`` / ``get_build`` / ``get_result`` (sites ``page.<table>``,
+``build``, ``result``; ``deny`` serves a miss) and ``cache_store`` in the
+three puts, past their early exits (``deny`` skips the admission; a raised
+fault reaches the caller's store guard, which keeps the statement
+successful and the entry absent).
 """
 
 from __future__ import annotations
@@ -63,6 +67,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from . import faults
 
 __all__ = ["DeviceBufferPool", "page_cache_budget", "result_cache_budget"]
 
@@ -253,6 +259,10 @@ class DeviceBufferPool:
     # -- page tier -------------------------------------------------------------
     def get_page(self, key):
         """(page, nbytes) or None; a hit refreshes its LRU place."""
+        if faults.maybe_inject("cache_checkout", f"page.{key[2]}") == "deny":
+            with self._lock:
+                self.misses += 1
+            return None
         with self._lock:
             e = self._entries.get(key)
             if e is None:
@@ -279,12 +289,19 @@ class DeviceBufferPool:
                 return False
             if key in self._entries:
                 return True  # another executor stored it first
+        # past the early exits: a fire means a store was attempted
+        if faults.maybe_inject("cache_store", f"page.{key[2]}") == "deny":
+            return False
         return self._store(key, _Entry("page", key[1], key[2], page, _page_nbytes(page)),
                            self.PAGE_TAG, epoch)
 
     # -- build tier ------------------------------------------------------------
     def get_build(self, key):
         """The build payload dict, or None."""
+        if faults.maybe_inject("cache_checkout", "build") == "deny":
+            with self._lock:
+                self.build_misses += 1
+            return None
         with self._lock:
             e = self._entries.get(key)
             if e is None:
@@ -306,6 +323,8 @@ class DeviceBufferPool:
                 return False
             if key in self._entries:
                 return True
+        if faults.maybe_inject("cache_store", "build") == "deny":
+            return False
         nbytes = _page_nbytes(payload["page"]) + _table_nbytes(payload.get("table")) \
             + _table_nbytes(payload.get("multi"))
         payload["nbytes"] = nbytes
@@ -316,6 +335,10 @@ class DeviceBufferPool:
     def get_result(self, key):
         """(MaterializedResult, nbytes) or None.  Served results are shared
         numpy arrays: every engine surface treats results as immutable."""
+        if faults.maybe_inject("cache_checkout", "result") == "deny":
+            with self._lock:
+                self.result_misses += 1
+            return None
         with self._lock:
             e = self._entries.get(key)
             if e is None:
@@ -340,6 +363,8 @@ class DeviceBufferPool:
                 return False
             if key in self._entries:
                 return True  # a concurrent statement stored it first
+        if faults.maybe_inject("cache_store", "result") == "deny":
+            return False
         nbytes = _result_nbytes(result)
         if nbytes > self.result_entry_cap():
             return False

@@ -1,26 +1,46 @@
-"""The memory-pressure scenarios of the chaos matrix (counterpart of the
-pressure part of ``trino_tpu/execution/chaos_matrix.py``), shared by the
-CPU tests (``tests/test_torch_spill.py``) and the card run
-(``chip_smoke.py``'s phase 16), so both hold the same contract.
+"""The chaos matrix (counterpart of ``trino_tpu/execution/chaos_matrix.py``),
+shared by the CPU tests (``tests/test_torch_chaos.py``,
+``tests/test_torch_result_cache.py``, ``tests/test_torch_spill.py``) and the
+card run (``chip_smoke.py``'s phases 16 and 17), so both hold the same
+contract: a recoverable fault is invisible (the result byte-identical to the
+fault-free run), an unrecoverable one fails with a typed error, and nothing
+leaks (``leak_report``).
 
-Each PRESSURE entry is ``(name, cfg, fault spec or None, kind)``:
+- ``QUERIES``: the reference's inlined q1, q3, q9 and q18.
+- ``SCENARIOS``: the eight local scenarios, ``(name, spec, kind,
+  clear_pool, cache_on)``, and their views ``RECOVERABLE`` (name -> (spec,
+  clear_pool)) and ``FAILING`` (name -> (spec, cache_on)).  ``clear_pool``
+  empties the buffer pool first (a warm pool never stores); ``cache_on``
+  False runs the ``page_cache = false`` session (a page-tier hit never
+  generates).
+- ``RESULT_SCENARIOS`` and ``run_result_scenario``: the result tier's
+  checkout and store faults, on a result-enabled engine.
+- ``PRESSURE`` and ``run_pressure_scenario``: the memory-pressure
+  scenarios (and ``producer_faults``, faults that land on the spill
+  readback's producer thread), each ``(name, cfg, fault spec or None,
+  kind)``:
 
-- ``cfg["pool_bytes"]``: the executor MemoryPool's capacity (small: Grace
-  aggregation and the partitioned join);
-- ``cfg["page_cache"]``: the DeviceBufferPool budget (above 0 opens the
-  spill's device tier; 0 closes it, and the host tier comes next);
-- ``cfg["spill_host"]``: TRINO_TPU_SPILL_HOST_BYTES for the scenario (0
-  forces disk; None: the pool alone bounds the host tier);
-- ``cfg["expect_tier"]``: a tier whose counter must be above 0 (None: any).
+  - ``cfg["pool_bytes"]``: the executor MemoryPool's capacity (small: Grace
+    aggregation and the partitioned join);
+  - ``cfg["page_cache"]``: the DeviceBufferPool budget (above 0 opens the
+    spill's device tier; 0 closes it, and the host tier comes next);
+  - ``cfg["spill_host"]``: TRINO_TPU_SPILL_HOST_BYTES for the scenario (0
+    forces disk; None: the pool alone bounds the host tier);
+  - ``cfg["expect_tier"]``: a tier whose counter must be above 0 (None: any).
 
-``recover`` holds the result byte-identical to the unconstrained run;
-``fail`` holds a typed error (InjectedFaultError, SpillCapacityError).
-After every scenario the leak check holds: no live spill file, the
-``spill`` reservations of the executor's pool and the buffer pool back to 0,
-no spill still registered with the executor.
+  ``recover`` holds the result byte-identical to the unconstrained run;
+  ``fail`` holds a typed error (InjectedFaultError, SpillCapacityError).
+  After every scenario the leak check holds: no live spill file, the
+  ``spill`` reservations of the executor's pool and the buffer pool back to
+  0, no spill still registered with the executor.
 
-Not ported yet: the other scenarios (dispatch, host reads, generation,
-caches, exchange), which come with their fault points (ROADMAP A6).
+The port's ``dispatch`` point counts kernel-wrapper calls and host reads,
+where the reference's counts jitted steps, so a scenario's ``nth`` lands on
+another operation in each package: the outcome is held, not the site.
+
+Not ported yet: ``DIST_SCENARIOS``, ``DIST_QUERIES`` and
+``run_dist_scenario``, the distributed exchange's matrix, which come with
+the mesh and the exchange points (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -32,8 +52,144 @@ import numpy as np
 
 from . import tracing
 
-__all__ = ["PRESSURE", "PRESSURE_QUERY", "leak_report", "result_signature",
-           "run_pressure_scenario", "settle"]
+__all__ = ["QUERIES", "SCENARIOS", "RECOVERABLE", "FAILING", "RESULT_SCENARIOS",
+           "PRESSURE", "PRESSURE_QUERY", "leak_report", "result_signature",
+           "producer_faults", "run_pressure_scenario", "run_result_scenario", "settle"]
+
+# the reference's four (inlined from the TPC-H spec, so the matrix does not
+# drift with a generator or benchmark edit)
+QUERIES = {
+    "q1": """
+    select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty,
+           sum(l_extendedprice) as sum_base_price,
+           sum(l_extendedprice * (1 - l_discount)) as sum_disc_price,
+           sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) as sum_charge,
+           avg(l_quantity) as avg_qty, avg(l_extendedprice) as avg_price,
+           avg(l_discount) as avg_disc, count(*) as count_order
+    from lineitem where l_shipdate <= date '1998-12-01' - interval '90' day
+    group by l_returnflag, l_linestatus order by l_returnflag, l_linestatus""",
+    "q3": """
+    select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue,
+           o_orderdate, o_shippriority
+    from customer, orders, lineitem
+    where c_mktsegment = 'BUILDING' and c_custkey = o_custkey
+      and l_orderkey = o_orderkey and o_orderdate < date '1995-03-15'
+      and l_shipdate > date '1995-03-15'
+    group by l_orderkey, o_orderdate, o_shippriority
+    order by revenue desc, o_orderdate limit 10""",
+    "q9": """
+    select nation, o_year, sum(amount) as sum_profit from (
+      select n_name as nation, extract(year from o_orderdate) as o_year,
+        l_extendedprice * (1 - l_discount) - ps_supplycost * l_quantity as amount
+      from part, supplier, lineitem, partsupp, orders, nation
+      where s_suppkey = l_suppkey and ps_suppkey = l_suppkey and ps_partkey = l_partkey
+        and p_partkey = l_partkey and o_orderkey = l_orderkey
+        and s_nationkey = n_nationkey and p_name like '%green%') as profit
+    group by nation, o_year order by nation, o_year desc""",
+    "q18": """
+    select c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice, sum(l_quantity)
+    from customer, orders, lineitem
+    where o_orderkey in (select l_orderkey from lineitem group by l_orderkey
+                         having sum(l_quantity) > 300)
+      and c_custkey = o_custkey and o_orderkey = l_orderkey
+    group by c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice
+    order by o_totalprice desc, o_orderdate limit 100""",
+}
+
+# (name, spec, kind, clear_pool, cache_on).  kind "recover" asserts
+# byte-identical results, "fail" asserts the typed error.  clear_pool empties
+# the buffer pool first (store scenarios never fire against a warm pool —
+# a warm pool never stores); cache_on=False runs the page_cache=false session
+# for the generate/h2d classes (a warm pool hit never generates).
+SCENARIOS = [
+    ("cache-checkout-deny", "point=cache_checkout,action=deny,every=1",
+     "recover", False, True),
+    ("cache-store-error", "point=cache_store,action=error,every=1",
+     "recover", True, True),
+    ("reserve-deny", "point=reserve,action=deny,nth=1", "recover", False,
+     True),
+    ("dispatch-delay", "point=dispatch,action=delay,s=0.001,every=2",
+     "recover", False, True),
+    ("dispatch-error", "point=dispatch,action=error,nth=3", "fail", False,
+     True),
+    ("generate-error", "point=generate,action=error,nth=2", "fail", False,
+     False),
+    ("host-pull-fatal", "point=host_pull,action=fatal,nth=1", "fail", False,
+     True),
+    ("h2d-error", "point=h2d,action=error,nth=2", "fail", False, False),
+]
+
+# the test suite's parametrization views: recovery must be invisible
+# (name -> (spec, clear_pool)), local failure must be typed-clean
+# (name -> (spec, cache_on))
+RECOVERABLE = {name: (spec, clear_pool)
+               for name, spec, kind, clear_pool, _cache_on in SCENARIOS
+               if kind == "recover"}
+FAILING = {name: (spec, cache_on)
+           for name, spec, kind, _clear_pool, cache_on in SCENARIOS
+           if kind == "fail"}
+
+# the result tier's matrix: an engine with its result tier on (enabling it
+# for the main matrix would answer warm statements from the cache, and the
+# dispatch and generate classes would never fire).  (name, spec, kind):
+# "recover" holds byte-identical results, at least one fire and the leak
+# check
+RESULT_SCENARIOS = [
+    ("result-checkout-deny",
+     "point=cache_checkout,site=result,action=deny,every=1", "recover"),
+    ("result-store-deny",
+     "point=cache_store,site=result,action=deny,every=1", "recover"),
+    ("result-store-error",
+     "point=cache_store,site=result,action=error,nth=1", "recover"),
+]
+
+
+def run_result_scenario(engine, sql, session, baseline_sig, name, spec,
+                        kind) -> dict:
+    """One result-cache chaos scenario: arm ``spec``, run ``sql`` on a
+    result-enabled engine, pin byte-identity vs ``baseline_sig``, at least
+    one fire, the post-scenario leak check, and (store scenarios) that no
+    entry was admitted under the fault.  Returns {"ok": bool, ...} — shared
+    by tests/test_result_cache.py and scripts/chaos.py."""
+    from . import faults
+
+    rec = {"scenario": name, "kind": kind}
+    try:
+        # store scenarios must actually attempt a store; checkout scenarios
+        # must have an entry to be denied — one clean warm pass arranges
+        # both, then the store classes clear just the result tier
+        engine.execute_sql(sql, session)
+        if "store" in name:
+            engine.buffer_pool.clear()
+        with faults.injected(spec) as plan:
+            got = result_signature(engine.execute_sql(sql, session))
+        rec["ok"] = got == baseline_sig
+        if not rec["ok"]:
+            rec["detail"] = "result diverged"
+        rec["fires"] = plan.total_fires()
+        if rec["fires"] < 1:
+            rec["ok"] = False
+            rec["detail"] = "scenario never fired"
+        if "store" in name and rec.get("ok") \
+                and engine.buffer_pool.info()["result_entries"]:
+            rec["ok"] = False
+            rec["detail"] = "entry admitted under a store fault"
+        leaks = leak_report(engine)
+        if leaks:
+            rec["ok"] = False
+            rec["leaks"] = leaks
+        if rec.get("ok"):
+            # fault-free rerun: the denied/errored store left no partial
+            # state, and the next clean pass re-populates and still matches
+            again = result_signature(engine.execute_sql(sql, session))
+            if again != baseline_sig:
+                rec["ok"] = False
+                rec["detail"] = "post-fault rerun diverged"
+    except Exception as e:  # scenario harness failure
+        rec["ok"] = False
+        rec["detail"] = f"{type(e).__name__}: {e}"
+    return rec
+
 
 _POOL = 1 << 19  # 512 KiB: Grace aggregation and the partitioned join at SF<=0.1
 PRESSURE = [
@@ -58,6 +214,29 @@ PRESSURE = [
                    "spill_host": None, "expect_tier": None},
      "point=spill_read,action=deny,nth=1", "fail"),
 ]
+
+
+
+def producer_faults(scan_splits: int) -> list:
+    """The faults that land on the spill readback's producer thread
+    (``exec/local_executor._prefetched_pages``, the port's one producer),
+    for ``PRESSURE_QUERY`` over a scan of ``scan_splits`` splits with the
+    host tier and then the disk tier forced: ``spill_read`` at the second
+    partition read, and ``h2d`` at the second staged readback page (past
+    the scan's own ``h2d`` points, one per page of a multi-split scan).
+    Each ``(name, cfg, spec)`` runs through ``run_pressure_scenario`` as a
+    ``fail`` scenario."""
+    from ..exec.local_executor import _dispatch_batch_default
+
+    scan_h2d = scan_splits if scan_splits > 1 and _dispatch_batch_default() > 1 else 0
+    out = []
+    for name, cfg, _spec, _kind in PRESSURE:
+        if name in ("tier-host", "tier-disk"):
+            tier = name.split("-")[1]
+            out.append((f"spill_read-{tier}", cfg, "point=spill_read,action=error,nth=2"))
+            out.append((f"h2d-{tier}", cfg, f"point=h2d,action=error,nth={scan_h2d + 2}"))
+    return out
+
 
 # a wide GROUP BY (one group per orderkey): its group table does not fit
 # the tiny pool
@@ -156,6 +335,51 @@ def run_pressure_scenario(engine, plan, baseline_sig, name, cfg, spec, kind,
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+    return rec
+
+
+def run_result_scenario(engine, sql, session, baseline_sig, name, spec,
+                        kind) -> dict:
+    """One result-tier scenario on a result-enabled engine: a clean pass
+    first (a checkout scenario needs an entry to deny; a store scenario then
+    clears the pool so that a store is attempted), then ``spec`` armed; the
+    result byte-identical to ``baseline_sig``, at least one fire, no entry
+    admitted under a store fault, the leak check, and a fault-free rerun
+    that still matches.  Returns ``{"ok": bool, ...}``."""
+    from . import faults
+
+    rec = {"scenario": name, "kind": kind}
+    try:
+        engine.execute_sql(sql, session)
+        if "store" in name:
+            engine.buffer_pool.clear()
+        with faults.injected(spec) as plan:
+            got = result_signature(engine.execute_sql(sql, session))
+        rec["ok"] = got == baseline_sig
+        if not rec["ok"]:
+            rec["detail"] = "result diverged"
+        rec["fires"] = plan.total_fires()
+        if rec["fires"] < 1:
+            rec["ok"] = False
+            rec["detail"] = "scenario never fired"
+        if "store" in name and rec["ok"] \
+                and engine.buffer_pool.info()["result_entries"]:
+            rec["ok"] = False
+            rec["detail"] = "entry admitted under a store fault"
+        leaks = leak_report(engine)
+        if leaks:
+            rec["ok"] = False
+            rec["leaks"] = leaks
+        if rec["ok"]:
+            # the fault left no partial state: a clean pass stores again and
+            # still matches
+            again = result_signature(engine.execute_sql(sql, session))
+            if again != baseline_sig:
+                rec["ok"] = False
+                rec["detail"] = "post-fault rerun diverged"
+    except Exception as e:  # noqa: BLE001 - a harness failure is the record's
+        rec["ok"] = False
+        rec["detail"] = f"{type(e).__name__}: {e}"
     return rec
 
 

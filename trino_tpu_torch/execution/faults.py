@@ -8,7 +8,7 @@ Design rules, as in the reference:
   Nth") or seeded-hash probabilities (splitmix64 over (seed, match index)),
   never wall clock, never the global RNG.
 - **Zero cost when disarmed.**  ``maybe_inject`` is one module-global read
-  and a ``None`` test.
+  and a ``None`` test: no launch, no host read, no allocation.
 - **Typed outcomes.**  ``action=error`` raises :class:`InjectedFaultError`;
   ``action=fatal`` raises :class:`FatalInjectedFaultError`; ``delay`` sleeps
   inline; ``drop``, ``deny``, ``disk_full`` and ``kill_worker`` return the
@@ -22,8 +22,33 @@ and the composed "<Op>#<k>/<site>" label), ``query``, ``action``, ``s``
 (delay seconds), ``nth`` / ``every`` / ``p`` + ``seed``, ``times``.
 
 The point vocabulary (``POINTS``) is the reference's.  The port wires the
-points in ``WIRED``, the tiered spill's (``exec/spill.py``):
+points in ``WIRED``, at its chokepoints:
 
+    dispatch       every kernel wrapper of ops/cuda_kernels (hash_insert_,
+                   hash_insert, hash_probe, compact_rows, fused_segment_agg;
+                   site = the kernel's name), before the device branch, so
+                   it fires at the plain versions on the CPU too; and
+                   exec/local_executor.LocalExecutor._host (site = the read's
+                   tag).  Together these are what ``device_dispatches``
+                   counts.  A fault here raises: the wrapper launches
+                   nothing and never falls back
+    host_pull      LocalExecutor._host, inside its in-flight entry
+    generate       exec/local_executor._scan_pages, once per split (site
+                   scan.<table>): every path that generates a split crosses
+                   it, the page tier's miss path included
+    h2d            exec/local_executor._page_to_device (the spill
+                   readback's producer thread), _stage_scan_entry (once per
+                   page of a scan stored in the page tier) and the scan's
+                   page loop wherever the reference stages a generated page
+                   (_scan_pages_source: a multi-split scan while
+                   TRINO_TPU_DISPATCH_BATCH is above 1), site page_to_device
+    reserve        memory.MemoryPool.try_reserve (site = the tag); ``deny``
+                   refuses the reservation
+    cache_checkout execution/bufferpool get_page / get_build / get_result
+                   (sites page.<table>, build, result); ``deny`` serves a miss
+    cache_store    put_page / put_build / put_result (same sites); ``deny``
+                   skips the admission, and an ``error`` is caught by the
+                   caller's store guard: the statement succeeds, no entry
     spill_write    tier admission and write (sites spill.hbm, spill.host,
                    spill.disk).  ``deny`` makes that tier refuse, and the
                    chunk overflows to the next tier; ``disk_full`` (or
@@ -32,11 +57,17 @@ points in ``WIRED``, the tiered spill's (``exec/spill.py``):
     spill_read     partition readback (sites spill.<tier>.read): any
                    returned action is a typed read failure
 
-The other points sit in the reference's launch and host-read chokepoints,
-the connectors, the caches, the exchange and the cluster, and are wired
-with them (ROADMAP A6, A7).  Until then ``arm`` and ``injected`` refuse a
-rule that names one: a rule that is armed and can never fire would pass a
-chaos check for nothing.
+A firing on a producer thread (the spill readback's ``_prefetched_pages``)
+is charged to the query: the producer carries the consumer's counter set
+and query id.  ``dispatch`` counts kernel-wrapper calls and host reads
+here, jitted steps in the reference, so an ``nth`` rule lands on another
+operation in each package; the outcome (recovered, or a typed error, and
+no leak) is what the chaos matrix holds.
+
+``exchange_write``, ``exchange_read`` and ``task`` sit in the reference's
+exchange and cluster, and are wired with them (ROADMAP A7).  Until then
+``arm`` and ``injected`` refuse a rule that names one: a rule that is armed
+and can never fire would pass a chaos check for nothing.
 """
 
 from __future__ import annotations
@@ -57,7 +88,8 @@ POINTS = ("dispatch", "host_pull", "generate", "h2d", "cache_store",
           "reserve", "spill_write", "spill_read")
 
 # the points the port's chokepoints call maybe_inject for
-WIRED = ("spill_write", "spill_read")
+WIRED = ("dispatch", "host_pull", "generate", "h2d", "reserve", "cache_checkout",
+         "cache_store", "spill_write", "spill_read")
 
 ACTIONS = ("error", "fatal", "delay", "drop", "deny", "kill_worker",
            "disk_full")

@@ -35,6 +35,8 @@ from typing import Optional
 
 import torch
 
+from .execution import faults
+
 __all__ = ["AggregatedMemoryContext", "LocalMemoryContext", "MemoryPool",
            "MemoryPoolExhaustedError", "QueryMemoryLimitError", "device_memory_budget"]
 
@@ -84,7 +86,11 @@ class MemoryPool:
 
     def try_reserve(self, nbytes: int, tag: str = "") -> bool:
         """Reserve ``nbytes``; False when they would not fit the pool.
-        Raises QueryMemoryLimitError past this thread's query limit."""
+        Raises QueryMemoryLimitError past this thread's query limit.  A
+        ``reserve`` fault point (``execution/faults``, site = the tag):
+        ``deny`` refuses, and the caller takes its smaller strategy."""
+        if faults.maybe_inject("reserve", tag) == "deny":
+            return False
         limit, held = self.query_limit, self.query_reserved
         if limit is not None and held + nbytes > limit:
             raise QueryMemoryLimitError(

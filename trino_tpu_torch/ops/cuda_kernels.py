@@ -18,7 +18,10 @@ about that):
 
 The choice follows the tensors' device and nothing else: CPU tensors take the
 plain version, CUDA tensors launch the kernel or raise.  There is no fallback
-and no switch.  The plain versions are the torch form of the reference's XLA
+and no switch.  Each wrapper is a ``dispatch`` fault point
+(``execution/faults``, site = the kernel's name) before that choice: an
+injected fault raises there, and the wrapper then launches nothing and runs
+no plain version; disarmed, the point is one global read.  The plain versions are the torch form of the reference's XLA
 paths; the tests and ``chip_smoke.py`` compare against them.
 
 Build: at first use on the card, ``nvcc`` compiles each source (all started
@@ -65,7 +68,7 @@ import time
 import torch
 from torch.profiler import record_function
 
-from ..execution import tracing
+from ..execution import faults, tracing
 from .hashing import EMPTY_KEY, probe_step, splitmix64
 
 __all__ = ["hash_insert", "hash_insert_", "hash_probe", "compact_rows", "fused_segment_agg",
@@ -334,6 +337,7 @@ def hash_insert_(table, packed, valid, max_probes: int = MAX_PROBES):
     if table.dtype != torch.int64 or table.dim() != 1 or not table.is_contiguous():
         raise TypeError(f"hash_insert_: the table must be a contiguous 1-D int64 tensor, "
                         f"got {table.dtype} of shape {tuple(table.shape)}")
+    faults.maybe_inject("dispatch", "hash_insert")
     if not _on_card(table, packed, valid):
         return hash_insert_plain_(table, packed, valid, max_probes)
     return _insert_into(table, packed, valid, max_probes)
@@ -344,6 +348,7 @@ def hash_insert(table, packed, valid, max_probes: int = MAX_PROBES):
     """The functional form of ``hash_insert_``: inserts into a copy of
     ``table`` and returns (table', slot, placed); the input table is not
     modified."""
+    faults.maybe_inject("dispatch", "hash_insert")
     if not _on_card(table, packed, valid):
         return hash_insert_plain(table, packed, valid, max_probes)
     out = _require(table, torch.int64, "hash_insert table").clone()
@@ -420,6 +425,7 @@ def hash_probe(table, vals, packed, valid, max_probes: int = MAX_PROBES):
     multi-match layout's ``probe_slots``); packed: [n] int64 key words;
     valid: [n] bool.  Returns (payload at the match or 0 [n] int32, matched
     [n] bool), bit-identical to the XLA loop of ``hashjoin.probe``."""
+    faults.maybe_inject("dispatch", "hash_probe")
     if not _on_card(table, vals, packed, valid):
         return hash_probe_plain(table, vals, packed, valid, max_probes)
     table = _require(table, torch.int64, "hash_probe table")
@@ -477,6 +483,7 @@ def compact_rows(arrays, valid, out_len: int):
     ``torch.empty`` and the kernel writes every byte of them; one scratch
     tensor holds the scan's tile words and the count."""
     arrs = [a for a in arrays if a is not None]
+    faults.maybe_inject("dispatch", "compact_rows")
     if not _on_card(valid, *arrs):
         return compact_rows_plain(arrays, valid, out_len)
     valid = _require(valid, torch.bool, "compact_rows valid")
@@ -541,6 +548,7 @@ def fused_segment_agg(slot, valid, value_cols, n_slots: int):
     n = slot.shape[0]
     if valid.shape[0] != n or any(v.dim() != 1 or v.shape[0] != n for v in value_cols):
         raise ValueError(f"fused_segment_agg: columns do not all have {n} rows")
+    faults.maybe_inject("dispatch", "fused_segment_agg")
     if not _on_card(slot, valid, *value_cols):
         return fused_segment_agg_plain(slot, valid, value_cols, n_slots)
     slot = _require(slot.to(torch.int32), torch.int32, "fused_segment_agg slot")

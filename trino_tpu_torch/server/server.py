@@ -673,6 +673,17 @@ class CoordinatorServer:
                 "to host.",
                 "# TYPE trino_tpu_host_bytes_pulled_total counter",
                 f"trino_tpu_host_bytes_pulled_total {ct.host_bytes_pulled}",
+                # chaos runs: fault-injector firings charged to statements,
+                # and task retries (0 until the cluster's retry loop, A7)
+                "# HELP trino_tpu_faults_injected_total Chaos fault-injector "
+                "firings (execution/faults) accounted to queries.",
+                "# TYPE trino_tpu_faults_injected_total counter",
+                f"trino_tpu_faults_injected_total {ct.faults_injected}",
+                "# HELP trino_tpu_task_retries_total Task retries / "
+                "re-dispatches charged to queries (FTE retry loop, "
+                "coordinator reassignment).",
+                "# TYPE trino_tpu_task_retries_total counter",
+                f"trino_tpu_task_retries_total {ct.task_retries}",
                 # plan templates: a hit served a statement through a cached
                 # parameterized plan (no parse, analyze or plan); a miss is a
                 # template's creation
