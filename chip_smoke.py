@@ -18,8 +18,8 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    every kernel but ``fused_segment_agg`` (which has no caller in the engine,
    as in the reference) must launch.  Each result is held against the same
    query run by the port on the CPU: that CPU pass runs in a child process
-   (``CpuPass``, ``cpu_pass_child``: spawned at the top of ``main`` before
-   the card is touched, half the host's cores for its torch threads), and
+   (``ChildPass`` of ``cpu_pass_child``: spawned at the top of ``main``
+   before the card is touched, half the host's cores for its torch threads), and
    its 22 card-vs-CPU checks are made when it is joined, just before phase
    14, which reads its per-node records; a child that fails, runs past
    ``CPU_PASS_TIMEOUT_S`` of waiting or returns nothing fails the run.
@@ -295,8 +295,39 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    ``maybe_inject`` call beside phase 3's wrapper host times.  (f)
    ``hash_insert_``, ``hash_probe`` and ``compact_rows`` against their plain
    versions at the phase's largest and most frequent shapes.  ``by_path``
-   gains ``chaos_sf1``: the launches of 17a-17c.  Every phase prints its
-   seconds on a line of its own.
+   gains ``chaos_sf1``: the launches of 17a-17c.
+18. The connectors past the generators (``federation_path``; the tiers
+   and the advisor off).  (a) SF1 orders and customer from the generator
+   written into a sqlite file (dates as integer days, decimals as REAL, an
+   index on each join key) by a child process beside the earlier phases
+   (``ChildPass`` of ``fed_pass_child``, spawned at the top of ``main``),
+   which also runs each ``FED_CPU`` statement on a CPU engine over that
+   file; the load is timed there, out of every statement's wall.  A card
+   engine reads it as catalog ``db`` (``DbapiConnector``) beside ``tpch``
+   on the card.  (b) ``FED_Q3`` (TPC-H Q3 with orders from ``db``) and
+   ``FED_RECONCILE`` (the remote copy against its source on two keys: every
+   order matches, none differs), cold and warm, each equal to the CPU run;
+   they must launch ``hash_insert_``, ``hash_probe`` and ``compact_rows``,
+   and stage at least 8 bytes of every remote row to the card (the
+   connector decodes on the host; the executor's producer copies).
+   (c) ``FED_INDEX``: the index join looks up 375 customers' orders by
+   key, ships only the matched rows, EXPLAIN ANALYZE shows ``[index lookup:
+   375 keys]``, the rows equal the CPU's and the run with
+   ``TRINO_TPU_INDEX_JOIN=0``.  (d) ``FED_TOPN`` ships at most 20 rows (tied
+   dates held as multisets) and ``FED_JOIN_PUSH`` runs orders x customer
+   inside sqlite with its key range (``c_custkey <= FED_JOIN_CUSTKEYS``,
+   carried in the remote query), shipping only the orders sqlite counts in
+   that range; both equal the CPU run.  (e) A blackhole table of 2^27
+   rows in 2^22-row pages: count, min, max, sums and a group-by on
+   ``id % 1000003`` against their oracles, and an INSERT of 1,048,576 rows
+   swallowed and counted.  The file connectors need ``pyarrow``: without
+   it they are named as skipped; with it, SF1 orders in Parquet, a
+   partitioned Hive table and an ORC file are scanned on the card (their
+   pages staged by the prefetch producer) against the CPU.  (f)
+   ``hash_insert_``, ``hash_probe`` and ``compact_rows`` against their
+   plain versions at the phase's largest and most frequent shapes.
+   ``by_path`` gains ``federation_sf1``: the launches of 18b-18e.  Every
+   phase prints its seconds on a line of its own.
 
 It prints the card line, then one JSON line with every kernel's numbers, and
 last ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -1652,24 +1683,65 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def same_result(a, b, what, by_value=False):
+def same_result(a, b, what, by_value=False, order_by=None):
     """Exact for integer/decimal/date/bool/string columns, rtol 1e-9 for DOUBLE.
     Strings compare as dictionary ids, or as their values with ``by_value``
-    (results over two catalogs, whose dictionaries number them differently)."""
+    (results over two catalogs, whose dictionaries number them differently).
+    Rows are held row by row, unless ``order_by`` names the columns the
+    statement orders its rows by: then those columns are held row by row,
+    and the rows tied on them (a run of equal keys) as multisets, since
+    tied rows have no defined order in either package."""
     import numpy as np
 
     check(tuple(a.names) == tuple(b.names), f"{what}: column names differ")
     check(len(a) == len(b), f"{what}: {len(a)} rows vs {len(b)}")
+    cols = []
     for name, t, ca, cb, da, db in zip(a.names, a.types, a.raw_columns, b.raw_columns,
                                        a.columns, b.columns):
         ca, cb = np.asarray(ca), np.asarray(cb)
         if t.is_string and by_value:
-            ok = [str(x) for x in list(da)] == [str(x) for x in list(db)]
-        elif t.is_floating:
-            ok = np.allclose(ca, cb, rtol=1e-9, atol=0.0, equal_nan=True)
-        else:
-            ok = ca.shape == cb.shape and bool((ca == cb).all())
-        check(ok, f"{what}: column {name} differs")
+            ca = np.array([str(x) for x in list(da)], dtype=object)
+            cb = np.array([str(x) for x in list(db)], dtype=object)
+        cols.append((name, t, ca, cb))
+    if order_by:
+        check(set(order_by) <= set(a.names), f"{what}: order_by {order_by} not in the result")
+        keys = [c for c in cols if c[0] in order_by]
+        for name, t, ca, cb in keys:
+            check(_same_column(t, ca, cb), f"{what}: order key {name} differs")
+        n = len(a)
+        brk = np.zeros(n, bool)
+        brk[:1] = True
+        for _, _, ca, _ in keys:
+            brk[1:] |= ca[1:] != ca[:-1]
+        run = np.cumsum(brk)
+        ranks = [_sort_codes(ca, cb) for _, _, ca, cb in cols]
+        # within each run, both sides in one canonical order of whole rows
+        pa_ = np.lexsort([r[0] for r in reversed(ranks)] + [run])
+        pb_ = np.lexsort([r[1] for r in reversed(ranks)] + [run])
+        cols = [(name, t, ca[pa_], cb[pb_]) for name, t, ca, cb in cols]
+    for name, t, ca, cb in cols:
+        check(_same_column(t, ca, cb), f"{what}: column {name} differs")
+
+
+def _same_column(t, ca, cb) -> bool:
+    import numpy as np
+
+    if ca.dtype == object or cb.dtype == object:
+        return ca.shape == cb.shape and list(ca) == list(cb)
+    if t.is_floating:
+        return bool(np.allclose(ca, cb, rtol=1e-9, atol=0.0, equal_nan=True))
+    return ca.shape == cb.shape and bool((ca == cb).all())
+
+
+def _sort_codes(ca, cb):
+    """Sortable codes of two columns, consistent across both (object
+    columns by their strings' order)."""
+    import numpy as np
+
+    if ca.dtype != object and cb.dtype != object:
+        return ca, cb
+    _, inv = np.unique(np.array([str(x) for x in list(ca) + list(cb)]), return_inverse=True)
+    return inv[:len(ca)], inv[len(ca):]
 
 
 def run_queries(engine, queries, conn_rows, label, catalog="tpch", fact="lineitem"):
@@ -1883,10 +1955,16 @@ def insert_case(gen, n, C):
 def split_keys(conn, table, column):
     """A path's own insert keys: ``column`` of ``table``'s first split,
     packed as a one-key hash group-by packs it, and the split's valid
-    lanes."""
+    lanes.  A host-decoding connector's page is staged to the card as the
+    executor stages it."""
+    import torch
+
+    from trino_tpu_torch.exec.local_executor import _page_to_device
     from trino_tpu_torch.ops.hashing import pack_keys
 
     page = conn.generate(conn.splits(table)[0], [column])
+    if getattr(conn, "HOST_DECODE", False):
+        page = _page_to_device(page, torch.device(DEVICE), None)[0]
     packed, _ = pack_keys((page.columns[0],), (page.schema.fields[0].type,))
     return packed, page.valid_mask()
 
@@ -6406,6 +6484,469 @@ def chaos_path(counts2, host_ms):
                            for k, r in checks.items()}
 
 
+# -- phase 18: the connectors past the generators ------------------------------------
+FED_TABLES = ("orders", "customer")  # 18a: written from the generator into sqlite
+FED_SPLIT_ROWS = 1 << 16  # the dbapi connector's default rowid range a split
+FED_DAY = 9204  # 1995-03-15 as epoch days: dates live in the remote table as integers
+# 18b: TPC-H Q3 with orders read from the remote database
+FED_Q3 = f"""select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue,
+       o_orderdate, o_shippriority
+from tpch.customer, db.orders, tpch.lineitem
+where c_mktsegment = 'BUILDING' and c_custkey = o_custkey and l_orderkey = o_orderkey
+  and o_orderdate < {FED_DAY} and l_shipdate > date '1995-03-15'
+group by l_orderkey, o_orderdate, o_shippriority
+order by revenue desc, o_orderdate, l_orderkey limit 10"""
+# 18b: the remote copy reconciled with its source on two keys (a hashed table:
+# a one-key join over a dense key range takes the direct table, no probe kernel)
+FED_RECONCILE = """select count(*) c,
+       sum(case when abs(r.o_totalprice - t.o_totalprice) > 0.005 then 1 else 0 end) bad
+from db.orders r, tpch.orders t
+where r.o_orderkey = t.o_orderkey and r.o_custkey = t.o_custkey"""
+# 18c: 375 customers' orders, looked up by key in the remote table
+FED_INDEX = """select c_custkey, count(*) n, sum(o_totalprice) s
+from tpch.customer, db.orders
+where c_custkey = o_custkey and c_custkey % 400 = 1
+group by c_custkey order by c_custkey"""
+FED_INDEX_KEYS = (100, 500)  # the build's distinct keys the lookup must ship
+# 18d: the TopN (ties on the date: held as multisets within a tied run) and
+# the join pushed into the remote database with its key range (a tenth of
+# the customers), which the remote query carries
+FED_TOPN = ("select o_orderdate, o_custkey, o_totalprice from db.orders "
+            "order by o_orderdate desc limit 20")
+FED_TOPN_N = 20
+FED_JOIN_CUSTKEYS = 15000
+FED_JOIN_PUSH = f"""select c_mktsegment, count(*) c, sum(o_totalprice) s
+from db.orders, db.customer where o_custkey = c_custkey and c_custkey <= {FED_JOIN_CUSTKEYS}
+group by c_mktsegment order by c_mktsegment"""
+# 18e: blackhole, 2^27 rows in 2^22-row pages
+BH_PAGE_ROWS, BH_SPLITS = 1 << 22, 32
+BH_GROUPS = 1000003
+BH_AGG = "select count(*) n, min(id) lo, max(id) hi, sum(id) s, sum(v) sv from t"
+BH_GROUP = (f"select count(*) g, sum(c) n, min(c) lo, max(c) hi from "
+            f"(select id % {BH_GROUPS} k, count(*) c from t group by id % {BH_GROUPS})")
+BH_INSERT = "insert into t select id, v from t where id % 128 = 0"
+FILE_CONNECTORS = ("parquet", "orc", "filetable", "hive", "iceberg", "delta")
+FED_PASS_THREADS = 2  # the phase's CPU child: sqlite is one thread, Q3's generation two
+FED_PASS_TIMEOUT_S = 300.0  # the most the join of that child may wait
+# the statements the child runs on the CPU, each held against the card's run
+FED_CPU = {"q3": FED_Q3, "reconcile": FED_RECONCILE, "index": FED_INDEX,
+           "topn": FED_TOPN, "join": FED_JOIN_PUSH}
+
+
+def load_remote(path, conn):
+    """18a: ``FED_TABLES`` from the generator into a sqlite file: dates as
+    integer days, decimals as REAL (as a remote database of the dbapi
+    connector's type mapping holds them), an index on each join key.
+    Returns {table: rows}."""
+    import sqlite3
+
+    import numpy as np
+
+    from trino_tpu_torch.types import DecimalType
+
+    con = sqlite3.connect(path)
+    con.execute("pragma journal_mode = off")
+    con.execute("pragma synchronous = off")
+    rows = {}
+    for table in FED_TABLES:
+        fields = conn.schema(table).fields
+        dicts = conn.dictionaries(table)
+        decl = ", ".join(
+            f"{f.name} {'text' if f.type.is_string else 'real' if f.type.is_floating or isinstance(f.type, DecimalType) else 'integer'}"
+            for f in fields)
+        con.execute(f"create table {table} ({decl})")
+        n = 0
+        for split in conn.splits(table):
+            page = conn.generate(split, list(conn.schema(table).names))
+            live = page.valid_mask().cpu().numpy()
+            cols = []
+            for f, c in zip(fields, page.columns):
+                a = c.cpu().numpy()[live]
+                if f.type.is_string:
+                    a = dicts[f.name].decode(a.astype(np.int64))
+                elif isinstance(f.type, DecimalType):
+                    a = a / 10 ** f.type.scale
+                cols.append(a.tolist())
+            con.executemany(f"insert into {table} values ({', '.join('?' * len(fields))})",
+                            zip(*cols))
+            n += len(cols[0])
+        rows[table] = n
+    con.execute("create index orders_custkey on orders (o_custkey)")
+    con.execute("create index customer_custkey on customer (c_custkey)")
+    con.commit()
+    con.close()
+    return rows
+
+
+def fed_engine(path, device):
+    """An engine on ``device`` with the remote database as ``db`` and the
+    generator as ``tpch``, at SF1."""
+    import sqlite3
+
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.dbapi import DbapiConnector
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    e = Engine(device=device)
+    e.register_catalog("db", DbapiConnector(lambda: sqlite3.connect(path),
+                                            split_rows=FED_SPLIT_ROWS))
+    e.register_catalog("tpch", TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS))
+    return e
+
+
+def fed_pass_child(out_path: str, threads: int) -> None:
+    """Phase 18's CPU side, beside the card phases: 18a's load of the
+    remote database (``remote.db`` beside ``out_path``, from the CPU
+    generator, which makes the card's rows) and the port's CPU run of each
+    ``FED_CPU`` statement over it; pickles the rows loaded, the load's and
+    the metadata snapshot's seconds and each result with its seconds."""
+    import pickle
+
+    import torch
+
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    path = os.path.join(os.path.dirname(out_path), "remote.db")
+    rec = {"path": path, "threads": threads}
+    rec["loaded"] = load_remote(path, TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS,
+                                                    device="cpu"))
+    rec["load_s"] = time.perf_counter() - t0
+    rec["db_bytes"] = os.path.getsize(path)
+    e = fed_engine(path, "cpu")
+    t1 = time.perf_counter()
+    for table in FED_TABLES:
+        e.catalogs["db"].dictionaries(table)
+    rec["snapshot_s"] = time.perf_counter() - t1
+    rec["results"] = {}
+    for label, sql in FED_CPU.items():
+        t1 = time.perf_counter()
+        res = e.execute_sql(sql, e.create_session("db"))
+        rec["results"][label] = {"result": res, "seconds": time.perf_counter() - t1}
+    rec["seconds"] = time.perf_counter() - t0
+    tmp = out_path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(rec, f)
+    os.replace(tmp, out_path)
+
+
+def fed_run(card, cpu, sql, own, label, order_by=None, by_value=False, warm=True):
+    """The statement on the card engine, its launches counted by ``own``,
+    cold and (``warm``) warm, held against ``cpu``: the child's CPU record
+    of the same statement, or None for a check of the caller's own."""
+    import torch
+
+    sess = card.create_session("db")
+    walls = []
+    for _ in range(2 if warm else 1):
+        with own.region():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = card.execute_sql(sql, sess)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    counters = dict(card.last_query_counters)
+    rec = {"rows": len(res), "cold_s": walls[0], "warm_s": walls[-1] if warm else None,
+           "host_reads": counters.get("host_reads"), "h2d_bytes": counters.get("h2d_bytes")}
+    if cpu is not None:
+        same_result(res, cpu["result"], f"federation {label} card vs CPU", by_value=by_value,
+                    order_by=order_by)
+        rec["cpu_s"] = cpu["seconds"]
+    print(f"federation {label}: {rec}", flush=True)
+    return res, rec
+
+
+def pushed_rows(conn, kind):
+    """The rows the newest pushed handle of ``kind`` ships, read through
+    the connector as a scan reads them."""
+    handle = [h for h, sp in conn._pushed.items() if sp["kind"] == kind][-1]
+    spec = conn._pushed[handle]
+    names = [f.name for f in conn.schema(handle).fields]
+    return spec, sum(conn.generate(sp, names[:1]).capacity for sp in conn.splits(handle))
+
+
+def fed_index(card, cpu, own):
+    """18c: the index join ships only the matched rows; EXPLAIN ANALYZE shows
+    the key count; the rows equal the CPU's and the run with
+    ``TRINO_TPU_INDEX_JOIN=0``."""
+    import re
+
+    import torch
+
+    conn = card.catalogs["db"]
+    before = conn.pushed_queries
+    res, rec = fed_run(card, cpu["index"], FED_INDEX, own, "18c index join")
+    check(conn.pushed_queries - before == 2,
+          f"18c: {conn.pushed_queries - before} lookups in two statements")
+    spec, shipped = pushed_rows(conn, "index")
+    matched = int(sum(res.columns[1]))
+    keys = len(spec["keys"])
+    check(FED_INDEX_KEYS[0] <= keys <= FED_INDEX_KEYS[1], f"18c: {keys} lookup keys")
+    check(shipped == matched, f"18c: the lookup shipped {shipped} rows for {matched} matches")
+    text = "\n".join(str(r[0]) for r in card.execute_sql(
+        "explain analyze " + FED_INDEX, card.create_session("db")).rows())
+    m = re.search(r"\[index lookup: (\d+) keys\]", text)
+    check(m is not None and int(m.group(1)) == keys,
+          f"18c: EXPLAIN ANALYZE shows no index lookup of {keys} keys")
+    with env_vars(TRINO_TPU_INDEX_JOIN="0"):
+        sess = card.create_session("db")
+        card.execute_sql(FED_INDEX, sess)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        off = card.execute_sql(FED_INDEX, sess)
+        torch.cuda.synchronize()
+        rec["off_warm_s"] = time.perf_counter() - t0
+    same_result(res, off, "18c index join on vs off")
+    rec.update(keys=keys, shipped=shipped, remote_rows=conn.row_count("orders"))
+    print(f"federation 18c: {keys} keys, {shipped} rows shipped of "
+          f"{rec['remote_rows']}; warm {rec['warm_s']:.4f} s, lookup off "
+          f"{rec['off_warm_s']:.4f} s", flush=True)
+    return rec
+
+
+def fed_pushdowns(card, cpu, own, path):
+    """18d: the TopN ships at most N rows; the join runs inside sqlite with
+    its key range, shipping only the orders of ``FED_JOIN_CUSTKEYS``
+    customers, counted in the sqlite file at ``path``; both equal the CPU
+    run."""
+    import sqlite3
+
+    conn = card.catalogs["db"]
+    rec = {}
+    before = conn.pushed_queries
+    _, rec["topn"] = fed_run(card, cpu["topn"], FED_TOPN, own, "18d topn",
+                             order_by=("o_orderdate",))
+    spec, shipped = pushed_rows(conn, "topn")
+    check(conn.pushed_queries > before and shipped <= FED_TOPN_N,
+          f"18d: the TopN shipped {shipped} rows")
+    rec["topn"]["shipped"] = shipped
+    before = conn.pushed_queries
+    res, rec["join"] = fed_run(card, cpu["join"], FED_JOIN_PUSH, own, "18d join pushdown",
+                               by_value=True)
+    check(conn.pushed_queries > before and any(sp["kind"] == "join"
+                                               for sp in conn._pushed.values()),
+          "18d: the join did not run in the remote database")
+    spec, shipped = pushed_rows(conn, "join")
+    check(("c_custkey", "lte", FED_JOIN_CUSTKEYS) in spec["right_filter"],
+          f"18d: the pushed join carries no key range: {spec}")
+    con = sqlite3.connect(path)
+    try:
+        want = con.execute("select count(*) from orders where o_custkey <= ?",
+                           (FED_JOIN_CUSTKEYS,)).fetchone()[0]
+    finally:
+        con.close()
+    check(int(sum(res.columns[1])) == want == shipped,
+          f"18d: the pushed join counted {int(sum(res.columns[1]))} and shipped "
+          f"{shipped} of the {want} orders in its range")
+    rec["join"].update(shipped=shipped, remote_rows=conn.row_count("orders"))
+    return rec
+
+
+def fed_blackhole(own):
+    """18e: a blackhole table of 2^27 rows on the card against its oracle;
+    an INSERT swallowed and counted."""
+    import torch
+
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.blackhole import BlackHoleConnector
+    from trino_tpu_torch.page import Field, Schema
+    from trino_tpu_torch.types import BIGINT, DOUBLE
+
+    bh = BlackHoleConnector()
+    bh.create_table("t", Schema((Field("id", BIGINT), Field("v", DOUBLE))),
+                    rows_per_page=BH_PAGE_ROWS, pages_per_split=1, splits=BH_SPLITS)
+    e = Engine(device=DEVICE)
+    e.register_catalog("bh", bh)
+    check(str(bh.device) == DEVICE, "18e: blackhole is not bound to the card")
+    sess = e.create_session("bh")
+    n = BH_PAGE_ROWS * BH_SPLITS
+    rec = {}
+    for label, sql, want in (
+            ("agg", BH_AGG, [(n, 0, n - 1, n * (n - 1) // 2, 0.0)]),
+            ("group", BH_GROUP, [(BH_GROUPS, n, n // BH_GROUPS, -(-n // BH_GROUPS))])):
+        walls = []
+        for _ in range(2):
+            with own.region():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = e.execute_sql(sql, sess).rows()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        check([tuple(r) for r in got] == want, f"18e {label}: {got} != {want}")
+        rec[label] = {"cold_s": walls[0], "warm_s": walls[1], "rows_per_s": n / walls[1]}
+    t0 = time.perf_counter()
+    with own.region():
+        ins = e.execute_sql(BH_INSERT, sess).rows()
+    rec["insert_s"] = time.perf_counter() - t0
+    check(ins == [(n // 128,)] and bh._tables["t"].inserted_rows == n // 128,
+          f"18e: the INSERT counted {ins}, {bh._tables['t'].inserted_rows} rows")
+    check(e.execute_sql("select count(*) from t", sess).rows()[0][0] == n,
+          "18e: the INSERT was not swallowed")
+    print(f"federation 18e blackhole: {rec}", flush=True)
+    del e
+    torch.cuda.empty_cache()
+    return rec
+
+
+FILES_SQL = {  # the file connectors on the card, each against the CPU engine
+    "parquet": ("select o_orderstatus, count(*) c, sum(o_totalprice) s, min(o_orderdate) d, "
+                "max(o_orderkey) k from orders group by o_orderstatus order by o_orderstatus"),
+    "hive": "select ds, count(*) c, sum(v) s from ev group by ds order by ds",
+    "orc": "select tag, count(*) c, sum(x) s from t group by tag order by tag",
+}
+
+
+def fed_files():
+    """The file connectors need pyarrow: without it they are reported by
+    name as skipped.  With it, SF1 orders written to Parquet (CTAS on the
+    CPU), a partitioned Hive table (CREATE ... partitioned_by and INSERT)
+    and an ORC file are scanned on the card, cold and warm (the page tier
+    off: every run decodes and stages), their host-decoded pages staged by
+    the prefetch producer, each result equal to the CPU engine's."""
+    import importlib.util
+
+    if importlib.util.find_spec("pyarrow") is None:
+        print(f"federation: file connectors skipped (no pyarrow on this machine): "
+              f"{', '.join(FILE_CONNECTORS)}", flush=True)
+        return {"skipped": list(FILE_CONNECTORS)}
+    import tempfile
+
+    import pyarrow
+    import torch
+
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.hive import HiveConnector
+    from trino_tpu_torch.connectors.orc import OrcConnector
+    from trino_tpu_torch.connectors.parquet import ParquetConnector
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.types import BIGINT, DOUBLE, VarcharType
+
+    rec = {"pyarrow": pyarrow.__version__}
+    with tempfile.TemporaryDirectory(prefix="trino-files-") as d:
+        src = Engine(device="cpu")
+        src.register_catalog("tpch", TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS))
+        src.register_catalog("pq", ParquetConnector(os.path.join(d, "pq")))
+        src.register_catalog("hive", HiveConnector(os.path.join(d, "hive")))
+        t0 = time.perf_counter()
+        src.execute_sql("create table orders as select o_orderkey, o_custkey, o_orderstatus, "
+                        "o_totalprice, o_orderdate from tpch.orders", src.create_session("pq"))
+        rec["parquet_write_s"] = time.perf_counter() - t0
+        hs = src.create_session("hive")
+        src.execute_sql("create table ev (k bigint, v double, ds varchar) "
+                        "with (partitioned_by = array['ds'])", hs)
+        src.execute_sql("insert into ev select n_nationkey, n_nationkey * 1.5, r_name "
+                        "from tpch.nation, tpch.region where n_regionkey = r_regionkey", hs)
+        OrcConnector(os.path.join(d, "orc")).write_table(
+            "t", ["k", "x", "tag"], [BIGINT, DOUBLE, VarcharType.of(None)],
+            [list(range(3000)), [i * 0.5 for i in range(3000)],
+             [None if i % 7 == 0 else f"tag{i % 5}" for i in range(3000)]])
+        conns = {"parquet": lambda: ParquetConnector(os.path.join(d, "pq")),
+                 "hive": lambda: HiveConnector(os.path.join(d, "hive")),
+                 "orc": lambda: OrcConnector(os.path.join(d, "orc"))}
+        for name, sql in FILES_SQL.items():
+            out = {}
+            for device in (DEVICE, "cpu"):
+                e = Engine(device=device)
+                e.register_catalog(name, conns[name]())
+                sess = e.create_session(name)
+                walls = []
+                for _ in range(2):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out[device] = e.execute_sql(sql, sess)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                if device == DEVICE:
+                    rec[name] = {"cold_s": walls[0], "warm_s": walls[1],
+                                 "h2d_bytes": e.last_query_counters["h2d_bytes"],
+                                 "splits": len(e.catalogs[name].splits(
+                                     "orders" if name == "parquet" else
+                                     "ev" if name == "hive" else "t"))}
+            same_result(out[DEVICE], out["cpu"], f"{name} card vs CPU", by_value=True)
+            # at least a byte of each row of every column the statement
+            # reads (parquet's four, the others' as many as they output)
+            cols = 4 if name == "parquet" else len(out["cpu"].names)
+            check(rec[name]["h2d_bytes"] >= cols * int(out["cpu"].columns[1].sum()),
+                  f"{name}: {rec[name]['h2d_bytes']} bytes staged to the card")
+    print(f"federation: pyarrow {rec['pyarrow']} on this machine, the file connectors on "
+          f"the card: {rec}", flush=True)
+    return rec
+
+
+def federation_path(fed_pass):
+    """Phase 18: the dbapi connector at SF1 beside the generator on the card
+    (18a the load, made with the CPU runs in ``fed_pass``'s child beside the
+    earlier phases; 18b a federated Q3 and a two-key reconciliation, 18c the
+    index join, 18d the TopN and join pushdowns), blackhole at 2^27 rows
+    (18e), and the kernels at the phase's shapes (18f).  Returns (the record,
+    launches, {kernel: checks at their shapes})."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    data, waited = fed_pass.join(FED_PASS_TIMEOUT_S)
+    check(list(data["results"]) == list(FED_CPU),
+          f"phase 18's CPU pass returned {sorted(data['results'])}")
+    cpu = data["results"]
+    rec = {k: data[k] for k in ("loaded", "load_s", "db_bytes", "snapshot_s")}
+    rec["cpu_pass"] = {"seconds": data["seconds"], "threads": data["threads"],
+                       "waited_s": waited}
+    print(f"federation 18a: {rec['loaded']} rows into sqlite in {rec['load_s']:.2f} s "
+          f"({rec['db_bytes']} bytes) in the child, whose CPU pass took "
+          f"{data['seconds']:.1f} s; the join waited {waited:.1f} s", flush=True)
+    own = OwnLaunches()
+    torch.cuda.empty_cache()
+    card = fed_engine(data["path"], DEVICE)
+    t0 = time.perf_counter()
+    for table in FED_TABLES:  # the metadata snapshot, outside the walls
+        card.catalogs["db"].dictionaries(table)
+    rec["card_snapshot_s"] = time.perf_counter() - t0
+    with env_vars(TRINO_TPU_PAGE_CACHE="0", TRINO_TPU_RESULT_CACHE="0"):
+        q3_launches = OwnLaunches()
+        _, rec["q3"] = fed_run(card, cpu["q3"], FED_Q3, q3_launches, "18b q3")
+        res, rec["reconcile"] = fed_run(card, cpu["reconcile"], FED_RECONCILE, q3_launches,
+                                        "18b reconcile")
+        check(res.rows() == [(rec["loaded"]["orders"], 0)],
+              f"18b: the remote copy does not reconcile: {res.rows()}")
+        # the connector decodes on the host: the executor stages its pages,
+        # at least one 8-byte column of every remote row
+        for label in ("q3", "reconcile"):
+            check(rec[label]["h2d_bytes"] >= 8 * rec["loaded"]["orders"],
+                  f"18b {label}: {rec[label]['h2d_bytes']} bytes staged to the card")
+        for k in ("hash_insert", "hash_probe", "compact_rows"):
+            check(q3_launches.launches[k] > 0, f"18b launched no {k} kernel: "
+                                               f"{q3_launches.launches}")
+        for k in own.launches:
+            own.launches[k] += q3_launches.launches[k]
+            own.shapes[k].extend(q3_launches.shapes[k])
+        rec["q3"]["launches"] = dict(q3_launches.launches)
+        rec["index"] = fed_index(card, cpu, own)
+        rec["pushdowns"] = fed_pushdowns(card, cpu, own, data["path"])
+    keys = split_keys(card.catalogs["db"], "orders", "o_orderkey")
+    del card
+    torch.cuda.empty_cache()
+    rec["blackhole"] = fed_blackhole(own)
+    with env_vars(TRINO_TPU_PAGE_CACHE="0", TRINO_TPU_RESULT_CACHE="0"):
+        rec["files"] = fed_files()
+    launches = dict(own.launches)
+    # 18f: each kernel the path launched against its plain version at the
+    # path's largest and most frequent shapes
+    gen = np.random.default_rng(61)
+    checks = {"hash_insert": insert_checks(own.shapes["hash_insert"],
+                                           ("remote_orderkey", *keys), gen),
+              "hash_probe": probe_checks(own.shapes["hash_probe"], gen),
+              "compact_rows": compact_checks(own.shapes["compact_rows"], gen)}
+    del keys
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"federation path: {rec['seconds']:.1f} s, launches {launches}", flush=True)
+    print(json.dumps({"federation_sf1": rec}, default=str), flush=True)
+    torch.cuda.empty_cache()
+    return rec, launches, {k: {"max_abs_err": r["max_abs_err"], "shapes": r["shapes"]}
+                           for k, r in checks.items()}
+
+
 # -- phase 2's CPU parity pass, in a child process ----------------------------------
 def cpu_pass_child(out_path: str, threads: int, sf: float, split_rows: int) -> None:
     """Phase 2's CPU pass: the port on the CPU over ``ALL_QUERIES`` at
@@ -6439,24 +6980,25 @@ def cpu_pass_child(out_path: str, threads: int, sf: float, split_rows: int) -> N
     os.replace(tmp, out_path)
 
 
-class CpuPass:
-    """Phase 2's CPU pass in a spawned child process, started at the top of
+class ChildPass:
+    """A CPU pass in a spawned child process, started at the top of
     ``main`` (before this process touches the card) and joined before the
-    first phase that needs its results; the child gets half the host's
-    cores for its torch threads.  ``stop`` ends the child, whatever state
-    it is in, and removes its output."""
+    first phase that needs its results.  ``target(out_path, threads,
+    *args)`` pickles its record to ``out_path``; the child's directory (its
+    record and whatever else it writes there) is removed by ``stop``, which
+    also ends the child, whatever state it is in."""
 
-    def __init__(self):
+    def __init__(self, target, name: str, threads: int, *args):
         import multiprocessing
         import tempfile
 
-        self.dir = tempfile.mkdtemp(prefix="trino-cpu-pass-")
-        self.path = os.path.join(self.dir, "cpu_pass.pkl")
-        self.threads = max(1, len(os.sched_getaffinity(0)) // 2)
+        self.name = name
+        self.dir = tempfile.mkdtemp(prefix=f"trino-{name}-")
+        self.path = os.path.join(self.dir, f"{name}.pkl")
+        self.threads = threads
         ctx = multiprocessing.get_context("spawn")
-        self.proc = ctx.Process(target=cpu_pass_child,
-                                args=(self.path, self.threads, SF_MAIN, SPLIT_ROWS),
-                                name="cpu-pass", daemon=True)
+        self.proc = ctx.Process(target=target, args=(self.path, threads, *args),
+                                name=name, daemon=True)
         self.started = time.perf_counter()
         self.proc.start()
 
@@ -6468,16 +7010,11 @@ class CpuPass:
         t0 = time.perf_counter()
         self.proc.join(timeout)
         waited = time.perf_counter() - t0
-        check(not self.proc.is_alive(),
-              f"phase 2's CPU pass ran past {timeout:.0f} s of waiting")
-        check(self.proc.exitcode == 0,
-              f"phase 2's CPU pass exited with code {self.proc.exitcode}")
-        check(os.path.exists(self.path), "phase 2's CPU pass returned nothing")
+        check(not self.proc.is_alive(), f"{self.name} ran past {timeout:.0f} s of waiting")
+        check(self.proc.exitcode == 0, f"{self.name} exited with code {self.proc.exitcode}")
+        check(os.path.exists(self.path), f"{self.name} returned nothing")
         with open(self.path, "rb") as f:
-            data = pickle.load(f)
-        check(list(data["queries"]) == list(ALL_QUERIES),
-              f"phase 2's CPU pass returned {sorted(data['queries'])}")
-        return data, waited
+            return pickle.load(f), waited
 
     def stop(self) -> None:
         import shutil
@@ -6496,6 +7033,8 @@ def cpu_parity(cpu_pass, phase2):
     22 equal to the card's result, non-empty, with a history record.
     Returns phase 14's reference records."""
     data, waited = cpu_pass.join(CPU_PASS_TIMEOUT_S)
+    check(list(data["queries"]) == list(ALL_QUERIES),
+          f"phase 2's CPU pass returned {sorted(data['queries'])}")
     cpu_actuals = {}
     for q in ALL_QUERIES:
         ent = data["queries"][q]
@@ -6560,7 +7099,9 @@ def main() -> int:
     os.environ["TRINO_TPU_ADAPTIVE"] = "0"
     # phase 2's CPU parity pass runs beside the card phases, in a child
     # started before this process touches the card; phase 14 joins it
-    cpu_pass = CpuPass()
+    half = max(1, len(os.sched_getaffinity(0)) // 2)
+    cpu_pass = ChildPass(cpu_pass_child, "cpu-pass", half, SF_MAIN, SPLIT_ROWS)
+    fed_pass = ChildPass(fed_pass_child, "fed-pass", FED_PASS_THREADS)
     try:
         card = card_line()
         print(f"card: {card}", flush=True)
@@ -6718,6 +7259,10 @@ def main() -> int:
         # chaos matrix
         _, ch_launches, ch_checks = chaos_path(counts2, wrapper_host_ms(kernels))
         clock.done(17)
+        # -- phase 18: the connectors past the generators: federation over ---
+        # DB-API with the index join and the pushdowns, blackhole
+        _, fd_launches, fd_checks = federation_path(fed_pass)
+        clock.done(18)
 
         # per path: its launches, and the checks at its own shapes (the
         # top-level times stay the TPC-H path's largest shape's)
@@ -6747,15 +7292,17 @@ def main() -> int:
                 "spill_sf1": {"launches": sp_launches[name],
                               **sp_checks.get(name, {"max_abs_err": None, "shapes": []})},
                 "chaos_sf1": {"launches": ch_launches[name],
-                              **ch_checks.get(name, {"max_abs_err": None, "shapes": []})}}
+                              **ch_checks.get(name, {"max_abs_err": None, "shapes": []})},
+                "federation_sf1": {"launches": fd_launches[name],
+                                   **fd_checks.get(name, {"max_abs_err": None, "shapes": []})}}
             for checks in (ds_checks, mem_checks, fn_checks, ar_checks, sv_checks, ca_checks,
-                           tp_checks, ad_checks, fl_checks, sp_checks, ch_checks):
+                           tp_checks, ad_checks, fl_checks, sp_checks, ch_checks, fd_checks):
                 if name in checks:
                     r["max_abs_err"] = max(r["max_abs_err"], checks[name]["max_abs_err"])
             r["launches"] += (ds_launches[name] + mem_launches[name] + fn_launches[name]
                               + ar_launches[name] + sv_launches[name] + ca_launches[name]
                               + tp_launches[name] + ad_launches[name] + fl_launches[name]
-                              + sp_launches[name] + ch_launches[name])
+                              + sp_launches[name] + ch_launches[name] + fd_launches[name])
         print(f"phases: {json.dumps({k: round(v, 1) for k, v in clock.seconds.items()})}",
               flush=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -6764,6 +7311,7 @@ def main() -> int:
         return 1
     finally:
         cpu_pass.stop()
+        fed_pass.stop()
 
     print(card)
     print(json.dumps({"kernels": kernels}))

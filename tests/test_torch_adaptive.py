@@ -34,6 +34,8 @@ from trino_tpu_torch.execution.adaptive import (AdaptiveAdvisor, correction_toke
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the statement corpora; imports no torch at load)
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 KEY = ("stmt", "tpch", False, "user", ())
 JOIN_Q = chip_smoke.ADAPTIVE_JOIN
 

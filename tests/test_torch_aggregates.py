@@ -46,6 +46,8 @@ from test_torch_dml import run_both
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import AGGREGATE_CASES, AGGREGATE_SETUP  # noqa: E402  (no torch at load)
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 @pytest.fixture(scope="module")
 def engines():
     j, t = JaxEngine(), TorchEngine(device="cpu")

@@ -53,6 +53,8 @@ from test_torch_dml import run_both
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import ARRAY_CASES, ARRAY_SETUP  # noqa: E402  (no torch at load)
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 
 @pytest.fixture(scope="module")
 def engines():

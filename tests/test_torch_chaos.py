@@ -59,24 +59,14 @@ from trino_tpu_torch.sql.frontend import compile_sql
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the comparison helpers; imports no torch at load)
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 SF, SPLIT_ROWS = 0.01, 1 << 11
 FAST = ("q1", "q3")
 PAGE_TIER = 6 << 30  # tests/test_chaos.py's fixture
 # the producer tests' forced spill: chaos_matrix.PRESSURE_QUERY over orders
 # in splits of 4096 rows against the 512 KiB pool (tests/test_torch_spill.py)
 SPILL_SF, SPILL_SPLIT_ROWS = 0.02, 1 << 12
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: these pages are small, and the suite's workers
-    share the machine's cores (restored after the module)."""
-    import torch
-
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _leak_check(engine):

@@ -50,6 +50,8 @@ from trino_tpu_torch.execution.tracing import (COMPILE_LOG, CompileLog, QueryCou
 from trino_tpu_torch.ops import cuda_kernels as ck
 from trino_tpu_torch.server.server import CoordinatorServer
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 SF = 0.01
 QUERY = """select l_returnflag, sum(l_quantity) q, count(*) c
            from lineitem where l_shipdate <= date '1998-09-02'

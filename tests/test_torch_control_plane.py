@@ -48,6 +48,8 @@ from trino_tpu_torch.verifier import Verifier, VerifierQuery
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the comparison helpers; imports no torch at load)
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 
 def _engine(sf=0.001, split_rows=1 << 12):
     e = TorchEngine(device="cpu")

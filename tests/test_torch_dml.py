@@ -47,6 +47,8 @@ from trino_tpu_torch.connectors.tpch import TpchConnector as TorchTpch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the statement definitions; imports no torch at load)
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 
 # -- comparison --------------------------------------------------------------------------
 

@@ -54,6 +54,8 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
 import chip_smoke  # noqa: E402  (the statement corpora; imports no torch at load)
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 SF, SPLIT_ROWS = 0.01, 1 << 11
 QUERY = """select l_returnflag, sum(l_quantity) q, count(*) c
            from lineitem where l_shipdate <= date '1998-09-02'

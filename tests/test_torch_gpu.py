@@ -9,7 +9,9 @@ the vectorized matcher; the coordinator server over a card engine; the
 buffer pool's page, build and result tiers on the card (phase 12 of
 chip_smoke.py at SF0.01); a fused template window on the card (phase 13);
 a ``dispatch`` fault inside each kernel wrapper on CUDA tensors, after which
-the wrapper launches nothing (phase 17).
+the wrapper launches nothing (phase 17); host-decoded pages staged to the
+card by the prefetch producer (phase 18: a connector defined here returns
+the numpy pages a file connector would, so the test needs no ``pyarrow``).
 
 They skip without a card.  This file imports no jax, so on a machine with a
 card (which has no jax) it runs without the repo's conftest:
@@ -908,11 +910,16 @@ def test_staged_scan_page_on_the_card_equals_the_cpu(dev):
 
 
 def test_result_tier_hit_launches_nothing_on_the_card(dev, monkeypatch):
+    """Phase 12c's check: the second run of each of bench.py's five is a
+    result-tier hit that launches nothing.  As in phase 12, the adaptive
+    advisor is off: with it on, q18's second run is its corrected plan,
+    which the tier keys by the correction and misses."""
     import chip_smoke as cs
     from trino_tpu_torch import Engine
     from trino_tpu_torch.connectors.tpch import TpchConnector
 
     monkeypatch.setenv("TRINO_TPU_RESULT_CACHE", str(64 << 20))
+    monkeypatch.setenv("TRINO_TPU_ADAPTIVE", "0")
     card = Engine(device="cuda")
     card.register_catalog("tpch", TpchConnector(sf=0.01))
     cpu = _card_and_cpu(cs.QUERIES)["cpu"]
@@ -1108,3 +1115,67 @@ def test_dispatch_fault_in_a_kernel_wrapper_launches_nothing(dev):
         call()
         torch.cuda.synchronize()
         assert ck.STATS[name].launches == before + 1, name
+
+
+class _HostPages:
+    """A connector whose pages decode on the host (``HOST_DECODE``): the
+    TPC-H tables at SF0.01, each split's page copied into numpy arrays, as
+    a file connector's ``generate`` returns them."""
+
+    HOST_DECODE = True
+
+    def __init__(self):
+        from trino_tpu_torch.connectors.tpch import TpchConnector
+
+        self._src = TpchConnector(sf=0.01, split_rows=1 << 13, device="cpu")
+        self.pages = 0
+
+    def __getattr__(self, name):  # metadata, splits and ranges: the generator's
+        return getattr(self._src, name)
+
+    def generate(self, split, columns=None):
+        from trino_tpu_torch.page import Page
+
+        p = self._src.generate(split, columns)
+        keep = p.valid_mask().numpy()
+        self.pages += 1
+        return Page(p.schema, tuple(c.numpy()[keep] for c in p.columns),
+                    tuple(None if m is None else m.numpy()[keep] for m in p.null_masks),
+                    None)
+
+
+def test_host_decoded_pages_are_staged_to_the_card(dev, monkeypatch):
+    """A host-decode connector's numpy pages reach the card through the
+    prefetch producer: each page staged there is on the card, its bytes
+    are the query's ``h2d_bytes``, and the rows equal the CPU run's."""
+    import threading
+
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.exec import local_executor as le
+
+    staged = []
+    to_device = le._page_to_device
+
+    def spy(page, device, side):
+        out = to_device(page, device, side)
+        staged.append((threading.current_thread().name, out[1],
+                       all(c.is_cuda for c in out[0].columns)))
+        return out
+
+    monkeypatch.setattr(le, "_page_to_device", spy)
+    sql = """select l_returnflag, l_linestatus, count(*) c, sum(l_quantity) q,
+                    sum(l_extendedprice * (1 - l_discount)) r
+             from lineitem where l_shipdate <= date '1998-09-01'
+             group by l_returnflag, l_linestatus order by l_returnflag, l_linestatus"""
+    got = {}
+    for device in ("cuda", "cpu"):
+        staged.clear()
+        conn = _HostPages()
+        e = Engine(device=device)
+        e.register_catalog("tpch", conn)
+        got[device] = e.execute_sql(sql, e.create_session("tpch"))
+        assert conn.pages == len(conn.splits("lineitem")) > 1
+        assert [s[0] for s in staged] == ["prefetch-producer"] * conn.pages
+        assert all(s[2] for s in staged) == (device == "cuda")
+        assert e.last_query_counters["h2d_bytes"] >= sum(s[1] for s in staged) > 0
+    _same(got["cuda"], got["cpu"])

@@ -14,6 +14,8 @@ from trino_tpu.ops import hashing as jh
 from trino_tpu_torch import types as tt
 from trino_tpu_torch.ops import hashing as th
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 I64 = np.iinfo(np.int64)
 
 

@@ -18,6 +18,8 @@ from trino_tpu.sql import ir as JIR
 from trino_tpu_torch import types as TT
 from trino_tpu_torch.sql import ir as TIR
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 N = 257
 
 

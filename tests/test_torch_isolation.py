@@ -17,6 +17,8 @@ import sys
 
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PKG = os.path.join(_ROOT, "trino_tpu_torch")
 

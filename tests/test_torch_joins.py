@@ -15,6 +15,8 @@ import pytest
 from trino_tpu_torch import Engine as TorchEngine
 from trino_tpu_torch.connectors.tpch import TpchConnector as TorchTpch
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 NO_REGION = "r_name = 'NO SUCH REGION'"
 NULL_KEY = "case when r_regionkey = 0 then null else r_regionkey end"
 

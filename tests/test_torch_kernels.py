@@ -26,6 +26,8 @@ from trino_tpu.ops import arrays as jarrays, hashagg as jagg, pallas_kernels as 
 from trino_tpu.ops.hashing import EMPTY_KEY, probe_step, splitmix64
 from trino_tpu_torch.ops import cuda_kernels as ck
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 def T(a):
     return torch.as_tensor(np.array(a))
 

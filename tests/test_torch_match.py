@@ -33,6 +33,8 @@ from test_torch_dml import run_both
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import MATCH_CASES, MATCH_SETUP, V_SHAPE_TICKS  # noqa: E402
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 
 @pytest.fixture(scope="module")
 def engines():

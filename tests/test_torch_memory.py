@@ -31,6 +31,8 @@ from trino_tpu_torch.page import Schema
 from trino_tpu_torch.types import (BIGINT, BOOLEAN, DATE, DOUBLE, ArrayType, DecimalType,
                                    VarcharType)
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 SPLIT = 1 << 10
 
 COLUMNS = [("k", BIGINT, J_BIGINT), ("s", VarcharType.of(None), JVarchar.of(None)),

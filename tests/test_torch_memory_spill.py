@@ -18,9 +18,9 @@ under the default pool and, through its overflow, under a tiny pool is the
 reference's, and the tiny-pool run Grace-partitions as the reference's
 does.
 
-Left out: the Parquet join (the Parquet connector waits for ROADMAP A5)
-and the ``slow`` test of 51,000,000 groups at SF34, which runs on the card
-at full size (``chip_smoke.py`` phase 16c).
+Left out: the Parquet join, restated in tests/test_torch_files.py with
+the Parquet connector, and the ``slow`` test of 51,000,000 groups at SF34,
+which runs on the card at full size (``chip_smoke.py`` phase 16c).
 """
 
 import os
@@ -45,19 +45,9 @@ from trino_tpu_torch.memory import (AggregatedMemoryContext, MemoryPool,
 from trino_tpu_torch.ops import hashagg
 from trino_tpu_torch.sql.frontend import compile_sql
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 SF, SPLIT_ROWS = 0.01, 1 << 12
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: these pages are small, and the suite's workers
-    share the machine's cores (restored after the module)."""
-    import torch
-
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,8 @@ from trino_tpu_torch.ops import hashagg as tagg, hashjoin as tjoin
 from trino_tpu_torch.ops.convert import groupby_state_from_numpy, page_from_numpy
 from trino_tpu_torch.page import Field as TField, Schema as TSchema
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 EMPTY = np.iinfo(np.int64).max
 KINDS = ("sum_hi32", "sum_lo32", "count", "count_star", "sum", "min", "max")
 ACC_NP = [(np.int64, 0), (np.int64, 0), (np.int64, 0), (np.int64, 0), (np.float64, 0),

@@ -35,6 +35,8 @@ from trino_tpu_torch.connectors.tpch import TpchConnector
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the comparison helpers; imports no torch at load)
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 # small but multi-split: lineitem's ~60k rows over 7 splits
 SF, SPLIT_ROWS = 0.01, 1 << 14
 BUDGET = 1 << 30

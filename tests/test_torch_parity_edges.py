@@ -41,6 +41,8 @@ from trino_tpu_torch.connectors.tpch import TpchConnector
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the comparison helpers; imports no torch at load)
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 SF = 0.01
 
 _LITS = ",".join(str(i) for i in range(1, 51))

@@ -37,6 +37,8 @@ from trino_tpu_torch.execution import history as H
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the statement corpora; imports no torch at load)
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 SF, SPLIT_ROWS = 0.01, 1 << 11
 
 AGG_Q = """select l_returnflag, l_linestatus, sum(l_quantity) qty, count(*) c

@@ -24,6 +24,8 @@ from trino_tpu_torch.connectors.tpch import TpchConnector
 from trino_tpu_torch.server import Client, CoordinatorServer
 from trino_tpu_torch.server.proxy import ProxyServer
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 
 @pytest.fixture(scope="module")
 def proxied():

@@ -39,6 +39,8 @@ from trino_tpu_torch.execution.chaos_matrix import (RESULT_SCENARIOS, result_sig
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the comparison helpers; imports no torch at load)
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 SF, SPLIT_ROWS = 0.01, 1 << 14
 BUDGET = 64 << 20
 

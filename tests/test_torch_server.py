@@ -33,6 +33,8 @@ from trino_tpu_torch.server import client as torch_client
 from trino_tpu_torch.server.server import DATA_ROWS_PER_FETCH
 from trino_tpu_torch.server.server import CoordinatorServer as TorchServer
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 
 @pytest.fixture(scope="module")
 def engines(tpch_sf001):

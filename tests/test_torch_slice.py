@@ -21,6 +21,8 @@ import torch
 from trino_tpu_torch import Engine as TorchEngine
 from trino_tpu_torch.connectors.tpch import TpchConnector as TorchTpch
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -63,19 +63,9 @@ from trino_tpu_torch.server.server import CoordinatorServer
 from trino_tpu_torch.sql.frontend import compile_sql
 from trino_tpu_torch.sql.planprinter import format_plan
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 SF, SPLIT_ROWS = 0.02, 1 << 12
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: these pages are small, and the suite's workers
-    share the machine's cores (restored after the module)."""
-    import torch
-
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 JOIN_SQL = """select o_orderpriority, count(*) c from orders, lineitem
               where o_orderkey = l_orderkey group by o_orderpriority
               order by o_orderpriority"""

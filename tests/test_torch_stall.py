@@ -32,6 +32,8 @@ from trino_tpu_torch.execution import tracing
 from trino_tpu_torch.server import Client
 from trino_tpu_torch.server.server import CoordinatorServer
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 QUERY = """select l_returnflag, sum(l_quantity) q, count(*) c
            from lineitem where l_shipdate <= date '1998-09-02'
            group by l_returnflag order by l_returnflag"""

@@ -35,6 +35,8 @@ from trino_tpu_torch.connectors.tpcds import TpcdsConnector as TorchTpcds
 from trino_tpu_torch.connectors.tpcds_queries import corpus
 from trino_tpu_torch.connectors.tpch import TpchConnector as TorchTpch
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 SF = 0.01
 SPLIT = 1 << 14  # the corpus tests' split size
 

@@ -7,6 +7,8 @@ import pytest
 
 from trino_tpu_torch.connectors.tpch import TpchConnector as TorchTpch
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 TABLES = ("lineitem", "orders", "customer", "part", "supplier", "partsupp",
           "nation", "region")
 

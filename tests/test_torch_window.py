@@ -23,6 +23,8 @@ from trino_tpu_torch.ops import window as TW
 from trino_tpu_torch.sql import plan as TP
 from trino_tpu_torch import types as TT
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 
 def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)

@@ -1586,13 +1586,18 @@ class Engine:
             part = props.pop("partitioned_by", None)
             if props:
                 raise ValueError(f"unsupported table properties: {sorted(props)}")
+            if part is not None and not isinstance(part, (tuple, list)):
+                raise ValueError("partitioned_by must be ARRAY['col', ...]")
             if part is not None:
-                if not isinstance(part, (tuple, list)):
-                    raise ValueError("partitioned_by must be ARRAY['col', ...]")
-                # no connector of the port takes partitions (hive and iceberg
-                # are not ported)
-                raise ValueError("this catalog does not support partitioned_by")
-            conn.create_table(ast.name, Schema(fields), if_not_exists=ast.if_not_exists)
+                import inspect
+
+                if "partitioned_by" not in inspect.signature(
+                        conn.create_table).parameters:
+                    raise ValueError("this catalog does not support partitioned_by")
+                conn.create_table(ast.name, Schema(fields), partitioned_by=tuple(part),
+                                  if_not_exists=ast.if_not_exists)
+            else:
+                conn.create_table(ast.name, Schema(fields), if_not_exists=ast.if_not_exists)
         self._invalidate()
         return None
 

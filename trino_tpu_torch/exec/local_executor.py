@@ -5,9 +5,12 @@ A plan runs as streaming segments: a ``_Stream`` pairs a page source (one
 generated page per connector split) with a fused transform (filter, project,
 join probe) applied to each page eagerly, on the engine's device.  Pipeline
 breakers (aggregation, join build, sort, top-N) materialize.  These are the
-page-loop paths the reference takes on the CPU; its scan-fused whole-scan
-programs, dispatch coalescing, index lookups, Grace partitioning and spill
-are not ported, and where a plan asks for one of them the executor raises
+page-loop paths the reference takes on the CPU, with its Grace-partitioned
+and streaming operators over the tiered spill (``exec/spill.py``) and its
+index join (``_index_lookup_stream``: a small build side's distinct keys
+become one keyed lookup at a connector that supports it); its scan-fused
+whole-scan programs and dispatch coalescing are not ported, and where a
+plan asks for a path that is not ported the executor raises
 ``NotImplementedError`` naming the node and the path.
 
 Every device -> host read goes through ``LocalExecutor._host``, which counts
@@ -594,10 +597,19 @@ class LocalExecutor:
         per-split source, keeps its pages, and stores them as one page only
         once the scan ran to completion: a consumer that stops early (LIMIT)
         or an error leaves the generator before the store.  The lookup, its
-        accounting and the store run on the query's thread."""
+        accounting and the store run on the query's thread.  A ``HOST_DECODE``
+        connector's pages (numpy) are staged to the device by a prefetch
+        producer (``_prefetched_pages``); the static, bind-time and dynamic
+        pruners rebuild their sources here, so they keep that staging."""
         splits, columns = list(splits), tuple(columns)
         raw = _scan_pages(conn, table, splits, columns)
-        if len(splits) > 1 and _dispatch_batch_default() > 1:
+        if getattr(conn, "HOST_DECODE", False):
+            # host-decoded pages (the file connectors): decoded and staged to
+            # the device on a producer thread, whatever the dispatch batch,
+            # so decode and the copy overlap the consumer's work; each page
+            # is an ``h2d`` fault point and its bytes count in h2d_bytes
+            raw = _prefetched_pages(raw, to_device=True, owner=self)
+        elif len(splits) > 1 and _dispatch_batch_default() > 1:
             raw = _staged_scan_pages(raw)
         bp = self.buffer_pool
 
@@ -1640,8 +1652,15 @@ class LocalExecutor:
         probe_stream = self._compile_stream(node.left)
         build_key_types = tuple(node.right.schema.fields[i].type for i in node.right_keys)
         if node.kind in ("inner", "semi") and node.filter is None:
-            # dynamic filtering: prune probe splits outside the build keys' domain
-            pruned = self._dynamic_pruned_pages(probe_stream, node, build_page)
+            # a connector index lookup first (the build keys' SET pushed to
+            # the source); else dynamic filtering prunes probe splits outside
+            # the build keys' domain
+            ix = self._index_lookup_stream(probe_stream, node, build_page, build_dicts)
+            pruned = None
+            if ix is not None:
+                probe_stream = ix
+            else:
+                pruned = self._dynamic_pruned_pages(probe_stream, node, build_page)
             if pruned is not None:
                 pages_fn, kept = pruned
                 repl = {"pages": pages_fn}
@@ -2440,6 +2459,102 @@ class LocalExecutor:
             capacity *= 4
         return None if dups > 0 else table
 
+    # the most distinct build keys shipped into one connector index lookup
+    # (sqlite's default bound-parameter cap is 999; past ~500 keys a lookup
+    # rarely beats scanning the remote table)
+    INDEX_JOIN_MAX_KEYS = 500
+    # build rows above which the index join is not attempted
+    INDEX_JOIN_MAX_PROBE = 1 << 16
+
+    def _index_lookup_stream(self, probe_stream: _Stream, node, build_page: Page,
+                             build_dicts):
+        """The index join (reference: operator/index/IndexLoader): where the
+        probe side scans a connector with keyed lookups
+        (``supports_index_lookup``) and the build side's distinct join keys
+        are few, the probe's splits are replaced by one lookup split that
+        ships only the rows matching those keys.  Returns the replacement
+        probe stream, or None.  ``TRINO_TPU_INDEX_JOIN=0`` (read per join)
+        turns it off.
+
+        The distinct keys are found on the device in fixed-size buffers, as
+        the reference's fixed-size unique finds them, and read back with
+        their count and the live count in one counted read (site
+        ``join.index.keys``); past ``INDEX_JOIN_MAX_KEYS`` there are too
+        many.  The lookup's pages go through ``_scan_pages_source``, so a
+        host-decoding connector's are staged like any scan's."""
+        import os
+
+        if os.environ.get("TRINO_TPU_INDEX_JOIN", "1") == "0":
+            return None
+        if len(node.right_keys) != 1:
+            return None
+        si = probe_stream.scan_info
+        if si is None or not si.replayable or not si.splits \
+                or not hasattr(si.splits[0], "table"):
+            return None
+        conn = si.conn
+        table = si.splits[0].table
+        if not getattr(conn, "supports_index_lookup", False) \
+                or getattr(conn, "is_pushdown_handle", lambda t: False)(table):
+            return None
+        pk = node.left_keys[0]
+        key_col = si.columns[pk] if pk < len(si.columns) else None
+        if key_col is None:
+            return None
+        key_t = probe_stream.schema.fields[pk].type
+        if not (key_t.is_integer or key_t.is_string):
+            return None
+        if build_page.capacity == 0 or build_page.capacity > self.INDEX_JOIN_MAX_PROBE:
+            return None
+        try:
+            remote_rows = int(conn.row_count(table))
+        except Exception:  # noqa: BLE001 - no estimate, no lookup
+            return None
+        bk = node.right_keys[0]
+        v = build_page.columns[bk]
+        nm = build_page.null_masks[bk]
+        live = build_page.valid_mask()
+        if nm is not None:
+            live = live & ~nm
+        # dead lanes fold onto lane 0's value (a spurious key only
+        # over-fetches; the join still filters).  Sorted, each run's first
+        # row takes the next slot; runs past the budget land in the last
+        # slot, which is never read as a key
+        cap = self.INDEX_JOIN_MAX_KEYS
+        srt = torch.sort(torch.where(live, v, v[0])).values
+        first = torch.ones_like(srt, dtype=torch.bool)
+        first[1:] = srt[1:] != srt[:-1]
+        pos = torch.cumsum(first, 0) - 1
+        slot = torch.where(first & (pos < cap), pos, torch.full_like(pos, cap))
+        buf = torch.zeros(cap + 1, dtype=srt.dtype, device=srt.device).scatter_(0, slot, srt)
+        got = self._host([buf, pos[-1] + 1, torch.sum(live, dtype=torch.int64)],
+                         site="join.index.keys")
+        if int(got[2]) == 0:
+            # an all-dead build: the dynamic pruner's empty-build path ships
+            # nothing, where a lookup would ship a dead lane's value
+            return None
+        n_keys = int(got[1])
+        if n_keys > cap:
+            return None
+        keys = got[0][:n_keys]
+        # worth it on the lookup's actual size, not the build's lanes
+        if remote_rows < 4 * len(keys):
+            return None
+        bd = build_dicts[bk]
+        if key_t.is_string:
+            if bd is None or getattr(bd, "values", None) is None:
+                return None
+            keys = [str(x) for x in bd.decode(keys.astype(np.int64))]
+        else:
+            keys = [int(x) for x in keys.tolist()]
+        handle = conn.apply_index_lookup(table, key_col, keys)
+        new_splits = conn.splits(handle)
+        pages = self._scan_pages_source(conn, si.catalog, handle, new_splits,
+                                        si.scan_columns)
+        self._node_stats(node)["index_join_keys"] = len(keys)
+        return dataclasses.replace(probe_stream, pages=pages,
+                                   scan_info=dataclasses.replace(si, splits=list(new_splits)))
+
     def _dynamic_pruned_pages(self, probe_stream: _Stream, node, build_page: Page):
         """(page source, kept splits) skipping probe splits disjoint from the
         build keys' value domain, or None when nothing prunes."""
@@ -3000,7 +3115,9 @@ def _page_to_device(page: Page, device, side):
         nonlocal nbytes
         if isinstance(a, np.ndarray) and a.dtype != object:
             nbytes += a.nbytes
-            t = torch.from_numpy(np.ascontiguousarray(a))
+            a = np.ascontiguousarray(a)
+            # a decoder's buffer may be read-only: torch takes a writable one
+            t = torch.from_numpy(a if a.flags.writeable else a.copy())
             if side is not None:
                 return t.pin_memory().to(device, non_blocking=True)
             return t.to(device)

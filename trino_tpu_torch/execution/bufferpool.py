@@ -230,9 +230,9 @@ class DeviceBufferPool:
     @staticmethod
     def cacheable(conn) -> bool:
         """Only connectors whose pages are fixed for a given ``plan_version``
-        may cache (generators, and the memory catalog, whose every write
-        through the engine invalidates).  Volatile sources (the system
-        tables) never opt in."""
+        may cache (generators, the memory catalog, whose every write
+        through the engine invalidates, and the file connectors).  Volatile
+        sources (the system tables, a remote dbapi database) never opt in."""
         return bool(getattr(conn, "CACHEABLE_SCANS", False))
 
     def _pool(self):

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+
 from . import ir
 from . import plan as P
 from ..page import Schema
@@ -340,35 +342,82 @@ def _replace_subtree(root, target, replacement):
     return _replace_children(root, kids)
 
 
+# the comparisons a join pushdown carries into the remote query
+_REMOTE_CMP = ("eq", "lt", "lte", "gt", "gte")
+
+
 def pushdown_joins(root, catalogs):
     """Connector join pushdown (reference: ConnectorMetadata.applyJoin,
     spi/connector/ConnectorMetadata.java:1637): an INNER equi-join whose
     both sides are bare scans (or FieldRef projections of scans) of the SAME
     opting-in catalog runs remotely; the engine scans the joined result,
     split by the left side's rowid ranges.  Residual filters or computed
-    keys block the pushdown (the classic applyJoin contract)."""
+    keys block the pushdown (the classic applyJoin contract).  Two port
+    changes: output names that repeat (a self-join's) block it too, since a
+    handle's columns are read by name (the reference pushes such a join and
+    reads one side's column for both); and a side's filter that is a
+    conjunction of integer columns compared with integer constants rides
+    into the remote join (``apply_join``'s ``left_filter`` /
+    ``right_filter``), which applies it exactly, so it leaves the plan (the
+    reference's filters always block)."""
     import dataclasses as _dc
 
     from . import ir as _ir
     from . import plan as P
     from .rules import _replace_children
 
+    def conjuncts(e):
+        if isinstance(e, _ir.Call) and e.op == "and":
+            for a in e.args:
+                yield from conjuncts(a)
+        else:
+            yield e
+
+    def int_const(e):
+        return isinstance(e, _ir.Constant) and e.type.is_integer \
+            and isinstance(e.value, (int, np.integer)) and not isinstance(e.value, bool)
+
+    def remote_filter(pred, columns):
+        """[(column, op, value)] for a conjunction of integer columns of
+        ``columns`` compared with integer constants, else None."""
+        out = []
+        for c in conjuncts(pred):
+            if not (isinstance(c, _ir.Call) and c.op in _REMOTE_CMP + ("between",)
+                    and isinstance(c.args[0], _ir.FieldRef)
+                    and c.args[0].index < len(columns) and c.args[0].type.is_integer
+                    and all(int_const(a) for a in c.args[1:])):
+                return None
+            col = columns[c.args[0].index]
+            if c.op == "between":
+                out += [(col, "gte", int(c.args[1].value)), (col, "lte", int(c.args[2].value))]
+            else:
+                out.append((col, c.op, int(c.args[1].value)))
+        return out
+
     def side_info(n):
-        """-> (scan, [output column names per channel]) for a pushable side:
-        bare scan or ONE pure-FieldRef project over a scan covering every
-        output channel."""
-        if isinstance(n, P.TableScan):
-            return n, list(n.columns)
-        if isinstance(n, P.Project) and isinstance(n.child, P.TableScan):
-            scan = n.child
-            names = []
-            for e in n.exprs:
-                if not isinstance(e, _ir.FieldRef) \
-                        or e.index >= len(scan.columns):
-                    return None
-                names.append(scan.columns[e.index])
-            return scan, names
-        return None
+        """-> (scan, [output column names per channel], [remote filter]) for
+        a pushable side: bare scan or ONE pure-FieldRef project over a scan
+        covering every output channel, either over a filter the connector
+        applies (``remote_filter``)."""
+        proj = n if isinstance(n, P.Project) else None
+        if proj is not None:
+            n = proj.child
+        cons = []
+        if isinstance(n, P.Filter) and isinstance(n.child, P.TableScan):
+            cons = remote_filter(n.predicate, n.child.columns)
+            if not cons:
+                return None
+            n = n.child
+        if not isinstance(n, P.TableScan):
+            return None
+        if proj is None:
+            return n, list(n.columns), cons
+        names = []
+        for e in proj.exprs:
+            if not isinstance(e, _ir.FieldRef) or e.index >= len(n.columns):
+                return None
+            names.append(n.columns[e.index])
+        return n, names, cons
 
     def walk(n):
         kids = tuple(walk(k) for k in n.children)
@@ -378,7 +427,7 @@ def pushdown_joins(root, catalogs):
                 and n.filter is None and not n.null_aware:
             ls, rs = side_info(n.left), side_info(n.right)
             if ls is not None and rs is not None:
-                (lscan, lnames), (rscan, rnames) = ls, rs
+                (lscan, lnames, lcons), (rscan, rnames, rcons) = ls, rs
                 conn = catalogs.get(lscan.catalog)
                 is_handle = getattr(conn, "is_pushdown_handle",
                                     lambda t: False) if conn else None
@@ -388,12 +437,15 @@ def pushdown_joins(root, catalogs):
                         and not is_handle(rscan.table) \
                         and all(k < len(lnames) for k in n.left_keys) \
                         and all(k < len(rnames) for k in n.right_keys) \
-                        and len(n.schema.fields) == len(lnames) + len(rnames):
+                        and len(n.schema.fields) == len(lnames) + len(rnames) \
+                        and len({f.name for f in n.schema.fields}) == len(n.schema.fields):
                     pairs = [(lnames[a], rnames[b])
                              for a, b in zip(n.left_keys, n.right_keys)]
                     out_names = [f.name for f in n.schema.fields]
+                    filters = {"left_filter": lcons, "right_filter": rcons} \
+                        if lcons or rcons else {}
                     handle = conn.apply_join(lscan.table, rscan.table, pairs,
-                                             out_names, lnames, rnames)
+                                             out_names, lnames, rnames, **filters)
                     return P.TableScan(
                         lscan.catalog, handle, tuple(out_names), n.schema,
                         source_tables=((lscan.catalog, lscan.table),
