@@ -41,8 +41,10 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
 5. TPC-DS parity: every query of the TPC-DS corpus (the SQL of
    tests/test_tpcds*.py, read by ``trino_tpu_torch/connectors/tpcds_queries.py``)
    at SF0.1 on the card and on the CPU; each card result must equal the CPU
-   result.  The plan nodes each query runs (its
-   plan-time subqueries included) are recorded here.
+   result.  The CPU half runs in a child process started at the top of
+   ``main`` (``ChildPass`` of ``tpcds_cpu_child``, ``CPU_CHILD_THREADS``
+   torch threads), beside phases 1-4, and records the plan nodes each query
+   runs (its plan-time subqueries included).
 6. TPC-DS at SF1 (``TpcdsConnector(sf=1, split_rows=1<<21)``, ~2.88M
    store_sales rows): every corpus query on the card, cold and warm, with
    host reads, peak device memory and the launches of each kernel; the
@@ -74,7 +76,8 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    memory, launches per kernel and host RSS; affected rows equal to what
    ``tpch`` counts in each key band; the results after RF1 equal phase 2's
    over ``tpch`` (strings by value), those after RF2 equal the port's CPU
-   run of the whole sequence; every kernel ``MEMORY_REQUIRED`` names is
+   run of the whole sequence (run in a child process beside phases 1-7,
+   ``memory_cpu_child``); every kernel ``MEMORY_REQUIRED`` names is
    launched (the JAX reference's recording), and DELETE compacts the stored
    lineitem in one ``compact_rows`` launch per 16 arrays.  Then the kernels
    against their plain versions at this path's shapes (the probe of a
@@ -88,7 +91,9 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    (``FUNCTIONS``: percentiles, max_by/min_by, date keys with the new
    accumulators, checksums, exact sums past 2^63, math and bitwise calls,
    listagg) at SF1 on the card, cold and warm, with host reads, peak memory
-   and launches, each equal to the port's CPU result, each launching the
+   and launches, each equal to the port's CPU result (run in a child
+   process beside the earlier phases, ``functions_cpu_child``), each
+   launching the
    kernels ``FUNCTIONS_REQUIRED`` names (the JAX reference's recording);
    the kernels the path launched against their plain versions at its
    shapes (insert also on F4's ``l_orderkey % 1024``); then F1, F3 and F5
@@ -105,7 +110,9 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    map-valued aggregates, MATCH_RECOGNIZE over orders) at SF1 on the card,
    cold and warm, with host reads, H2D bytes, peak memory and launches, each
    equal to the port's CPU result, A1 also to its lineitem oracle
-   (``A1_ORACLE``), and A7 (ALL ROWS PER MATCH) at SF0.1 against the CPU;
+   (``A1_ORACLE``), and A7 (ALL ROWS PER MATCH) at SF0.1 against the CPU
+   (the CPU's runs, ``orders_nested`` built from its own generation, in a
+   child process beside the earlier phases, ``arrays_cpu_child``);
    the kernels ``ARRAYS_REQUIRED`` names (the JAX reference's recording)
    must launch, and those the path launched are held against their plain
    versions at its shapes (insert also on A2's keys).  ``by_path`` gains
@@ -326,8 +333,24 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    pages staged by the prefetch producer) against the CPU.  (f)
    ``hash_insert_``, ``hash_probe`` and ``compact_rows`` against their
    plain versions at the phase's largest and most frequent shapes.
-   ``by_path`` gains ``federation_sf1``: the launches of 18b-18e.  Every
-   phase prints its seconds on a line of its own.
+   ``by_path`` gains ``federation_sf1``: the launches of 18b-18e.
+19. The worker mesh (``distributed_path``; the tiers and the advisor off):
+   ``execute_sql(..., distributed=True, mesh=worker_mesh(8))``, a virtual
+   8-position mesh over the card (its first line names the positions and
+   their distinct devices).  (a) The 16 ``DIST_QUERIES``
+   (tests/test_distributed.py's) at SF1 in 2^18-row splits, cold and warm,
+   each equal to the local card run at the same split size (ties on the
+   ORDER BY columns as multisets); q1, q9 and q18 run no ``local``
+   fragment; per query its ``exec_trace``, host reads, bytes read at each
+   ``dist.*`` site, shard skew and peak device memory.  (b) bench.py's Q1,
+   Q3, Q9 and Q18 at SF10 on ``worker_mesh(4)``, each equal to phase 4's
+   local result, warm wall and lineitem rows/s beside phase 4's.  (c) The
+   six ``chaos_matrix.DIST_SCENARIOS`` at SF1, each firing at least once,
+   with the leak check and a fault-free rerun.  (d) ``hash_insert_``,
+   ``hash_probe`` and ``compact_rows`` against their plain versions at the
+   largest and most frequent shapes of (a) and (c).  ``by_path`` gains
+   ``distributed_sf1``: the launches of 19a and 19c.  Every phase prints
+   its seconds on a line of its own.
 
 It prints the card line, then one JSON line with every kernel's numbers, and
 last ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -596,6 +619,119 @@ Q15_VIEW = """
             group by l_suppkey"""
 ALL_QUERIES = dict(sorted({**QUERIES, **TPCH_QUERIES}.items(),
                           key=lambda kv: int(kv[0][1:])))
+
+# phase 19: tests/test_distributed.py's QUERIES, as that file states them
+# (tests/test_torch_distributed.py holds the two equal)
+DIST_QUERIES = {
+    "q1": """
+        select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty,
+               sum(l_extendedprice) as sum_base_price,
+               sum(l_extendedprice * (1 - l_discount)) as sum_disc_price,
+               sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) as sum_charge,
+               avg(l_quantity) as avg_qty, avg(l_extendedprice) as avg_price,
+               avg(l_discount) as avg_disc, count(*) as count_order
+        from lineitem where l_shipdate <= date '1998-12-01' - interval '90' day
+        group by l_returnflag, l_linestatus order by l_returnflag, l_linestatus""",
+    "q3": """
+        select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue,
+               o_orderdate, o_shippriority
+        from customer, orders, lineitem
+        where c_mktsegment = 'BUILDING' and c_custkey = o_custkey
+          and l_orderkey = o_orderkey and o_orderdate < date '1995-03-15'
+          and l_shipdate > date '1995-03-15'
+        group by l_orderkey, o_orderdate, o_shippriority
+        order by revenue desc, o_orderdate limit 10""",
+    "q5": """
+        select n_name, sum(l_extendedprice * (1 - l_discount)) as revenue
+        from customer, orders, lineitem, supplier, nation, region
+        where c_custkey = o_custkey and l_orderkey = o_orderkey
+          and l_suppkey = s_suppkey and c_nationkey = s_nationkey
+          and s_nationkey = n_nationkey and n_regionkey = r_regionkey
+          and r_name = 'ASIA' and o_orderdate >= date '1994-01-01'
+          and o_orderdate < date '1994-01-01' + interval '1' year
+        group by n_name order by revenue desc""",
+    "q6": """
+        select sum(l_extendedprice * l_discount) as revenue
+        from lineitem
+        where l_shipdate >= date '1994-01-01'
+          and l_shipdate < date '1994-01-01' + interval '1' year
+          and l_discount between 0.05 and 0.07 and l_quantity < 24""",
+    "scan_filter": """
+        select o_orderkey, o_totalprice from orders
+        where o_orderdate >= date '1998-01-01' and o_custkey < 50
+        order by o_orderkey limit 50""",
+    "q9": """
+        select nation, o_year, sum(amount) as sum_profit from (
+          select n_name as nation, extract(year from o_orderdate) as o_year,
+            l_extendedprice * (1 - l_discount) - ps_supplycost * l_quantity as amount
+          from part, supplier, lineitem, partsupp, orders, nation
+          where s_suppkey = l_suppkey and ps_suppkey = l_suppkey and ps_partkey = l_partkey
+            and p_partkey = l_partkey and o_orderkey = l_orderkey
+            and s_nationkey = n_nationkey and p_name like '%green%') as profit
+        group by nation, o_year order by nation, o_year desc""",
+    "q18": """
+        select c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice, sum(l_quantity)
+        from customer, orders, lineitem
+        where o_orderkey in (select l_orderkey from lineitem group by l_orderkey
+                             having sum(l_quantity) > 100)
+          and c_custkey = o_custkey and o_orderkey = l_orderkey
+        group by c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice
+        order by o_totalprice desc, o_orderdate limit 100""",
+    "topn_stream": """
+        select l_orderkey, l_extendedprice from lineitem
+        order by l_extendedprice desc, l_orderkey limit 7""",
+    "left_filter": """
+        select count(*) c, sum(o_totalprice) sp from orders
+        left join customer on o_custkey = c_custkey and c_acctbal > 5000""",
+    "anti_empty": """
+        select count(*) c from orders where o_custkey not in
+        (select c_custkey from customer where c_acctbal > 99999999)""",
+    "full_sort": """
+        select o_orderkey, o_totalprice, o_orderdate from orders
+        order by o_totalprice desc, o_orderkey""",
+    "full_sort_dict": """
+        select c_custkey, c_mktsegment from customer
+        order by c_mktsegment, c_custkey desc""",
+    "window_dist": """
+        select o_custkey, o_orderkey, o_totalprice,
+               row_number() over (partition by o_custkey order by o_totalprice desc,
+                                  o_orderkey) rn,
+               sum(o_totalprice) over (partition by o_custkey) tot,
+               lag(o_orderkey) over (partition by o_custkey order by o_orderdate,
+                                     o_orderkey) prev
+        from orders order by o_custkey, o_orderkey""",
+    "q4": """
+        select o_orderpriority, count(*) as order_count from orders
+        where o_orderdate >= date '1993-07-01'
+          and o_orderdate < date '1993-07-01' + interval '3' month
+          and exists (select 1 from lineitem where l_orderkey = o_orderkey
+                      and l_commitdate < l_receiptdate)
+        group by o_orderpriority order by o_orderpriority""",
+    "var_global": """
+        select var_pop(l_discount) v, stddev_samp(l_quantity) s,
+               sum(l_tax) t from lineitem where l_orderkey < 1000""",
+    "window_dist_frame": """
+        select o_custkey, o_orderkey,
+               sum(o_totalprice) over (partition by o_custkey
+                 order by o_orderdate, o_orderkey
+                 rows between 1 preceding and current row) s
+        from orders order by o_custkey, o_orderkey""",
+}
+# each DIST_QUERIES statement's ORDER BY columns (held row by row, the rows
+# tied on them as multisets); None: one row
+DIST_ORDER_BY = {
+    "q1": ("l_returnflag", "l_linestatus"), "q3": ("revenue", "o_orderdate"),
+    "q5": ("revenue",), "q6": None, "scan_filter": ("o_orderkey",),
+    "q9": ("nation", "o_year"), "q18": ("o_totalprice", "o_orderdate"),
+    "topn_stream": ("l_extendedprice", "l_orderkey"), "left_filter": None,
+    "anti_empty": None, "full_sort": ("o_totalprice", "o_orderkey"),
+    "full_sort_dict": ("c_mktsegment", "c_custkey"),
+    "window_dist": ("o_custkey", "o_orderkey"), "q4": ("o_orderpriority",),
+    "var_global": None, "window_dist_frame": ("o_custkey", "o_orderkey"),
+}
+# the statements that must run no fragment locally (the north-star set of
+# tests/test_distributed_hostfed.py)
+DIST_NO_LOCAL = ("q1", "q9", "q18")
 # the kernels each query must launch on the main path: those the JAX
 # reference's SF1 path reaches (a call recording of trino_tpu at SF1, PERF.md)
 REQUIRED = {
@@ -2499,12 +2635,25 @@ def node_name(node) -> str:
     return type(node).__name__
 
 
-def tpcds_parity(card, cpu, queries):
-    """Phase 5: every query on the card and on the CPU, results equal.
-    Returns {query: set of plan node names the CPU run executed, plan-time
-    subqueries included}."""
+def tpcds_cpu_child(out_path: str, threads: int, sf: float, split_rows: int) -> None:
+    """Phase 5's CPU half: every corpus query on the CPU at ``sf`` in
+    ``split_rows`` splits with ``threads`` torch intra-op threads, recording
+    the plan node names each run executed (plan-time subqueries included);
+    pickles {query: result}, {query: node names} and the seconds to
+    ``out_path``."""
+    import pickle
+
+    import torch
+
+    torch.set_num_threads(threads)
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpcds import TpcdsConnector
+    from trino_tpu_torch.connectors.tpcds_queries import corpus
     from trino_tpu_torch.exec import local_executor as LE
 
+    t0 = time.perf_counter()
+    cpu = Engine(device="cpu")
+    cpu.register_catalog("tpcds", TpcdsConnector(sf=sf, split_rows=split_rows))
     seen: set = set()
     execute = LE.LocalExecutor.execute
 
@@ -2517,20 +2666,34 @@ def tpcds_parity(card, cpu, queries):
             stack.extend(nd.child.children if name == "TopN" else nd.children)
         return execute(self, node)
 
-    nodes = {}
+    results, nodes = {}, {}
     LE.LocalExecutor.execute = recording
-    try:
-        for q, sql in queries.items():
-            seen.clear()
-            ref = cpu.execute_sql(sql, cpu.create_session("tpcds"))
-            nodes[q] = set(seen)
-            got = card.execute_sql(sql, card.create_session("tpcds"))
-            same_result(got, ref, f"tpcds sf{TPCDS_SF_PARITY:g} {q} card vs CPU")
-    finally:
-        LE.LocalExecutor.execute = execute
+    for q, sql in corpus().items():
+        seen.clear()
+        results[q] = cpu.execute_sql(sql, cpu.create_session("tpcds"))
+        nodes[q] = set(seen)
+    tmp = out_path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump({"results": results, "nodes": nodes,
+                     "seconds": time.perf_counter() - t0, "threads": threads}, f)
+    os.replace(tmp, out_path)
+
+
+def tpcds_parity(card, ds_pass, queries):
+    """Phase 5: every query on the card, each equal to the CPU's run, which
+    ran in a child process beside the earlier phases (``ds_pass``:
+    ``ChildPass`` of ``tpcds_cpu_child``).  Returns {query: set of plan node
+    names the CPU run executed, plan-time subqueries included}."""
+    got = {q: card.execute_sql(sql, card.create_session("tpcds"))
+           for q, sql in queries.items()}
+    rec, waited = ds_pass.join(CPU_PASS_TIMEOUT_S)
+    check(set(rec["results"]) == set(queries), "tpcds: the CPU child ran another corpus")
+    for q in queries:
+        same_result(got[q], rec["results"][q], f"tpcds sf{TPCDS_SF_PARITY:g} {q} card vs CPU")
     print(f"tpcds sf{TPCDS_SF_PARITY:g}: {len(queries)} queries on the card equal the "
-          f"port's CPU results", flush=True)
-    return nodes
+          f"port's CPU results (CPU {rec['seconds']:.1f} s at {rec['threads']} threads in "
+          f"a child; the join waited {waited:.1f} s)", flush=True)
+    return rec["nodes"]
 
 
 def tpcds_main(card, held_card, cpu, queries, nodes, fact_rows):
@@ -2683,11 +2846,40 @@ def delete_compact_check(arrays, keep, kept):
     return rec
 
 
-def memory_path(tpch_ref):
+def memory_cpu_child(out_path: str, threads: int, sf: float) -> None:
+    """Phase 8's CPU half: the refresh path's statements on the CPU at
+    scale ``sf`` with ``threads`` torch intra-op threads; pickles each
+    statement's affected-row count, MEMORY_QUERIES' results after RF2 (phase
+    8's oracle) and the seconds to ``out_path``."""
+    import pickle
+
+    import torch
+
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    cpu, csess = memory_engine("cpu", sf)
+    path = refresh_path(cpu.catalogs["tpch"].exact_row_count("orders"))
+    rows = {}
+    for step in ("load", "rf1", "rf2"):
+        for label, sql in path[step]:
+            res = cpu.execute_sql(sql, csess)
+            rows[label] = None if res is None else int(res.columns[0][0])
+    cpu.execute_sql(Q15_VIEW, csess)
+    results = {q: cpu.execute_sql(ALL_QUERIES[q], csess) for q in MEMORY_QUERIES}
+    tmp = out_path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump({"rows": rows, "results": results,
+                     "seconds": time.perf_counter() - t0, "threads": threads}, f)
+    os.replace(tmp, out_path)
+
+
+def memory_path(tpch_ref, mem_pass):
     """Phase 8: TPC-H's refresh path at SF1 over the memory catalog on the
-    card, then the same statements on the CPU.  ``tpch_ref`` holds phase 2's
-    results of MEMORY_QUERIES over ``tpch``.  Returns (launches of the run,
-    {kernel: checks at this path's shapes})."""
+    card, then held against the same statements on the CPU, which ran in a
+    child process beside the earlier phases (``mem_pass``: ``ChildPass`` of
+    ``memory_cpu_child``).  ``tpch_ref`` holds phase 2's results of
+    MEMORY_QUERIES over ``tpch``.  Returns (launches of the run, {kernel:
+    checks at this path's shapes})."""
     import numpy as np
     import torch
 
@@ -2756,20 +2948,18 @@ def memory_path(tpch_ref):
     card_s = time.perf_counter() - t_phase
 
     # the same statements on the CPU; its results after RF2 are the oracle
-    t_cpu = time.perf_counter()
-    cpu, csess = memory_engine("cpu", SF_MAIN)
+    cpu_rec, waited = mem_pass.join(CPU_PASS_TIMEOUT_S)
     for step in ("load", "rf1", "rf2"):
-        for label, sql in path[step]:
-            res = cpu.execute_sql(sql, csess)
-            check((None if res is None else int(res.columns[0][0])) == steps[label]["rows"],
+        for label, _ in path[step]:
+            check(cpu_rec["rows"][label] == steps[label]["rows"],
                   f"{label}: the CPU's affected rows differ from the card's")
-    cpu.execute_sql(Q15_VIEW, csess)
     for q in MEMORY_QUERIES:
-        same_result(after_rf2[q]["result"], cpu.execute_sql(ALL_QUERIES[q], csess),
+        same_result(after_rf2[q]["result"], cpu_rec["results"][q],
                     f"memory after RF2 {q} card vs CPU")
     print(f"memory after RF2: {len(MEMORY_QUERIES)} queries equal the port's CPU run of "
-          f"the sequence (CPU {time.perf_counter() - t_cpu:.1f} s)", flush=True)
-    del cpu, csess
+          f"the sequence (CPU {cpu_rec['seconds']:.1f} s at {cpu_rec['threads']} threads "
+          f"in a child; the join waited {waited:.1f} s)", flush=True)
+    del cpu_rec
 
     gen = np.random.default_rng(13)
     checks = {
@@ -2906,11 +3096,39 @@ def functions_keys(conn):
     return packed, page.valid_mask()
 
 
-def functions_main(tpch):
+def functions_cpu_child(out_path: str, threads: int, sf: float, split_rows: int) -> None:
+    """Phase 9b's CPU half: F1-F7 on the CPU at ``sf`` in ``split_rows``
+    splits with ``threads`` torch intra-op threads; pickles {query: (result,
+    seconds)} and the seconds to ``out_path``."""
+    import pickle
+
+    import torch
+
+    torch.set_num_threads(threads)
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    t0 = time.perf_counter()
+    cpu = Engine(device="cpu")
+    cpu.register_catalog("tpch", TpchConnector(sf=sf, split_rows=split_rows))
+    out = {}
+    for q, sql in FUNCTIONS.items():
+        t1 = time.perf_counter()
+        out[q] = (cpu.execute_sql(sql, cpu.create_session("tpch")), time.perf_counter() - t1)
+    tmp = out_path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump({"results": out, "seconds": time.perf_counter() - t0,
+                     "threads": threads}, f)
+    os.replace(tmp, out_path)
+
+
+def functions_main(tpch, fn_pass):
     """Phase 9b: F1-F7 at SF1 on the card (cold, warm, launches, host reads,
     peak memory); FUNCTIONS_REQUIRED; each kernel the path launched against
     its plain version at the path's shapes; then each query held against
-    the port's CPU run.  Returns (launches of the run, {kernel: checks})."""
+    the port's CPU run, made in a child process beside the earlier phases
+    (``fn_pass``: ``ChildPass`` of ``functions_cpu_child``).  Returns
+    (launches of the run, {kernel: checks})."""
     import numpy as np
 
     from trino_tpu_torch import Engine
@@ -2934,18 +3152,15 @@ def functions_main(tpch):
         checks["hash_probe"] = probe_checks(shapes["hash_probe"], gen)
     if shapes["compact_rows"]:
         checks["compact_rows"] = compact_checks(shapes["compact_rows"], gen)
-    cpu = Engine(device="cpu")
-    cpu.register_catalog("tpch", TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS))
-    t0 = time.perf_counter()
-    for q, sql in FUNCTIONS.items():
-        t1 = time.perf_counter()
-        ref = cpu.execute_sql(sql, cpu.create_session("tpch"))
+    rec, waited = fn_pass.join(CPU_PASS_TIMEOUT_S)
+    for q in FUNCTIONS:
+        ref, cpu_s = rec["results"][q]
         same_result(got[q]["result"], ref, f"functions sf{SF_MAIN:g} {q} card vs CPU")
         check(len(ref) > 0, f"functions {q} returned no rows")
         print(f"functions sf{SF_MAIN:g} {q}: equal to the port's CPU result ({len(ref)} "
-              f"rows, CPU {time.perf_counter() - t1:.2f} s)", flush=True)
-    print(f"functions CPU pass: {time.perf_counter() - t0:.1f} s", flush=True)
-    del cpu
+              f"rows, CPU {cpu_s:.2f} s)", flush=True)
+    print(f"functions CPU pass: {rec['seconds']:.1f} s at {rec['threads']} threads in a "
+          f"child; the join waited {waited:.1f} s", flush=True)
     return launches, {k: {"max_abs_err": r["max_abs_err"], "shapes": r["shapes"]}
                       for k, r in checks.items()}
 
@@ -3016,14 +3231,16 @@ def functions_big():
     torch.cuda.empty_cache()
 
 
-def functions_path():
-    """Phase 9: the function library's path.  Returns (launches of 9b,
-    {kernel: checks at its shapes})."""
+def functions_path(fn_pass):
+    """Phase 9: the function library's path (``fn_pass``: the child
+    process of 9b's CPU half).  Returns (launches of 9b, {kernel: checks at
+    its shapes})."""
     from trino_tpu_torch.connectors.tpch import TpchConnector
 
     t0 = time.perf_counter()
     functions_parity()
-    launches, checks = functions_main(TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS))
+    launches, checks = functions_main(TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS),
+                                      fn_pass)
     functions_big()
     print(f"functions path: {time.perf_counter() - t0:.1f} s", flush=True)
     return launches, checks
@@ -3103,14 +3320,56 @@ def nested_keys(columns):
     return packed, torch.ones(p.shape, dtype=torch.bool, device=DEVICE)
 
 
-def arrays_main():
+def nested_columns(engine, sess):
+    """``orders_nested``'s columns from ``engine``'s TPC-H orders and
+    lineitem (host lists), and the line-item count."""
+    li = engine.execute_sql("select l_orderkey, l_linenumber, l_partkey, l_suppkey, "
+                            "l_shipmode from tpch.lineitem", sess)
+    od = engine.execute_sql("select o_orderkey, o_custkey, o_orderdate from tpch.orders", sess)
+    return nested_orders(od.raw_columns, [li.raw_columns[i] for i in range(4)]
+                         + [li.columns[4]]), len(li)
+
+
+def arrays_cpu_child(out_path: str, threads: int, sf: float, sf_all_rows: float) -> None:
+    """Phase 10b's CPU half: ``orders_nested`` built on the CPU at ``sf``
+    (from the CPU's own generation, which equals the card's), A1-A6 over it,
+    and A7 at ``sf_all_rows``, with ``threads`` torch intra-op threads;
+    pickles {query: (result, seconds)} and the seconds to ``out_path``."""
+    import pickle
+
+    import torch
+
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    cpu, sess = memory_engine("cpu", sf)
+    columns, _ = nested_columns(cpu, sess)
+    build_nested(cpu, sess, columns)
+    del columns
+    out = {}
+    for q, sql in ARRAYS.items():
+        t1 = time.perf_counter()
+        out[q] = (cpu.execute_sql(sql, sess), time.perf_counter() - t1)
+    del cpu
+    cpu, sess = memory_engine("cpu", sf_all_rows)
+    for q, sql in ARRAYS_ALL_ROWS.items():
+        t1 = time.perf_counter()
+        out[q] = (cpu.execute_sql(sql, sess), time.perf_counter() - t1)
+    tmp = out_path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump({"results": out, "seconds": time.perf_counter() - t0,
+                     "threads": threads}, f)
+    os.replace(tmp, out_path)
+
+
+def arrays_main(ar_pass):
     """Phase 10b: ``orders_nested`` built at SF1 on the card (timed on its
     own), A1-A6 on the card (cold, warm, launches, host reads, H2D bytes,
     peak memory), ARRAYS_REQUIRED, A1 against its lineitem oracle, the
     kernels the path launched against their plain versions at its shapes,
     then A1-A6 against the port's CPU run at SF1 and A7 at
-    ARRAYS_SF_ALL_ROWS on the card against the CPU.  Returns (launches of
-    A1-A7, {kernel: checks})."""
+    ARRAYS_SF_ALL_ROWS on the card against the CPU; the CPU runs are made in
+    a child process beside the earlier phases (``ar_pass``: ``ChildPass`` of
+    ``arrays_cpu_child``).  Returns (launches of A1-A7, {kernel: checks})."""
     import numpy as np
     import torch
 
@@ -3118,13 +3377,7 @@ def arrays_main():
 
     card, sess = memory_engine(DEVICE, SF_MAIN)
     t0 = time.perf_counter()
-    li = card.execute_sql("select l_orderkey, l_linenumber, l_partkey, l_suppkey, l_shipmode "
-                          "from tpch.lineitem", sess)
-    od = card.execute_sql("select o_orderkey, o_custkey, o_orderdate from tpch.orders", sess)
-    columns = nested_orders(od.raw_columns, [li.raw_columns[i] for i in range(4)]
-                            + [li.columns[4]])
-    n_items = len(li)
-    del li, od
+    columns, n_items = nested_columns(card, sess)
     lists_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3158,37 +3411,33 @@ def arrays_main():
         checks["hash_probe"] = probe_checks(shapes["hash_probe"], gen)
     if shapes["compact_rows"]:
         checks["compact_rows"] = compact_checks(shapes["compact_rows"], gen)
-    cpu, cpu_sess = memory_engine("cpu", SF_MAIN)
-    build_nested(cpu, cpu_sess, columns)
     del columns
-    t1 = time.perf_counter()
+    rec, waited = ar_pass.join(CPU_PASS_TIMEOUT_S)
     for q, sql in ARRAYS.items():
-        t2 = time.perf_counter()
-        same_outcome_result(got[q]["result"], cpu.execute_sql(sql, cpu_sess), sql,
-                            f"arrays sf{SF_MAIN:g} {q} card vs CPU")
+        ref, cpu_s = rec["results"][q]
+        same_outcome_result(got[q]["result"], ref, sql, f"arrays sf{SF_MAIN:g} {q} card vs CPU")
         check(len(got[q]["result"]) > 0, f"arrays {q} returned no rows")
         print(f"arrays sf{SF_MAIN:g} {q}: equal to the port's CPU result "
-              f"({len(got[q]['result'])} rows, CPU {time.perf_counter() - t2:.2f} s)",
-              flush=True)
-    del cpu
-    cpu, cpu_sess = memory_engine("cpu", ARRAYS_SF_ALL_ROWS)
+              f"({len(got[q]['result'])} rows, CPU {cpu_s:.2f} s)", flush=True)
     for q, sql in ARRAYS_ALL_ROWS.items():
-        same_outcome_result(got[q]["result"], cpu.execute_sql(sql, cpu_sess), sql,
+        same_outcome_result(got[q]["result"], rec["results"][q][0], sql,
                             f"arrays sf{ARRAYS_SF_ALL_ROWS:g} {q} card vs CPU")
         check(len(got[q]["result"]) > 0, f"arrays {q} returned no rows")
-    print(f"arrays CPU pass: {time.perf_counter() - t1:.1f} s", flush=True)
-    del cpu, card, small
+    print(f"arrays CPU pass: {rec['seconds']:.1f} s at {rec['threads']} threads in a "
+          f"child; the join waited {waited:.1f} s", flush=True)
+    del card, small
     torch.cuda.empty_cache()
     return launches, {k: {"max_abs_err": r["max_abs_err"], "shapes": r["shapes"]}
                       for k, r in checks.items()}
 
 
-def arrays_path():
-    """Phase 10: arrays, maps, UNNEST and MATCH_RECOGNIZE.  Returns (launches
-    of 10b, {kernel: checks at its shapes})."""
+def arrays_path(ar_pass):
+    """Phase 10: arrays, maps, UNNEST and MATCH_RECOGNIZE (``ar_pass``: the
+    child process of 10b's CPU half).  Returns (launches of 10b, {kernel:
+    checks at its shapes})."""
     t0 = time.perf_counter()
     arrays_parity()
-    launches, checks = arrays_main()
+    launches, checks = arrays_main(ar_pass)
     print(f"arrays path: {time.perf_counter() - t0:.1f} s", flush=True)
     return launches, checks
 
@@ -6182,7 +6431,8 @@ CHAOS_PAGE_TIER = 6 << 30  # the page tier of the reference's chaos fixture (tes
 CHAOS_RESULT_TIER = 256 << 20  # 17b's result tier
 CHAOS_RESULT_QUERIES = ("q1", "q3")
 CHAOS_DISARMED_CALLS = 1_000_000  # 17e: timed disarmed maybe_inject calls
-CPU_PASS_TIMEOUT_S = 600.0  # the most the join of phase 2's CPU pass may wait
+CPU_PASS_TIMEOUT_S = 600.0  # the most the join of a CPU child (phases 2, 5, 8) may wait
+CPU_CHILD_THREADS = 2  # torch threads of the CPU children of phases 5, 8, 9 and 10
 
 
 def timed_sync(fn):
@@ -6948,6 +7198,199 @@ def federation_path(fed_pass):
 
 
 # -- phase 2's CPU parity pass, in a child process ----------------------------------
+# -- phase 19: the worker mesh ------------------------------------------------------
+DIST_SPLIT_ROWS = 1 << 18  # 19a/19c: lineitem ~23 splits at SF1, about 3 a position
+DIST_POSITIONS = 8  # 19a, 19c: a virtual mesh of 8 positions over the card
+DIST_BIG_POSITIONS = 4  # 19b at SF10
+DIST_BIG_QUERIES = ("q1", "q3", "q9", "q18")  # bench.py --distributed's set
+DIST_BIG_ORDER_BY = {"q1": ("l_returnflag", "l_linestatus"), "q3": ("revenue", "o_orderdate"),
+                     "q9": ("nation", "o_year"), "q18": ("o_totalprice", "o_orderdate")}
+
+
+def dist_sites(counters) -> dict:
+    """Host bytes read at each ``dist.*`` site of a statement's counters."""
+    return {k: v["bytes"] for k, v in sorted(counters.get("sites", {}).items())
+            if "dist." in k}
+
+
+def dist_statement(engine, sql, sess, mesh, own):
+    """One statement on the mesh through ``execute_sql``, cold then warm,
+    each in ``own``'s launch region: (cold result, warm result, record)."""
+    import torch
+
+    out, walls, rec = [], [], {}
+    for i in range(2):
+        torch.cuda.synchronize()
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
+        with own.region():
+            t0 = time.perf_counter()
+            out.append(engine.execute_sql(sql, sess, distributed=True, mesh=mesh))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        c = engine.last_query_counters
+        if i == 0:
+            rec = {"cold_s": walls[0], "peak_bytes": torch.cuda.max_memory_allocated(),
+                   "exec_trace": engine.last_exec_trace, "dist_site_bytes": dist_sites(c)}
+        else:
+            rec.update(warm_s=walls[1], host_reads=c.get("host_reads"),
+                       warm_dist_site_bytes=dist_sites(c),
+                       skew=[round(r["ratio"], 3) for r in c.get("shard_stats", [])])
+    return out[0], out[1], rec
+
+
+def dist_queries(mesh, own):
+    """19a: the 16 DIST_QUERIES at SF1 on the mesh, cold and warm, each held
+    against the local card run at the same split size."""
+    import torch
+
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    engine = Engine(device=DEVICE)
+    conn = TpchConnector(sf=SF_MAIN, split_rows=DIST_SPLIT_ROWS)
+    engine.register_catalog("tpch", conn)
+    sess = engine.create_session("tpch")
+    print(f"19a: lineitem {len(conn.splits('lineitem'))} splits, orders "
+          f"{len(conn.splits('orders'))} of {DIST_SPLIT_ROWS} rows", flush=True)
+    rec = {}
+    for name, sql in DIST_QUERIES.items():
+        engine.execute_sql(sql, sess)  # the local run, cold
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        local = engine.execute_sql(sql, sess)
+        torch.cuda.synchronize()
+        local_warm = time.perf_counter() - t0
+        cold, warm, r = dist_statement(engine, sql, sess, mesh, own)
+        for what, res in (("cold", cold), ("warm", warm)):
+            same_result(res, local, f"19a {name} {what} mesh vs local",
+                        order_by=DIST_ORDER_BY[name])
+        modes = [m for _, m, _ in r["exec_trace"] or []]
+        check("mesh" in modes, f"19a {name}: no fragment ran on the mesh: {r['exec_trace']}")
+        if name in DIST_NO_LOCAL:
+            check("local" not in modes, f"19a {name} ran a local fragment: {r['exec_trace']}")
+        r.update(rows=len(local), local_warm_s=local_warm)
+        rec[name] = r
+        print(f"19a {name}: {json.dumps(r, default=str)}", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dist_big(phase4, own):
+    """19b: bench.py's Q1, Q3, Q9 and Q18 at SF10 on ``worker_mesh(4)``,
+    held against phase 4's local results, warm walls beside phase 4's."""
+    import torch
+
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.parallel.mesh import worker_mesh
+
+    mesh = worker_mesh(DIST_BIG_POSITIONS)
+    conn = TpchConnector(sf=SF_BIG, split_rows=SPLIT_ROWS)
+    engine = Engine(device=DEVICE)
+    engine.register_catalog("tpch", conn)
+    sess = engine.create_session("tpch")
+    li_rows = conn.exact_row_count("lineitem")
+    rec = {}
+    for q in DIST_BIG_QUERIES:
+        cold, warm, r = dist_statement(engine, QUERIES[q], sess, mesh, own)
+        for what, res in (("cold", cold), ("warm", warm)):
+            same_result(res, phase4[q]["result"], f"19b sf{SF_BIG:g} {q} {what} vs phase 4",
+                        order_by=DIST_BIG_ORDER_BY[q])
+        r.update(lineitem_rows_per_s=li_rows / r["warm_s"],
+                 local_warm_s=phase4[q]["warm_s"],
+                 local_rows_per_s=phase4[q]["rows_per_s"])
+        rec[q] = r
+        print(f"19b sf{SF_BIG:g} {q} on {mesh}: {json.dumps(r, default=str)}", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dist_chaos(mesh, own):
+    """19c: the six DIST_SCENARIOS at SF1 on the mesh, each firing at least
+    once, recovering byte-identical or failing typed, with the leak check
+    and a fault-free rerun (``chaos_matrix.run_dist_scenario``)."""
+    import torch
+
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.execution import chaos_matrix as cm
+
+    engine = Engine(device=DEVICE)
+    engine.register_catalog("tpch", TpchConnector(sf=SF_MAIN, split_rows=DIST_SPLIT_ROWS))
+    sess = engine.create_session("tpch")
+    baselines = {k: cm.result_signature(engine.execute_sql(sql, sess))
+                 for k, sql in cm.DIST_QUERIES.items()}
+    rec = {}
+    for name, query, spec, kind in cm.DIST_SCENARIOS:
+        t0 = time.perf_counter()
+        with own.region():
+            r = cm.run_dist_scenario(engine, cm.DIST_QUERIES[query], sess, mesh,
+                                     baselines[query], name, spec, kind)
+        r["seconds"] = time.perf_counter() - t0
+        check(r.get("ok") and r.get("fires", 0) >= 1, f"19c {name}: {r}")
+        rec[name] = r
+    print(f"19c: {json.dumps(rec, default=str)}", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return rec
+
+
+def distributed_path(phase4):
+    """Phase 19: the worker mesh, a virtual 8-position mesh over the card.
+    Returns (the record, launches of 19a and 19c, {kernel: checks at their
+    shapes})."""
+    import numpy as np
+    import torch
+
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.parallel.mesh import worker_mesh
+
+    t_phase = time.perf_counter()
+    mesh = worker_mesh(DIST_POSITIONS)
+    print(f"phase 19: {mesh.size} positions over {[str(d) for d in mesh.distinct_devices]}",
+          flush=True)
+    own, big_own = OwnLaunches(), OwnLaunches()
+    rec = {"positions": mesh.size, "devices": [str(d) for d in mesh.distinct_devices]}
+    with env_vars(TRINO_TPU_ADAPTIVE="0", TRINO_TPU_RESULT_CACHE="0",
+                  TRINO_TPU_PAGE_CACHE="0"):
+        t0 = time.perf_counter()
+        rec["queries"] = dist_queries(mesh, own)
+        rec["queries_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["big"] = dist_big(phase4, big_own)
+        rec["big_s"] = time.perf_counter() - t0
+        rec["big_launches"] = dict(big_own.launches)
+        t0 = time.perf_counter()
+        rec["chaos"] = dist_chaos(mesh, own)
+        rec["chaos_s"] = time.perf_counter() - t0
+    launches = dict(own.launches)
+    check(launches["hash_insert"] > 0 and launches["hash_probe"] > 0
+          and launches["compact_rows"] > 0,
+          f"the distributed path launched no hash_insert, hash_probe or compact_rows: "
+          f"{launches}")
+    # 19d: each kernel the path launched against its plain version at the
+    # path's largest and most frequent shapes
+    conn = TpchConnector(sf=SF_MAIN, split_rows=DIST_SPLIT_ROWS, device=DEVICE)
+    li_keys = lineitem_keys(conn)
+    gen = np.random.default_rng(61)
+    checks = {"hash_insert": insert_checks(own.shapes["hash_insert"],
+                                           ("lineitem_orderkey", *li_keys), gen),
+              "hash_probe": probe_checks(own.shapes["hash_probe"], gen),
+              "compact_rows": compact_checks(own.shapes["compact_rows"], gen)}
+    del li_keys
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"distributed path: {rec['seconds']:.1f} s, launches of 19a and 19c {launches}, "
+          f"of 19b {rec['big_launches']}", flush=True)
+    print(json.dumps({"distributed_sf1": rec}, default=str), flush=True)
+    torch.cuda.empty_cache()
+    return rec, launches, {k: {"max_abs_err": r["max_abs_err"], "shapes": r["shapes"]}
+                           for k, r in checks.items()}
+
+
 def cpu_pass_child(out_path: str, threads: int, sf: float, split_rows: int) -> None:
     """Phase 2's CPU pass: the port on the CPU over ``ALL_QUERIES`` at
     scale ``sf`` in ``split_rows`` splits (phase 2's), with ``threads``
@@ -7102,6 +7545,14 @@ def main() -> int:
     half = max(1, len(os.sched_getaffinity(0)) // 2)
     cpu_pass = ChildPass(cpu_pass_child, "cpu-pass", half, SF_MAIN, SPLIT_ROWS)
     fed_pass = ChildPass(fed_pass_child, "fed-pass", FED_PASS_THREADS)
+    # the CPU halves of phases 5, 8, 9 and 10, likewise
+    ds_pass = ChildPass(tpcds_cpu_child, "tpcds-pass", CPU_CHILD_THREADS, TPCDS_SF_PARITY,
+                        SPLIT_ROWS)
+    mem_pass = ChildPass(memory_cpu_child, "memory-pass", CPU_CHILD_THREADS, SF_MAIN)
+    fn_pass = ChildPass(functions_cpu_child, "functions-pass", CPU_CHILD_THREADS, SF_MAIN,
+                        SPLIT_ROWS)
+    ar_pass = ChildPass(arrays_cpu_child, "arrays-pass", CPU_CHILD_THREADS, SF_MAIN,
+                        ARRAYS_SF_ALL_ROWS)
     try:
         card = card_line()
         print(f"card: {card}", flush=True)
@@ -7168,6 +7619,9 @@ def main() -> int:
                               f"sf{SF_BIG:g}")
         for q, r in big_res.items():
             check(r["rows"] > 0, f"sf{SF_BIG:g} {q} returned no rows")
+        # phase 19b's oracle: the local SF10 results and warm walls
+        phase4 = {q: {k: big_res[q][k] for k in ("result", "warm_s", "rows_per_s")}
+                  for q in DIST_BIG_QUERIES}
         print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
               flush=True)
         clock.done(4)
@@ -7178,11 +7632,8 @@ def main() -> int:
         gpu = Engine(device=DEVICE)
         gpu.register_catalog("tpcds", TpcdsConnector(sf=TPCDS_SF_PARITY,
                                                       split_rows=SPLIT_ROWS))
-        cpu = Engine(device="cpu")
-        cpu.register_catalog("tpcds", TpcdsConnector(sf=TPCDS_SF_PARITY,
-                                                     split_rows=SPLIT_ROWS))
         tpcds_queries = corpus()
-        nodes = tpcds_parity(gpu, cpu, tpcds_queries)
+        nodes = tpcds_parity(gpu, ds_pass, tpcds_queries)
         clock.done(5)
 
         # -- phase 6: TPC-DS at SF1 ----------------------------------------------
@@ -7222,14 +7673,14 @@ def main() -> int:
         # -- phase 8: the memory catalog at SF1, TPC-H's refresh path -----------
         del gpu, ds_big, big_res
         torch.cuda.empty_cache()
-        mem_launches, mem_checks = memory_path(tpch_ref)
+        mem_launches, mem_checks = memory_path(tpch_ref, mem_pass)
         clock.done(8)
         # -- phase 9: the function library at SF0.01, SF1 and SF10 ------------
-        fn_launches, fn_checks = functions_path()
+        fn_launches, fn_checks = functions_path(fn_pass)
         clock.done(9)
         # -- phase 10: arrays, maps, UNNEST and MATCH_RECOGNIZE -----------------
         torch.cuda.empty_cache()
-        ar_launches, ar_checks = arrays_path()
+        ar_launches, ar_checks = arrays_path(ar_pass)
         clock.done(10)
         # -- phase 11: the coordinator entry point, TPC-H SF1 over the protocol -
         torch.cuda.empty_cache()
@@ -7263,6 +7714,11 @@ def main() -> int:
         # DB-API with the index join and the pushdowns, blackhole
         _, fd_launches, fd_checks = federation_path(fed_pass)
         clock.done(18)
+        # -- phase 19: the worker mesh: the distributed executor over a -------
+        # virtual 8-position mesh on the card
+        _, di_launches, di_checks = distributed_path(phase4)
+        del phase4
+        clock.done(19)
 
         # per path: its launches, and the checks at its own shapes (the
         # top-level times stay the TPC-H path's largest shape's)
@@ -7294,15 +7750,20 @@ def main() -> int:
                 "chaos_sf1": {"launches": ch_launches[name],
                               **ch_checks.get(name, {"max_abs_err": None, "shapes": []})},
                 "federation_sf1": {"launches": fd_launches[name],
-                                   **fd_checks.get(name, {"max_abs_err": None, "shapes": []})}}
+                                   **fd_checks.get(name, {"max_abs_err": None, "shapes": []})},
+                "distributed_sf1": {"launches": di_launches[name],
+                                    **di_checks.get(name, {"max_abs_err": None,
+                                                           "shapes": []})}}
             for checks in (ds_checks, mem_checks, fn_checks, ar_checks, sv_checks, ca_checks,
-                           tp_checks, ad_checks, fl_checks, sp_checks, ch_checks, fd_checks):
+                           tp_checks, ad_checks, fl_checks, sp_checks, ch_checks, fd_checks,
+                           di_checks):
                 if name in checks:
                     r["max_abs_err"] = max(r["max_abs_err"], checks[name]["max_abs_err"])
             r["launches"] += (ds_launches[name] + mem_launches[name] + fn_launches[name]
                               + ar_launches[name] + sv_launches[name] + ca_launches[name]
                               + tp_launches[name] + ad_launches[name] + fl_launches[name]
-                              + sp_launches[name] + ch_launches[name] + fd_launches[name])
+                              + sp_launches[name] + ch_launches[name] + fd_launches[name]
+                              + di_launches[name])
         print(f"phases: {json.dumps({k: round(v, 1) for k, v in clock.seconds.items()})}",
               flush=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -7310,8 +7771,8 @@ def main() -> int:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     finally:
-        cpu_pass.stop()
-        fed_pass.stop()
+        for child in (cpu_pass, fed_pass, ds_pass, mem_pass, fn_pass, ar_pass):
+            child.stop()
 
     print(card)
     print(json.dumps({"kernels": kernels}))

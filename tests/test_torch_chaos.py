@@ -28,9 +28,18 @@ port, jitted steps in the reference, so ``nth`` lands on another operation
 in each package: the outcome is held, not the site.
 
 Recovered results equal the reference's fault-free result: integers,
-decimals, dates and strings exactly, DOUBLE within rtol 1e-9.  Left out
-(ROADMAP A7, the exchange and the cluster): test_fte_dropped_commit_is_retried,
-the backoff and reannounce tests, and the distributed matrix.
+decimals, dates and strings exactly, DOUBLE within rtol 1e-9.
+
+The worker mesh's exchange matrix (tests/test_chaos.py:402 restated): each
+of ``chaos_matrix.DIST_SCENARIOS`` runs its statement distributed on
+``worker_mesh(8, devices=["cpu"] * 8)`` at SF0.02 in 2^12-row splits, fires
+at least once, recovers byte-identical to the port's local run or fails
+with the typed error, leaves no leak, and a fault-free distributed rerun
+gives the baseline; the scenario and query tables are the reference's.
+
+Left out (the next slice of ROADMAP A7, the task-retrying executor and the
+cluster): test_fte_dropped_commit_is_retried and the backoff and
+reannounce tests.
 """
 
 import os
@@ -381,3 +390,32 @@ def test_producer_thread_fault_fails_clean(spill_env, tmp_path, tier, point):
     ok = cm.run_pressure_scenario(engine, plan, base, name, cfg, None, "recover",
                                   str(tmp_path))
     assert ok["ok"], {k: v for k, v in ok.items() if k != "counters"}
+
+
+# -- the worker mesh's exchange matrix (tests/test_chaos.py:402) ---------------------
+
+
+@pytest.fixture(scope="module")
+def dist_chaos():
+    from trino_tpu_torch.parallel.mesh import worker_mesh
+
+    e = Engine(device="cpu")
+    e.register_catalog("tpch", TpchConnector(sf=0.02, split_rows=1 << 12))
+    s = e.create_session("tpch")
+    baselines = {k: cm.result_signature(e.execute_sql(sql, s))
+                 for k, sql in cm.DIST_QUERIES.items()}
+    return e, s, worker_mesh(8, devices=["cpu"] * 8), baselines
+
+
+def test_dist_scenarios_are_the_reference_tables():
+    assert cm.DIST_SCENARIOS == jcm.DIST_SCENARIOS
+    assert cm.DIST_QUERIES == jcm.DIST_QUERIES
+
+
+@pytest.mark.parametrize("name,query,spec,kind", cm.DIST_SCENARIOS,
+                         ids=[sc[0] for sc in cm.DIST_SCENARIOS])
+def test_distributed_exchange_fault_matrix(dist_chaos, name, query, spec, kind):
+    e, s, mesh, baselines = dist_chaos
+    rec = cm.run_dist_scenario(e, cm.DIST_QUERIES[query], s, mesh, baselines[query],
+                               name, spec, kind)
+    assert rec.get("ok"), rec

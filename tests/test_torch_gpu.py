@@ -11,7 +11,10 @@ chip_smoke.py at SF0.01); a fused template window on the card (phase 13);
 a ``dispatch`` fault inside each kernel wrapper on CUDA tensors, after which
 the wrapper launches nothing (phase 17); host-decoded pages staged to the
 card by the prefetch producer (phase 18: a connector defined here returns
-the numpy pages a file connector would, so the test needs no ``pyarrow``).
+the numpy pages a file connector would, so the test needs no ``pyarrow``);
+the distributed executor on a virtual ``worker_mesh(4)`` over the card, and
+the exchange's ``bucketize`` and ``append_rows`` on the card against their
+CPU runs (phase 19).
 
 They skip without a card.  This file imports no jax, so on a machine with a
 card (which has no jax) it runs without the repo's conftest:
@@ -1179,3 +1182,78 @@ def test_host_decoded_pages_are_staged_to_the_card(dev, monkeypatch):
         assert all(s[2] for s in staged) == (device == "cuda")
         assert e.last_query_counters["h2d_bytes"] >= sum(s[1] for s in staged) > 0
     _same(got["cuda"], got["cpu"])
+
+
+# -- the worker mesh (chip_smoke.py phase 19) ------------------------------------------
+
+DIST_CARD = {
+    "q3": None,  # chip_smoke.DIST_QUERIES["q3"]
+    # a partitioned join (the build routes through the exchange) feeding a
+    # group-by: hash_insert_ (build and groups), hash_probe, compact_rows
+    "partitioned": ("select l_orderkey, count(*) n, sum(l_quantity) q from lineitem, orders "
+                    "where l_orderkey = o_orderkey and o_orderdate < date '1994-01-01' "
+                    "group by l_orderkey order by l_orderkey limit 50"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DIST_CARD))
+def test_distributed_on_a_virtual_card_mesh_equals_local(dev, name):
+    """q3 and a partitioned join on worker_mesh(4) over the one card: equal
+    to the local card run, and the mesh run launches the compaction
+    (bucketize, append_rows), insert and probe kernels."""
+    from chip_smoke import DIST_QUERIES
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.exec.distributed import DistributedExecutor
+    from trino_tpu_torch.parallel.mesh import worker_mesh
+    from trino_tpu_torch.sql.frontend import compile_sql
+
+    sql = DIST_CARD[name] or DIST_QUERIES[name]
+    e = Engine(device="cuda")
+    e.register_catalog("tpch", TpchConnector(sf=0.01, split_rows=1 << 13))
+    s = e.create_session("tpch")
+    local = e.execute_sql(sql, s)
+    mesh = worker_mesh(4)
+    assert mesh.size == 4 and len(mesh.distinct_devices) == torch.cuda.device_count()
+    ck.reset_stats()
+    ex = DistributedExecutor(e.catalogs, mesh=worker_mesh(4, devices=["cuda"]),
+                             partition_threshold=8 if name == "partitioned" else 1 << 17)
+    got = ex.execute(compile_sql(sql, e, s))
+    _same(got, local)
+    for k in ("compact_rows", "hash_insert", "hash_probe"):
+        assert ck.STATS[k].launches > 0, (k, ex.exec_trace)
+    assert not [t for t in ex.exec_trace if t[1] == "local"], ex.exec_trace
+
+
+def test_bucketize_and_append_rows_on_the_card_equal_the_cpu(dev):
+    from trino_tpu_torch.ops.arrays import append_rows
+    from trino_tpu_torch.ops.exchange import bucketize
+
+    rng = np.random.default_rng(19)
+    n, P, bucket = 100_003, 8, 15_000
+    cols = (rng.integers(0, 1 << 40, n), rng.random(n), rng.random(n) < 0.5)
+    valid = rng.random(n) < 0.9
+    pid = rng.integers(0, P, n).astype(np.int32)
+    out = {}
+    for d in ("cuda", "cpu"):
+        t = [torch.as_tensor(c, device=d) for c in cols]
+        packed, pvalid, oflow = bucketize(tuple(t), torch.as_tensor(valid, device=d),
+                                          torch.as_tensor(pid, device=d), P, bucket)
+        cap = 200_000  # two appends of ~90,000 live rows fit, the third passes
+        bufs = (torch.zeros((cap + 1,), dtype=torch.int64, device=d),
+                torch.zeros((cap + 1,), dtype=torch.float64, device=d))
+        cur = torch.zeros((), dtype=torch.int64, device=d)
+        flags = []
+        for _ in range(3):
+            bufs, cur, of = append_rows(bufs, cur, (t[0], t[1]),
+                                        torch.as_tensor(valid, device=d))
+            flags.append(bool(of))
+        out[d] = ([p.cpu().numpy() for p in packed], pvalid.cpu().numpy(), bool(oflow),
+                  [b.cpu().numpy() for b in bufs], int(cur), flags)
+    a, b = out["cuda"], out["cpu"]
+    for x, y in zip(a[0], b[0]):
+        assert np.array_equal(x, y)
+    assert np.array_equal(a[1], b[1]) and a[2] == b[2]
+    for x, y in zip(a[3], b[3]):
+        assert np.array_equal(x, y)
+    assert a[4] == b[4] and a[5] == b[5] == [False, False, True]

@@ -227,14 +227,15 @@ def test_spill_error_mid_partition_cleans_up(env, tmp_path, monkeypatch):
 
 
 def test_unwired_fault_points_refuse_to_arm():
-    """A rule naming a point the port does not wire yet (the exchange's and
-    the cluster's, ROADMAP A7) cannot be armed; the nine local points are
-    wired."""
+    """A rule naming a point the port does not wire yet (the cluster's
+    ``task``, ROADMAP A7) cannot be armed; the nine local points and the
+    worker mesh's two exchange points are wired."""
     assert set(faults.WIRED) == {"dispatch", "host_pull", "generate", "h2d", "reserve",
                                  "cache_checkout", "cache_store", "spill_write",
-                                 "spill_read"}
-    for spec in ("point=exchange_write,action=error", "point=task,action=error",
-                 "point=spill_read,action=deny;point=exchange_read,action=error"):
+                                 "spill_read", "exchange_write", "exchange_read"}
+    for spec in ("point=task,action=error",
+                 "point=spill_read,action=deny;point=task,action=error",
+                 "point=exchange_write,action=error;point=task,action=error"):
         with pytest.raises(ValueError, match="not wired"):
             faults.arm(spec)
         with pytest.raises(ValueError, match="not wired"):

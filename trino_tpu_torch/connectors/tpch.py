@@ -632,8 +632,14 @@ class TpchConnector:
         schema = TPCH_SCHEMAS[split.table]
         names = columns if columns is not None else schema.names
         out_schema = Schema(tuple(schema.field(n) for n in names))
-        cols, valid = _GENERATORS[split.table](
-            self.sf, split.lo, split.hi - split.lo, self.table_bound(split.table),
-            device=self._device())
-        cols = tuple(cols[c] for c in names)
+        cols, valid = self.generate_traced(split.table, split.lo, split.hi - split.lo, names)
         return Page(out_schema, cols, tuple(None for _ in cols), valid)
+
+    def generate_traced(self, table: str, lo: int, length: int, columns):
+        """Rows [lo, lo + length) of ``columns`` (an order range for
+        lineitem) and their valid mask, on the connector's device: (cols
+        tuple, valid).  The distributed executor's scan generates each
+        position's split through it."""
+        cols, valid = _GENERATORS[table](self.sf, lo, length, self.table_bound(table),
+                                         device=self._device())
+        return tuple(cols[c] for c in columns), valid

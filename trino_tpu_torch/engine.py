@@ -97,8 +97,15 @@ past ``execution/memory_killer.BLOCKED_FRACTION`` a new statement queues at
 its resource group (``_memory_admission_ok``) until a running one finishes;
 a statement that queued so carries ``admission_queued`` 1 on its counters.
 
-Not ported: the cluster rungs (cache eviction and the low-memory killer),
-fault-tolerant and distributed execution.
+Distributed execution, as in the reference: ``execute_sql(...,
+distributed=True, mesh=...)`` runs the plan on ``exec/distributed.py``'s
+executor over a worker mesh (``parallel/mesh.py``) whose devices are all
+the engine's (positions on one card form a virtual mesh).  Such statements
+take their own plan-cache and result-tier keys, and skip the advisor, the
+plan templates and auto-parameterization.
+
+Not ported: the cluster rungs (cache eviction and the low-memory killer)
+and fault-tolerant (task-retrying) execution.
 """
 
 from __future__ import annotations
@@ -126,6 +133,13 @@ class Session:
     user: str = "user"
     properties: dict = dataclasses.field(default_factory=dict)
     prepared: dict = dataclasses.field(default_factory=dict)  # name -> sql text
+
+
+def _fte_not_ported() -> NotImplementedError:
+    return NotImplementedError(
+        "fault-tolerant execution (the task-retrying executor over a spooled "
+        "exchange) is not ported to trino_tpu_torch yet: it comes with the "
+        "multi-process cluster, the next slice of the distributed port")
 
 
 def _resolve_device(device) -> torch.device:
@@ -578,6 +592,14 @@ class Engine:
         return {} if snap is None else snap.as_dict()
 
     @property
+    def last_exec_trace(self):
+        """The fragment modes of the last distributed plan this thread ran,
+        ``[(node label, "mesh" | "coordinator" | "local", reason)]`` (what
+        EXPLAIN ANALYZE prints for a distributed run), or None after a
+        statement that ran none."""
+        return getattr(self._thread_accounting, "exec_trace", None)
+
+    @property
     def last_query_trace(self) -> dict:
         """{"query_id", "root_span_s", "spans", "wall_breakdown"} of the last
         statement this thread ran."""
@@ -640,7 +662,8 @@ class Engine:
 
     def execute_plan(self, plan, cache: bool = True, page_cache: Optional[bool] = None,
                      params: Optional[tuple] = None,
-                     query_max_memory: Optional[int] = None):
+                     query_max_memory: Optional[int] = None,
+                     distributed: bool = False, mesh=None, fault_tolerant: bool = False):
         """Run a plan to a host-side ``MaterializedResult`` (also the
         planner's entry point for eager subqueries, which pass
         ``cache=False``).  As in the reference, ``cache=False`` still reads
@@ -649,12 +672,73 @@ class Engine:
         and the port keeps none.  As in the reference, only ``cache=True``
         runs feed the plan history, on clean completion.  ``params`` is a
         plan template's bound slot tuple; ``query_max_memory`` the
-        statement's limit in bytes, as in the reference."""
+        statement's limit in bytes, as in the reference.  ``distributed``
+        runs the plan on the worker mesh ``mesh`` (``exec/distributed.py``);
+        templates execute locally only, as in the reference."""
+        if params is not None and (distributed or fault_tolerant):
+            raise ValueError("parameterized template plans execute locally only")
+        if fault_tolerant:
+            raise _fte_not_ported()
+        if distributed:
+            ex = self._distributed_executor(mesh)
+            try:
+                result = ex.execute(plan)
+                self._thread_accounting.exec_trace = list(ex.exec_trace)
+                # clean completion only: the per-exchange shard skew joins
+                # the plan history under the actuals' node paths
+                self._record_shard_skew(plan, ex)
+                return result
+            finally:
+                self._account_counters(ex.counters)
         result, _, ex = self._run_plan(plan, page_cache, params, memo=cache,
                                        query_max_memory=query_max_memory)
         if cache:
             self._record_plan_history(plan, ex)
         return result
+
+    def _distributed_executor(self, mesh):
+        """A fresh distributed executor over ``mesh`` (None: every visible
+        card), whose devices must all be the engine's."""
+        from .exec.distributed import DistributedExecutor
+        from .parallel.mesh import same_device, worker_mesh
+
+        mesh = mesh if mesh is not None else worker_mesh()
+        stray = [str(d) for d in mesh.devices if not same_device(d, self.device)]
+        if stray:
+            raise ValueError(f"mesh devices {sorted(set(stray))} differ from the "
+                             f"engine's device {self.device}")
+        return DistributedExecutor(self.catalogs, mesh=mesh, memory_pool=self.memory_pool)
+
+    def _record_shard_skew(self, plan, ex) -> None:
+        """Fold a clean distributed run's per-exchange shard skew
+        (``DistributedExecutor.skew_by_node``) into ``plan_history`` under
+        the node paths the cardinality actuals use.  A host walk of records
+        the exchange already made: no launch, no read; a failure leaves the
+        statement successful and the store unchanged."""
+        skew = getattr(ex, "skew_by_node", None)
+        ph = self.plan_history
+        if not skew or ph is None or not ph.enabled:
+            return
+        try:
+            from .exec.local_executor import _plan_fingerprint
+            from .execution.history import plan_node_paths
+
+            paths = plan_node_paths(plan)
+            recs = {}
+            for nid, rec in skew.items():
+                path = paths.get(nid)
+                if path is None:
+                    continue
+                recs[path] = {"skew": {
+                    "ratio": float(rec.get("ratio", 1.0)),
+                    "worker": int(rec.get("worker", 0)),
+                    "workers": int(rec.get("workers", 0)),
+                    "imbalance_s": float(rec.get("imbalance_s", 0.0)),
+                }}
+            if recs:
+                ph.record(_plan_fingerprint(plan, self.catalogs), recs)
+        except Exception:  # noqa: BLE001 - observability never fails a statement
+            pass
 
     # -- plan history and adaptive execution (reference: Engine._record_plan_history)
     def _record_plan_history(self, plan, ex) -> None:
@@ -857,6 +941,8 @@ class Engine:
 
     # -- the statement entry point (reference: Engine.execute_sql) ---------------
     def execute_sql(self, sql: str, session: Optional[Session] = None,
+                    distributed: bool = False, mesh=None,
+                    fault_tolerant: bool = False,
                     parameters: Optional[list] = None):
         """Statement entry point (reference: DispatchManager.createQuery ->
         resource-group admission -> SqlQueryExecution for queries;
@@ -866,8 +952,14 @@ class Engine:
         ``parameters`` is the protocol-level EXECUTE form: ``sql`` carries
         ``?`` markers and ``parameters`` the python values to bind, through
         the statement's plan template where it has one, else substituted as
-        literals."""
+        literals.  ``distributed`` runs a SELECT on the worker mesh ``mesh``
+        (``parallel/mesh.worker_mesh``; None: every visible card), whose
+        devices must be the engine's.  ``fault_tolerant`` (the task-retrying
+        executor) is not ported yet and raises."""
         from .execution import tracing
+
+        if fault_tolerant:
+            raise _fte_not_ported()
         from .execution.query_state import QueryState, QueryStateMachine
 
         sess = session or Session()
@@ -877,6 +969,7 @@ class Engine:
         acct.snap = None
         acct.trace = None
         acct.batched_with = None
+        acct.exec_trace = None
         # the statement's plan-history payload, and the advisor's slots: its
         # admission decision, the key its feedback keys on, whether this
         # execution runs a corrected plan, and the planning seconds (the
@@ -908,7 +1001,8 @@ class Engine:
             with tracing.query_scope(qid), tracing.activate_tracer(self.tracer), \
                     tracing.track_counters(totals), \
                     self.tracer.span("query", trace_id=qid, sql=sql):
-                result = self._execute_admitted(sql, sess, qsm, parameters)
+                result = self._execute_admitted(sql, sess, qsm, parameters,
+                                                distributed, mesh)
             if result is not None and hasattr(result, "__len__"):
                 qsm.rows = len(result)
             qsm.transition(QueryState.FINISHING)
@@ -1020,7 +1114,8 @@ class Engine:
             if self.health().get("status") == "stalled" else None,
         })
 
-    def _execute_admitted(self, sql: str, sess: Session, qsm, parameters=None):
+    def _execute_admitted(self, sql: str, sess: Session, qsm, parameters=None,
+                          distributed: bool = False, mesh=None):
         from .execution.query_state import QueryState
         from .sql import parser as A
 
@@ -1032,19 +1127,23 @@ class Engine:
             from .sql import params as PRM
 
             param_asts = tuple(PRM.value_to_literal_ast(v) for v in parameters)
-            handled, res = self._maybe_template_execute(sql, param_asts, sess, qsm=qsm)
-            if handled:
-                return res
+            if not distributed:  # templates execute locally only
+                handled, res = self._maybe_template_execute(sql, param_asts, sess,
+                                                            qsm=qsm)
+                if handled:
+                    return res
             vals = [PRM.literal_param_value(p) for p in param_asts]
-            return self._execute_admitted(_substitute(sql, vals), sess, qsm)
+            return self._execute_admitted(_substitute(sql, vals), sess, qsm,
+                                          distributed=distributed, mesh=mesh)
         # the user is in the key (row filters and column masks make plans
-        # user-specific), and so are the plan-shaping session properties;
-        # the text is normalized, so reformatted repeats share a plan
-        key = (_normalize_statement(sql), sess.catalog, False, sess.user,
+        # user-specific), and so are the plan-shaping session properties and
+        # whether the statement runs distributed; the text is normalized, so
+        # reformatted repeats share a plan
+        key = (_normalize_statement(sql), sess.catalog, distributed, sess.user,
                _plan_shape_props(sess))
-        # the advisor first: a frozen "replan" diverts even a warm statement
-        # to its corrected plan
-        adaptive = self._adaptive_consult(key, sess)
+        # the advisor first (local statements only): a frozen "replan"
+        # diverts even a warm statement to its corrected plan
+        adaptive = None if distributed else self._adaptive_consult(key, sess)
         if adaptive is not None and adaptive.get("verdict") == "replan":
             res = self._execute_corrected(sql, key, adaptive, sess, qsm)
             if res is not NotImplemented:
@@ -1057,9 +1156,11 @@ class Engine:
             plan = self._cache_lookup(key)
         if plan is not None:
             self._check_select_access(plan, sess.user)
-            self._adaptive_note_base(key, sess)
-            return self._run_select(sql, plan, sess, qsm)
-        if self.plan_templates_enabled:
+            if not distributed:
+                self._adaptive_note_base(key, sess)
+            return self._run_select(sql, plan, sess, qsm, distributed=distributed,
+                                    mesh=mesh)
+        if not distributed and self.plan_templates_enabled:
             # auto-parameterization: SELECTs equal up to their literals share
             # one template; the extraction is token-level and conservative,
             # and a misjudged text fails template creation and plans below
@@ -1079,26 +1180,30 @@ class Engine:
             # scalar and EXISTS subqueries execute while the query plans
             plan = self._plan_timed(sess, ast, key, qsm)
             self._check_select_access(plan, sess.user)
-            self._adaptive_note_base(key, sess)
+            if not distributed:
+                self._adaptive_note_base(key, sess)
             if qsm.state != QueryState.RUNNING:
                 qsm.transition(QueryState.STARTING)
-            return self._run_select(sql, plan, sess, qsm)
+            return self._run_select(sql, plan, sess, qsm, distributed=distributed,
+                                    mesh=mesh)
         qsm.transition(QueryState.RUNNING)
         # the statement's text for consumers that see only its AST (EXPLAIN
         # recovers its inner statement's plan-cache key from it)
         self._thread_accounting.stmt_sql = sql
-        return self._execute_statement(ast, sess)
+        return self._execute_statement(ast, sess, distributed=distributed, mesh=mesh)
 
-    def _run_select(self, sql: str, plan, sess: Session, qsm, adaptive=None):
+    def _run_select(self, sql: str, plan, sess: Session, qsm, adaptive=None,
+                    distributed: bool = False, mesh=None):
         """A planned SELECT, cached plan or fresh: the result tier first (a
         hit answers with no launch, no host read and no H2D copy, after
         admission, so the statement is tracked and access-checked like any
         other), else the plan runs and its result is stored on clean
         completion.  A corrected run (``adaptive``) keys its result by the
-        correction token."""
+        correction token.  ``distributed`` runs the plan on the mesh
+        ``mesh``, with a result key of its own."""
         from .execution.query_state import QueryState
 
-        rkey = self._result_cache_key(sql, plan, sess)
+        rkey = self._result_cache_key(sql, plan, sess, distributed=distributed)
         if rkey is not None and adaptive is not None:
             rkey = rkey + (("adaptive", adaptive["token"]),)
         # the epoch the statement starts under: an invalidation while it runs
@@ -1115,12 +1220,13 @@ class Engine:
         self._thread_accounting.history_sql = sql
         with self.tracer.span("execution", trace_id=qsm.query_id):
             result = self.execute_plan(plan, page_cache=_effective_page_cache(sess),
-                                       query_max_memory=_query_mem_limit(self, sess))
+                                       query_max_memory=_query_mem_limit(self, sess),
+                                       distributed=distributed, mesh=mesh)
         self._result_cache_finish(rkey, result, epoch, plan)
         return result
 
     # -- the result tier (reference: Engine._result_cache_*) ---------------------
-    def _result_cache_key(self, sql: str, plan, sess: Session):
+    def _result_cache_key(self, sql: str, plan, sess: Session, distributed: bool = False):
         """The result-tier key, or None when the statement may not be served
         or stored: the tier is off (its budget, or the ``result_cache``
         session property), a scanned catalog is volatile (no
@@ -1153,7 +1259,7 @@ class Engine:
             if conn is None or not bp.cacheable(conn):
                 return None
         return ("result", _plan_fingerprint(plan, self.catalogs), tuple(sorted(catalogs)),
-                False, False, _plan_shape_props(sess))
+                distributed, False, _plan_shape_props(sess))
 
     def _result_cache_fetch(self, rkey):
         """``rkey``'s cached result, or None.  A hit is accounted as a
@@ -1190,7 +1296,7 @@ class Engine:
             pass
 
     # -- statements (reference: Engine._execute_statement) ----------------------
-    def _execute_statement(self, ast, sess: Session):
+    def _execute_statement(self, ast, sess: Session, distributed: bool = False, mesh=None):
         from .sql import parser as A
 
         kind = type(ast).__name__
@@ -1227,7 +1333,7 @@ class Engine:
             if not isinstance(ast.query, (A.Select, A.SetOp)):
                 raise ValueError(
                     f"EXPLAIN of {type(ast.query).__name__} is not supported")
-            return self._explain(ast, sess)
+            return self._explain(ast, sess, distributed=distributed, mesh=mesh)
         if isinstance(ast, A.CreateView):
             if not ast.or_replace and ast.name in self.views:
                 raise ValueError(f"view {ast.name} already exists")
@@ -1433,7 +1539,7 @@ class Engine:
             return result(("function", "category", "arity", "description"), rows)
         raise ValueError(f"unsupported SHOW {ast.what!r}")
 
-    def _explain(self, ast, sess: Session):
+    def _explain(self, ast, sess: Session, distributed: bool = False, mesh=None):
         """EXPLAIN renders the physical plan (the distribution pass's
         Exchange markers included; under a frozen correction, the corrected
         plan the next execution runs); EXPLAIN ANALYZE runs the plan, feeds
@@ -1452,13 +1558,31 @@ class Engine:
         decision, akey = None, None
         acct = self._thread_accounting
         stmt = getattr(acct, "stmt_sql", None)
-        if stmt is not None:
+        if stmt is not None and not distributed:
             m = re.match(r"\s*EXPLAIN\s+(?:ANALYZE\s+)?", stmt, re.IGNORECASE)
             if m:
                 akey = (_normalize_statement(stmt[m.end():]), sess.catalog, False,
                         sess.user, _plan_shape_props(sess))
                 decision = self._adaptive_consult(akey, sess, peek=not ast.analyze)
-        if ast.analyze:
+        if ast.analyze and distributed:
+            # run through the mesh executor and report each fragment's ACTUAL
+            # mode: mesh, coordinator, or local with the reason
+            ex = self._distributed_executor(mesh)
+            t0 = time.perf_counter()
+            try:
+                res = ex.execute(plan)
+            finally:
+                self._account_counters(ex.counters)
+            dt = time.perf_counter() - t0
+            self._record_shard_skew(plan, ex)
+            lines = format_plan(plan, counters=ex.counters,
+                                skew=ex.skew_by_node).split("\n")
+            lines += ["", "Fragment execution (distributed run):"]
+            for label, mode, reason in ex.exec_trace:
+                note = f" — {reason}" if reason else ""
+                lines += [f"  [{mode}] {label}{note}"]
+            lines += [f"-- executed in {dt * 1000:.1f} ms, {len(res)} output rows"]
+        elif ast.analyze:
             if decision is not None and decision.get("verdict") == "replan":
                 # ANALYZE runs what the serving path would: the corrected plan
                 plan = Planner(self, _session_with_corrections(

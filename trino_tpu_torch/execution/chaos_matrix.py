@@ -38,9 +38,9 @@ The port's ``dispatch`` point counts kernel-wrapper calls and host reads,
 where the reference's counts jitted steps, so a scenario's ``nth`` lands on
 another operation in each package: the outcome is held, not the site.
 
-Not ported yet: ``DIST_SCENARIOS``, ``DIST_QUERIES`` and
-``run_dist_scenario``, the distributed exchange's matrix, which come with
-the mesh and the exchange points (ROADMAP A7).
+- ``DIST_SCENARIOS``, ``DIST_QUERIES`` and ``run_dist_scenario``: the
+  worker mesh's exchange faults (``exchange_write``, ``exchange_read``) on a
+  distributed window and group-by; every returned action fails typed.
 """
 
 from __future__ import annotations
@@ -53,8 +53,9 @@ import numpy as np
 from . import tracing
 
 __all__ = ["QUERIES", "SCENARIOS", "RECOVERABLE", "FAILING", "RESULT_SCENARIOS",
-           "PRESSURE", "PRESSURE_QUERY", "leak_report", "result_signature",
-           "producer_faults", "run_pressure_scenario", "run_result_scenario", "settle"]
+           "DIST_SCENARIOS", "DIST_QUERIES", "run_dist_scenario", "PRESSURE",
+           "PRESSURE_QUERY", "leak_report", "result_signature", "producer_faults",
+           "run_pressure_scenario", "run_result_scenario", "settle"]
 
 # the reference's four (inlined from the TPC-H spec, so the matrix does not
 # drift with a generator or benchmark edit)
@@ -144,48 +145,92 @@ RESULT_SCENARIOS = [
 ]
 
 
-def run_result_scenario(engine, sql, session, baseline_sig, name, spec,
-                        kind) -> dict:
-    """One result-cache chaos scenario: arm ``spec``, run ``sql`` on a
-    result-enabled engine, pin byte-identity vs ``baseline_sig``, at least
-    one fire, the post-scenario leak check, and (store scenarios) that no
-    entry was admitted under the fault.  Returns {"ok": bool, ...} — shared
-    by tests/test_result_cache.py and scripts/chaos.py."""
+# the worker mesh's exchange matrix.  Routed rows live in per-position device
+# receive buffers inside one lockstep run, so a RETURNED action (drop, deny)
+# cannot silently lose or defer them: every returned action raises typed
+# (InjectedFaultError), and only the non-raising action (delay) recovers.
+# (name, query, spec, kind): "window" routes every orders row through the
+# blocking collect (dist.exchange.route / .read), "agg" takes the group
+# merge's exchange and the merged groups' read (dist.agg.merge / .groups);
+# "recover" holds byte-identity with the local baseline, "fail" the typed
+# error; every scenario ends with the leak check and a fault-free rerun
+DIST_SCENARIOS = [
+    ("dist-route-delay", "window",
+     "point=exchange_write,site=dist.*,action=delay,s=0.001,every=1",
+     "recover"),
+    ("dist-route-error", "window",
+     "point=exchange_write,site=dist.exchange.route,action=error,nth=1",
+     "fail"),
+    ("dist-route-drop", "window",
+     "point=exchange_write,site=dist.exchange.route,action=drop,nth=1",
+     "fail"),
+    ("dist-read-error", "window",
+     "point=exchange_read,site=dist.exchange.read,action=error,nth=1",
+     "fail"),
+    ("dist-merge-deny", "agg",
+     "point=exchange_write,site=dist.agg.merge,action=deny,nth=1", "fail"),
+    ("dist-groups-error", "agg",
+     "point=exchange_read,site=dist.agg.groups,action=error,nth=1", "fail"),
+]
+
+# the exchange's queries: a partitioned window (the blocking collect's
+# receive buffers) and a distributed group-by (the merge's hash exchange and
+# the merged groups' read)
+DIST_QUERIES = {
+    "window": """
+        select o_custkey, o_orderkey,
+               row_number() over (partition by o_custkey
+                   order by o_totalprice desc, o_orderkey) rk
+        from orders order by o_custkey, o_orderkey limit 29""",
+    "agg": """
+        select o_custkey, count(*) n, sum(o_totalprice) s from orders
+        group by o_custkey order by n desc, o_custkey limit 17""",
+}
+
+
+def run_dist_scenario(engine, sql, session, mesh, baseline_sig, name, spec,
+                      kind) -> dict:
+    """One exchange scenario: arm ``spec``, run ``sql`` on the worker mesh,
+    hold the outcome (byte-identity for "recover", the typed error for
+    "fail"), at least one fire, the leak check, and a fault-free
+    distributed rerun.  Returns ``{"ok": bool, ...}``."""
     from . import faults
+    from .faults import InjectedFaultError
 
     rec = {"scenario": name, "kind": kind}
     try:
-        # store scenarios must actually attempt a store; checkout scenarios
-        # must have an entry to be denied — one clean warm pass arranges
-        # both, then the store classes clear just the result tier
-        engine.execute_sql(sql, session)
-        if "store" in name:
-            engine.buffer_pool.clear()
         with faults.injected(spec) as plan:
-            got = result_signature(engine.execute_sql(sql, session))
-        rec["ok"] = got == baseline_sig
-        if not rec["ok"]:
-            rec["detail"] = "result diverged"
+            if kind == "fail":
+                try:
+                    engine.execute_sql(sql, session, distributed=True, mesh=mesh)
+                    rec["ok"] = False
+                    rec["detail"] = "no error raised"
+                except InjectedFaultError as e:
+                    rec["ok"] = True
+                    rec["error_type"] = type(e).__name__
+            else:
+                got = result_signature(engine.execute_sql(sql, session, distributed=True,
+                                                          mesh=mesh))
+                rec["ok"] = got == baseline_sig
+                if not rec["ok"]:
+                    rec["detail"] = "result diverged"
         rec["fires"] = plan.total_fires()
         if rec["fires"] < 1:
             rec["ok"] = False
             rec["detail"] = "scenario never fired"
-        if "store" in name and rec.get("ok") \
-                and engine.buffer_pool.info()["result_entries"]:
-            rec["ok"] = False
-            rec["detail"] = "entry admitted under a store fault"
         leaks = leak_report(engine)
         if leaks:
             rec["ok"] = False
             rec["leaks"] = leaks
-        if rec.get("ok"):
-            # fault-free rerun: the denied/errored store left no partial
-            # state, and the next clean pass re-populates and still matches
-            again = result_signature(engine.execute_sql(sql, session))
+        if rec["ok"]:
+            # the raised exchange left no partial state behind: executors
+            # and their receive buffers live for one statement
+            again = result_signature(engine.execute_sql(sql, session, distributed=True,
+                                                        mesh=mesh))
             if again != baseline_sig:
                 rec["ok"] = False
                 rec["detail"] = "post-fault rerun diverged"
-    except Exception as e:  # scenario harness failure
+    except Exception as e:  # noqa: BLE001 - a harness failure is the record's
         rec["ok"] = False
         rec["detail"] = f"{type(e).__name__}: {e}"
     return rec

@@ -56,6 +56,17 @@ points in ``WIRED``, at its chokepoints:
                    ``exec.spill.SpillCapacityError``
     spill_read     partition readback (sites spill.<tier>.read): any
                    returned action is a typed read failure
+    exchange_write the worker mesh's exchange (exec/distributed.py
+                   _exchange_fault), before each routed batch of the
+                   blocking collect (site dist.exchange.route), the group
+                   merge (dist.agg.merge) and each try of the partitioned
+                   join's build exchange (dist.join.build_exchange)
+    exchange_read  the collected rows' hand-off to their consumer
+                   (dist.exchange.read) and the merged groups' read
+                   (dist.agg.groups).  At both exchange points any RETURNED
+                   action (drop, deny) raises InjectedFaultError: the mesh
+                   exchange is one lockstep program and cannot drop or
+                   defer rows
 
 A firing on a producer thread (the spill readback's ``_prefetched_pages``)
 is charged to the query: the producer carries the consumer's counter set
@@ -64,10 +75,10 @@ here, jitted steps in the reference, so an ``nth`` rule lands on another
 operation in each package; the outcome (recovered, or a typed error, and
 no leak) is what the chaos matrix holds.
 
-``exchange_write``, ``exchange_read`` and ``task`` sit in the reference's
-exchange and cluster, and are wired with them (ROADMAP A7).  Until then
-``arm`` and ``injected`` refuse a rule that names one: a rule that is armed
-and can never fire would pass a chaos check for nothing.
+``task`` sits in the reference's multi-process cluster and is wired with it
+(the next slice of ROADMAP A7).  Until then ``arm`` and ``injected`` refuse
+a rule that names it: a rule that is armed and can never fire would pass a
+chaos check for nothing.
 """
 
 from __future__ import annotations
@@ -89,7 +100,7 @@ POINTS = ("dispatch", "host_pull", "generate", "h2d", "cache_store",
 
 # the points the port's chokepoints call maybe_inject for
 WIRED = ("dispatch", "host_pull", "generate", "h2d", "reserve", "cache_checkout",
-         "cache_store", "spill_write", "spill_read")
+         "cache_store", "spill_write", "spill_read", "exchange_write", "exchange_read")
 
 ACTIONS = ("error", "fatal", "delay", "drop", "deny", "kill_worker",
            "disk_full")

@@ -55,7 +55,8 @@ __all__ = ["Span", "Tracer", "NOOP_TRACER", "QueryCounters", "track_counters",
            "LATENCY_BUCKETS_S", "activate_tracer", "current_tracer", "maybe_span",
            "span_dict", "spans_to_otlp", "query_scope", "current_query_id",
            "live_query_counters", "WALL_BUCKETS", "wall_breakdown",
-           "format_wall_breakdown", "SPILL_TIERS", "SHARD_STATS_MAX",
+           "format_wall_breakdown", "SPILL_TIERS", "SHARD_STATS_MAX", "shard_skew",
+           "record_shard_stats",
            "COMPILE_BUCKETS_S", "CompileLog", "COMPILE_LOG", "record_compile",
            "arg_signature", "signature_summary",
            "InflightRegistry", "InflightEntry", "INFLIGHT", "inflight",
@@ -170,9 +171,10 @@ class QueryCounters:
     # the chaos, spill-ladder and admission counters, read by the flight
     # record (pressure_rung) and system.runtime.query_log: fault firings
     # (record_fault), bytes spilled per tier (record_spill), a statement
-    # deferred at the admission gate (stamped by the engine).  task_retries
-    # and shard_stats are fed by the retry and distributed paths, which are
-    # not ported: they stay 0
+    # deferred at the admission gate (stamped by the engine), and the
+    # distributed path's per-exchange shard records (record_shard_stats).
+    # task_retries is fed by the task-retrying executor, which is not
+    # ported: it stays 0
     faults_injected: int = 0
     task_retries: int = 0
     spilled_bytes: int = 0
@@ -389,6 +391,58 @@ def record_spill(tier: str, nbytes: int, site: Optional[str] = None) -> None:
         field = f"spill_tier_{tier}"
         setattr(c, field, getattr(c, field) + nbytes)
     _attribute_extra(site or f"spill.{tier}", spilled_bytes=nbytes)
+
+
+# -- shard skew -----------------------------------------------------------------
+#
+# Per-shard attribution for the distributed path: a mesh run's wall is set
+# by its slowest position, and the per-position load that decides it
+# already crosses the host boundary (the receive cursors at
+# dist.exchange.flags / dist.stream.flags, the live-group counts at
+# dist.agg.overflow).  These helpers fold those host ints into
+# QueryCounters.shard_stats records: no read, no launch of their own.
+
+
+def shard_skew(per_worker) -> dict:
+    """The skew core of a per-position load vector (host ints, never device
+    tensors): max/mean ratio and the argmax position.  An empty or all-zero
+    vector reads as balanced (1.0)."""
+    vals = [int(v) for v in per_worker]
+    n = len(vals)
+    mx = max(vals) if vals else 0
+    mean = (sum(vals) / n) if n else 0.0
+    ratio = (mx / mean) if mean > 0 else 1.0
+    worker = vals.index(mx) if vals else 0
+    return {"workers": n, "rows": vals, "max": mx, "mean": mean,
+            "ratio": ratio, "worker": worker}
+
+
+def record_shard_stats(site: str, per_worker, wall_s: float = 0.0,
+                       kind: str = "exchange", op: Optional[str] = None,
+                       bytes_per_row: Optional[int] = None,
+                       labels=None) -> Optional[dict]:
+    """One blocking exchange's or shard consumer's per-position load, from
+    counts the caller already read.  ``imbalance_s`` estimates the wall the
+    skew cost: the span ran at the slowest position's pace, so a balanced
+    run would take mean/max of it.  Returns the record, also appended to
+    the counter set open on this thread (the newest SHARD_STATS_MAX kept)."""
+    rec = shard_skew(per_worker)
+    rec["site"] = site
+    rec["kind"] = kind
+    if op:
+        rec["op"] = op
+    rec["wall_s"] = float(wall_s)
+    mx, mean = rec["max"], rec["mean"]
+    rec["imbalance_s"] = ((mx - mean) / mx * float(wall_s)) if mx > 0 else 0.0
+    if bytes_per_row:
+        rec["bytes"] = [int(v) * int(bytes_per_row) for v in rec["rows"]]
+    if labels:
+        rec["labels"] = list(labels)
+    c = getattr(_counter_local, "counters", None)
+    if c is not None:
+        c.shard_stats.append(dict(rec))
+        del c.shard_stats[:-SHARD_STATS_MAX]
+    return rec
 
 
 def live_query_counters() -> dict:

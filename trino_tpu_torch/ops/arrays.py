@@ -7,10 +7,10 @@ dictionary slot, whose ``decode`` the result path calls.  Element access
 executor makes once per query (``sql/ir.py``).
 
 Ported: the heap classes, ``encode_arrays`` (the storage path of the memory
-connector), ``unnest_indices`` (UNNEST's expansion map) and ``compact_rows``,
+connector), ``unnest_indices`` (UNNEST's expansion map), ``compact_rows``,
 the shared filter -> compaction step, which runs through the ``compact_rows``
-CUDA kernel on the card.  ``append_rows`` serves only the distributed
-executor's exchange and waits for it (ROADMAP A7).
+CUDA kernel on the card, and ``append_rows``, the distributed exchange's
+accumulation step built on it.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import torch
 from . import cuda_kernels
 
 __all__ = ["SPAN_BITS", "ArrayData", "MapData", "pack_span", "span_start",
-           "span_len", "encode_arrays", "compact_rows", "unnest_indices"]
+           "span_len", "encode_arrays", "compact_rows", "append_rows", "unnest_indices"]
 
 SPAN_BITS = 24  # max 16M elements per array; 2^39 heap rows
 _LEN_MASK = (1 << SPAN_BITS) - 1
@@ -133,6 +133,35 @@ def compact_rows(arrays, valid, out_len: int):
     Returns (packed tuple, live-count device scalar).  Byte-identical to the
     reference's XLA cumsum-scatter."""
     return cuda_kernels.compact_rows(tuple(arrays), valid, out_len)
+
+
+def append_rows(bufs, cursor, arrays, valid):
+    """Masked append into fixed-capacity receive buffers, the distributed
+    exchange's accumulation step.  ``bufs[i]`` is a ``[cap + 1]`` buffer
+    whose last slot is a drop sink; the live lanes of ``arrays`` (packed in
+    order by ``compact_rows``) land at ``cursor .. cursor + count - 1``
+    (``cursor`` a 0-d int64 tensor).  Rows past ``cap`` collapse into the
+    sink: slots below the cursor are never touched, and the overflow flag
+    is the only casualty, so the executor can discard the run and retry with
+    a bigger capacity.  The buffers are written IN PLACE and returned.
+
+    Byte-identical to the reference's last-wins scatter, sink included:
+    lanes routed to the sink are a suffix of the lanes, so the sink ends
+    with the last lane's value; every sink lane writes that one value here,
+    which keeps the duplicate writes to the sink deterministic on the card.
+    Returns (bufs, new_cursor, overflowed)."""
+    n = valid.shape[0]
+    packed, cnt = compact_rows(tuple(arrays), valid, n)
+    if n == 0:
+        return tuple(bufs), cursor, cursor > bufs[0].shape[0] - 1
+    cap = bufs[0].shape[0] - 1
+    idx = torch.arange(n, dtype=torch.int64, device=valid.device)
+    dst = torch.where(idx < cnt, torch.clamp(cursor + idx, max=cap), cap)
+    sink = dst == cap
+    for b, p in zip(bufs, packed):
+        b.index_put_((dst,), torch.where(sink, p[n - 1], p))
+    new_cursor = cursor + cnt
+    return tuple(bufs), new_cursor, new_cursor > cap
 
 
 def unnest_indices(lens, total: int):
