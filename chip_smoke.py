@@ -304,8 +304,8 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    versions at the phase's largest and most frequent shapes.  ``by_path``
    gains ``chaos_sf1``: the launches of 17a-17c.
 18. The connectors past the generators (``federation_path``; the tiers
-   and the advisor off).  (a) SF1 orders and customer from the generator
-   written into a sqlite file (dates as integer days, decimals as REAL, an
+   and the advisor off).  (a) SF0.5 (``FED_SF``) orders and customer from
+   the generator written into a sqlite file (dates as integer days, decimals as REAL, an
    index on each join key) by a child process beside the earlier phases
    (``ChildPass`` of ``fed_pass_child``, spawned at the top of ``main``),
    which also runs each ``FED_CPU`` statement on a CPU engine over that
@@ -317,9 +317,9 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    they must launch ``hash_insert_``, ``hash_probe`` and ``compact_rows``,
    and stage at least 8 bytes of every remote row to the card (the
    connector decodes on the host; the executor's producer copies).
-   (c) ``FED_INDEX``: the index join looks up 375 customers' orders by
+   (c) ``FED_INDEX``: the index join looks up 188 customers' orders by
    key, ships only the matched rows, EXPLAIN ANALYZE shows ``[index lookup:
-   375 keys]``, the rows equal the CPU's and the run with
+   188 keys]``, the rows equal the CPU's and the run with
    ``TRINO_TPU_INDEX_JOIN=0``.  (d) ``FED_TOPN`` ships at most 20 rows (tied
    dates held as multisets) and ``FED_JOIN_PUSH`` runs orders x customer
    inside sqlite with its key range (``c_custkey <= FED_JOIN_CUSTKEYS``,
@@ -328,7 +328,7 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    rows in 2^22-row pages: count, min, max, sums and a group-by on
    ``id % 1000003`` against their oracles, and an INSERT of 1,048,576 rows
    swallowed and counted.  The file connectors need ``pyarrow``: without
-   it they are named as skipped; with it, SF1 orders in Parquet, a
+   it they are named as skipped; with it, SF0.5 orders in Parquet, a
    partitioned Hive table and an ORC file are scanned on the card (their
    pages staged by the prefetch producer) against the CPU.  (f)
    ``hash_insert_``, ``hash_probe`` and ``compact_rows`` against their
@@ -349,8 +349,39 @@ Phases (each one fails the run, with a non-zero exit, on any mismatch or error):
    with the leak check and a fault-free rerun.  (d) ``hash_insert_``,
    ``hash_probe`` and ``compact_rows`` against their plain versions at the
    largest and most frequent shapes of (a) and (c).  ``by_path`` gains
-   ``distributed_sf1``: the launches of 19a and 19c.  Every phase prints
-   its seconds on a line of its own.
+   ``distributed_sf1``: the launches of 19a and 19c.
+20. Fault-tolerant execution and the multi-process cluster
+   (``cluster_path``; the tiers and the advisor off, the spool's frame codec
+   ``CLUSTER_PAGE_CODEC``).  (a) bench.py's Q1, Q3, Q9 and Q18 with
+   ``fault_tolerant=True`` at SF1 in 2^18-row splits, each equal to the
+   local card run (warm walls, spool bytes, tasks); Q1 under injected
+   TASK_FAILURE x2, TASK_GET_RESULTS_FAILURE and POST_COMMIT_FAILURE
+   (attempts 3, 2, 1; no sum doubled); Q18's inner group-by under a pool
+   that holds the first group table but not the grown one, its two-split
+   partial tasks bisecting.  (b) A coordinator and ``CLUSTER_WORKERS``
+   worker processes started as a user would (``python -m
+   trino_tpu_torch.server.cluster``, no ``--device``: the card), each with
+   ``CLUSTER_POOL_BYTES`` and ``CLUSTER_CACHE_BYTES``: bench.py's five at
+   SF1 (its q3 and q9 are tests/test_cluster.py's join queries) and Q1, Q9
+   at SF10, cold and warm, each equal to the local card run (SF10: phase
+   4's results); per query its tasks, local fallbacks (0 for Q1, Q9, Q18),
+   the merged and the workers' counters, spool bytes and the straggler
+   record; the stream bytes served; every shipped fragment pickled with no
+   tensor.  (c) One worker process killed by SIGKILL mid-Q9 (the query
+   recovers), then on workers in this process: the ``task`` fault on Q9 and
+   a dropped commit on Q1 (each retried, the leak report clean), an
+   exhausted budget (the FTE executor raises, the cluster answers locally
+   and records it).  (d) A point query alone and beside a long scan on a
+   one-slot worker.  (e) The memory ladder: a blocked worker sheds its
+   cache, the policy kills the hog (``QueryKilledError`` at its next
+   reservation) while Q1 completes, a running query killed on every worker
+   fails typed and is not rerun locally, ``cluster_memory()`` sums the
+   nodes, a worker drains and leaves.  (f) ``hash_insert_``,
+   ``hash_probe`` and ``compact_rows`` against their plain versions at the
+   largest and most frequent shapes of the worker processes and this one.
+   ``by_path`` gains ``cluster_sf1``: the launches of (b), from the merged
+   counters (workers and coordinator).  Every phase prints its seconds on a
+   line of its own.
 
 It prints the card line, then one JSON line with every kernel's numbers, and
 last ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -359,12 +390,16 @@ package beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
 import json
 import os
+import pickle
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # bench.py's QUERIES, as bench.py states them
@@ -1706,11 +1741,12 @@ TPCDS_SF_PARITY = 0.1  # every corpus query on the card and the CPU
 TPCDS_SF_MAIN = 1.0
 # phase 6: the scale at which the queries that run a Window, Union, Values or
 # non-Sort Limit node are held against the CPU (on the 8-core host of an
-# H100 machine their CPU runs took 111 s at SF1 and 12 s at SF0.25; the
-# card's SF1 runs keep their scale), and the split size of both sides there:
-# small enough that store_sales spans several pages, so windows and streaming
+# H100 machine their CPU runs took 111 s at SF1 and 12-35 s at SF0.25, so
+# the script's time limit keeps them small; the card's SF1 runs keep their
+# scale), and the split size of both sides there: small enough that
+# store_sales spans several pages (two at SF0.1), so windows and streaming
 # LIMITs are held across a page boundary as at SF1
-TPCDS_SF_HELD = 0.25
+TPCDS_SF_HELD = 0.1
 TPCDS_SPLIT_HELD = 1 << 18
 TPCDS_HELD_MIN_SPLITS = 2
 TPCDS_SF_BIG = 10.0
@@ -3453,7 +3489,7 @@ SERVER_CLIENTS = 4
 BIG_RESULT = ("select o_orderkey, o_custkey, o_orderstatus, o_totalprice, o_orderdate "
               "from orders where o_orderkey <= 300000")
 SPOOL_THRESHOLD = 10_000
-VERIFIER_SF = 0.1
+VERIFIER_SF = 0.05  # 11e: its control runs the port on the CPU (~22 s at SF0.1)
 # Q3 with ``?`` for the segment and the date; Q6 with ``?`` for the discount
 # band and the quantity
 Q3_PARAMS = (QUERIES["q3"].replace("c_mktsegment = 'BUILDING'", "c_mktsegment = ?")
@@ -6735,6 +6771,7 @@ def chaos_path(counts2, host_ms):
 
 
 # -- phase 18: the connectors past the generators ------------------------------------
+FED_SF = 0.5  # phase 18's scale: its walls are the host's (sqlite's fetch, the decode)
 FED_TABLES = ("orders", "customer")  # 18a: written from the generator into sqlite
 FED_SPLIT_ROWS = 1 << 16  # the dbapi connector's default rowid range a split
 FED_DAY = 9204  # 1995-03-15 as epoch days: dates live in the remote table as integers
@@ -6752,14 +6789,14 @@ FED_RECONCILE = """select count(*) c,
        sum(case when abs(r.o_totalprice - t.o_totalprice) > 0.005 then 1 else 0 end) bad
 from db.orders r, tpch.orders t
 where r.o_orderkey = t.o_orderkey and r.o_custkey = t.o_custkey"""
-# 18c: 375 customers' orders, looked up by key in the remote table
+# 18c: 188 customers' orders (375 at SF1), looked up by key in the remote table
 FED_INDEX = """select c_custkey, count(*) n, sum(o_totalprice) s
 from tpch.customer, db.orders
 where c_custkey = o_custkey and c_custkey % 400 = 1
 group by c_custkey order by c_custkey"""
 FED_INDEX_KEYS = (100, 500)  # the build's distinct keys the lookup must ship
 # 18d: the TopN (ties on the date: held as multisets within a tied run) and
-# the join pushed into the remote database with its key range (a tenth of
+# the join pushed into the remote database with its key range (a fifth of
 # the customers), which the remote query carries
 FED_TOPN = ("select o_orderdate, o_custkey, o_totalprice from db.orders "
             "order by o_orderdate desc limit 20")
@@ -6840,7 +6877,7 @@ def fed_engine(path, device):
     e = Engine(device=device)
     e.register_catalog("db", DbapiConnector(lambda: sqlite3.connect(path),
                                             split_rows=FED_SPLIT_ROWS))
-    e.register_catalog("tpch", TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS))
+    e.register_catalog("tpch", TpchConnector(sf=FED_SF, split_rows=SPLIT_ROWS))
     return e
 
 
@@ -6860,7 +6897,7 @@ def fed_pass_child(out_path: str, threads: int) -> None:
     t0 = time.perf_counter()
     path = os.path.join(os.path.dirname(out_path), "remote.db")
     rec = {"path": path, "threads": threads}
-    rec["loaded"] = load_remote(path, TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS,
+    rec["loaded"] = load_remote(path, TpchConnector(sf=FED_SF, split_rows=SPLIT_ROWS,
                                                     device="cpu"))
     rec["load_s"] = time.perf_counter() - t0
     rec["db_bytes"] = os.path.getsize(path)
@@ -7075,7 +7112,7 @@ def fed_files():
     rec = {"pyarrow": pyarrow.__version__}
     with tempfile.TemporaryDirectory(prefix="trino-files-") as d:
         src = Engine(device="cpu")
-        src.register_catalog("tpch", TpchConnector(sf=SF_MAIN, split_rows=SPLIT_ROWS))
+        src.register_catalog("tpch", TpchConnector(sf=FED_SF, split_rows=SPLIT_ROWS))
         src.register_catalog("pq", ParquetConnector(os.path.join(d, "pq")))
         src.register_catalog("hive", HiveConnector(os.path.join(d, "hive")))
         t0 = time.perf_counter()
@@ -7386,6 +7423,678 @@ def distributed_path(phase4):
     print(f"distributed path: {rec['seconds']:.1f} s, launches of 19a and 19c {launches}, "
           f"of 19b {rec['big_launches']}", flush=True)
     print(json.dumps({"distributed_sf1": rec}, default=str), flush=True)
+    torch.cuda.empty_cache()
+    return rec, launches, {k: {"max_abs_err": r["max_abs_err"], "shapes": r["shapes"]}
+                           for k, r in checks.items()}
+
+
+# -- phase 20: fault-tolerant execution and the multi-process cluster -------------
+CLUSTER_SPLIT_ROWS = 1 << 18  # lineitem in 23 splits at SF1, 12 tasks of two
+CLUSTER_WORKERS = 2  # worker processes on the one card
+CLUSTER_POOL_BYTES = 12 << 30  # each worker's share of the card's memory pool
+CLUSTER_CACHE_BYTES = 1 << 30  # and of its page cache
+CLUSTER_FTE = ("q1", "q3", "q9", "q18")  # 20a
+CLUSTER_BENCH = ("q1", "q3", "q4", "q9", "q18")  # 20b: bench.py's five; its q3 and
+# q9 are also tests/test_cluster.py's join queries, statement for statement
+CLUSTER_NO_FALLBACK = ("q1", "q9", "q18")
+CLUSTER_BIG = ("q1", "q9")  # 20b at SF10, against phase 4
+CLUSTER_ORDER_BY = DIST_BIG_ORDER_BY
+# 20a's bisection: Q18's inner group-by; two splits' 74,898 orders overflow the
+# 65,536-slot first table, and the pool refuses the grown one
+CLUSTER_BISECT_SQL = "select l_orderkey, sum(l_quantity) q from lineitem group by l_orderkey"
+CLUSTER_LONG_SPLIT_ROWS = 1 << 16  # 20d and 20e's long scan: lineitem in 161 splits
+CLUSTER_LONG_SPLITS = 64  # 20d's long task takes the first 64 of them
+CLUSTER_POINT_SQL = ("select c_custkey, c_acctbal from customer "
+                     "order by c_acctbal desc, c_custkey limit 3")
+# the spool's frame codec in phase 20: every worker shares the host, and zlib
+# level 1 (the default where zstandard is missing, as on the card machine)
+# doubled SF10 Q9's cluster wall (PERF.md §6; scripts/cluster_codec_ab.py)
+CLUSTER_PAGE_CODEC = "none"
+CLUSTER_WORKER_START_S = 180.0
+CLUSTER_WORKER_DEVICE = None  # the workers' device: None is the card (no --device)
+
+
+def cluster_catalogs(sf_big):
+    """The workers' catalogs: SF1 in 2^18-row splits, SF1 in 2^16 (20d-20e),
+    and SF10 in bench.py's 2^21 (20b), each generating on the worker's
+    device."""
+    return {"tpch": {"connector": "tpch", "sf": SF_MAIN, "split_rows": CLUSTER_SPLIT_ROWS},
+            "tpch_long": {"connector": "tpch", "sf": SF_MAIN,
+                          "split_rows": CLUSTER_LONG_SPLIT_ROWS},
+            "tpch_big": {"connector": "tpch", "sf": sf_big, "split_rows": SPLIT_ROWS}}
+
+
+def cluster_engine(sf_big):
+    """The coordinator's engine over the workers' catalogs, on the card."""
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.server.cluster import build_catalogs
+
+    engine = Engine(device=DEVICE)
+    for name, conn in build_catalogs(cluster_catalogs(sf_big), None).items():
+        engine.register_catalog(name, conn)
+    return engine
+
+
+def start_workers(url, spool, n, log_dir, env_extra=None):
+    """``n`` worker processes on the card, started as a user would
+    (``python -m trino_tpu_torch.server.cluster``, no ``--device``: the
+    card), each with its share of the pool and the cache."""
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               **(env_extra or {}))
+    procs = []
+    for i in range(n):
+        log = open(os.path.join(log_dir, f"w{i}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "trino_tpu_torch.server.cluster", "--coordinator", url,
+             "--catalogs", json.dumps(cluster_catalogs(SF_BIG)), "--spool", spool,
+             "--node-id", f"w{i}", "--pool-bytes", str(CLUSTER_POOL_BYTES),
+             "--cache-bytes", str(CLUSTER_CACHE_BYTES)]
+            + ([] if CLUSTER_WORKER_DEVICE is None else ["--device", CLUSTER_WORKER_DEVICE]),
+            env=env, stdout=log, stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def stop_workers(procs):
+    for p, log in procs:
+        if p.poll() is None:
+            p.terminate()
+    for p, log in procs:
+        try:
+            p.wait(timeout=30)
+        except Exception:  # noqa: BLE001 - a worker that ignores SIGTERM
+            p.kill()
+            p.wait(timeout=30)
+        log.close()
+
+
+def worker_info(coord):
+    """Each live worker's /v1/info."""
+    from trino_tpu_torch.server.cluster import _http
+
+    out = {}
+    for w in list(coord.workers.values()):
+        try:
+            out[w.node_id] = json.loads(_http(f"{w.url}/v1/info", timeout=5.0))
+        except Exception:  # noqa: BLE001 - a dead worker has none
+            pass
+    return out
+
+
+def worker_kernels(coord):
+    """Each live worker process's kernel launches and launch shapes."""
+    from trino_tpu_torch.server.cluster import _http
+
+    out = {}
+    for w in list(coord.workers.values()):
+        if w.alive:
+            out[w.node_id] = json.loads(_http(f"{w.url}/v1/kernels", timeout=5.0))
+    return out
+
+
+def cluster_statement(coord, sql, sess, cl):
+    """One statement through the coordinator, cold then warm: (cold result,
+    warm result, record); each run's merged launches add to ``cl``."""
+    import torch
+
+    out, rec = [], {}
+    for i in range(2):
+        fb = coord.local_fallbacks
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.append(coord.execute_sql(sql, sess))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c, w = coord.last_query_counters, coord._qc_workers
+        for k, v in c.launches.items():
+            cl[k] = cl.get(k, 0) + v
+        strag = [s for s in c.shard_stats if s.get("kind") == "task"]
+        rec["cold_s" if i == 0 else "warm_s"] = wall
+        if i == 1:
+            rec.update(tasks=coord._task_seq, local_fallbacks=coord.local_fallbacks - fb,
+                       launches=dict(c.launches), worker_launches=dict(w.launches),
+                       worker_dispatches=w.device_dispatches,
+                       worker_host_bytes=w.host_bytes, host_reads=c.host_reads,
+                       spool_bytes=coord.last_spool_bytes,
+                       straggler={k: strag[-1][k] for k in ("ratio", "imbalance_s", "labels")}
+                       if strag else None)
+    return out[0], out[1], rec
+
+
+def cluster_fte(engine, own):
+    """20a: bench.py's Q1, Q3, Q9, Q18 with ``fault_tolerant=True`` against
+    the local card run; Q1 under injected failures; a memory failure that
+    bisects partial tasks under a small pool."""
+    import torch
+
+    from trino_tpu_torch.exec import fte as F
+    from trino_tpu_torch.memory import MemoryPool
+    from trino_tpu_torch.sql.frontend import compile_sql
+
+    sess = engine.create_session("tpch")
+    rec = {}
+    for q in CLUSTER_FTE:
+        # the local runs plan and cache the statement (FTE shares the plan
+        # cache's entry) and build nothing else: the port compiles no plan,
+        # so the one FTE run is warm
+        walls = []
+        for mode in ("local", "local", "fte"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with own.region():
+                res = engine.execute_sql(QUERIES[q], sess, fault_tolerant=mode == "fte")
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if mode == "local":
+                local = res
+        same_result(res, local, f"20a {q} fte vs local", order_by=CLUSTER_ORDER_BY[q])
+        fx = engine._fte_executor
+        rec[q] = {"local_warm_s": walls[1], "fte_warm_s": walls[2],
+                  "spool_bytes": fx.last_spool_bytes, "tasks": len(fx.task_attempts),
+                  "retries": sum(a - 1 for a in fx.task_attempts.values())}
+        print(f"20a {q}: {json.dumps(rec[q])}", flush=True)
+    # Q1 under TASK_FAILURE x2, TASK_GET_RESULTS_FAILURE and POST_COMMIT_FAILURE
+    inj = F.FailureInjector()
+    inj.inject(0, "TASK_FAILURE", times=2)
+    inj.inject(1, "TASK_GET_RESULTS_FAILURE", times=1)
+    inj.inject(2, "POST_COMMIT_FAILURE", times=1)
+    with tempfile.TemporaryDirectory() as d:
+        ex = F.FaultTolerantExecutor(engine.catalogs, d, injector=inj, device=engine.device,
+                                     memory_pool=engine.memory_pool)
+        with own.region():
+            got = ex.execute(compile_sql(QUERIES["q1"], engine, sess))
+    same_result(got, engine.execute_sql(QUERIES["q1"], sess), "20a q1 injected vs local")
+    check(ex.task_attempts[0] == 3 and ex.task_attempts[1] == 2 and ex.task_attempts[2] == 1,
+          f"20a injected attempts {ex.task_attempts}")
+    rec["injected"] = {"attempts": {str(k): v for k, v in ex.task_attempts.items() if v > 1}}
+    # the bisection: the pool holds the first table, not the grown one
+    plan = compile_sql(CLUSTER_BISECT_SQL, engine, sess)
+    agg = plan
+    while not hasattr(agg, "aggs"):
+        agg = agg.child
+    key_types = tuple(agg.child.schema.fields[i].type for i in agg.keys)
+    acc_specs = [(dt, init) for s in agg.aggs for _k, dt, init in F._accumulators_for(s)]
+    pool = MemoryPool(device=DEVICE,
+                      max_bytes=3 * F._state_bytes(F.DEFAULT_GROUP_CAPACITY, key_types,
+                                                   acc_specs))
+    calls = []
+    orig = F._partial_once
+
+    def spy(local, node, kt, specs, splits, tick=None):
+        calls.append(len(splits))
+        return orig(local, node, kt, specs, splits, tick)
+
+    F._partial_once = spy
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            ex = F.FaultTolerantExecutor(engine.catalogs, d, device=engine.device,
+                                         memory_pool=pool)
+            t0 = time.perf_counter()
+            with own.region():
+                got = ex.execute(plan)
+            bisect_s = time.perf_counter() - t0
+    finally:
+        F._partial_once = orig
+    want = engine.execute_sql(CLUSTER_BISECT_SQL, sess)
+    same_result(by_order(got, 0), by_order(want, 0), "20a bisected group-by vs local")
+    # a task of one split is the scan's odd last one, or a bisection's half
+    odd = len(engine.catalogs["tpch"].splits("lineitem")) % 2
+    check(max(calls) == 2 and calls.count(1) >= 2 + odd and pool.reserved == 0,
+          f"20a: no bisection under the small pool: {calls}, {pool.reserved} reserved")
+    rec["bisect"] = {"pool_bytes": pool.max_bytes, "task_sizes": dict(
+        collections.Counter(calls)), "seconds": bisect_s, "rows": len(got)}
+    print(f"20a injected {rec['injected']}, bisection {rec['bisect']}", flush=True)
+    return rec
+
+
+def by_order(res, col):
+    """A result with its rows ordered by raw column ``col`` (a group-by
+    without ORDER BY returns its groups in table order)."""
+    import numpy as np
+
+    order = np.argsort(np.asarray(res.raw_columns[col]), kind="stable")
+    return dataclasses.replace(res, columns=[np.asarray(c)[order] for c in res.columns],
+                               raw_columns=[np.asarray(c)[order] for c in res.raw_columns])
+
+
+def cluster_queries(coord, engine, phase4, cl):
+    """20b: bench.py's five at SF1 and Q1, Q9 at SF10 through the
+    coordinator and the worker processes, each against the local card run
+    at the same split size (SF10: phase 4's results)."""
+    import torch
+
+    sess = engine.create_session("tpch")
+    sess.properties["page_cache"] = False  # the workers' page tier off, as phase 2
+    rec = {}
+    for q in CLUSTER_BENCH:
+        engine.execute_sql(QUERIES[q], sess)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        local = engine.execute_sql(QUERIES[q], sess)
+        torch.cuda.synchronize()
+        local_warm = time.perf_counter() - t0
+        cold, warm, r = cluster_statement(coord, QUERIES[q], sess, cl)
+        for what, res in (("cold", cold), ("warm", warm)):
+            same_result(res, local, f"20b {q} {what} cluster vs local",
+                        order_by=CLUSTER_ORDER_BY.get(q))
+        if q in CLUSTER_NO_FALLBACK:
+            check(r["local_fallbacks"] == 0, f"20b {q} fell back: {coord.last_fallback_error}")
+        r["local_warm_s"] = local_warm
+        rec[q] = r
+        print(f"20b {q}: {json.dumps(r, default=str)}", flush=True)
+    big = engine.create_session("tpch_big")
+    big.properties["page_cache"] = False
+    for q in CLUSTER_BIG:
+        cold, warm, r = cluster_statement(coord, QUERIES[q], big, cl)
+        for what, res in (("cold", cold), ("warm", warm)):
+            same_result(res, phase4[q]["result"], f"20b sf{SF_BIG:g} {q} {what} vs phase 4",
+                        order_by=CLUSTER_ORDER_BY[q])
+        check(r["local_fallbacks"] == 0, f"20b sf{SF_BIG:g} {q} fell back")
+        r["local_warm_s"] = phase4[q]["warm_s"]
+        rec[f"{q}_sf{SF_BIG:g}"] = r
+        print(f"20b sf{SF_BIG:g} {q}: {json.dumps(r, default=str)}", flush=True)
+    check(coord.shipped_fragments > 0, "20b shipped no fragment")
+    return rec
+
+
+def cluster_kill(coord, engine, procs, local_q9):
+    """20c: SIGKILL one worker process in the middle of Q9; the query
+    recovers on the other."""
+    import signal
+    import threading
+
+    import torch
+
+    from trino_tpu_torch.execution.chaos_matrix import leak_report
+
+    sess = engine.create_session("tpch")
+    sess.properties["page_cache"] = False
+    out = {}
+
+    def run():
+        try:
+            out["res"] = coord.execute_sql(QUERIES["q9"], sess)
+        except Exception as e:  # noqa: BLE001 - reported below
+            out["err"] = e
+
+    seq0 = coord._task_seq
+    t0 = time.perf_counter()
+    th = threading.Thread(target=run)
+    coord._task_seq = 0
+    th.start()
+    deadline = time.time() + 30
+    while coord._task_seq < 2 and th.is_alive() and time.time() < deadline:
+        time.sleep(0.005)
+    victim = procs[1][0]
+    os.kill(victim.pid, signal.SIGKILL)
+    killed_at = time.perf_counter() - t0
+    # the card as this process sees it while the dead process's context is
+    # torn down: one small copy and a synchronise
+    t1 = time.perf_counter()
+    torch.ones(1, device=DEVICE).add_(1).cpu()
+    torch.cuda.synchronize()
+    card_probe_s = time.perf_counter() - t1
+    th.join(120)
+    check(not th.is_alive() and "res" in out, f"20c: Q9 did not recover: {out.get('err')}")
+    same_result(out["res"], local_q9, "20c q9 after a worker's SIGKILL")
+    victim.wait(30)
+    leaks = leak_report(engine)
+    check(not leaks, f"20c SIGKILL leaks {leaks}")
+    rec = {"killed_at_s": killed_at, "wall_s": time.perf_counter() - t0,
+           "card_probe_after_kill_s": card_probe_s,
+           "task_retries": coord.last_query_counters.task_retries,
+           "stream_retries": coord.stream_retries,
+           "retry_schedule": [(t, a, round(d, 3)) for t, a, d in coord.last_retry_schedule],
+           "local_fallbacks": coord.local_fallbacks, "tasks_before": seq0,
+           "live_workers": [w.node_id for w in coord.live_workers()],
+           "wall_breakdown": {k: round(v, 3) for k, v in
+                              (coord.last_query_trace.get("wall_breakdown") or {}).items()
+                              if isinstance(v, float)}}
+    print(f"20c SIGKILL: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def cluster_faults(coord, engine, local, leaks):
+    """20c on in-process card workers: the ``task`` point fires on Q9 and
+    the query retries; a dropped commit is dispatched again; an exhausted
+    retry budget raises; the leak report is clean after each."""
+    from trino_tpu_torch.exec.fte import FailureInjector, FaultTolerantExecutor
+    from trino_tpu_torch.execution import faults
+    from trino_tpu_torch.execution.chaos_matrix import leak_report
+    from trino_tpu_torch.sql.frontend import compile_sql
+
+    sess = engine.create_session("tpch")
+    sess.properties["page_cache"] = False
+    rec = {}
+    for name, spec, q in (("task-error", "point=task,action=error,nth=1", "q9"),
+                          ("dropped-commit", "point=exchange_write,action=drop,nth=1", "q1")):
+        t0 = time.perf_counter()
+        with faults.injected(spec) as plan:
+            got = coord.execute_sql(QUERIES[q], sess)
+        same_result(got, local[q], f"20c {name} {q}", order_by=CLUSTER_ORDER_BY[q])
+        r = {"fires": plan.total_fires(), "task_retries": coord.last_query_counters.task_retries,
+             "wall_s": time.perf_counter() - t0, "fallbacks": coord.local_fallbacks,
+             "leaks": leak_report(engine)}
+        check(r["fires"] == 1 and r["task_retries"] >= 1 and not r["leaks"],
+              f"20c {name}: {r}")
+        rec[name] = r
+    # an exhausted budget: the FTE executor raises its typed message, and a
+    # cluster query whose every task fails records the budget and answers
+    # from the coordinator's executor
+    inj = FailureInjector()
+    inj.inject(0, "TASK_FAILURE", times=5)
+    with tempfile.TemporaryDirectory() as d:
+        ex = FaultTolerantExecutor(engine.catalogs, d, injector=inj, max_attempts=2,
+                                   device=engine.device, memory_pool=engine.memory_pool)
+        try:
+            ex.execute(compile_sql(QUERIES["q1"], engine, sess))
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+    check(raised is not None and "failed after 2 attempts" in raised, f"20c fte budget: {raised}")
+    budget, coord.max_query_retries = coord.max_query_retries, 2
+    fb = coord.local_fallbacks
+    try:
+        with faults.injected("point=task,action=error,every=1") as plan:
+            got = coord.execute_sql(QUERIES["q1"], sess)
+    finally:
+        coord.max_query_retries = budget
+    same_result(got, local["q1"], "20c exhausted budget q1 (answered locally)",
+                order_by=CLUSTER_ORDER_BY["q1"])
+    check(coord.local_fallbacks == fb + 1
+          and "retry budget exhausted" in (coord.last_fallback_error or ""),
+          f"20c cluster budget: {coord.last_fallback_error}")
+    rec["budget"] = {"fte": raised.splitlines()[0][:120], "fires": plan.total_fires(),
+                     "leaks": leak_report(engine)}
+    check(not rec["budget"]["leaks"], f"20c budget leaks {rec['budget']['leaks']}")
+    leaks.extend(r.get("leaks", []) for r in rec.values())
+    print(f"20c faults: {json.dumps(rec, default=str)}", flush=True)
+    return rec
+
+
+def cluster_fair(spool, url_engine):
+    """20d: on a one-slot worker a point query overtakes a long scan: the
+    point query's wall alone and beside the scan."""
+    from trino_tpu_torch.exec.fte import SpoolingExchange
+    from trino_tpu_torch.server.cluster import WorkerServer, _dumps_fragment, _http
+    from trino_tpu_torch.sql import plan as P
+    from trino_tpu_torch.sql.frontend import compile_sql
+
+    engine = url_engine
+    sess = engine.create_session("tpch_long")
+    with env_vars(TRINO_TPU_WORKER_EXEC_SLOTS="1", TRINO_TPU_SCHED_QUANTUM="0.05"):
+        w = WorkerServer(cluster_catalogs(SF_BIG), spool, node_id="fair",
+                         pool_bytes=CLUSTER_POOL_BYTES, cache_bytes=0,
+                         device=CLUSTER_WORKER_DEVICE)
+    url = w.start()
+    try:
+        long_plan = compile_sql(CLUSTER_BISECT_SQL, engine, sess)
+        agg = long_plan
+        while not isinstance(agg, P.Aggregate):
+            agg = agg.child
+        splits = tuple(engine.catalogs["tpch_long"].splits("lineitem"))[:CLUSTER_LONG_SPLITS]
+        short = compile_sql(CLUSTER_POINT_SQL, engine, sess)
+        _http(f"{url}/v1/fragment", _dumps_fragment({"fragment_id": "long", "plan": agg}))
+        _http(f"{url}/v1/fragment", _dumps_fragment({"fragment_id": "short", "plan": short}))
+
+        def run(tid, frag, kind, xdir, **extra):
+            _http(f"{url}/v1/task", pickle.dumps({"task_id": tid, "fragment_id": frag,
+                                                  "kind": kind, "exchange_dir": xdir,
+                                                  **extra}))
+
+        def wait(ex, tid, timeout=120):
+            deadline = time.time() + timeout
+            while not ex.is_committed(tid):
+                st = json.loads(_http(f"{url}/v1/task/{tid}"))
+                check(st.get("state") != "failed" and time.time() < deadline,
+                      f"20d {tid}: {st.get('error')}")
+                time.sleep(0.002)
+
+        xdir = os.path.join(spool, "fair")
+        ex = SpoolingExchange(xdir)
+        walls = []
+        for i in range(2):  # the point query alone, cold then warm
+            t0 = time.perf_counter()
+            run(f"alone{i}", "short", "fragment", xdir)
+            wait(ex, f"alone{i}")
+            walls.append(time.perf_counter() - t0)
+        t_long = time.perf_counter()
+        run("long", "long", "partial_agg", xdir, splits=splits)
+        time.sleep(0.3)  # the long task holds the only slot
+        t0 = time.perf_counter()
+        run("beside", "short", "fragment", xdir)
+        wait(ex, "beside")
+        beside = time.perf_counter() - t0
+        long_running = json.loads(_http(f"{url}/v1/task/long"))["state"] == "running"
+        wait(ex, "long", 300)
+        long_s = time.perf_counter() - t_long
+        sched = json.loads(_http(f"{url}/v1/info"))["scheduler"]
+        check(long_running or sched["preemptions"] >= 1,
+              f"20d: the point query waited for the scan: {sched}")
+        check(beside < long_s, f"20d: the point query took {beside:.3f} s of the scan's "
+              f"{long_s:.3f} s")
+        rec = {"point_alone_s": walls, "point_beside_s": beside, "long_s": long_s,
+               "long_splits": len(splits), "long_running_at_point_end": long_running,
+               "preemptions": sched["preemptions"]}
+        print(f"20d fair scheduler: {json.dumps(rec)}", flush=True)
+        return rec
+    finally:
+        w.stop()
+
+
+def cluster_memory_ladder(coord, workers, engine, local_q1):
+    """20e: a worker whose pool is blocked sheds its cache first, then the
+    policy kills the query holding the most memory there, which dies with
+    QueryKilledError at its next reservation while another query completes;
+    a running query whose key is killed fails with QueryKilledError and is
+    not rerun locally; ``cluster_memory()`` sums the nodes; a worker drains
+    gracefully."""
+    import threading
+
+    from trino_tpu_torch.memory import QueryKilledError
+
+    sess = engine.create_session("tpch")
+    mem = coord.cluster_memory()
+    check(mem["total_max"] == sum(w.memory_pool.max_bytes for w in workers),
+          f"20e: cluster_memory {mem['total_max']} is not the nodes' sum")
+    coord.execute_sql("select o_orderpriority, count(*) from orders group by 1", sess)
+    cached = {w.node_id: w.buffer_pool.info()["bytes"] for w in workers}
+    hog = max(workers, key=lambda w: cached[w.node_id])
+    check(cached[hog.node_id] > 0, f"20e: no worker cached a page: {cached}")
+    # the hog: a query holding 95% of one worker's pool
+    kills0, sheds0 = coord.oom_kills, hog.cache_sheds
+    fill = int(hog.memory_pool.max_bytes * 0.95)
+    t0 = time.perf_counter()
+    with hog.memory_pool.query_scope("hog-query"):
+        check(hog.memory_pool.try_reserve(fill, "group-by"), "20e: the hog did not fit")
+    try:
+        deadline = time.time() + 30
+        while time.time() < deadline and coord.oom_kills == kills0:
+            time.sleep(0.01)
+        killed_s = time.perf_counter() - t0
+        rungs = [e["rung"] for e in coord.pressure_events[-2:]]
+        check(coord.oom_kills == kills0 + 1 and coord.last_oom_victim == "hog-query"
+              and rungs == ["evict-cache", "kill"], f"20e ladder {coord.pressure_events[-3:]}")
+        check(hog.cache_sheds > sheds0 and hog.buffer_pool.info()["bytes"] == 0,
+              "20e: the blocked worker kept its cache")
+        # the kill lands on the worker through its /v1/kill_query
+        died, deadline = False, time.time() + 10
+        while not died and time.time() < deadline:
+            with hog.memory_pool.query_scope("hog-query"):
+                try:
+                    hog.memory_pool.check_killed()
+                    time.sleep(0.01)
+                except QueryKilledError:
+                    died = True
+        with hog.memory_pool.query_scope("hog-query"):
+            try:
+                hog.memory_pool.try_reserve(1, "group-by")
+                died = False
+            except QueryKilledError:
+                pass
+        check(died, "20e: the victim reserved again")
+    finally:
+        with hog.memory_pool.query_scope("hog-query"):
+            hog.memory_pool.free(fill, "group-by")
+    same_result(coord.execute_sql(QUERIES["q1"], sess), local_q1, "20e q1 beside the kill",
+                order_by=CLUSTER_ORDER_BY["q1"])
+    # a running query killed on every worker fails typed, not rerun locally
+    out = {}
+
+    def run():
+        try:
+            out["res"] = coord.execute_sql(CLUSTER_BISECT_SQL,
+                                           engine.create_session("tpch_long"))
+        except Exception as e:  # noqa: BLE001 - the kill, checked below
+            out["err"] = e
+
+    fb = coord.local_fallbacks
+    th = threading.Thread(target=run)
+    th.start()
+    key = None
+    deadline = time.time() + 60
+    while key is None and th.is_alive() and time.time() < deadline:
+        for w in workers:
+            with w._wlock:
+                keys = list(w._running_queries)
+            if keys:
+                key = keys[0]
+        time.sleep(0.002)
+    for w in workers:
+        w.memory_pool.kill_query(key)
+    th.join(120)
+    check(not th.is_alive() and isinstance(out.get("err"), QueryKilledError)
+          and coord.local_fallbacks == fb,
+          f"20e: the killed query ended with {out.get('err')!r}, {coord.local_fallbacks - fb} "
+          "local reruns")
+    rec = {"hog_killed_after_s": killed_s, "rungs": rungs,
+           "cache_sheds": hog.cache_sheds - sheds0, "cached_before": cached,
+           "admission_denials": sum(w.admission_denials for w in workers),
+           "cluster_memory_total_max": mem["total_max"], "running_victim": key}
+    w = workers[-1]
+    w.shutdown_gracefully()
+    deadline = time.time() + 30
+    while time.time() < deadline and w.node_id in coord.workers:
+        time.sleep(0.02)
+    check(w.node_id not in coord.workers, "20e: the drained worker never left")
+    rec["drained"] = w.node_id
+    print(f"20e memory ladder: {json.dumps(rec, default=str)}", flush=True)
+    return rec
+
+
+def cluster_path(phase4):
+    """Phase 20: fault-tolerant execution and the multi-process cluster on
+    the card.  Returns (the record, the cluster path's launches: 20b's
+    merged counters, {kernel: checks at the path's shapes})."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.server.cluster import ClusterCoordinator, WorkerServer
+
+    from trino_tpu_torch.exec import fte
+
+    t_phase = time.perf_counter()
+    rec = {"workers": CLUSTER_WORKERS, "pool_bytes": CLUSTER_POOL_BYTES,
+           "cache_bytes": CLUSTER_CACHE_BYTES, "page_codec": CLUSTER_PAGE_CODEC}
+    own = OwnLaunches()  # this process's launches: 20a and the coordinator's
+    cl = {}  # the cluster path's merged launches (workers and coordinator)
+    spool = tempfile.mkdtemp(prefix="trino-cluster-")
+    procs = []
+    codec, fte.PAGE_CODEC = fte.PAGE_CODEC, CLUSTER_PAGE_CODEC  # read per frame
+    try:
+        with env_vars(TRINO_TPU_ADAPTIVE="0", TRINO_TPU_RESULT_CACHE="0",
+                      TRINO_TPU_PAGE_CACHE="0", TRINO_TPU_PAGE_CODEC=CLUSTER_PAGE_CODEC):
+            engine = cluster_engine(SF_BIG)
+            coord = ClusterCoordinator(engine, spool, heartbeat_interval=0.2)
+            url = coord.start()
+            procs = start_workers(url, spool, CLUSTER_WORKERS, spool)  # ~10 s to the card
+            t0 = time.perf_counter()
+            rec["fte"] = cluster_fte(engine, own)
+            rec["fte_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            coord.wait_for_workers(CLUSTER_WORKERS, timeout=CLUSTER_WORKER_START_S)
+            rec["workers_waited_s"] = time.perf_counter() - t0
+            info = worker_info(coord)
+            check(all(i["device"].startswith(CLUSTER_WORKER_DEVICE or "cuda")
+                      for i in info.values()), f"a worker is not on its device: {info}")
+            stream0 = sum(i["stream_bytes_served"] for i in info.values())
+            t0 = time.perf_counter()
+            with own.region():
+                rec["queries"] = cluster_queries(coord, engine, phase4, cl)
+            rec["queries_s"] = time.perf_counter() - t0
+            info = worker_info(coord)
+            rec["stream_bytes"] = sum(i["stream_bytes_served"] for i in info.values()) - stream0
+            rec["shipped_fragments"] = coord.shipped_fragments
+            kernels_seen = worker_kernels(coord)
+            local = {q: engine.execute_sql(QUERIES[q], engine.create_session("tpch"))
+                     for q in ("q1", "q9")}
+            t0 = time.perf_counter()
+            rec["kill"] = cluster_kill(coord, engine, procs, local["q9"])
+            rec["kill_s"] = time.perf_counter() - t0
+            stop_workers(procs)
+            procs = []
+            coord.stop()
+            # 20c-20e on workers in this process, on the card
+            t0 = time.perf_counter()
+            coord = ClusterCoordinator(engine, spool, heartbeat_interval=0.2)
+            url = coord.start()
+            workers = [WorkerServer(cluster_catalogs(SF_BIG), spool, coordinator_url=url,
+                                    node_id=f"in{i}", announce_interval=0.2,
+                                    pool_bytes=CLUSTER_POOL_BYTES,
+                                    cache_bytes=CLUSTER_CACHE_BYTES,
+                                    device=CLUSTER_WORKER_DEVICE)
+                       for i in range(2)]
+            try:
+                for w in workers:
+                    w.start()
+                coord.wait_for_workers(2, timeout=60)
+                leaks = []
+                with own.region():
+                    rec["faults"] = cluster_faults(coord, engine, local, leaks)
+                    rec["fair"] = cluster_fair(spool, engine)
+                    rec["ladder"] = cluster_memory_ladder(coord, workers, engine, local["q1"])
+            finally:
+                for w in workers:
+                    w.stop()
+                coord.stop()
+            rec["in_process_s"] = time.perf_counter() - t0
+    finally:
+        fte.PAGE_CODEC = codec
+        stop_workers(procs)
+        shutil.rmtree(spool, ignore_errors=True)
+    check(cl.get("hash_insert", 0) > 0 and cl.get("hash_probe", 0) > 0
+          and cl.get("compact_rows", 0) > 0,
+          f"the cluster path launched no hash_insert, hash_probe or compact_rows: {cl}")
+    # 20f: each kernel the path launched against its plain version at the
+    # path's largest and most frequent shapes: the worker processes' shapes
+    # and this process's (the coordinator's merges and finishes, 20a, the
+    # in-process workers)
+    shapes = {k: list(v) for k, v in own.shapes.items()}
+    for ks in kernels_seen.values():
+        for k, v in ks.items():
+            shapes[k].extend(tuple(tuple(y) if isinstance(y, list) else y for y in x)
+                             for x in v["shapes"])
+    conn = TpchConnector(sf=SF_MAIN, split_rows=CLUSTER_SPLIT_ROWS, device=DEVICE)
+    li_keys = lineitem_keys(conn)
+    gen = np.random.default_rng(67)
+    checks = {"hash_insert": insert_checks(shapes["hash_insert"],
+                                           ("lineitem_orderkey", *li_keys), gen),
+              "hash_probe": probe_checks(shapes["hash_probe"], gen),
+              "compact_rows": compact_checks(shapes["compact_rows"], gen)}
+    del li_keys
+    launches = {k: cl.get(k, 0) for k in own.launches}
+    rec["launches"] = launches
+    rec["worker_process_launches"] = {n: {k: v["launches"] for k, v in ks.items()}
+                                      for n, ks in kernels_seen.items()}
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"cluster path: {rec['seconds']:.1f} s, launches of 20b (merged) {launches}",
+          flush=True)
+    print(json.dumps({"cluster_sf1": rec}, default=str), flush=True)
     torch.cuda.empty_cache()
     return rec, launches, {k: {"max_abs_err": r["max_abs_err"], "shapes": r["shapes"]}
                            for k, r in checks.items()}
@@ -7717,8 +8426,12 @@ def main() -> int:
         # -- phase 19: the worker mesh: the distributed executor over a -------
         # virtual 8-position mesh on the card
         _, di_launches, di_checks = distributed_path(phase4)
-        del phase4
         clock.done(19)
+        # -- phase 20: fault-tolerant execution and the multi-process cluster: -
+        # a coordinator and worker processes on the one card
+        _, cl_launches, cl_checks = cluster_path(phase4)
+        del phase4
+        clock.done(20)
 
         # per path: its launches, and the checks at its own shapes (the
         # top-level times stay the TPC-H path's largest shape's)
@@ -7753,17 +8466,19 @@ def main() -> int:
                                    **fd_checks.get(name, {"max_abs_err": None, "shapes": []})},
                 "distributed_sf1": {"launches": di_launches[name],
                                     **di_checks.get(name, {"max_abs_err": None,
-                                                           "shapes": []})}}
+                                                           "shapes": []})},
+                "cluster_sf1": {"launches": cl_launches[name],
+                                **cl_checks.get(name, {"max_abs_err": None, "shapes": []})}}
             for checks in (ds_checks, mem_checks, fn_checks, ar_checks, sv_checks, ca_checks,
                            tp_checks, ad_checks, fl_checks, sp_checks, ch_checks, fd_checks,
-                           di_checks):
+                           di_checks, cl_checks):
                 if name in checks:
                     r["max_abs_err"] = max(r["max_abs_err"], checks[name]["max_abs_err"])
             r["launches"] += (ds_launches[name] + mem_launches[name] + fn_launches[name]
                               + ar_launches[name] + sv_launches[name] + ca_launches[name]
                               + tp_launches[name] + ad_launches[name] + fl_launches[name]
                               + sp_launches[name] + ch_launches[name] + fd_launches[name]
-                              + di_launches[name])
+                              + di_launches[name] + cl_launches[name])
         print(f"phases: {json.dumps({k: round(v, 1) for k, v in clock.seconds.items()})}",
               flush=True)
         print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

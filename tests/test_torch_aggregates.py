@@ -15,7 +15,8 @@ accumulators: direct (TPC-H keys with column ranges), hash (memory tables
 and computed keys) and global.
 
 Left out, by the name of their test: the distributed and fault-tolerant
-cases (ROADMAP A7: test_decimal128.py::test_wide_sum_fault_tolerant_and_distributed,
+cases (test_decimal128.py::test_wide_sum_fault_tolerant_and_distributed is
+restated in tests/test_torch_cluster.py;
 test_agg_functions2.py::test_checksum_distributed_matches_local), parquet
 (A5: test_decimal38.py::test_parquet_decimal38_roundtrip), SHOW FUNCTIONS
 (A6: test_agg_functions2.py::test_show_functions_has_new_aggs) and the

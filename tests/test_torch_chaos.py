@@ -37,9 +37,8 @@ at least once, recovers byte-identical to the port's local run or fails
 with the typed error, leaves no leak, and a fault-free distributed rerun
 gives the baseline; the scenario and query tables are the reference's.
 
-Left out (the next slice of ROADMAP A7, the task-retrying executor and the
-cluster): test_fte_dropped_commit_is_retried and the backoff and
-reannounce tests.
+test_fte_dropped_commit_is_retried is restated in tests/test_torch_fte.py,
+and the backoff and reannounce tests in tests/test_torch_cluster.py.
 """
 
 import os

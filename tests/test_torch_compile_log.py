@@ -27,7 +27,7 @@ signature cases (``test_jit_wrapper_detects_first_seen_signatures``,
 ``test_cold_then_warm_compile_split_and_wall_attribution``): the port
 compiles no plans, so a cold statement of a process whose kernels are built
 records no compile.  ``test_coordinator_does_not_degrade_compiling_worker``
-waits for the cluster (ROADMAP A7).
+is restated in tests/test_torch_cluster.py.
 """
 
 import json

@@ -33,8 +33,8 @@ At TPC-H SF0.01 unless stated:
   fallback's reason stands in ``exec_trace``;
 - **the engine's guards**: a distributed statement and a local one of the
   same text share no plan-cache, template or result-tier entry; a mesh
-  off the engine's device, parameters with a distributed plan and
-  ``fault_tolerant`` raise.
+  off the engine's device and parameters with a distributed plan raise,
+  and ``fault_tolerant`` (ported since) runs, equal to the local result.
 """
 
 import os
@@ -508,8 +508,9 @@ def test_distributed_guards_raise(port):
     with pytest.raises(ValueError, match="differ from the engine"):
         e.execute_sql("select 1", s, distributed=True,
                       mesh=worker_mesh(2, devices=["meta", "meta"]))
-    with pytest.raises(NotImplementedError, match="fault-tolerant"):
-        e.execute_sql("select 1", s, fault_tolerant=True)
+    # fault-tolerant execution is ported: the statement runs, equal to local
+    sql = "select n_regionkey, count(*) c from nation group by n_regionkey order by 1"
+    _same(e.execute_sql(sql, s, fault_tolerant=True), e.execute_sql(sql, s), "fte guard")
     plan = compile_sql("select count(*) from nation", e, s)
     with pytest.raises(ValueError, match="locally only"):
         e.execute_plan(plan, params=(), distributed=True,

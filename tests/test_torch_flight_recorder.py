@@ -25,7 +25,7 @@ And the chaos record: a statement failed by an injected ``fatal`` at
 ``dispatch`` leaves a FAILED record naming the fault with its firing
 counted, as the reference's does, and the leak check is clean after it.
 
-Left out: the stitched cluster trace (the port has no cluster).
+The stitched cluster trace is restated in tests/test_torch_cluster.py.
 """
 
 import json

@@ -14,7 +14,10 @@ card by the prefetch producer (phase 18: a connector defined here returns
 the numpy pages a file connector would, so the test needs no ``pyarrow``);
 the distributed executor on a virtual ``worker_mesh(4)`` over the card, and
 the exchange's ``bucketize`` and ``append_rows`` on the card against their
-CPU runs (phase 19).
+CPU runs (phase 19); the cluster on the card (phase 20): Q1 and Q9 through
+an in-process worker on the card and one worker process started without
+``--device``, and a fault-tolerant run with injected failures, each against
+the same SQL on the CPU.
 
 They skip without a card.  This file imports no jax, so on a machine with a
 card (which has no jax) it runs without the repo's conftest:
@@ -1257,3 +1260,108 @@ def test_bucketize_and_append_rows_on_the_card_equal_the_cpu(dev):
     for x, y in zip(a[3], b[3]):
         assert np.array_equal(x, y)
     assert a[4] == b[4] and a[5] == b[5] == [False, False, True]
+
+
+CLUSTER_Q1 = """select l_returnflag, l_linestatus, sum(l_quantity) qty, count(*) c,
+        avg(l_discount) d from lineitem where l_shipdate <= date '1998-09-02'
+        group by l_returnflag, l_linestatus order by l_returnflag, l_linestatus"""
+CLUSTER_Q9 = """select nation, o_year, sum(amount) as sum_profit from (
+          select n_name as nation, extract(year from o_orderdate) as o_year,
+            l_extendedprice * (1 - l_discount) - ps_supplycost * l_quantity as amount
+          from part, supplier, lineitem, partsupp, orders, nation
+          where s_suppkey = l_suppkey and ps_suppkey = l_suppkey
+            and ps_partkey = l_partkey and p_partkey = l_partkey
+            and o_orderkey = l_orderkey and s_nationkey = n_nationkey
+            and p_name like '%green%') as profit
+        group by nation, o_year order by nation, o_year desc"""
+CLUSTER_CATALOGS = {"tpch": {"connector": "tpch", "sf": 0.01, "split_rows": 1 << 12}}
+
+
+def _cluster_engine(device):
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    e = Engine(device=device)
+    e.register_catalog("tpch", TpchConnector(sf=0.01, split_rows=1 << 12))
+    return e
+
+
+def _same_rows(a, b):
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    chip_smoke.same_result(a, b, "card vs cpu")
+
+
+def test_cluster_in_process_worker_on_the_card(dev, tmp_path):
+    from trino_tpu_torch.server.cluster import ClusterCoordinator, WorkerServer
+
+    cpu, card = _cluster_engine("cpu"), _cluster_engine(None)
+    coord = ClusterCoordinator(card, str(tmp_path / "spool"), heartbeat_interval=0.2)
+    url = coord.start()
+    w = WorkerServer(CLUSTER_CATALOGS, str(tmp_path / "spool"), coordinator_url=url,
+                     node_id="card", pool_bytes=2 << 30, cache_bytes=256 << 20)
+    try:
+        w.start()
+        assert w.device.type == "cuda"
+        coord.wait_for_workers(1, timeout=60)
+        for sql in (CLUSTER_Q1, CLUSTER_Q9):
+            got = coord.execute_sql(sql)
+            assert coord.local_fallbacks == 0, coord.last_fallback_error
+            _same_rows(got, cpu.execute_sql(sql, cpu.create_session("tpch")))
+            assert sum(coord._qc_workers.launches.values()) > 0, "no worker launch"
+    finally:
+        w.stop()
+        coord.stop()
+
+
+def test_cluster_worker_process_takes_the_card(dev, tmp_path):
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    from trino_tpu_torch.server.cluster import ClusterCoordinator
+
+    cpu, card = _cluster_engine("cpu"), _cluster_engine(None)
+    coord = ClusterCoordinator(card, str(tmp_path / "spool"), heartbeat_interval=0.2)
+    url = coord.start()
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    p = subprocess.Popen([sys.executable, "-m", "trino_tpu_torch.server.cluster",
+                          "--coordinator", url, "--catalogs", json.dumps(CLUSTER_CATALOGS),
+                          "--spool", str(tmp_path / "spool"), "--node-id", "proc",
+                          "--pool-bytes", str(2 << 30), "--cache-bytes", str(256 << 20)],
+                         env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        assert "device cuda" in p.stdout.readline()
+        coord.wait_for_workers(1, timeout=120)
+        got = coord.execute_sql(CLUSTER_Q9)
+        assert coord.local_fallbacks == 0, coord.last_fallback_error
+        _same_rows(got, cpu.execute_sql(CLUSTER_Q9, cpu.create_session("tpch")))
+        assert sum(coord._qc_workers.launches.values()) > 0
+    finally:
+        p.terminate()
+        p.wait(timeout=60)
+        coord.stop()
+
+
+def test_fault_tolerant_run_on_the_card_recovers(dev, tmp_path):
+    from trino_tpu_torch.exec.fte import FailureInjector, FaultTolerantExecutor
+    from trino_tpu_torch.sql.frontend import compile_sql
+
+    cpu, card = _cluster_engine("cpu"), _cluster_engine(None)
+    inj = FailureInjector()
+    inj.inject(0, "TASK_FAILURE", times=2)
+    inj.inject(1, "POST_COMMIT_FAILURE", times=1)
+    ex = FaultTolerantExecutor(card.catalogs, str(tmp_path / "spool"), injector=inj,
+                               memory_pool=card.memory_pool)
+    got = ex.execute(compile_sql(CLUSTER_Q1, card, card.create_session("tpch")))
+    _same_rows(got, cpu.execute_sql(CLUSTER_Q1, cpu.create_session("tpch")))
+    assert ex.task_attempts[0] == 3 and ex.task_attempts[1] == 1
+    s = card.create_session("tpch")
+    _same_rows(card.execute_sql(CLUSTER_Q9, s, fault_tolerant=True),
+               cpu.execute_sql(CLUSTER_Q9, cpu.create_session("tpch")))

@@ -14,8 +14,8 @@ reserved once, and a kernel that fails on a cached page fails the statement.
 Budgets are set with ``monkeypatch.setenv`` on both packages before their
 engines first use the pool (each reads its budget then).  Where both packages
 answer a statement, their results agree: integers, decimals, dates and
-strings exactly, DOUBLE within rtol 1e-9.  Left out: test_worker_owns_its_pool
-needs the cluster's workers (ROADMAP A7).
+strings exactly, DOUBLE within rtol 1e-9.  test_worker_owns_its_pool is
+restated in tests/test_torch_cluster.py.
 """
 
 import os

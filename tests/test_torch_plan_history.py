@@ -17,7 +17,7 @@ the batched read of the row counts, the engine's plan memo (a warm statement
 walks neither estimation nor the fingerprint again; ``_invalidate`` clears
 it; a one-off plan stays out of it), and the per-operator boundary records summing to the run's counters.
 
-Left out: the cluster harvest (the port has no cluster yet).  The stall
+The cluster harvest is restated in tests/test_torch_cluster.py.  The stall
 watchdog's case is in tests/test_torch_stall.py.
 """
 

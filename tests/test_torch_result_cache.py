@@ -16,8 +16,8 @@ entry is admitted under a store fault, the leak check is clean).
 Budgets are set with ``monkeypatch.setenv`` on both packages before their
 engines first use the pool.  Where both packages answer a statement, their
 results agree: integers, decimals, dates and strings exactly, DOUBLE within
-rtol 1e-9.  Left out: test_cluster_coordinator_serves_from_result_cache
-needs the cluster coordinator (ROADMAP A7).
+rtol 1e-9.  test_cluster_coordinator_serves_from_result_cache is restated
+in tests/test_torch_cluster.py.
 """
 
 import os

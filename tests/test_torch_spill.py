@@ -16,9 +16,10 @@ the spill counters' merge are held against the reference's.  Adds the page
 codec in both modes (zstd, and zlib as on the card) with frames read by
 both packages, and ``partition_ids`` on keys whose hashes are negative.
 
-Left out: the two cluster-rung tests (the port has no cluster, ROADMAP A7),
-``QueryCounters.from_dict`` (the worker wire shape, A7) and the Q18 tier
-crossing at SF0.1, a ``slow`` test that runs on the card instead
+The two cluster-rung tests and the counters' round trip through
+``QueryCounters.from_dict`` (the worker wire shape) are restated in
+tests/test_torch_cluster.py.  Left out: the Q18 tier crossing at SF0.1, a
+``slow`` test that runs on the card instead
 (``chip_smoke.py`` phase 16b).  The reference's join under a 200,000-byte
 pool takes it about 40 s on a CPU (a compile per partition), so the
 partitioned join is held against the reference's unconstrained run.
@@ -227,22 +228,24 @@ def test_spill_error_mid_partition_cleans_up(env, tmp_path, monkeypatch):
 
 
 def test_unwired_fault_points_refuse_to_arm():
-    """A rule naming a point the port does not wire yet (the cluster's
-    ``task``, ROADMAP A7) cannot be armed; the nine local points and the
-    worker mesh's two exchange points are wired."""
-    assert set(faults.WIRED) == {"dispatch", "host_pull", "generate", "h2d", "reserve",
-                                 "cache_checkout", "cache_store", "spill_write",
-                                 "spill_read", "exchange_write", "exchange_read"}
+    """Every point of the reference's vocabulary is wired in the port now
+    (the cluster's ``task`` last): rules on any of the twelve arm, and a
+    point outside the vocabulary is refused."""
+    assert set(faults.WIRED) == set(faults.POINTS) == set(jfaults.POINTS)
+    assert len(faults.WIRED) == 12
     for spec in ("point=task,action=error",
                  "point=spill_read,action=deny;point=task,action=error",
-                 "point=exchange_write,action=error;point=task,action=error"):
-        with pytest.raises(ValueError, match="not wired"):
+                 "point=exchange_write,action=error;point=task,action=kill_worker"):
+        with faults.injected(spec) as plan:
+            assert faults.active() is plan
+        assert faults.active() is None
+    for spec in ("point=teleport,action=error", "point=task,action=error;point=nope"):
+        with pytest.raises(ValueError, match="unknown fault point"):
             faults.arm(spec)
-        with pytest.raises(ValueError, match="not wired"):
+        with pytest.raises(ValueError, match="unknown fault point"):
             with faults.injected(spec):
                 pass
         assert faults.active() is None
-    assert set(faults.POINTS) == set(jfaults.POINTS)
 
 
 # ------------------------------------------------------ observability surface

@@ -104,8 +104,13 @@ the engine's (positions on one card form a virtual mesh).  Such statements
 take their own plan-cache and result-tier keys, and skip the advisor, the
 plan templates and auto-parameterization.
 
-Not ported: the cluster rungs (cache eviction and the low-memory killer)
-and fault-tolerant (task-retrying) execution.
+Fault-tolerant execution: ``execute_sql(..., fault_tolerant=True)`` runs a
+SELECT through ``exec/fte.py``'s task-retrying executor over a spooled
+exchange (one per engine, over a temporary spool, sharing the engine's
+pools).  The multi-process cluster (``server/cluster.py``) plans on this
+engine and runs its fragments on worker processes; its coordinator walks
+the cluster rungs of the memory ladder (cache eviction, then the
+low-memory killer).
 """
 
 from __future__ import annotations
@@ -133,13 +138,6 @@ class Session:
     user: str = "user"
     properties: dict = dataclasses.field(default_factory=dict)
     prepared: dict = dataclasses.field(default_factory=dict)  # name -> sql text
-
-
-def _fte_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "fault-tolerant execution (the task-retrying executor over a spooled "
-        "exchange) is not ported to trino_tpu_torch yet: it comes with the "
-        "multi-process cluster, the next slice of the distributed port")
 
 
 def _resolve_device(device) -> torch.device:
@@ -674,11 +672,14 @@ class Engine:
         plan template's bound slot tuple; ``query_max_memory`` the
         statement's limit in bytes, as in the reference.  ``distributed``
         runs the plan on the worker mesh ``mesh`` (``exec/distributed.py``);
-        templates execute locally only, as in the reference."""
+        ``fault_tolerant`` through the task-retrying executor over a spooled
+        exchange (``exec/fte.py``; reference: RetryPolicy.TASK), one per
+        engine over a temporary spool, sharing the engine's pools; templates
+        execute locally only, as in the reference."""
         if params is not None and (distributed or fault_tolerant):
             raise ValueError("parameterized template plans execute locally only")
         if fault_tolerant:
-            raise _fte_not_ported()
+            return self._execute_fault_tolerant(plan)
         if distributed:
             ex = self._distributed_executor(mesh)
             try:
@@ -695,6 +696,27 @@ class Engine:
         if cache:
             self._record_plan_history(plan, ex)
         return result
+
+    def _execute_fault_tolerant(self, plan):
+        import tempfile
+
+        from .exec.fte import FaultTolerantExecutor
+        from .execution import tracing
+
+        with self._totals_lock:  # statements run on several threads
+            if getattr(self, "_fte_executor", None) is None:
+                self._fte_spool = tempfile.mkdtemp(prefix="trino_tpu_torch_spool_")
+                self._fte_executor = FaultTolerantExecutor(
+                    self.catalogs, self._fte_spool, device=self.device,
+                    memory_pool=self.memory_pool, buffer_pool=self.buffer_pool)
+        # the executor drives its private LocalExecutor past execute(), so
+        # the query's spend records on a counter set of its own here
+        counters = tracing.QueryCounters()
+        try:
+            with tracing.track_counters(counters):
+                return self._fte_executor.execute(plan)
+        finally:
+            self._account_counters(counters)
 
     def _distributed_executor(self, mesh):
         """A fresh distributed executor over ``mesh`` (None: every visible
@@ -741,13 +763,15 @@ class Engine:
             pass
 
     # -- plan history and adaptive execution (reference: Engine._record_plan_history)
-    def _record_plan_history(self, plan, ex) -> None:
+    def _record_plan_history(self, plan, ex, extra_records: Optional[dict] = None) -> None:
         """Fold one cleanly completed execution's per-node actuals into
         ``plan_history`` and publish the statement's payload (this thread's
         slot for the completion event, and ``last_plan_actuals``).  A host
         walk plus one batched read of the row counts the executor kept on
-        the device: no launch, no counted host read.  A failure here leaves
-        the statement successful and the store unchanged."""
+        the device: no launch, no counted host read.  ``extra_records``
+        folds in records from elsewhere under the same fingerprint (the
+        cluster coordinator's harvest of its workers).  A failure here
+        leaves the statement successful and the store unchanged."""
         acct = self._thread_accounting
         sql = getattr(acct, "history_sql", None)
         acct.history_sql = None
@@ -755,11 +779,13 @@ class Engine:
         if ph is None or not ph.enabled:
             return
         try:
-            from .execution.history import collect_plan_actuals
+            from .execution.history import collect_plan_actuals, fold_records
 
             recs = collect_plan_actuals(
                 plan, ex.stats, boundary=ex.boundary, catalogs=self.catalogs,
                 paths=ex._node_paths, ests=ex._node_ests, facts=ex._plan_facts)
+            for path, rec in (extra_records or {}).items():
+                fold_records(recs, path, rec)
             if not recs:
                 return
             fp = ex.plan_fingerprint(plan)
@@ -954,12 +980,10 @@ class Engine:
         the statement's plan template where it has one, else substituted as
         literals.  ``distributed`` runs a SELECT on the worker mesh ``mesh``
         (``parallel/mesh.worker_mesh``; None: every visible card), whose
-        devices must be the engine's.  ``fault_tolerant`` (the task-retrying
-        executor) is not ported yet and raises."""
+        devices must be the engine's.  ``fault_tolerant`` runs a SELECT
+        through the task-retrying executor (``execute_plan``)."""
         from .execution import tracing
 
-        if fault_tolerant:
-            raise _fte_not_ported()
         from .execution.query_state import QueryState, QueryStateMachine
 
         sess = session or Session()
@@ -1002,7 +1026,7 @@ class Engine:
                     tracing.track_counters(totals), \
                     self.tracer.span("query", trace_id=qid, sql=sql):
                 result = self._execute_admitted(sql, sess, qsm, parameters,
-                                                distributed, mesh)
+                                                distributed, mesh, fault_tolerant)
             if result is not None and hasattr(result, "__len__"):
                 qsm.rows = len(result)
             qsm.transition(QueryState.FINISHING)
@@ -1115,7 +1139,7 @@ class Engine:
         })
 
     def _execute_admitted(self, sql: str, sess: Session, qsm, parameters=None,
-                          distributed: bool = False, mesh=None):
+                          distributed: bool = False, mesh=None, fault_tolerant: bool = False):
         from .execution.query_state import QueryState
         from .sql import parser as A
 
@@ -1127,23 +1151,25 @@ class Engine:
             from .sql import params as PRM
 
             param_asts = tuple(PRM.value_to_literal_ast(v) for v in parameters)
-            if not distributed:  # templates execute locally only
+            if not distributed and not fault_tolerant:  # templates run locally only
                 handled, res = self._maybe_template_execute(sql, param_asts, sess,
                                                             qsm=qsm)
                 if handled:
                     return res
             vals = [PRM.literal_param_value(p) for p in param_asts]
             return self._execute_admitted(_substitute(sql, vals), sess, qsm,
-                                          distributed=distributed, mesh=mesh)
+                                          distributed=distributed, mesh=mesh,
+                                          fault_tolerant=fault_tolerant)
         # the user is in the key (row filters and column masks make plans
         # user-specific), and so are the plan-shaping session properties and
         # whether the statement runs distributed; the text is normalized, so
         # reformatted repeats share a plan
         key = (_normalize_statement(sql), sess.catalog, distributed, sess.user,
                _plan_shape_props(sess))
+        local = not distributed and not fault_tolerant
         # the advisor first (local statements only): a frozen "replan"
         # diverts even a warm statement to its corrected plan
-        adaptive = None if distributed else self._adaptive_consult(key, sess)
+        adaptive = self._adaptive_consult(key, sess) if local else None
         if adaptive is not None and adaptive.get("verdict") == "replan":
             res = self._execute_corrected(sql, key, adaptive, sess, qsm)
             if res is not NotImplemented:
@@ -1156,11 +1182,11 @@ class Engine:
             plan = self._cache_lookup(key)
         if plan is not None:
             self._check_select_access(plan, sess.user)
-            if not distributed:
+            if local:
                 self._adaptive_note_base(key, sess)
             return self._run_select(sql, plan, sess, qsm, distributed=distributed,
-                                    mesh=mesh)
-        if not distributed and self.plan_templates_enabled:
+                                    mesh=mesh, fault_tolerant=fault_tolerant)
+        if local and self.plan_templates_enabled:
             # auto-parameterization: SELECTs equal up to their literals share
             # one template; the extraction is token-level and conservative,
             # and a misjudged text fails template creation and plans below
@@ -1180,12 +1206,12 @@ class Engine:
             # scalar and EXISTS subqueries execute while the query plans
             plan = self._plan_timed(sess, ast, key, qsm)
             self._check_select_access(plan, sess.user)
-            if not distributed:
+            if local:
                 self._adaptive_note_base(key, sess)
             if qsm.state != QueryState.RUNNING:
                 qsm.transition(QueryState.STARTING)
             return self._run_select(sql, plan, sess, qsm, distributed=distributed,
-                                    mesh=mesh)
+                                    mesh=mesh, fault_tolerant=fault_tolerant)
         qsm.transition(QueryState.RUNNING)
         # the statement's text for consumers that see only its AST (EXPLAIN
         # recovers its inner statement's plan-cache key from it)
@@ -1193,7 +1219,7 @@ class Engine:
         return self._execute_statement(ast, sess, distributed=distributed, mesh=mesh)
 
     def _run_select(self, sql: str, plan, sess: Session, qsm, adaptive=None,
-                    distributed: bool = False, mesh=None):
+                    distributed: bool = False, mesh=None, fault_tolerant: bool = False):
         """A planned SELECT, cached plan or fresh: the result tier first (a
         hit answers with no launch, no host read and no H2D copy, after
         admission, so the statement is tracked and access-checked like any
@@ -1203,7 +1229,8 @@ class Engine:
         ``mesh``, with a result key of its own."""
         from .execution.query_state import QueryState
 
-        rkey = self._result_cache_key(sql, plan, sess, distributed=distributed)
+        rkey = self._result_cache_key(sql, plan, sess, distributed=distributed,
+                                      fault_tolerant=fault_tolerant)
         if rkey is not None and adaptive is not None:
             rkey = rkey + (("adaptive", adaptive["token"]),)
         # the epoch the statement starts under: an invalidation while it runs
@@ -1221,12 +1248,14 @@ class Engine:
         with self.tracer.span("execution", trace_id=qsm.query_id):
             result = self.execute_plan(plan, page_cache=_effective_page_cache(sess),
                                        query_max_memory=_query_mem_limit(self, sess),
-                                       distributed=distributed, mesh=mesh)
+                                       distributed=distributed, mesh=mesh,
+                                       fault_tolerant=fault_tolerant)
         self._result_cache_finish(rkey, result, epoch, plan)
         return result
 
     # -- the result tier (reference: Engine._result_cache_*) ---------------------
-    def _result_cache_key(self, sql: str, plan, sess: Session, distributed: bool = False):
+    def _result_cache_key(self, sql: str, plan, sess: Session, distributed: bool = False,
+                          fault_tolerant: bool = False):
         """The result-tier key, or None when the statement may not be served
         or stored: the tier is off (its budget, or the ``result_cache``
         session property), a scanned catalog is volatile (no
@@ -1259,7 +1288,7 @@ class Engine:
             if conn is None or not bp.cacheable(conn):
                 return None
         return ("result", _plan_fingerprint(plan, self.catalogs), tuple(sorted(catalogs)),
-                distributed, False, _plan_shape_props(sess))
+                distributed, fault_tolerant, _plan_shape_props(sess))
 
     def _result_cache_fetch(self, rkey):
         """``rkey``'s cached result, or None.  A hit is accounted as a

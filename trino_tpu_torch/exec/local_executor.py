@@ -328,6 +328,15 @@ class LocalExecutor:
         # the engine's per-plan-root memo of estimates and fingerprint, for
         # plans that run again (None: computed for this run alone)
         self.plan_memo = None
+        # node-result substitutions, id(node) -> (Page, dicts): fault-tolerant
+        # execution and the cluster install a fragment's spooled output here,
+        # so the rest of the plan reads it instead of running the subtree
+        # again (reference: ExchangeOperator reading spooled task output)
+        self._overrides: dict = {}
+        # a task's share of a scan, id(TableScan) -> splits: a partial
+        # aggregation or probe task (exec/fte) runs its fragment over these
+        # splits through the same page sources and transforms as a whole scan
+        self._split_restriction: dict = {}
 
     # ------------------------------------------------------------------ stats
     def begin_plan(self, root: P.PlanNode) -> None:
@@ -448,6 +457,23 @@ class LocalExecutor:
         for sp in spills:
             sp.close()
         return len(procs)
+
+    def forget_plan(self, plan: P.PlanNode) -> None:
+        """Drop what this executor keeps of a plan the caller replaces (a
+        worker's evicted fragment, a coordinator's stale plan): its stats,
+        boundary records and plan-history facts.  The port compiles no
+        pipelines and caches no streams, so nothing else is keyed by it."""
+        ids = set()
+
+        def walk(n):
+            ids.add(id(n))
+            for c in n.children:
+                walk(c)
+
+        walk(plan)
+        for store in (self.stats, self.boundary, self._plan_facts, self._op_labels):
+            for key in [k for k in list(store) if k in ids]:
+                store.pop(key, None)
 
     def execute_batched(self, node: P.PlanNode, runtimes) -> list:
         """One fused execution of a template plan for R bound runtimes (each a
@@ -702,6 +728,8 @@ class LocalExecutor:
         bp = self.buffer_pool
         if bp is None or not self._page_cache_on():
             return None
+        if self._overrides and self._subtree_overridden(node.right):
+            return None  # the build reads this query's spooled output
         cats: set = set()
         cacheable = True
 
@@ -775,7 +803,11 @@ class LocalExecutor:
         """Run a (sub)plan to completion: one Page + its dictionaries.  Every
         launch and host read while the node runs charges its boundary record
         (innermost node wins: a streaming chain charges the breaker that
-        drives it)."""
+        drives it).  An overridden node returns its installed output."""
+        if self._overrides:
+            hit = self._overrides.get(id(node))
+            if hit is not None:
+                return hit
         label = self._op_label(node)
         with tracing.operator_scope(label, self._boundary_sink(id(node), label)):
             return self._execute_node(node)
@@ -873,12 +905,25 @@ class LocalExecutor:
                        clustered_by=up.clustered_by, compacted=True)
 
     # -- streaming segment compilation ---------------------------------------
+    def _subtree_overridden(self, node) -> bool:
+        return id(node) in self._overrides \
+            or any(self._subtree_overridden(c) for c in node.children)
+
     def _compile_stream(self, node: P.PlanNode) -> _Stream:
+        if self._overrides and id(node) in self._overrides:
+            # a durable fragment output (the FTE spool, a remote task)
+            # stands for the subtree: one page, so streaming consumers read
+            # the spooled result instead of running the fragment again
+            page, dicts = self._overrides[id(node)]
+            page = self._device_page(page)
+            return _Stream(node.schema, dicts, lambda page=page: iter((page,)), _identity)
         if isinstance(node, P.TableScan):
             conn = self.catalogs[node.catalog]
             dicts = tuple(conn.dictionaries(node.table).get(c) for c in node.columns)
-            with tracing.inflight("split-generation", site=f"scan.{node.table}"):
-                splits = conn.splits(node.table)
+            splits = self._split_restriction.get(id(node)) if self._split_restriction else None
+            if splits is None:
+                with tracing.inflight("split-generation", site=f"scan.{node.table}"):
+                    splits = conn.splits(node.table)
             # plan-history fact: the split count the advisor tunes
             # dispatch_batch from
             self._plan_facts[id(node)] = (node, {"splits": len(splits)})
@@ -1038,9 +1083,7 @@ class LocalExecutor:
             return self._run_sorted_aggregate(node)
         if not node.keys:
             return self._run_global_aggregate(node)
-        stream = self._compile_stream(node.child)
-        key_types = tuple(stream.schema.fields[i].type for i in node.keys)
-        acc_specs, acc_exprs, acc_kinds = self._agg_accumulators(node)
+        stream, key_types, acc_specs, acc_exprs, acc_kinds, _ = self._agg_compiled(node)
         capacity = node.capacity or DEFAULT_GROUP_CAPACITY
 
         # transformed pages: the first one is computed up front because its
@@ -1125,6 +1168,29 @@ class LocalExecutor:
             return self._finalize_groups(node, stream, state)
         finally:
             self.memory_pool.free(resv["bytes"], "group-by")
+
+    def _agg_compiled(self, node: P.Aggregate):
+        """(stream, key_types, acc_specs, acc_exprs, acc_kinds, step) of a
+        grouped aggregation: its compiled input, and ``step(state, page,
+        aux)``, which runs one raw source page through the input's transform
+        and inserts its live rows into hash-mode group-by state.  The
+        executor's page loop and a fault-tolerant partial task
+        (``exec/fte._partial_once``) take their aggregation from here."""
+        stream = self._compile_stream(node.child)
+        key_types = tuple(stream.schema.fields[i].type for i in node.keys)
+        acc_specs, acc_exprs, acc_kinds = self._agg_accumulators(node)
+
+        def step(state, page, aux, stream=stream, node=node, key_types=key_types,
+                 acc_exprs=tuple(acc_exprs), acc_kinds=tuple(acc_kinds)):
+            cols, nulls, valid = stream.transform(page.columns, page.null_masks,
+                                                  page.valid_mask(), aux)
+            inputs = [(None, None) if e is None else _broadcast(evaluate(e, cols, nulls), valid)
+                      for e in acc_exprs]
+            return hashagg.groupby_insert(state, tuple(cols[i] for i in node.keys), key_types,
+                                          valid, inputs, list(acc_kinds),
+                                          tuple(nulls[i] for i in node.keys))
+
+        return stream, key_types, acc_specs, acc_exprs, acc_kinds, step
 
     def _agg_accumulators(self, node: P.Aggregate):
         """(acc_specs, acc_exprs, acc_kinds) of a grouped aggregation."""
@@ -1935,6 +2001,9 @@ class LocalExecutor:
     def _execute_to_page_streamed(self, node):
         """Materialize a sub-plan into one device page (join build side,
         window input)."""
+        if self._overrides and id(node) in self._overrides:
+            page, dicts = self._overrides[id(node)]
+            return self._device_page(page), dicts
         if isinstance(node, _BLOCKING_NODES):
             page, dicts = self._execute_to_page(node)
             return self._device_page(page), dicts
@@ -2486,6 +2555,8 @@ class LocalExecutor:
 
         if os.environ.get("TRINO_TPU_INDEX_JOIN", "1") == "0":
             return None
+        if self._split_restriction:
+            return None  # a task's lookup would return every task's rows
         if len(node.right_keys) != 1:
             return None
         si = probe_stream.scan_info

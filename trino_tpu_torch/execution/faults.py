@@ -60,13 +60,20 @@ points in ``WIRED``, at its chokepoints:
                    _exchange_fault), before each routed batch of the
                    blocking collect (site dist.exchange.route), the group
                    merge (dist.agg.merge) and each try of the partitioned
-                   join's build exchange (dist.join.build_exchange)
+                   join's build exchange (dist.join.build_exchange); and the
+                   spooled exchange's commit (exec/fte.SpoolingExchange,
+                   site task.<id>), where ``drop`` loses the commit and the
+                   retry loop or the coordinator recovers it
     exchange_read  the collected rows' hand-off to their consumer
                    (dist.exchange.read) and the merged groups' read
-                   (dist.agg.groups).  At both exchange points any RETURNED
-                   action (drop, deny) raises InjectedFaultError: the mesh
-                   exchange is one lockstep program and cannot drop or
-                   defer rows
+                   (dist.agg.groups), and the spooled exchange's read (site
+                   task.<id>).  At the mesh's points any RETURNED action
+                   (drop, deny) raises InjectedFaultError: the mesh exchange
+                   is one lockstep program and cannot drop or defer rows
+    task           the cluster worker's task body (server/cluster.py, site
+                   <kind>.<task id>): ``kill_worker`` makes the worker look
+                   crashed (its HTTP server stops; the coordinator's failure
+                   detector and re-dispatch recover), a raise fails the task
 
 A firing on a producer thread (the spill readback's ``_prefetched_pages``)
 is charged to the query: the producer carries the consumer's counter set
@@ -75,10 +82,9 @@ here, jitted steps in the reference, so an ``nth`` rule lands on another
 operation in each package; the outcome (recovered, or a typed error, and
 no leak) is what the chaos matrix holds.
 
-``task`` sits in the reference's multi-process cluster and is wired with it
-(the next slice of ROADMAP A7).  Until then ``arm`` and ``injected`` refuse
-a rule that names it: a rule that is armed and can never fire would pass a
-chaos check for nothing.
+Every point of the vocabulary is wired (``WIRED`` equals ``POINTS``);
+``arm`` and ``injected`` still refuse a point outside ``WIRED``: a rule
+that is armed and can never fire would pass a chaos check for nothing.
 """
 
 from __future__ import annotations
@@ -100,7 +106,8 @@ POINTS = ("dispatch", "host_pull", "generate", "h2d", "cache_store",
 
 # the points the port's chokepoints call maybe_inject for
 WIRED = ("dispatch", "host_pull", "generate", "h2d", "reserve", "cache_checkout",
-         "cache_store", "spill_write", "spill_read", "exchange_write", "exchange_read")
+         "cache_store", "spill_write", "spill_read", "exchange_write", "exchange_read",
+         "task")
 
 ACTIONS = ("error", "fatal", "delay", "drop", "deny", "kill_worker",
            "disk_full")

@@ -54,7 +54,7 @@ __all__ = ["Span", "Tracer", "NOOP_TRACER", "QueryCounters", "track_counters",
            "record_build_cache", "record_result_cache", "DISPATCH_LATENCY", "LatencyHistogram",
            "LATENCY_BUCKETS_S", "activate_tracer", "current_tracer", "maybe_span",
            "span_dict", "spans_to_otlp", "query_scope", "current_query_id",
-           "live_query_counters", "WALL_BUCKETS", "wall_breakdown",
+           "live_query_counters", "record_task_retry", "WALL_BUCKETS", "wall_breakdown",
            "format_wall_breakdown", "SPILL_TIERS", "SHARD_STATS_MAX", "shard_skew",
            "record_shard_stats",
            "COMPILE_BUCKETS_S", "CompileLog", "COMPILE_LOG", "record_compile",
@@ -173,8 +173,8 @@ class QueryCounters:
     # (record_fault), bytes spilled per tier (record_spill), a statement
     # deferred at the admission gate (stamped by the engine), and the
     # distributed path's per-exchange shard records (record_shard_stats).
-    # task_retries is fed by the task-retrying executor, which is not
-    # ported: it stays 0
+    # task_retries counts the fault-tolerant executor's retries and the
+    # cluster coordinator's re-dispatches (record_task_retry)
     faults_injected: int = 0
     task_retries: int = 0
     spilled_bytes: int = 0
@@ -227,6 +227,41 @@ class QueryCounters:
             mine = _site_entry(self.sites, key)
             for k, v in rec.items():
                 mine[k] = mine.get(k, 0) + v
+
+    def merge_dict(self, d: dict) -> None:
+        """Fold an ``as_dict`` snapshot (the form a worker task's status
+        carries over the wire) into this set, per-kernel launches included;
+        the derived keys (device_dispatches, ...) are recomputed, not read."""
+        if not d:
+            return
+        self.host_reads += int(d.get("host_reads", 0))
+        self.host_bytes += int(d.get("host_bytes", 0))
+        self.h2d_bytes += int(d.get("h2d_bytes", 0))
+        for k, v in (d.get("launches") or {}).items():
+            self.launches[str(k)] = self.launches.get(str(k), 0) + int(v)
+        for f in self._COUNT_FIELDS:
+            v = d.get(f, 0)
+            setattr(self, f, getattr(self, f) + (float(v) if isinstance(v, float) else int(v)))
+        for key, rec in (d.get("sites") or {}).items():
+            mine = _site_entry(self.sites, str(key))
+            for k, v in rec.items():
+                # site extras may be floats (compile_s): keep them so
+                mine[k] = mine.get(k, 0) + (float(v) if isinstance(v, float) else int(v))
+        if d.get("shard_stats"):
+            self.shard_stats.extend(dict(r) for r in d["shard_stats"])
+            del self.shard_stats[:-SHARD_STATS_MAX]
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "QueryCounters":
+        out = cls()
+        out.merge_dict(d)
+        return out
+
+    def snapshot(self) -> "QueryCounters":
+        """An independent copy."""
+        out = QueryCounters()
+        out.merge(self)
+        return out
 
     def as_dict(self) -> dict:
         d = {"host_reads": self.host_reads, "host_bytes": self.host_bytes,
@@ -378,6 +413,16 @@ def record_fault(site: Optional[str] = None) -> None:
     if c is not None:
         c.faults_injected += 1
     _attribute_extra(site, faults_injected=1)
+
+
+def record_task_retry(n: int = 1, site: Optional[str] = None) -> None:
+    """A task retry or re-dispatch, charged to the query that paid for it
+    (the fault-tolerant executor's retry loop, the cluster coordinator's
+    reassignment)."""
+    c = getattr(_counter_local, "counters", None)
+    if c is not None:
+        c.task_retries += n
+    _attribute_extra(site, task_retries=n)
 
 
 def record_spill(tier: str, nbytes: int, site: Optional[str] = None) -> None:

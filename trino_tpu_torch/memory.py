@@ -23,13 +23,18 @@ the statements that run at once on the server's threads, and a statement
 runs on one thread, so ``query_limit`` and ``query_reserved`` are kept per
 thread.
 
-Not ported yet: the cluster killer's surfaces (``query_scope``,
-``kill_query``, ``check_killed``, ``by_query``, ``QueryKilledError``), which
-come with the cluster (ROADMAP A7).
+The cluster killer's surfaces, as in the reference: a worker task runs in
+its query's ``query_scope(key)``, which attributes the thread's
+reservations to the query (``by_query``, what the coordinator's kill policy
+reads); ``kill_query(key)`` poisons a query on the node, so its next
+reservation or preemption point (``check_killed``) raises
+``QueryKilledError``.  Poison entries outlive ``clear_query`` (a bounded
+FIFO retires them), so re-offered tasks of a victim die here too.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Optional
 
@@ -38,7 +43,8 @@ import torch
 from .execution import faults
 
 __all__ = ["AggregatedMemoryContext", "LocalMemoryContext", "MemoryPool",
-           "MemoryPoolExhaustedError", "QueryMemoryLimitError", "device_memory_budget"]
+           "MemoryPoolExhaustedError", "QueryKilledError", "QueryMemoryLimitError",
+           "device_memory_budget"]
 
 
 class MemoryPoolExhaustedError(MemoryError):
@@ -48,6 +54,15 @@ class MemoryPoolExhaustedError(MemoryError):
 class QueryMemoryLimitError(MemoryError):
     """The query exceeded its query_max_memory limit: a hard kill, not a
     spill trigger (reference: ExceededMemoryLimitException)."""
+
+
+class QueryKilledError(MemoryError):
+    """The cluster low-memory policy chose this query as its victim
+    (reference: LowMemoryKiller, ClusterMemoryManager.java:92).
+    Deterministic: a retry would meet the same pressure."""
+
+
+_SCOPE = threading.local()  # this thread's query key, for per-query attribution
 
 
 def device_memory_budget(device="cpu", fraction: float = 0.75) -> int:
@@ -70,6 +85,11 @@ class MemoryPool:
         self._by_tag: dict = {}
         self._lock = threading.Lock()
         self._query = threading.local()  # this thread's query: limit, reserved
+        # per-query attribution under query_scope, and the killed queries
+        # (insertion-ordered; the oldest goes past _killed_cap)
+        self._by_query: dict = {}
+        self._killed: dict = {}
+        self._killed_cap = 64
 
     def begin_query(self, limit: Optional[int]) -> None:
         """Start this thread's query under ``limit`` bytes (None: no limit)."""
@@ -84,6 +104,45 @@ class MemoryPool:
     def query_reserved(self) -> int:
         return getattr(self._query, "reserved", 0)
 
+    # -- the cluster killer's surfaces ------------------------------------------
+    @contextlib.contextmanager
+    def query_scope(self, key: str):
+        """Reservations on this thread attribute to ``key`` until exit."""
+        prev = getattr(_SCOPE, "key", None)
+        _SCOPE.key = key
+        try:
+            yield
+        finally:
+            _SCOPE.key = prev
+
+    def kill_query(self, key: str) -> None:
+        """Poison ``key`` on this node: its next reservation, on any thread,
+        raises QueryKilledError; its memory frees as its tasks unwind."""
+        with self._lock:
+            self._killed[key] = True
+            while len(self._killed) > self._killed_cap:
+                self._killed.pop(next(iter(self._killed)))
+
+    def check_killed(self) -> None:
+        """Raise QueryKilledError if this thread's query was killed (the
+        preemption points call it, so a phase that reserves nothing ends
+        too)."""
+        key = getattr(_SCOPE, "key", None)
+        with self._lock:
+            if key is not None and key in self._killed:
+                raise QueryKilledError(
+                    f"query {key} killed by the cluster low-memory policy")
+
+    def clear_query(self, key: str) -> None:
+        """Drop a finished query's attribution on this node (its poison
+        entry stays, see kill_query)."""
+        with self._lock:
+            self._by_query.pop(key, None)
+
+    def by_query(self) -> dict:
+        with self._lock:
+            return dict(self._by_query)
+
     def try_reserve(self, nbytes: int, tag: str = "") -> bool:
         """Reserve ``nbytes``; False when they would not fit the pool.
         Raises QueryMemoryLimitError past this thread's query limit.  A
@@ -91,6 +150,10 @@ class MemoryPool:
         ``deny`` refuses, and the caller takes its smaller strategy."""
         if faults.maybe_inject("reserve", tag) == "deny":
             return False
+        qkey = getattr(_SCOPE, "key", None)
+        if qkey is not None and qkey in self._killed:
+            raise QueryKilledError(
+                f"query {qkey} killed by the cluster low-memory policy")
         limit, held = self.query_limit, self.query_reserved
         if limit is not None and held + nbytes > limit:
             raise QueryMemoryLimitError(
@@ -102,6 +165,8 @@ class MemoryPool:
             self.reserved += nbytes
             if tag:
                 self._by_tag[tag] = self._by_tag.get(tag, 0) + nbytes
+            if qkey is not None:
+                self._by_query[qkey] = self._by_query.get(qkey, 0) + nbytes
         self._query.reserved = held + nbytes
         return True
 
@@ -112,10 +177,15 @@ class MemoryPool:
                 f"{self.max_bytes - self.reserved} free of {self.max_bytes}")
 
     def free(self, nbytes: int, tag: str = "") -> None:
+        # a free attributes to the freeing thread's query scope, as in the
+        # reference: poll-grade, clamped at zero, cleared by clear_query
+        qkey = getattr(_SCOPE, "key", None)
         with self._lock:
             self.reserved = max(self.reserved - nbytes, 0)
             if tag and tag in self._by_tag:
                 self._by_tag[tag] = max(self._by_tag[tag] - nbytes, 0)
+            if qkey is not None and qkey in self._by_query:
+                self._by_query[qkey] = max(self._by_query[qkey] - nbytes, 0)
         self._query.reserved = max(self.query_reserved - nbytes, 0)
 
     def free_bytes(self) -> int:
@@ -134,7 +204,8 @@ class MemoryPool:
             return {"max_bytes": self.max_bytes, "reserved": self.reserved,
                     "free": self.max_bytes - self.reserved,
                     "query_reserved": self.query_reserved,
-                    "by_tag": dict(self._by_tag)}
+                    "by_tag": dict(self._by_tag),
+                    "by_query": dict(self._by_query)}
 
 
 class AggregatedMemoryContext:

@@ -165,6 +165,11 @@ def _nvcc() -> str:
     return found
 
 
+def _tmp_name(path: str) -> str:
+    """This process's temporary name for a build output at ``path``."""
+    return f"{path}.{os.getpid()}.tmp"
+
+
 def source_digest(path: str) -> str:
     """Hash of a source and, recursively, of every header it includes with
     ``#include "..."`` (resolved beside the including file): the build key,
@@ -212,12 +217,15 @@ def build_kernels(site: str = "build") -> dict:
             libs[src] = out
             if os.path.exists(out) and os.path.exists(out[:-3] + ".log"):
                 continue
+            # temporary names are this process's own: worker processes that
+            # start together on an empty build directory each compile into
+            # their own files, and each os.replace below stays atomic
             cmd = [_nvcc(), "-Xptxas", "-v", "-gencode", "arch=compute_90a,code=sm_90a",
                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-o", out + ".tmp", path]
+                   "-o", _tmp_name(out), path]
             # the report goes to a file, so a full pipe never stalls a build
             # while another is waited on, and each build's end is its own
-            report = open(out[:-3] + ".log.tmp", "w")
+            report = open(_tmp_name(out[:-3] + ".log"), "w")
             procs[src] = (subprocess.Popen(cmd, stdout=report, stderr=subprocess.STDOUT),
                           report)
         while len(ends) < len(procs):
@@ -229,13 +237,15 @@ def build_kernels(site: str = "build") -> dict:
         failed = []
         for src, (p, report) in procs.items():
             report.close()
-            log_tmp = libs[src][:-3] + ".log.tmp"
+            log_tmp = _tmp_name(libs[src][:-3] + ".log")
             if p.returncode != 0:
                 with open(log_tmp) as f:
                     failed.append(f"{src}:\n{f.read()}")
+                os.unlink(log_tmp)
                 continue
-            os.replace(libs[src] + ".tmp", libs[src])
+            # the report first: a library that exists always has its report
             os.replace(log_tmp, libs[src][:-3] + ".log")
+            os.replace(_tmp_name(libs[src]), libs[src])
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         log, loaded, built = {}, {}, {}

@@ -139,9 +139,11 @@ def init_multihost(coordinator: str | None = None,
     or ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
     ``JAX_PROCESS_ID``, read as the reference reads them; a partial one
     raises the reference's ``ValueError``.  A full one raises
-    ``NotImplementedError``: the port's mesh lives in one process, and
-    joining hosts waits for the multi-process cluster over
-    ``torch.distributed`` (the next slice of the port)."""
+    ``NotImplementedError``: the port's mesh lives in one process (one
+    controller drives every position), and joining hosts needs one process
+    per rank with the exchange over ``torch.distributed`` (ROADMAP A7).
+    The multi-process cluster (``server/cluster.py``) is another design:
+    fragments over HTTP, not one program over a mesh."""
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
     num = num_processes if num_processes is not None else \
         int(os.environ.get("JAX_NUM_PROCESSES", "0") or 0)
@@ -157,5 +159,5 @@ def init_multihost(coordinator: str | None = None,
         return False  # single-host: local mesh only
     raise NotImplementedError(
         "multi-host execution is not ported to trino_tpu_torch yet: the worker "
-        "mesh is single-process; joining hosts comes with the multi-process "
-        "cluster over torch.distributed")
+        "mesh is single-process; joining hosts needs one process per rank with "
+        "the exchange over torch.distributed")

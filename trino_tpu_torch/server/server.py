@@ -674,7 +674,9 @@ class CoordinatorServer:
                 "# TYPE trino_tpu_host_bytes_pulled_total counter",
                 f"trino_tpu_host_bytes_pulled_total {ct.host_bytes_pulled}",
                 # chaos runs: fault-injector firings charged to statements,
-                # and task retries (0 until the cluster's retry loop, A7)
+                # and task retries: the fault-tolerant executor's retry loop
+                # and the cluster coordinator's re-dispatches, both folded
+                # into the engine's totals (server/cluster.py)
                 "# HELP trino_tpu_faults_injected_total Chaos fault-injector "
                 "firings (execution/faults) accounted to queries.",
                 "# TYPE trino_tpu_faults_injected_total counter",
