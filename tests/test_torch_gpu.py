@@ -815,7 +815,17 @@ def test_server_on_the_card_serves_the_cpu_results(dev, monkeypatch):
             res = c.execute(sql)
             want[q] = cs.json_rows(cpu.execute_sql(sql, cpu.create_session("tpch")))
             cs.same_json_rows(res.rows, want[q], res.columns, sql, q)
-            serial[q] = cs.statement_counters(card, sql)["launches"]
+            # the baseline is a warm run, one that captured no graph: a cold
+            # statement also counts the eager warm-up of each scan-fused
+            # body it captures, and a plan the advisor corrects captures again
+            for _ in range(4):
+                cs.same_json_rows(c.execute(sql).rows, want[q], res.columns, sql, q)
+                counters = cs.statement_counters(card, sql)
+                if counters["graph_captures"] == 0:
+                    break
+            assert counters["graph_captures"] == 0, q
+            serial[q] = counters["launches"]
+        before = {qsm.query_id for qsm in card.query_tracker.all_queries()}
         errors = []
 
         def run():
@@ -834,6 +844,8 @@ def test_server_on_the_card_serves_the_cpu_results(dev, monkeypatch):
             t.join(timeout=300)
         assert not errors, errors
         for qsm in card.query_tracker.all_queries():
+            if qsm.query_id in before:
+                continue
             q = next(k for k, v in cs.QUERIES.items() if v == qsm.sql)
             assert qsm.counters["launches"] == serial[q], q
         status = json.loads(urllib.request.urlopen(srv.url + "/v1/status").read())
@@ -867,6 +879,10 @@ def test_cached_passes_on_the_card_equal_the_cpu(dev, monkeypatch):
     from trino_tpu_torch.connectors.tpch import TpchConnector
 
     monkeypatch.delenv("TRINO_TPU_PAGE_CACHE", raising=False)
+    # the page loop: the scan-fused runners generate each split again on
+    # the card and never read the page tier (chip_smoke's phase 12 pins it
+    # the same way)
+    monkeypatch.setenv("TRINO_TPU_SCAN_FUSED", "0")
     cpu = _card_and_cpu(cs.ALL_QUERIES)["cpu"]
     card = Engine(device="cuda")
     card.register_catalog("tpch", TpchConnector(sf=0.01))
@@ -1365,3 +1381,60 @@ def test_fault_tolerant_run_on_the_card_recovers(dev, tmp_path):
     s = card.create_session("tpch")
     _same_rows(card.execute_sql(CLUSTER_Q9, s, fault_tolerant=True),
                cpu.execute_sql(CLUSTER_Q9, cpu.create_session("tpch")))
+
+
+# -- the scan-fused runners as CUDA graphs (chip_smoke.py phase 21) ---------------
+def _fused_run(monkeypatch, graphs, q, sf=0.05, split_rows=1 << 15):
+    """bench.py's ``q`` with the scan-fused runners on, their body captured
+    and replayed as CUDA graphs (``graphs``) or run eagerly per split: the
+    cold and the warm result and counters."""
+    import trino_tpu_torch.exec.local_executor as LE
+    from chip_smoke import QUERIES
+    from trino_tpu_torch import Engine
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    monkeypatch.setattr(LE, "FUSED_GRAPHS", graphs)
+    monkeypatch.setenv("TRINO_TPU_SCAN_FUSED", "1")
+    e = Engine(device="cuda")
+    e.register_catalog("tpch", TpchConnector(sf=sf, split_rows=split_rows))
+    s = e.create_session("tpch")
+    cold = e.execute_sql(QUERIES[q], s)
+    c_cold = dict(e.last_query_counters)
+    # one eager run of each captured body (the capture's warm-up): its
+    # launches are the cold statement's too
+    warmup = {}
+    for entry, _ in list(e._fused_cache._entries.values()):
+        for kernel, _shape in getattr(entry, "launches", ()):
+            warmup[kernel] = warmup.get(kernel, 0) + 1
+    c_cold["warmup_launches"] = warmup
+    warm = e.execute_sql(QUERIES[q], s)
+    return cold, c_cold, warm, dict(e.last_query_counters)
+
+
+@pytest.mark.parametrize("q", ["q1", "q3"])
+def test_fused_chain_replayed_as_a_graph_equals_the_eager_body(dev, monkeypatch, q):
+    """The captured body, replayed once per split, gives what the same body
+    run eagerly per split gives (integers exactly, DOUBLE within rtol 1e-9);
+    a warm statement captures no new graph."""
+    e_cold, _, e_warm, _ = _fused_run(monkeypatch, False, q)
+    g_cold, gc_cold, g_warm, gc_warm = _fused_run(monkeypatch, True, q)
+    _same(g_cold, e_cold)
+    _same(g_warm, e_warm)
+    assert gc_cold["graph_captures"] > 0 and gc_cold["graph_replays"] > 0
+    assert gc_warm["graph_captures"] == 0 and gc_warm["graph_replays"] > 0
+
+
+def test_replays_charge_the_launches_their_body_holds(dev, monkeypatch):
+    """Each replay charges the kernel launches its captured body holds: a
+    graph run counts, per kernel, the launches of the same body run eagerly
+    (Q3: probes, inserts and the traced concat's compaction); a cold one
+    also counts the eager warm-up run of each body it captured."""
+    _, e_cold, _, e_warm = _fused_run(monkeypatch, False, "q3")
+    _, g_cold, _, g_warm = _fused_run(monkeypatch, True, "q3")
+    launched = {k: v for k, v in g_warm["launches"].items() if v}
+    assert launched and sum(launched.values()) > 0
+    assert launched == {k: v for k, v in e_warm["launches"].items() if v}
+    assert g_cold["warmup_launches"]
+    assert {k: v for k, v in g_cold["launches"].items() if v} == \
+        {k: v + g_cold["warmup_launches"].get(k, 0)
+         for k, v in e_cold["launches"].items() if v}

@@ -314,15 +314,13 @@ def test_early_stop_and_errors_store_nothing(monkeypatch):
     assert e.buffer_pool.info()["page_entries"] == 0
     sql = "select l_orderkey, l_partkey from lineitem where l_quantity > 49"
     real = LE.evaluate_predicate
-    seen = []
 
-    def fails_on_the_second_page(*a, **k):
-        seen.append(1)
-        if len(seen) == 2:
-            raise RuntimeError("filter failed")
-        return real(*a, **k)
+    def fails_on_the_first_group(*a, **k):
+        # the first coalesced group holds four of the scan's seven splits:
+        # the scan has not run to its end when the filter fails
+        raise RuntimeError("filter failed")
 
-    monkeypatch.setattr(LE, "evaluate_predicate", fails_on_the_second_page)
+    monkeypatch.setattr(LE, "evaluate_predicate", fails_on_the_first_group)
     with pytest.raises(RuntimeError, match="filter failed"):
         e.execute_sql(sql, s)
     assert e.buffer_pool.info()["page_entries"] == 0
@@ -351,18 +349,18 @@ def test_failed_template_attempt_stores_nothing(monkeypatch):
     real = LE.evaluate_predicate
     seen = []
 
-    def fails_on_every_second_page(*a, **k):
+    def fails_on_every_first_group(*a, **k):
+        # each attempt's first coalesced group holds four of the scan's
+        # seven splits: the scan has not run to its end when it fails
         seen.append(1)
-        if len(seen) % 2 == 0:
-            raise RuntimeError("filter failed")
-        return real(*a, **k)
+        raise RuntimeError("filter failed")
 
-    monkeypatch.setattr(LE, "evaluate_predicate", fails_on_every_second_page)
+    monkeypatch.setattr(LE, "evaluate_predicate", fails_on_every_first_group)
     with pytest.raises(RuntimeError, match="filter failed"):
         e.execute_sql(sql, s)
-    # the template attempt ran to its failure on the second page, then the
-    # substitution attempt (templates off, the filter runs twice in all)
-    assert len(seen) == 4, seen
+    # the template attempt ran to its failure on its first group, then the
+    # substitution attempt (templates off) to its own
+    assert len(seen) == 2, seen
     assert e.buffer_pool.info()["page_entries"] == 0
     monkeypatch.setattr(LE, "evaluate_predicate", real)
     e.execute_sql(sql, s)  # stores

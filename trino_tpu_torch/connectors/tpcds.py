@@ -239,7 +239,10 @@ def _once(fn):
 
 
 def _index(lo, length, device):
-    return torch.arange(length, dtype=torch.int64, device=device) + int(lo)
+    """Row indices [lo, lo + length): ``lo`` a host int or a 0-d int64
+    tensor on the device (the scan-fused runners' split offset)."""
+    return torch.arange(length, dtype=torch.int64, device=device) \
+        + (lo if isinstance(lo, torch.Tensor) else int(lo))
 
 
 def _full(length, value, device):
@@ -1337,7 +1340,9 @@ class TpcdsConnector:
 
     def generate_traced(self, table: str, lo, length: int, columns):
         """Rows [lo, lo + length) of ``columns`` and their valid mask (rows
-        past the table's end are invalid): (cols tuple, valid)."""
+        past the table's end are invalid): (cols tuple, valid).  ``lo`` is a
+        host int or a 0-d int64 tensor on the device, read on the device
+        only."""
         all_cols = GENERATORS[table](self.sf, lo, length, device=self._device())
         schema = SCHEMAS[table]
         cols = tuple(all_cols[c].to(torch_dtype(schema.field(c).type)) for c in columns)

@@ -263,8 +263,15 @@ def _i32(x):
     return x.to(torch.int32)
 
 
+def _lo(lo):
+    """A split's first row: a host int, or a 0-d int64 tensor on the device
+    (the scan-fused runners read each split's offset from the device, so
+    one captured body serves every split)."""
+    return lo if isinstance(lo, torch.Tensor) else int(lo)
+
+
 def _index(lo, length, device):
-    return torch.arange(length, dtype=torch.int64, device=device) + int(lo)
+    return torch.arange(length, dtype=torch.int64, device=device) + _lo(lo)
 
 
 # -- generators ---------------------------------------------------------------------------
@@ -304,7 +311,7 @@ def gen_lineitem(sf: float, order_lo, length: int, n: int = 0, device="cpu"):
     """Line items of ``length`` orders starting at order row ``order_lo``;
     capacity 7/order with a valid mask."""
     r = torch.arange(length * LINES_PER_ORDER_MAX, dtype=torch.int64, device=device)
-    okey = int(order_lo) + torch.div(r, LINES_PER_ORDER_MAX, rounding_mode="floor") + 1
+    okey = torch.div(r, LINES_PER_ORDER_MAX, rounding_mode="floor") + _lo(order_lo) + 1
     lineno = torch.remainder(r, LINES_PER_ORDER_MAX)
     valid = lineno < lines_per_order(okey)
     if n:
@@ -409,8 +416,9 @@ def gen_partsupp(sf, lo, length: int, n: int = 0, device="cpu"):
 def gen_nation(sf, lo, length: int, n: int = 0, device="cpu"):
     i = _index(lo, length, device)
     valid = i < 25
-    rkeys = torch.as_tensor(np.array([r for _, r in NATIONS], dtype=np.int64),
-                            device=device)[torch.clamp(i, 0, 24)]
+    # the regions as arithmetic on the index: no host table to copy, so the
+    # generator captures into a CUDA graph
+    rkeys = _nation_region(torch.clamp(i, 0, 24))
     return {
         "n_nationkey": i,
         "n_name": _i32(i),
@@ -426,6 +434,15 @@ def gen_region(sf, lo, length: int, n: int = 0, device="cpu"):
         "r_name": _i32(i),
         "r_comment": _i32(i),
     }, i < 5
+
+
+def _nation_region(i):
+    """n_regionkey of nation ``i`` (spec 4.2.3's nation table)."""
+    out = torch.zeros_like(i)
+    for key, region in enumerate(r for _, r in NATIONS):
+        if region:
+            out = torch.where(i == key, region, out)
+    return out
 
 
 _GENERATORS = {
@@ -635,11 +652,13 @@ class TpchConnector:
         cols, valid = self.generate_traced(split.table, split.lo, split.hi - split.lo, names)
         return Page(out_schema, cols, tuple(None for _ in cols), valid)
 
-    def generate_traced(self, table: str, lo: int, length: int, columns):
+    def generate_traced(self, table: str, lo, length: int, columns):
         """Rows [lo, lo + length) of ``columns`` (an order range for
         lineitem) and their valid mask, on the connector's device: (cols
-        tuple, valid).  The distributed executor's scan generates each
-        position's split through it."""
+        tuple, valid).  ``lo`` is a host int or a 0-d int64 tensor on the
+        device: nothing on the way reads it on the host, so the scan-fused
+        runners capture one body for every split.  The distributed
+        executor's scan generates each position's split through it."""
         cols, valid = _GENERATORS[table](self.sf, lo, length, self.table_bound(table),
                                          device=self._device())
         return tuple(cols[c] for c in columns), valid

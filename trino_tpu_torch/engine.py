@@ -158,7 +158,7 @@ class Engine:
         import os
 
         from .connectors.system import InformationSchemaConnector, SystemConnector
-        from .exec.local_executor import PlanMemo
+        from .exec.local_executor import FusedGraphCache, PlanMemo
         from .execution.adaptive import AdaptiveAdvisor
         from .execution.batcher import TemplateBatcher
         from .execution.bufferpool import DeviceBufferPool
@@ -205,6 +205,10 @@ class Engine:
         # fingerprint its executions compute (LocalExecutor.begin_plan,
         # plan_fingerprint), bounded like the plan and template caches
         self._plan_memo = PlanMemo(max_entries=2 * PLAN_CACHE_ENTRIES)
+        # the scan-fused runners' CUDA graphs and chain layouts for the plans
+        # that run again, keyed by plan node (LocalExecutor._fused_scan);
+        # cleared with the plan cache: a graph holds its plan's node
+        self._fused_cache = FusedGraphCache(memory_pool=self.memory_pool)
         # per-node est-vs-actual records, merged per structural plan
         # fingerprint on every clean completion (TRINO_TPU_PLAN_HISTORY);
         # the advisor turns them into plan decisions at admission
@@ -271,6 +275,7 @@ class Engine:
             self._plan_cache.clear()
             self._template_cache.clear()
         self._plan_memo.clear()
+        self._fused_cache.clear()
         self.buffer_pool.clear()
 
     def _plan_versions(self, plan) -> tuple:
@@ -535,7 +540,8 @@ class Engine:
         slots staged once for the query."""
         return self.execute_plan(tpl.plan, page_cache=_effective_page_cache(sess),
                                  params=runtime,
-                                 query_max_memory=_query_mem_limit(self, sess))
+                                 query_max_memory=_query_mem_limit(self, sess),
+                                 dispatch_batch=_effective_dispatch_batch(sess))
 
     def _execute_template_batch(self, tpl, runtimes, sess):
         """One fused execution for a whole window, on the driver's thread:
@@ -546,6 +552,8 @@ class Engine:
 
         ex = self._executor(_effective_page_cache(sess))
         ex.plan_memo = self._plan_memo
+        ex.use_fused_cache(self._fused_cache)
+        ex.dispatch_batch = _effective_dispatch_batch(sess)
         ex.memory_pool.begin_query(_query_mem_limit(self, sess))
         try:
             return self._run_counted(ex, lambda: ex.execute_batched(tpl.plan, runtimes))[0]
@@ -642,26 +650,34 @@ class Engine:
             self._account_counters(counters)
 
     def _run_plan(self, plan, page_cache: Optional[bool] = None, params=None,
-                  memo: bool = False, query_max_memory: Optional[int] = None):
+                  memo: bool = False, query_max_memory: Optional[int] = None,
+                  dispatch_batch: Optional[int] = None):
         """(result, counters, executor) of one plan on a fresh executor;
         ``params``: a template's bound slots; ``memo``: the plan runs again
         (a statement's cached plan), so its estimates and fingerprint go
         through the engine's plan memo.  One-off plans (eager subqueries,
         DML row evaluation, EXPLAIN ANALYZE) compute them for the run
         alone, and push no statement's plan out of the memo.
-        ``query_max_memory``: the statement's limit in bytes (None: none)."""
+        ``query_max_memory``: the statement's limit in bytes (None: none).
+        ``dispatch_batch``: the statement's coalescing width (None: the
+        process default); the executor is the statement's own, so the width
+        ends with it.  A plan that runs again keeps its captured scan-fused
+        graphs in the engine's cache; a one-off plan's end with its run."""
         ex = self._executor(page_cache)
         ex.memory_pool.begin_query(query_max_memory)
         ex.exec_params = params
+        ex.dispatch_batch = dispatch_batch
         if memo:
             ex.plan_memo = self._plan_memo
+            ex.use_fused_cache(self._fused_cache)
         result, counters = self._run_counted(ex, lambda: ex.execute(plan))
         return result, counters, ex
 
     def execute_plan(self, plan, cache: bool = True, page_cache: Optional[bool] = None,
                      params: Optional[tuple] = None,
                      query_max_memory: Optional[int] = None,
-                     distributed: bool = False, mesh=None, fault_tolerant: bool = False):
+                     distributed: bool = False, mesh=None, fault_tolerant: bool = False,
+                     dispatch_batch: Optional[int] = None):
         """Run a plan to a host-side ``MaterializedResult`` (also the
         planner's entry point for eager subqueries, which pass
         ``cache=False``).  As in the reference, ``cache=False`` still reads
@@ -675,13 +691,15 @@ class Engine:
         ``fault_tolerant`` through the task-retrying executor over a spooled
         exchange (``exec/fte.py``; reference: RetryPolicy.TASK), one per
         engine over a temporary spool, sharing the engine's pools; templates
-        execute locally only, as in the reference."""
+        execute locally only, as in the reference.  ``dispatch_batch`` is
+        the statement's coalescing width on every path (None: the process
+        default, ``TRINO_TPU_DISPATCH_BATCH``)."""
         if params is not None and (distributed or fault_tolerant):
             raise ValueError("parameterized template plans execute locally only")
         if fault_tolerant:
-            return self._execute_fault_tolerant(plan)
+            return self._execute_fault_tolerant(plan, dispatch_batch)
         if distributed:
-            ex = self._distributed_executor(mesh)
+            ex = self._distributed_executor(mesh, dispatch_batch)
             try:
                 result = ex.execute(plan)
                 self._thread_accounting.exec_trace = list(ex.exec_trace)
@@ -692,12 +710,13 @@ class Engine:
             finally:
                 self._account_counters(ex.counters)
         result, _, ex = self._run_plan(plan, page_cache, params, memo=cache,
-                                       query_max_memory=query_max_memory)
+                                       query_max_memory=query_max_memory,
+                                       dispatch_batch=dispatch_batch)
         if cache:
             self._record_plan_history(plan, ex)
         return result
 
-    def _execute_fault_tolerant(self, plan):
+    def _execute_fault_tolerant(self, plan, dispatch_batch: Optional[int] = None):
         import tempfile
 
         from .exec.fte import FaultTolerantExecutor
@@ -714,13 +733,14 @@ class Engine:
         counters = tracing.QueryCounters()
         try:
             with tracing.track_counters(counters):
-                return self._fte_executor.execute(plan)
+                return self._fte_executor.execute(plan, dispatch_batch=dispatch_batch)
         finally:
             self._account_counters(counters)
 
-    def _distributed_executor(self, mesh):
+    def _distributed_executor(self, mesh, dispatch_batch: Optional[int] = None):
         """A fresh distributed executor over ``mesh`` (None: every visible
-        card), whose devices must all be the engine's."""
+        card), whose devices must all be the engine's; its local executor
+        coalesces at ``dispatch_batch``."""
         from .exec.distributed import DistributedExecutor
         from .parallel.mesh import same_device, worker_mesh
 
@@ -729,7 +749,8 @@ class Engine:
         if stray:
             raise ValueError(f"mesh devices {sorted(set(stray))} differ from the "
                              f"engine's device {self.device}")
-        return DistributedExecutor(self.catalogs, mesh=mesh, memory_pool=self.memory_pool)
+        return DistributedExecutor(self.catalogs, mesh=mesh, memory_pool=self.memory_pool,
+                                   dispatch_batch=dispatch_batch)
 
     def _record_shard_skew(self, plan, ex) -> None:
         """Fold a clean distributed run's per-exchange shard skew
@@ -1245,11 +1266,16 @@ class Engine:
         # the statement text for the plan-history record (read and cleared
         # by _record_plan_history)
         self._thread_accounting.history_sql = sql
+        # the advisor's dispatch_batch correction, where it made one, is the
+        # statement's width (as in the reference, it overrides the session's)
+        adv_batch = ((adaptive or {}).get("corrections") or {}).get("dispatch_batch")
         with self.tracer.span("execution", trace_id=qsm.query_id):
             result = self.execute_plan(plan, page_cache=_effective_page_cache(sess),
                                        query_max_memory=_query_mem_limit(self, sess),
                                        distributed=distributed, mesh=mesh,
-                                       fault_tolerant=fault_tolerant)
+                                       fault_tolerant=fault_tolerant,
+                                       dispatch_batch=int(adv_batch) if adv_batch
+                                       else _effective_dispatch_batch(sess))
         self._result_cache_finish(rkey, result, epoch, plan)
         return result
 
@@ -1626,7 +1652,8 @@ class Engine:
                 self._adaptive_note_base(akey, sess)
             t0 = time.perf_counter()
             t0_wall = time.time()
-            res, counters, ex = self._run_plan(plan, _effective_page_cache(sess))
+            res, counters, ex = self._run_plan(plan, _effective_page_cache(sess),
+                                               dispatch_batch=_effective_dispatch_batch(sess))
             dt = time.perf_counter() - t0
             t1_wall = time.time()
             self._record_plan_history(plan, ex)

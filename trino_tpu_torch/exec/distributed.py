@@ -356,7 +356,7 @@ class DistributedExecutor:
     on the mesh's first device."""
 
     def __init__(self, catalogs: dict, mesh=None, partition_threshold: int = 1 << 17,
-                 device_exchange=None, memory_pool=None):
+                 device_exchange=None, memory_pool=None, dispatch_batch=None):
         self.catalogs = catalogs
         self.mesh = mesh if mesh is not None else worker_mesh()
         self.n_workers = self.mesh.size
@@ -367,6 +367,8 @@ class DistributedExecutor:
             device_exchange = os.environ.get("TRINO_TPU_DEVICE_EXCHANGE", "1") != "0"
         self.device_exchange = bool(device_exchange)
         self.local = LocalExecutor(catalogs, self.mesh.devices[0], memory_pool=memory_pool)
+        # the fragments that run locally coalesce at the statement's width
+        self.local.dispatch_batch = dispatch_batch
         # a kernel launches on the current device's stream: positions on
         # other cards run their steps with their device current
         self._switch = len(self.mesh.distinct_devices) > 1 and any(

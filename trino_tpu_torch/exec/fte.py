@@ -384,10 +384,13 @@ class FaultTolerantExecutor:
         self._lock = threading.Lock()
 
     # -- public ----------------------------------------------------------------
-    def execute(self, plan: P.PlanNode):
-        """Run ``plan`` to a ``MaterializedResult``."""
+    def execute(self, plan: P.PlanNode, dispatch_batch=None):
+        """Run ``plan`` to a ``MaterializedResult``; the private executor
+        coalesces at ``dispatch_batch`` (None: the process default) for this
+        query."""
         local = self.local
         with self._lock:
+            local.dispatch_batch = dispatch_batch
             local._overrides = {}
             self._task_seq = 0
             self._exchange_seq += 1
@@ -401,6 +404,7 @@ class FaultTolerantExecutor:
                     return local._materialize(page, dd)
             finally:
                 local._overrides = {}
+                local.dispatch_batch = None
                 local.close_producers()
                 local._release_reserved()
                 # the spool is the query's durable state, not a cache: a

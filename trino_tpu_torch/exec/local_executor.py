@@ -5,13 +5,42 @@ A plan runs as streaming segments: a ``_Stream`` pairs a page source (one
 generated page per connector split) with a fused transform (filter, project,
 join probe) applied to each page eagerly, on the engine's device.  Pipeline
 breakers (aggregation, join build, sort, top-N) materialize.  These are the
-page-loop paths the reference takes on the CPU, with its Grace-partitioned
-and streaming operators over the tiered spill (``exec/spill.py``) and its
-index join (``_index_lookup_stream``: a small build side's distinct keys
-become one keyed lookup at a connector that supports it); its scan-fused
-whole-scan programs and dispatch coalescing are not ported, and where a
-plan asks for a path that is not ported the executor raises
-``NotImplementedError`` naming the node and the path.
+page-loop paths of the reference, with its Grace-partitioned and streaming
+operators over the tiered spill (``exec/spill.py``) and its index join
+(``_index_lookup_stream``: a small build side's distinct keys become one
+keyed lookup at a connector that supports it).  Where a plan asks for a path
+that is not ported the executor raises ``NotImplementedError`` naming the
+node and the path.
+
+Dispatch coalescing, as in the reference: every per-page consumer loop (the
+stream materialization, the compaction boundary, the direct, hash and
+streaming group-by inserts, the ungrouped aggregation) takes the stream's
+pages in groups of ``dispatch_batch`` shape-uniform pages
+(``_coalesced_batches``), concatenated per column with ``torch.cat``
+(``_stack_pages``), and runs the group's transform, its kernel launches and
+its live-count read once.  The reference pads a short last group to exactly
+K pages so that XLA compiles one executable per page shape; the port
+compiles nothing, so a short group runs at its own size, and
+``coalesced_splits`` counts the real splits of each group of two or more.
+Rows keep split order, so a group computes what its pages compute one by
+one.  The reference's coalescing double buffer overlaps a host-to-device
+copy of each generated page; the port generates on the device, so there is
+no copy to overlap (``_staged_scan_pages`` keeps the ``h2d`` point and its
+count).
+
+The scan-fused whole-scan runners, as in the reference, where a stream's
+pages are a generator's splits (``_TracedSrc``): the grouped aggregation
+(``_run_aggregate_scan_fused``), the ungrouped one
+(``_run_global_scan_fused``) and the materialization (``_concat_traced``, a
+count pass and a fill pass) run one body, generate -> stage transforms ->
+insert, accumulate or pack, per split offset.  On a CUDA engine the body is
+captured once per (plan node, mode, shapes) as a CUDA graph
+(``_fused_scan``), and each split is one replay that reads its offset from
+the device and advances the index inside the graph; on the CPU the same body
+runs in a plain loop.  They are on by default on a CUDA engine and off on
+the CPU (``_scan_fused_enabled``, ``TRINO_TPU_SCAN_FUSED``); eligibility is
+decided from the compiled plan before any capture, and a capture or replay
+error raises.
 
 Every device -> host read goes through ``LocalExecutor._host``, which counts
 them (``host_reads``) and their bytes (``host_bytes``).  Host arrays the query
@@ -68,7 +97,7 @@ import numpy as np
 import torch
 
 from ..execution import faults, tracing
-from ..ops import hashagg
+from ..ops import cuda_kernels, hashagg
 from ..ops.arrays import (ArrayData, MapData, compact_rows, pack_span, span_len,
                           span_start, unnest_indices)
 from ..ops.cuda_kernels import _ranged
@@ -80,8 +109,8 @@ from ..ops.hashjoin import (DIRECT_JOIN_RANGE_MAX, DirectJoinTable,
                             probe_slots)
 from ..page import Page, Schema
 from ..sql import plan as P
-from ..sql.ir import (Call, FieldRef, bind_params, device_array, device_constants,
-                      evaluate, evaluate_predicate)
+from ..sql.ir import (Call, FieldRef, bind_params, current_params, device_array,
+                      device_constants, evaluate, evaluate_predicate)
 from ..types import ArrayType, BIGINT, DecimalType, MapType, TimestampType, torch_dtype
 
 __all__ = ["BatchUnsupported", "LocalExecutor", "MaterializedResult"]
@@ -129,6 +158,21 @@ class _ScanInfo:
     # which keys the buffer pool on them
 
 
+@dataclasses.dataclass(frozen=True)
+class _TracedSrc:
+    """Provenance of a stream whose pages a generator can make again on the
+    device: every page equals ``conn.generate_traced(table, split.lo,
+    length, scan_cols)`` pushed through ``stages`` (the chains before a
+    compaction boundary, whose packing changes no live row) and then the
+    stream's own transform.  The scan-fused runners read it."""
+
+    conn: object
+    table: str
+    splits: tuple  # equal-length split ranges, after static and dynamic pruning
+    scan_cols: tuple  # the columns generate_traced makes
+    stages: tuple = ()  # earlier _Streams whose (transform, aux) apply first
+
+
 @dataclasses.dataclass
 class _Stream:
     """A streaming pipeline segment: a source of raw pages + a fused transform.
@@ -142,6 +186,14 @@ class _Stream:
     aux: tuple = ()
     clustered_by: tuple = ()  # source columns whose equal-value rows are contiguous
     compacted: bool = False  # a compaction boundary already shrank this chain
+    traced_src: Optional[_TracedSrc] = None  # regenerable on the device
+
+    def run_group(self, pages):
+        """The transform of a coalesced group (``_coalesced_batches``): one
+        page runs alone, two or more stacked in order run once."""
+        if len(pages) == 1:
+            return self.run(pages[0])
+        return self.transform(*_stack_pages(pages), self.aux)
 
     def run(self, page: Page):
         try:
@@ -173,11 +225,11 @@ def _not_ported(what: str):
 
 
 def _dispatch_batch_default() -> int:
-    """The process default of the ``dispatch_batch`` session property:
-    ``TRINO_TPU_DISPATCH_BATCH`` (4 unset, at least 1), read as the reference
-    reads it.  It enters the plan-cache key (``engine._plan_shape_props``)
-    and the adaptive advisor's ``dispatch_batch`` correction; the port's
-    executor coalesces no dispatches, so nothing else reads it."""
+    """The process default of the ``dispatch_batch`` session property, the
+    dispatch-coalescing width: ``TRINO_TPU_DISPATCH_BATCH`` (4 unset, at
+    least 1; 1 runs every split on its own), read as the reference reads
+    it.  The session property overrides it per statement and enters the
+    plan-cache key (``engine._plan_shape_props``)."""
     import os
 
     try:
@@ -185,6 +237,95 @@ def _dispatch_batch_default() -> int:
     except ValueError:
         return 4
     return max(v, 1)
+
+
+def _scan_fused_enabled(device) -> bool:
+    """Do the scan-fused runners take eligible streams?  They trade
+    generating the scan again on the device (twice for a materialization)
+    for one host dispatch per split and one read per scan: on by default
+    where the engine's device is CUDA, off on the CPU, where generation is
+    the cost and dispatches are free.  ``TRINO_TPU_SCAN_FUSED=1/0`` forces
+    either way (the CPU tests force them on), read per statement."""
+    import os
+
+    mode = os.environ.get("TRINO_TPU_SCAN_FUSED")
+    if mode is not None:
+        return mode not in ("0", "false", "no")
+    return torch.device(device).type == "cuda"
+
+
+# the fused runners capture CUDA graphs on a CUDA device; False runs the same
+# body eagerly in a loop there too (the card tests and chip_smoke hold a
+# replay against that eager run)
+FUSED_GRAPHS = True
+
+
+def _page_batch_sig(page):
+    """Shape-class signature of a page for dispatch coalescing, or None when
+    it never coalesces (a host column, an empty page).  Pages group only
+    with equal signatures."""
+    if page.capacity == 0 or not all(isinstance(c, torch.Tensor) for c in page.columns):
+        return None
+    return (tuple((c.dtype, tuple(c.shape), c.device) for c in page.columns),
+            tuple(m is not None for m in page.null_masks), page.valid is not None)
+
+
+def _coalesced_batches(pages_iter, batch: int):
+    """Consecutive shape-uniform pages in groups of at most ``batch``: lists
+    of pages, a one-page list for a page that runs alone.  A group of two
+    or more counts its splits (``tracing.record_coalesced``: EXPLAIN
+    ANALYZE's "splits coalesced").  The last group of a run of equal
+    signatures may be short, and runs at its own size (no padding: the port
+    compiles nothing per shape).  ``batch`` 1 gives one page at a time.
+    Closing this generator closes its source."""
+    try:
+        if batch <= 1:
+            for pg in pages_iter:
+                yield [pg]
+            return
+        buf: list = []
+        sig = None
+
+        def flush():
+            while buf:
+                group = buf[:batch]
+                del buf[:batch]
+                if len(group) > 1:
+                    tracing.record_coalesced(len(group))
+                yield group
+
+        for pg in pages_iter:
+            s = _page_batch_sig(pg)
+            if s is None:
+                yield from flush()
+                sig = None
+                yield [pg]
+                continue
+            if sig is not None and s != sig:
+                yield from flush()
+            sig = s
+            buf.append(pg)
+            if len(buf) >= batch:
+                yield from flush()
+        yield from flush()
+    finally:
+        close = getattr(pages_iter, "close", None)
+        if close is not None:
+            close()
+
+
+def _stack_pages(pages):
+    """(cols, nulls, valid) of uniform pages concatenated in order: rows
+    keep split order, so every row-wise transform computes what it computes
+    page by page."""
+    nc = len(pages[0].columns)
+    cols = tuple(torch.cat([p.columns[ci] for p in pages]) for ci in range(nc))
+    nulls = tuple(
+        None if all(p.null_masks[ci] is None for p in pages) else torch.cat([
+            torch.zeros((p.capacity,), dtype=torch.bool, device=p.columns[ci].device)
+            if p.null_masks[ci] is None else p.null_masks[ci] for p in pages])
+        for ci in range(nc))
+    return cols, nulls, torch.cat([p.valid_mask() for p in pages])
 
 
 class PlanMemo:
@@ -218,6 +359,179 @@ class PlanMemo:
 
     def __len__(self) -> int:
         return len(self._entries)
+
+
+def _tree_sig(obj, leaves: list):
+    """Structure of ``obj`` (tuples, lists, dataclasses, None, host and
+    numpy scalars and strings around tensors), each tensor appended to ``leaves`` and
+    standing in the structure by its shape and dtype; None where something
+    else (a host array) sits in it.  Hashable: the key of a captured body's
+    inputs."""
+    if isinstance(obj, torch.Tensor):
+        leaves.append(obj)
+        return ("T", tuple(obj.shape), obj.dtype, obj.device)
+    if isinstance(obj, (tuple, list)):
+        subs = tuple(_tree_sig(o, leaves) for o in obj)
+        return None if any(x is None for x in subs) else (type(obj).__name__, subs)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        subs = tuple((f.name, _tree_sig(getattr(obj, f.name), leaves))
+                     for f in dataclasses.fields(obj))
+        return None if any(x is None for _, x in subs) else ("D", type(obj), subs)
+    if obj is None or isinstance(obj, (bool, int, float, str, np.generic)):
+        return ("V", type(obj), obj)
+    return None
+
+
+def _tree_build(sig, leaves):
+    """The structure ``sig`` (from ``_tree_sig``) over the tensors of the
+    iterator ``leaves``."""
+    kind = sig[0]
+    if kind == "T":
+        return next(leaves)
+    if kind == "tuple":
+        return tuple(_tree_build(x, leaves) for x in sig[1])
+    if kind == "list":
+        return [_tree_build(x, leaves) for x in sig[1]]
+    if kind == "D":
+        return sig[1](**{name: _tree_build(x, leaves) for name, x in sig[2]})
+    return sig[2]
+
+
+class _FusedGraph:
+    """One captured whole-scan body: the CUDA graph and the static tensors
+    it reads and writes (its inputs are copied in before the replays of a
+    statement, its state read out after), the planner constants it reads,
+    and the kernel launches one replay holds.  ``node`` keeps the plan node
+    whose id keys it alive."""
+
+    def __init__(self, node, graph, los, idx, state, aux, params, consts, launches):
+        self.lock = threading.Lock()
+        self.node, self.graph, self.los, self.idx = node, graph, los, idx
+        self.state, self.aux, self.params = state, aux, params
+        self.consts, self.launches = consts, launches
+        self.los_host = None
+
+
+# every captured body's intermediates come from one private memory pool per
+# card, shared by every engine's graphs: all of them replay on the card's
+# one (default) stream, so never two at once, and none keeps a tensor of the
+# pool past its replay (each copies what it keeps into static tensors made
+# outside it), so the pool holds the largest body's intermediates, not their
+# sum.  Captures into it take turns under the lock.  A pool ends with the
+# last graph that used it (torch frees it then), so a capture after that
+# takes a new one: device index -> [pool handle, live graphs].
+_GRAPH_POOLS: dict = {}
+_CAPTURE_LOCK = threading.RLock()
+
+# the bytes of static tensors (states, stage state, offsets) a fused cache
+# keeps before it drops its least recently used graphs
+FUSED_CACHE_BYTES = 4 << 30
+
+
+def _graph_pool(device, graph):
+    """The card's shared graph pool for a capture of ``graph`` (call under
+    ``_CAPTURE_LOCK``)."""
+    idx = torch.device(device).index or 0
+    slot = _GRAPH_POOLS.get(idx)
+    if slot is None or slot[1] == 0:
+        slot = _GRAPH_POOLS[idx] = [torch.cuda.graph_pool_handle(), 0]
+    slot[1] += 1
+
+    def release(slot=slot):
+        with _CAPTURE_LOCK:
+            slot[1] -= 1
+
+    weakref.finalize(graph, release)
+    return slot[0]
+
+
+class FusedGraphCache:
+    """The scan-fused runners' captured bodies (``_FusedGraph``) and the
+    output layouts of their chains, keyed by plan node identity, mode and
+    shapes, least recently used out first, at most ``max_entries`` and
+    ``max_bytes`` of static tensors.  The engine keeps one for the plans
+    that run again and clears it in ``_invalidate``; an executor without it
+    keeps its own and clears it when its statement ends.  ``pool_bytes``
+    counts the device memory its captures added to the card's graph pool
+    (the statements' counters hold the captures and replays).  The
+    engine's cache outlives its statements, so it holds both its static
+    bytes and ``pool_bytes`` in the engine's ``memory_pool`` (tag
+    ``fused-graphs``) while it keeps them: the static bytes until their
+    entry leaves, the pool's until ``clear``.  An executor's own cache
+    ends with its statement, like the statement's other temporaries, and
+    holds nothing (``memory_pool`` None)."""
+
+    TAG = "fused-graphs"
+
+    def __init__(self, max_entries: int = 64, max_bytes: Optional[int] = None,
+                 memory_pool=None):
+        self.max_entries = max_entries
+        self.max_bytes = FUSED_CACHE_BYTES if max_bytes is None else max_bytes
+        self.memory_pool = memory_pool
+        self.lock = threading.Lock()
+        self._entries: OrderedDict = OrderedDict()  # key -> (value, static bytes)
+        self._bytes = 0
+        self.pool_bytes = 0
+
+    def _held(self, delta: int) -> None:
+        if self.memory_pool is not None and delta:
+            if delta > 0:
+                self.memory_pool.hold(delta, self.TAG)
+            else:
+                self.memory_pool.release(-delta, self.TAG)
+
+    def add_pool_bytes(self, nbytes: int) -> None:
+        """Count what a capture added to the card's graph pool."""
+        with self.lock:
+            self.pool_bytes += nbytes
+            self._held(nbytes)
+
+    def get(self, key):
+        with self.lock:
+            hit = self._entries.get(key)
+            if hit is None:
+                return None
+            self._entries.move_to_end(key)
+            return hit[0]
+
+    def put(self, key, value, nbytes: int = 0) -> None:
+        with self.lock:
+            before = self._bytes
+            old = self._entries.pop(key, None)
+            if old is not None:
+                self._bytes -= old[1]
+            self._entries[key] = (value, nbytes)
+            self._bytes += nbytes
+            while len(self._entries) > 1 and (len(self._entries) > self.max_entries
+                                              or self._bytes > self.max_bytes):
+                _, (_, nb) = self._entries.popitem(last=False)
+                self._bytes -= nb
+            self._held(self._bytes - before)
+
+    def graphs(self) -> int:
+        with self.lock:
+            return sum(isinstance(v, _FusedGraph) for v, _ in self._entries.values())
+
+    def clear(self) -> None:
+        with self.lock:
+            self._held(-(self._bytes + self.pool_bytes))
+            self._entries.clear()
+            self._bytes = 0
+            self.pool_bytes = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+
+def _gb_flat(state) -> list:
+    """A ``GroupByState`` as the flat tensor list a fused body carries."""
+    return [state.table, *state.key_cols, *state.key_nulls, *state.accs, state.overflow]
+
+
+def _gb_state(flat, nk: int):
+    """``_gb_flat``'s inverse for ``nk`` keys."""
+    return hashagg.GroupByState(flat[0], tuple(flat[1:1 + nk]), tuple(flat[1 + nk:1 + 2 * nk]),
+                                tuple(flat[1 + 2 * nk:-1]), flat[-1])
 
 
 _PARAM_TLS = threading.local()
@@ -337,6 +651,36 @@ class LocalExecutor:
         # aggregation or probe task (exec/fte) runs its fragment over these
         # splits through the same page sources and transforms as a whole scan
         self._split_restriction: dict = {}
+        # the statement's dispatch-coalescing width (None: the process
+        # default, TRINO_TPU_DISPATCH_BATCH); the engine sets it per
+        # statement from the ``dispatch_batch`` session property
+        self.dispatch_batch = None
+        # the scan-fused runners' captured bodies: the engine's cache for
+        # plans that run again (set by the engine), else this executor's
+        # own, cleared when its statement ends
+        self.fused_cache = FusedGraphCache(max_entries=16)
+        self._fused_own = True
+
+    def _batch(self) -> int:
+        """The statement's dispatch-coalescing width (at least 1)."""
+        b = self.dispatch_batch
+        if b is None or int(b) <= 0:
+            return _dispatch_batch_default()
+        return int(b)
+
+    def _outs(self, stream: _Stream, pages=None):
+        """The transformed (cols, nulls, valid) of ``stream``'s pages (or of
+        ``pages``, an iterator of its raw pages), one per coalesced group of
+        ``_batch()`` pages."""
+        src = stream.pages() if pages is None else pages
+        for group in _coalesced_batches(src, self._batch()):
+            yield stream.run_group(group)
+
+    def use_fused_cache(self, cache: "FusedGraphCache") -> None:
+        """Keep captured bodies in ``cache`` (the engine's) instead of this
+        executor's own."""
+        self.fused_cache = cache
+        self._fused_own = False
 
     # ------------------------------------------------------------------ stats
     def begin_plan(self, root: P.PlanNode) -> None:
@@ -456,13 +800,17 @@ class LocalExecutor:
         spills, self._spills = self._spills, []
         for sp in spills:
             sp.close()
+        if self._fused_own:
+            self.fused_cache.clear()  # the executor's own graphs end with it
         return len(procs)
 
     def forget_plan(self, plan: P.PlanNode) -> None:
         """Drop what this executor keeps of a plan the caller replaces (a
         worker's evicted fragment, a coordinator's stale plan): its stats,
-        boundary records and plan-history facts.  The port compiles no
-        pipelines and caches no streams, so nothing else is keyed by it."""
+        boundary records and plan-history facts.  The port caches no
+        streams; its captured scan-fused bodies hold the nodes they are
+        keyed by, so their ids stay theirs until the fused cache lets them
+        go."""
         ids = set()
 
         def walk(n):
@@ -850,7 +1198,7 @@ class LocalExecutor:
             # streaming leaf reached directly (scan/filter/project/join-probe):
             # materialize
             stream = self._compile_stream(node)
-            page, dicts = self._concat_stream(stream), stream.dicts
+            page, dicts = self._concat_stream(stream, node), stream.dicts
         self._record(node, page, t0)
         return page, dicts
 
@@ -882,8 +1230,7 @@ class LocalExecutor:
         them, through the compaction kernel; dense pages pass untouched."""
 
         def pages(up=up, self=self):
-            for page in up.pages():
-                cols, nulls, valid = up.run(page)
+            for cols, nulls, valid in self._outs(up):
                 n = int(valid.shape[0])
                 count = int(self._host([torch.sum(valid)], site="compact.count")[0])
                 bucket = n
@@ -901,8 +1248,13 @@ class LocalExecutor:
         si = up.scan_info
         if si is not None:
             si = dataclasses.replace(si, replayable=False)
+        # compaction moves live rows and changes none: a regenerated page
+        # runs the upstream chain as a stage before this one
+        tsrc = up.traced_src
+        if tsrc is not None:
+            tsrc = dataclasses.replace(tsrc, stages=tsrc.stages + (up,))
         return _Stream(up.schema, up.dicts, pages, _identity, si,
-                       clustered_by=up.clustered_by, compacted=True)
+                       clustered_by=up.clustered_by, compacted=True, traced_src=tsrc)
 
     # -- streaming segment compilation ---------------------------------------
     def _subtree_overridden(self, node) -> bool:
@@ -933,7 +1285,16 @@ class LocalExecutor:
                 if hasattr(conn, "clustered_by") else ()
             pages = self._scan_pages_source(conn, node.catalog, node.table, splits,
                                             node.columns)
-            return _Stream(node.schema, dicts, pages, _identity, si, clustered_by=clustered)
+            # a generator's equal-length splits can be made again on the
+            # device from their offsets: the scan-fused runners' source
+            tsrc = None
+            if (hasattr(conn, "generate_traced") and not getattr(conn, "HOST_DECODE", False)
+                    and splits and all(hasattr(sp, "lo") and hasattr(sp, "hi")
+                                       for sp in splits)
+                    and len({sp.hi - sp.lo for sp in splits}) == 1):
+                tsrc = _TracedSrc(conn, node.table, tuple(splits), tuple(node.columns))
+            return _Stream(node.schema, dicts, pages, _identity, si, clustered_by=clustered,
+                           traced_src=tsrc)
 
         if isinstance(node, P.Filter):
             up = self._compile_stream(node.child)
@@ -950,14 +1311,19 @@ class LocalExecutor:
                 pruned = (self._scan_pages_source(psi.conn, psi.catalog, psi.table,
                                                   psi.splits, psi.scan_columns), psi)
             pages, si = pruned if pruned is not None else (up.pages, up.scan_info)
+            tsrc = up.traced_src
+            if pruned is not None and tsrc is not None:
+                tsrc = dataclasses.replace(tsrc, splits=tuple(si.splits))
             # bind-time split pruning: a parameter carries no plan-time value,
             # so the pass above cannot see it; prune per execution from the
             # bound values, starting from the statically kept splits
             rt = self._param_pruned_source(up, pred, si)
             if rt is not None:
                 pages = rt
+                tsrc = None  # the kept splits change with each binding
             return _Stream(up.schema, up.dicts, pages, transform, si, aux=up.aux,
-                           clustered_by=up.clustered_by, compacted=up.compacted)
+                           clustered_by=up.clustered_by, compacted=up.compacted,
+                           traced_src=tsrc)
 
         if isinstance(node, P.Project):
             up = self._compile_stream(node.child)
@@ -983,7 +1349,8 @@ class LocalExecutor:
                     up.scan_info.columns[e.index] if isinstance(e, FieldRef) else None
                     for e in node.exprs))
             return _Stream(node.schema, dicts, up.pages, transform, si, aux=up.aux,
-                           clustered_by=up.clustered_by, compacted=up.compacted)
+                           clustered_by=up.clustered_by, compacted=up.compacted,
+                           traced_src=up.traced_src)
 
         if isinstance(node, P.Join):
             return self._compile_join(node)
@@ -1078,16 +1445,377 @@ class LocalExecutor:
             return None
         return tuple(names)
 
+    # -- the scan-fused whole-scan runners ------------------------------------
+    def _traced_chain(self, stream):
+        """``_traced_chain_always`` where the fused runners are on."""
+        if not _scan_fused_enabled(self.device):
+            return None
+        return self._traced_chain_always(stream)
+
+    def _traced_chain_always(self, stream):
+        """(chain, split offsets, stage auxes) of a regenerable stream, or
+        None.  ``chain(lo, auxes)`` makes one split's raw page from its
+        offset ``lo`` (a host int or a 0-d device tensor) and pushes it
+        through every stage: (cols, nulls, valid).  The stages' device state
+        is an argument, never closed over, so a captured body reads the
+        copies it is given.  A stream whose state holds anything but
+        tensors and host scalars is not eligible."""
+        ts = stream.traced_src
+        if ts is None or not ts.splits:
+            return None
+        stages = ts.stages + (stream,)
+        auxes = tuple(st.aux for st in stages)
+        if _tree_sig(auxes, []) is None:
+            return None
+        length = int(ts.splits[0].hi - ts.splits[0].lo)
+        los = tuple(int(sp.lo) for sp in ts.splits)
+        transforms = tuple(st.transform for st in stages)
+
+        def chain(lo, auxes, ts=ts, length=length, transforms=transforms):
+            cols, valid = ts.conn.generate_traced(ts.table, lo, length, ts.scan_cols)
+            if valid is None:
+                valid = torch.ones(cols[0].shape, dtype=torch.bool, device=cols[0].device)
+            nulls = tuple(None for _ in cols)
+            for tf, aux in zip(transforms, auxes):
+                cols, nulls, valid = tf(cols, nulls, valid, aux)
+            return cols, nulls, valid
+
+        return chain, los, auxes
+
+    def _chain_layout(self, node, chain, los, auxes):
+        """(column dtypes, which columns carry a null mask, rows per split)
+        of a chain's output, or None where a column is not a device tensor.
+        The chain runs once on the first split (the reference's
+        ``eval_shape`` runs nothing), and its launches count as the
+        statement's; the layout is kept in the fused cache, so a warm
+        statement runs nothing."""
+        key = ("layout", id(node), len(los))
+        hit = self.fused_cache.get(key)
+        if hit is None:
+            cols, nulls, valid = chain(los[0], auxes)
+            if all(isinstance(c, torch.Tensor) and c.dim() == 1 for c in cols):
+                lay = (tuple(c.dtype for c in cols), tuple(m is not None for m in nulls),
+                       int(valid.shape[0]))
+            else:
+                lay = None
+            hit = (node, lay)
+            self.fused_cache.put(key, hit)
+        return hit[1]
+
+    def _fused_scan(self, key, node, site: str, los, state, aux, body):
+        """Run ``body(lo, state, aux) -> state`` (flat lists of tensors of
+        fixed shapes) over every split offset in ``los``; returns the final
+        state, tensors the caller owns.
+
+        On the CPU, or with ``FUSED_GRAPHS`` off, a plain loop.  On the card
+        the body is captured once as a CUDA graph (cached in
+        ``fused_cache`` under ``key`` and the shapes of its inputs) that
+        reads its split's offset from a device array at an index the graph
+        advances itself; a statement copies its initial state, its stage
+        state and its bound parameters into the graph's static tensors,
+        replays the graph once per split, and takes a copy of the final
+        state.  A body that updates its state in place (the group-by
+        inserts, the traced concat's buffers) writes the static tensors
+        themselves; the capture copies back only the leaves it returns
+        anew (counters, scalar accumulators).  Each replay is a
+        ``dispatch`` fault point, holds an in-flight entry, and charges the
+        kernel launches its body holds.
+        ``body`` reads no device tensor but its arguments and those it makes:
+        a graph replays the addresses it saw at capture."""
+        n = len(los)
+        if self.device.type != "cuda" or not FUSED_GRAPHS:
+            offs = torch.as_tensor(np.asarray(los, dtype=np.int64)) \
+                if self.device.type == "cpu" \
+                else self._to_device(np.asarray(los, dtype=np.int64))
+            state = list(state)
+            for i in range(n):
+                faults.maybe_inject("dispatch", site)
+                state = list(body(offs[i], state, aux))
+            return state
+        aux_leaves, par_leaves = [], []
+        asig = _tree_sig(aux, aux_leaves)
+        params = current_params()
+        psig = _tree_sig(params, par_leaves)
+        gkey = key + (n, asig, psig,
+                      tuple((tuple(t.shape), t.dtype) for t in state))
+        entry = self.fused_cache.get(gkey)
+        if entry is None:
+            entry = self._fused_capture(gkey, node, los, state, aux_leaves, asig,
+                                        par_leaves, psig, body)
+        reg = tracing.current_inflight()
+        with entry.lock:
+            for dst, src in zip(entry.state, state):
+                dst.copy_(src)
+            for dst, src in zip(entry.aux, aux_leaves):
+                dst.copy_(src)
+            for dst, src in zip(entry.params, par_leaves):
+                dst.copy_(src)
+            if entry.los_host != tuple(los):
+                entry.los.copy_(self._to_device(np.asarray(los, dtype=np.int64)))
+                entry.los_host = tuple(los)
+            entry.idx.zero_()
+            for _ in range(n):
+                tok = reg.enter("dispatch", site)
+                try:
+                    faults.maybe_inject("dispatch", site)
+                    entry.graph.replay()
+                finally:
+                    reg.exit(tok)
+                cuda_kernels.charge_launches(entry.launches)
+            tracing.record_graph(replays=n)
+            return [t.clone() for t in entry.state]
+
+    def _fused_capture(self, gkey, node, los, state, aux_leaves, asig, par_leaves, psig,
+                       body):
+        """Capture ``body`` over static copies of its inputs (see
+        ``_fused_scan``).  The body first runs once eagerly on a scratch copy
+        of the state, on a side stream: that builds the kernels, copies the
+        planner constants it reads to the device (kept by the entry: a
+        capture copies nothing from the host) and loads every CUDA module it
+        needs; its launches run on the card and count as the statement's
+        (the capture's launch nothing).  The static tensors and what the
+        capture adds to the graph pool are held in the engine cache's memory
+        pool (``FusedGraphCache``).  A capture that fails raises."""
+        cache = self.fused_cache
+        dev = self.device
+        with _CAPTURE_LOCK:
+            hit = cache.get(gkey)
+            if hit is not None:
+                return hit
+            cur = torch.cuda.current_stream(dev)
+            sstate = [t.clone() for t in state]
+            saux = [t.clone() for t in aux_leaves]
+            spar = [t.clone() for t in par_leaves]
+            aux = _tree_build(asig, iter(saux))
+            params = _tree_build(psig, iter(spar))
+            offs = self._to_device(np.asarray(los, dtype=np.int64))
+            idx = torch.zeros((), dtype=torch.int64, device=dev)
+            consts: dict = {}
+            side = torch.cuda.Stream(device=dev)
+            side.wait_stream(cur)
+            graph = torch.cuda.CUDAGraph()
+            with device_constants(self._count_h2d, cache=consts, scalars=True), \
+                    bind_params(params), cuda_kernels.recording_launches() as rec:
+                with torch.cuda.stream(side):
+                    scratch = [t.clone() for t in sstate]
+                    body(offs[0], scratch, aux)
+                    del scratch
+                side.synchronize()
+                cuda_kernels.charge_launches(rec)
+                rec.clear()
+                before = torch.cuda.memory_reserved(dev)
+                with torch.cuda.stream(side):
+                    graph.capture_begin(pool=_graph_pool(dev, graph),
+                                        capture_error_mode="thread_local")
+                    try:
+                        lo = offs.index_select(0, idx.view(1)).view(())
+                        out = body(lo, sstate, aux)
+                        for dst, src in zip(sstate, out):
+                            if src is not dst:
+                                dst.copy_(src)
+                        idx.add_(1)
+                        del out, lo
+                    except BaseException:
+                        try:
+                            graph.capture_end()
+                        except Exception:  # noqa: BLE001 - the body's error is raised
+                            pass
+                        raise
+                    graph.capture_end()
+                cur.wait_stream(side)
+                launches = list(rec)
+            cache.add_pool_bytes(max(torch.cuda.memory_reserved(dev) - before, 0))
+            tracing.record_graph(captures=1)
+            entry = _FusedGraph(node, graph, offs, idx, sstate, saux, spar, consts, launches)
+            entry.los_host = tuple(los)
+            cache.put(gkey, entry, sum(t.numel() * t.element_size()
+                                       for t in (*sstate, *saux, *spar, offs)))
+            return entry
+
+    def _run_aggregate_scan_fused(self, node, stream, key_types, acc_specs, acc_exprs,
+                                  acc_kinds):
+        """Whole-scan grouped aggregation, generate -> transform (filters,
+        projections, single-match join probes) -> group insert per split, in
+        one captured body (``_fused_scan``): one host read per scan instead
+        of the page loop's chunked reads.  The table cannot grow inside the
+        scan: direct mode reserves its table and runs once (keys out of the
+        statistics' ranges: hash mode); hash mode is sized from the
+        statistics (up to 2^24 slots, the page loop's 2^20: an undershoot
+        costs a whole scan again) and runs again at 4x on overflow, past the
+        ceiling or the memory pool the Grace-partitioned path takes it.  A
+        clustered input with a huge or unknown group count is left to the
+        streaming aggregation.  None: the stream is not regenerable or the
+        runners are off."""
+        traced = self._traced_chain(stream)
+        if traced is None:
+            return None
+        chain, los, auxes = traced
+        key_dtypes = tuple(t.dtype for t in key_types)
+        key_ranges = self._key_ranges(stream, node)
+        nk = len(node.keys)
+        cfg = None
+        if all(r is not None for r in key_ranges):
+            lay = self._chain_layout(node, chain, los, auxes)
+            if lay is None:
+                return None
+            cfg = hashagg.direct_config(key_ranges, tuple(lay[1][i] for i in node.keys))
+        key_w = sum(np.dtype(t.dtype).itemsize + 1 for t in key_types)
+        acc_w = sum(np.dtype(dt).itemsize for dt, _ in acc_specs)
+
+        def state_bytes(cap):
+            return (cap + 1) * (8 + key_w + acc_w)
+
+        def make_body(insert):
+            def body(lo, flat, auxes):
+                cols, nulls, valid = chain(lo, auxes)
+                inputs = [(None, None) if e is None else _broadcast(evaluate(e, cols, nulls),
+                                                                   valid)
+                          for e in acc_exprs]
+                return _gb_flat(insert(_gb_state(flat, nk), tuple(cols[i] for i in node.keys),
+                                       tuple(nulls[i] for i in node.keys), inputs, valid))
+            return body
+
+        grace = node.grace_parts or 4
+        if cfg is not None and self.memory_pool.try_reserve(state_bytes(cfg.capacity),
+                                                            "group-by"):
+            try:
+                body = make_body(lambda st, kv, kn, inp, v: hashagg.direct_groupby_insert(
+                    st, cfg, kv, v, inp, acc_kinds, kn, inplace=True))
+                init = hashagg.direct_groupby_init(cfg, key_dtypes, acc_specs,
+                                                   device=self.device)
+                state = _gb_state(self._fused_scan(("agg", id(node), "direct", cfg), node,
+                                                   "scan_fused.agg", los, _gb_flat(init),
+                                                   auxes, body), nk)
+                if not bool(self._host([state.overflow], "agg.fused.overflow")[0]):
+                    return self._finalize_groups(node, stream, state)
+            finally:
+                self.memory_pool.free(state_bytes(cfg.capacity), "group-by")
+            # stale statistics put keys out of range, or no memory: hash mode
+        if self._streaming_agg_order(stream, node) is not None:
+            est = self._agg_capacity_estimate(stream, node, key_ranges)
+            if est is None or 2 * est > MAX_GROUP_CAPACITY:
+                return None
+        capacity = node.capacity or DEFAULT_GROUP_CAPACITY
+        if not node.capacity:
+            est = self._agg_capacity_estimate(stream, node, key_ranges)
+            if est is not None:
+                target = 1 << max(2 * est - 1, 1).bit_length()
+                capacity = max(capacity, min(target, 1 << 24))
+        capacity = ceil_pow2(capacity)
+        if not self.memory_pool.try_reserve(state_bytes(capacity), "group-by"):
+            return self._run_aggregate_partitioned(node, grace, stream)
+        resv = state_bytes(capacity)
+        body = make_body(lambda st, kv, kn, inp, v: hashagg.groupby_insert(
+            st, kv, key_types, v, inp, acc_kinds, kn, inplace=True))
+        try:
+            while True:
+                init = hashagg.groupby_init(capacity, key_dtypes, acc_specs,
+                                            device=self.device)
+                state = _gb_state(self._fused_scan(("agg", id(node), "hash"), node,
+                                                   "scan_fused.agg", los, _gb_flat(init),
+                                                   auxes, body), nk)
+                if not bool(self._host([state.overflow], "agg.fused.overflow")[0]):
+                    return self._finalize_groups(node, stream, state)
+                grown = capacity * 4
+                delta = state_bytes(grown) - state_bytes(capacity)
+                if grown > MAX_GROUP_CAPACITY \
+                        or not self.memory_pool.try_reserve(delta, "group-by"):
+                    return self._run_aggregate_partitioned(node, grace, stream)
+                resv += delta
+                capacity = grown
+        finally:
+            self.memory_pool.free(resv, "group-by")
+
+    def _run_global_scan_fused(self, node, stream, acc_specs, acc_exprs, acc_kinds):
+        """The ungrouped variant: the accumulators are the body's state, and
+        the scan costs one read (the envelope check).  None where the
+        runners do not take the stream."""
+        traced = self._traced_chain(stream)
+        if traced is None:
+            return None
+        chain, los, auxes = traced
+
+        def body(lo, state, auxes):
+            cols, nulls, valid = chain(lo, auxes)
+            return _global_agg_update(tuple(state), cols, nulls, valid, acc_exprs, acc_kinds)
+
+        state = self._fused_scan(("global", id(node)), node, "scan_fused.global", los,
+                                 list(_global_init_state(acc_specs, self.device)), auxes, body)
+        return self._finish_global(node, state)
+
+    def _concat_traced(self, stream: _Stream, node):
+        """Whole-scan materialization of a regenerable stream in two fused
+        passes and one read: a count pass sums every split's live rows, a
+        fill pass packs each split's live rows (the compaction kernel) into
+        one buffer of the pow2 bucket of that total (at least 1024 rows) at
+        a running offset.  The scan is generated twice.  None where the
+        runners do not take the stream."""
+        traced = self._traced_chain(stream)
+        if traced is None:
+            return None
+        chain, los, auxes = traced
+        lay = self._chain_layout(node, chain, los, auxes)
+        if lay is None:
+            return None
+        dtypes, has_null, rows = lay
+        dev = self.device
+
+        def count_body(lo, state, auxes):
+            _, _, valid = chain(lo, auxes)
+            return [state[0] + torch.sum(valid, dtype=torch.int64)]
+
+        tot = self._fused_scan(("concat-count", id(node)), node, "scan_fused.concat", los,
+                               [torch.zeros((), dtype=torch.int64, device=dev)], auxes,
+                               count_body)[0]
+        total = int(self._host([tot], site="concat.fused.count")[0])
+        if total == 0:
+            cols = tuple(torch.zeros((0,), dtype=dt, device=dev) for dt in dtypes)
+            return Page(stream.schema, cols, tuple(None for _ in cols), None)
+        cap = max(1 << max(total - 1, 1).bit_length(), 1024)
+        nc = len(dtypes)
+        nn = sum(has_null)
+
+        def fill_body(lo, state, auxes):
+            # every device tensor the body reads is made inside it or passed
+            # in: a captured graph keeps the addresses it saw
+            off, bufs = state[0], state[1:]
+            cols, nulls, valid = chain(lo, auxes)
+            lanes = torch.arange(rows, dtype=torch.int64, device=dev)
+            masks = tuple(torch.zeros_like(valid) if m is None else m
+                          for m, h in zip(nulls, has_null) if h)
+            packed, live = compact_rows(tuple(cols) + masks, valid, rows)
+            dst = torch.where(lanes < live, off + lanes, cap)
+            for b, p in zip(bufs, packed):
+                b.index_put_((dst,), p)
+            return [off + live] + list(bufs)
+
+        init = [torch.zeros((), dtype=torch.int64, device=dev)] \
+            + [torch.zeros((cap + 1,), dtype=dt, device=dev) for dt in dtypes] \
+            + [torch.zeros((cap + 1,), dtype=torch.bool, device=dev) for _ in range(nn)]
+        out = self._fused_scan(("concat-fill", id(node)), node, "scan_fused.concat", los,
+                               init, auxes, fill_body)
+        cols = tuple(b[:cap] for b in out[1:1 + nc])
+        masks = iter(out[1 + nc:])
+        nulls = tuple(next(masks)[:cap] if h else None for h in has_null)
+        return Page(stream.schema, cols, nulls, torch.arange(cap, device=dev) < total)
+
     def _run_aggregate(self, node: P.Aggregate):
         if any(s.kind in P.SORTED_AGG_KINDS for s in node.aggs):
             return self._run_sorted_aggregate(node)
         if not node.keys:
             return self._run_global_aggregate(node)
         stream, key_types, acc_specs, acc_exprs, acc_kinds, _ = self._agg_compiled(node)
+        fused = self._run_aggregate_scan_fused(node, stream, key_types, acc_specs,
+                                               acc_exprs, acc_kinds)
+        if fused is not None:
+            return fused
         capacity = node.capacity or DEFAULT_GROUP_CAPACITY
 
         # transformed pages: the first one is computed up front because its
-        # null masks decide the direct layout (key nullability)
+        # null masks decide the direct layout (key nullability); the rest
+        # run a coalesced group at a time into the table, or a page at a
+        # time into the Grace partitions (the spill routes pages, as the
+        # reference's does)
         page_iter = iter(stream.pages())
         first = next(page_iter, None)
         first_out = None
@@ -1105,8 +1833,12 @@ class LocalExecutor:
                 if est is not None:
                     target = 1 << max(2 * est - 1, 1).bit_length()
                     capacity = max(capacity, min(target, 1 << 20))
-        outs = itertools.chain([first_out], (stream.run(p) for p in page_iter)) \
+        outs = itertools.chain([first_out], self._outs(stream, page_iter)) \
             if first is not None else iter(())
+
+        def paged():  # the same pages, not yet read, one at a time
+            return itertools.chain([first_out], (stream.run(p) for p in page_iter)) \
+                if first is not None else iter(())
 
         key_w = sum(np.dtype(t.dtype).itemsize + 1 for t in key_types)
         acc_w = sum(np.dtype(dt).itemsize for dt, _ in acc_specs)
@@ -1133,7 +1865,7 @@ class LocalExecutor:
         if cfg is None:
             if not self.memory_pool.try_reserve(state_bytes(capacity), "group-by"):
                 # no pass read the input yet: route the pages already begun
-                return self._run_aggregate_partitioned(node, grace, stream, outs)
+                return self._run_aggregate_partitioned(node, grace, stream, paged())
             resv["bytes"] = state_bytes(capacity)
         key_dtypes = tuple(t.dtype for t in key_types)
         try:
@@ -1155,7 +1887,7 @@ class LocalExecutor:
                     if not self.memory_pool.try_reserve(state_bytes(capacity), "group-by"):
                         return self._run_aggregate_partitioned(node, grace, stream)
                     resv["bytes"] = state_bytes(capacity)
-                    outs = (stream.run(p) for p in stream.pages())
+                    outs = self._outs(stream)
                     continue
                 state = hashagg.groupby_init(capacity, key_dtypes, acc_specs,
                                              device=self.device)
@@ -1238,7 +1970,7 @@ class LocalExecutor:
                     return self._run_aggregate_partitioned(node, grace, stream)
                 resv += delta
                 capacity = grown
-                outs = (stream.run(p) for p in stream.pages())
+                outs = self._outs(stream)
         finally:
             self.memory_pool.free(resv, "group-by")
 
@@ -1338,10 +2070,16 @@ class LocalExecutor:
         device."""
         stream = self._compile_stream(node.child)
         acc_specs, acc_exprs, acc_kinds = self._agg_accumulators(node)
+        fused = self._run_global_scan_fused(node, stream, acc_specs, acc_exprs, acc_kinds)
+        if fused is not None:
+            return fused
         state = _global_init_state(acc_specs, self.device)
-        for page in stream.pages():
-            cols, nulls, valid = stream.run(page)
+        for cols, nulls, valid in self._outs(stream):
             state = _global_agg_update(state, cols, nulls, valid, acc_exprs, acc_kinds)
+        return self._finish_global(node, state)
+
+    def _finish_global(self, node: P.Aggregate, state):
+        """The one-row result of an ungrouped aggregation's accumulators."""
         accs = tuple(a.reshape(1) for a in state)
         fin_cols, fin_nulls, bad = _finalize_aggs_device(node.aggs, accs)
         if bool(self._host([bad], "agg.global.envelope")[0]):
@@ -1488,7 +2226,7 @@ class LocalExecutor:
             if not isinstance(s_.arg, FieldRef):
                 raise NotImplementedError(f"{s_.kind} argument must be a plain column")
         stream = self._compile_stream(node.child)
-        page = self._concat_stream(stream)
+        page = self._concat_stream(stream, node.child)
         n = page.capacity
 
         def empty(rows):
@@ -1733,6 +2471,9 @@ class LocalExecutor:
                 if probe_stream.scan_info is not None:
                     repl["scan_info"] = dataclasses.replace(probe_stream.scan_info,
                                                             splits=list(kept))
+                if probe_stream.traced_src is not None:
+                    repl["traced_src"] = dataclasses.replace(probe_stream.traced_src,
+                                                             splits=tuple(kept))
                 probe_stream = dataclasses.replace(probe_stream, **repl)
         if not probe_stream.compacted and self._compactable_fraction(node.left):
             # probe cost scales with lanes: do not drag dead rows through the probe
@@ -1823,7 +2564,8 @@ class LocalExecutor:
                 columns=tuple(probe_stream.scan_info.columns) + (None,) * n_build)
         return _Stream(node.schema, _join_dicts(node, probe_stream, build_dicts),
                        probe_stream.pages, transform, si,
-                       aux=(probe_stream.aux, table), compacted=probe_stream.compacted)
+                       aux=(probe_stream.aux, table), compacted=probe_stream.compacted,
+                       traced_src=probe_stream.traced_src)
 
     def _compile_partitioned_local_join(self, node: P.Join, build_page, build_dicts,
                                         probe_stream, build_key_types,
@@ -2008,7 +2750,7 @@ class LocalExecutor:
             page, dicts = self._execute_to_page(node)
             return self._device_page(page), dicts
         stream = self._compile_stream(node)
-        return self._concat_stream(stream), stream.dicts
+        return self._concat_stream(stream, node), stream.dicts
 
     def _device_page(self, page: Page) -> Page:
         """A page whose columns were pulled to the host (sort, TopN, limit,
@@ -2623,8 +3365,10 @@ class LocalExecutor:
         pages = self._scan_pages_source(conn, si.catalog, handle, new_splits,
                                         si.scan_columns)
         self._node_stats(node)["index_join_keys"] = len(keys)
+        # the lookup's pages are not the generator's splits
         return dataclasses.replace(probe_stream, pages=pages,
-                                   scan_info=dataclasses.replace(si, splits=list(new_splits)))
+                                   scan_info=dataclasses.replace(si, splits=list(new_splits)),
+                                   traced_src=None)
 
     def _dynamic_pruned_pages(self, probe_stream: _Stream, node, build_page: Page):
         """(page source, kept splits) skipping probe splits disjoint from the
@@ -2696,11 +3440,17 @@ class LocalExecutor:
                                        si.scan_columns), kept
 
     # -- materialization ------------------------------------------------------
-    def _concat_stream(self, stream: _Stream) -> Page:
+    def _concat_stream(self, stream: _Stream, node=None) -> Page:
         """Materialize a streaming segment into one compacted device page:
-        live-row counts are read per chunk of eight pages, each page's live
-        rows pack into a pow2 bucket (compaction kernel), and the parts
-        concatenate on the device."""
+        live-row counts are read per chunk of eight coalesced groups, each
+        group's live rows pack into a pow2 bucket (compaction kernel), and
+        the parts concatenate on the device.  A regenerable stream of plan
+        node ``node`` takes the scan-fused count and fill passes
+        (``_concat_traced``) where they are on."""
+        if node is not None:
+            fused = self._concat_traced(stream, node)
+            if fused is not None:
+                return fused
         parts = []
         staged, sums = [], []
 
@@ -2725,8 +3475,7 @@ class LocalExecutor:
             staged.clear()
             sums.clear()
 
-        for page in stream.pages():
-            cols, nulls, valid = stream.run(page)
+        for cols, nulls, valid in self._outs(stream):
             staged.append((cols, nulls, valid))
             sums.append(torch.sum(valid, dtype=torch.int32))
             if len(staged) >= 8:

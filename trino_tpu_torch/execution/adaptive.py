@@ -18,9 +18,9 @@ kernels are built once per process), so the engine reports what a re-plan
 costs it instead: ``compiles=1`` and ``compile_s`` = the statement's planning
 seconds when it missed the plan cache, and 0 on a hit
 (``Engine._adaptive_observe``).  The advisor's arithmetic is unchanged.  A
-``dispatch_batch`` correction is computed as in the reference; it changes the
-plan-cache key but nothing the port's executor does (it coalesces no
-dispatches).
+``dispatch_batch`` correction is computed as in the reference: it changes the
+plan-cache key, and the corrected statement's executor coalesces at its width
+(``Engine._run_select``; the cluster ships it in every task request).
 
 ``AdaptiveAdvisor`` is host-only: consult/observe are dict walks over
 snapshots the engine already holds — zero kernel launches, zero ``_host``

@@ -56,7 +56,7 @@ __all__ = ["Span", "Tracer", "NOOP_TRACER", "QueryCounters", "track_counters",
            "span_dict", "spans_to_otlp", "query_scope", "current_query_id",
            "live_query_counters", "record_task_retry", "WALL_BUCKETS", "wall_breakdown",
            "format_wall_breakdown", "SPILL_TIERS", "SHARD_STATS_MAX", "shard_skew",
-           "record_shard_stats",
+           "record_shard_stats", "record_coalesced", "record_graph",
            "COMPILE_BUCKETS_S", "CompileLog", "COMPILE_LOG", "record_compile",
            "arg_signature", "signature_summary",
            "InflightRegistry", "InflightEntry", "INFLIGHT", "inflight",
@@ -182,6 +182,15 @@ class QueryCounters:
     spill_tier_host: int = 0
     spill_tier_disk: int = 0
     admission_queued: int = 0
+    # dispatch coalescing (exec/local_executor._coalesced_batches): splits
+    # whose transform ran inside a stacked group of K shape-uniform pages
+    # (record_coalesced counts a group's real splits)
+    coalesced_splits: int = 0
+    # the scan-fused whole-scan runners on the card: CUDA graphs captured
+    # for a body (one per plan node, mode and shape; a warm statement
+    # captures none) and their replays (one per split of a fused scan)
+    graph_captures: int = 0
+    graph_replays: int = 0
     shard_stats: list = dataclasses.field(default_factory=list)
     # "<Op>#<k>/<site>" -> {"dispatches", "transfers", "bytes"}, plus the
     # extras a site recorded (compiles, compile_s)
@@ -194,7 +203,8 @@ class QueryCounters:
                      "plan_template_misses", "batched_requests", "adaptive_replans",
                      "adaptive_holds", "compiles", "compile_s", "faults_injected",
                      "task_retries", "spilled_bytes", "spill_tier_hbm", "spill_tier_host",
-                     "spill_tier_disk", "admission_queued")
+                     "spill_tier_disk", "admission_queued", "coalesced_splits",
+                     "graph_captures", "graph_replays")
 
     @property
     def kernel_launches(self) -> int:
@@ -355,11 +365,13 @@ def _attribute(site: str, dispatches: int = 0, transfers: int = 0, nbytes: int =
         sink["bytes"] += nbytes
 
 
-def record_launch(kernel: str, seconds: float) -> None:
+def record_launch(kernel: str, seconds) -> None:
     """One launch of ``kernel`` whose C entry took ``seconds`` of host time,
     charged to the counter set open on this thread (none open: only the
-    process-wide histogram records it) and to the open operator scope."""
-    DISPATCH_LATENCY.record(seconds)
+    process-wide histogram records it) and to the open operator scope.
+    ``seconds`` None: a launch inside a graph replay, not in the histogram."""
+    if seconds is not None:
+        DISPATCH_LATENCY.record(seconds)
     c = getattr(_counter_local, "counters", None)
     if c is not None:
         c.launches[kernel] = c.launches.get(kernel, 0) + 1
@@ -404,6 +416,23 @@ def record_result_cache(hits: int = 0, misses: int = 0, bytes_saved: int = 0) ->
         c.result_cache_hits += hits
         c.result_cache_misses += misses
         c.result_cache_bytes_saved += bytes_saved
+
+
+def record_coalesced(n_splits: int) -> None:
+    """One coalesced group of ``n_splits`` real splits, charged to the
+    counter set open on this thread."""
+    c = getattr(_counter_local, "counters", None)
+    if c is not None:
+        c.coalesced_splits += n_splits
+
+
+def record_graph(captures: int = 0, replays: int = 0) -> None:
+    """Scan-fused graph captures and replays, charged to the counter set
+    open on this thread."""
+    c = getattr(_counter_local, "counters", None)
+    if c is not None:
+        c.graph_captures += captures
+        c.graph_replays += replays
 
 
 def record_fault(site: Optional[str] = None) -> None:

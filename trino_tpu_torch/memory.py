@@ -188,6 +188,22 @@ class MemoryPool:
                 self._by_query[qkey] = max(self._by_query[qkey] - nbytes, 0)
         self._query.reserved = max(self.query_reserved - nbytes, 0)
 
+    def hold(self, nbytes: int, tag: str) -> None:
+        """Count ``nbytes`` that already sit on the device and outlive any
+        one query (the scan-fused runners' static tensors and graph pool):
+        node-level only, never refused (the pool may go past its maximum,
+        and the next reservations are refused instead), no query's."""
+        with self._lock:
+            self.reserved += nbytes
+            self._by_tag[tag] = self._by_tag.get(tag, 0) + nbytes
+
+    def release(self, nbytes: int, tag: str) -> None:
+        """Give back what ``hold`` counted."""
+        with self._lock:
+            self.reserved = max(self.reserved - nbytes, 0)
+            if tag in self._by_tag:
+                self._by_tag[tag] = max(self._by_tag[tag] - nbytes, 0)
+
     def free_bytes(self) -> int:
         with self._lock:
             return self.max_bytes - self.reserved

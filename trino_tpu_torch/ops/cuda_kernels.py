@@ -41,6 +41,14 @@ records, opens a ``torch.profiler.record_function`` range named after its
 kernel, so a profile attributes the wrapper's host time and every device
 operation it causes (allocations' fills, copies) to it.
 
+Inside ``recording_launches()`` (the scan-fused runners' CUDA graph capture
+and its eager warm-up) a launch is not counted: ``_launch`` appends its
+(kernel, shape) to the recording instead.  The warm-up's recording is
+charged once (``charge_launches``: to ``STATS``, to the statement's counters
+and to the operator scope), and each replay of the captured graph charges
+the capture's recording once, as if the body's kernels had been launched
+one by one.
+
 Every launch goes through ``_launch``, which holds an in-flight ``dispatch``
 entry (``tracing.INFLIGHT``) around the C entry's call: the enqueue, not the
 kernel's run (launches are asynchronous; a hung kernel shows at the next
@@ -54,6 +62,7 @@ wrapper that triggered it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -75,6 +84,7 @@ __all__ = ["hash_insert", "hash_insert_", "hash_probe", "compact_rows", "fused_s
            "hash_insert_plain", "hash_insert_plain_", "hash_probe_plain",
            "compact_rows_plain",
            "fused_segment_agg_plain", "build_kernels", "STATS", "reset_stats",
+           "recording_launches", "charge_launches",
            "MAX_PROBES", "SEGMENT_SLOTS_MAX"]
 
 MAX_PROBES = 64  # must match ops/hashagg.py / ops/hashjoin.py
@@ -99,8 +109,10 @@ class KernelStats:
     _lock: threading.Lock = dataclasses.field(default_factory=threading.Lock,
                                               repr=False, compare=False)
 
-    def record(self, shape: tuple, seconds: float) -> None:
-        """One launch at ``shape`` whose C entry took ``seconds`` of host time."""
+    def record(self, shape: tuple, seconds) -> None:
+        """One launch at ``shape`` whose C entry took ``seconds`` of host time
+        (None: a launch inside a graph replay, which has no C entry of its
+        own and stays out of the latency histogram)."""
         with self._lock:
             self.launches += 1
             if len(self.shapes) < _SHAPES_KEPT:
@@ -151,6 +163,29 @@ _entries: dict = {}  # C entry name -> ctypes function
 def reset_stats() -> None:
     for s in STATS.values():
         s.reset()
+
+
+_RECORDING = threading.local()
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Record this thread's launches as (kernel, shape) pairs instead of
+    counting them: the list the context yields."""
+    prev = getattr(_RECORDING, "launches", None)
+    rec: list = []
+    _RECORDING.launches = rec
+    try:
+        yield rec
+    finally:
+        _RECORDING.launches = prev
+
+
+def charge_launches(recorded) -> None:
+    """Count one replay of a captured body that holds the launches
+    ``recorded`` (from ``recording_launches``)."""
+    for kernel, shape in recorded:
+        STATS[kernel].record(shape, None)
 
 
 def _nvcc() -> str:
@@ -294,7 +329,11 @@ def _launch(kernel: str, entry: str, shape: tuple, *args, count: bool = True) ->
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError {rc}")
     if count:
-        STATS[kernel].record(shape, dt)
+        rec = getattr(_RECORDING, "launches", None)
+        if rec is not None:
+            rec.append((kernel, shape))
+        else:
+            STATS[kernel].record(shape, dt)
 
 
 def _on_card(*tensors) -> bool:

@@ -17,6 +17,10 @@ key captures and accumulators are new tensors.  A caller that needs the
 pre-insert state later keeps a snapshot with its own copy of the table (the
 executor takes one per chunk of pages, for the replay after growth).
 Direct-mode updates and ``rehash`` leave their input state untouched.
+With ``inplace=True`` both inserts write every tensor of the state they are
+given and return a state of those same tensors: the scan-fused runners'
+captured bodies update their static state so, the counterpart of XLA
+updating a ``lax.scan`` carry in place.
 """
 
 from __future__ import annotations
@@ -156,17 +160,18 @@ def _direct_slot(cfg: DirectConfig, key_vals, key_nulls, valid):
 
 def direct_groupby_insert(state: GroupByState, cfg: DirectConfig, key_vals,
                           valid, agg_inputs, agg_updates,
-                          key_nulls=None) -> GroupByState:
+                          key_nulls=None, inplace: bool = False) -> GroupByState:
     """One page -> updated direct-mode state.  No probing: slot = packed key.
     Capacities <= ONEHOT_CAP_MAX aggregate via masked reductions over a
-    [rows, capacity] one-hot — zero scatters."""
+    [rows, capacity] one-hot — zero scatters.  ``inplace``: see the module
+    note."""
     if key_nulls is None:
         key_nulls = tuple(None for _ in key_vals)
     C = cfg.capacity
     dev = state.device
     slot, ok = _direct_slot(cfg, key_vals, key_nulls, valid)
     live = valid & ok
-    overflow = state.overflow | torch.any(valid & ~ok)
+    overflow = _or(state.overflow, torch.any(valid & ~ok), inplace)
 
     if C <= ONEHOT_CAP_MAX:
         lanes = torch.arange(C, dtype=torch.int32, device=dev)
@@ -175,24 +180,38 @@ def direct_groupby_insert(state: GroupByState, cfg: DirectConfig, key_vals,
                          torch.zeros((1,), dtype=torch.bool, device=dev)])
         table = torch.where(occ, torch.arange(C + 1, dtype=torch.int64, device=dev),
                             state.table)
+        if inplace:
+            table = state.table.copy_(table)
         accs = tuple(
-            _onehot_agg_update(acc, kind, onehot, vals_nulls)
+            _onehot_agg_update(acc, kind, onehot, vals_nulls, inplace)
             for acc, kind, vals_nulls in zip(state.accs, agg_updates, agg_inputs))
         return GroupByState(table, state.key_cols, state.key_nulls, accs, overflow)
 
     idx = torch.where(live, slot, C).to(torch.int64)
-    table = state.table.index_put(
-        (idx,), torch.where(live, idx, torch.full_like(idx, EMPTY_KEY)))
-    table[C] = EMPTY_KEY
+    words = torch.where(live, idx, torch.full_like(idx, EMPTY_KEY))
+    table = state.table.index_put_((idx,), words) if inplace \
+        else state.table.index_put((idx,), words)
+    table[C:].fill_(EMPTY_KEY)  # a fill on the device: no host copy
     accs = tuple(
-        agg_update(acc, kind, slot, live, vals_nulls)
+        agg_update(acc, kind, slot, live, vals_nulls, inplace)
         for acc, kind, vals_nulls in zip(state.accs, agg_updates, agg_inputs))
     return GroupByState(table, state.key_cols, state.key_nulls, accs, overflow)
 
 
-def _onehot_agg_update(acc, kind, onehot, vals_nulls):
+def _or(flag, more, inplace: bool):
+    """``flag | more`` for 0-d bools, into ``flag`` where ``inplace``."""
+    return flag.logical_or_(more) if inplace else flag | more
+
+
+def _onehot_agg_update(acc, kind, onehot, vals_nulls, inplace: bool = False):
     """Aggregate one page into [capacity]-wide accumulators via masked
-    reductions over the one-hot (the overflow sink stays untouched)."""
+    reductions over the one-hot (the overflow sink stays untouched); into
+    ``acc`` where ``inplace``."""
+    out = _onehot_agg_value(acc, kind, onehot, vals_nulls)
+    return acc.copy_(out) if inplace else out
+
+
+def _onehot_agg_value(acc, kind, onehot, vals_nulls):
     vals, nulls = vals_nulls if vals_nulls is not None else (None, None)
     C = onehot.shape[1]
     mask = onehot if (nulls is None or vals is None) else (onehot & ~nulls[:, None])
@@ -234,9 +253,9 @@ def _probe_insert(table, packed, valid):
 
 def groupby_insert(state: GroupByState, key_vals: Sequence, key_types, valid,
                    agg_inputs: Sequence, agg_updates: Sequence[str],
-                   key_nulls: Sequence = None) -> GroupByState:
+                   key_nulls: Sequence = None, inplace: bool = False) -> GroupByState:
     """One page of input -> updated state, whose table is ``state.table``
-    updated in place (see the module note).
+    updated in place (see the module note; ``inplace``: every tensor).
 
     agg_inputs[i]: (values|None, null_mask|None); agg_updates[i]: update kind;
     key_nulls[i]: null mask of key i or None (SQL GROUP BY: NULLs form ONE
@@ -266,35 +285,38 @@ def groupby_insert(state: GroupByState, key_vals: Sequence, key_types, valid,
         packed, _ = pack_keys(tuple(pack_cols), tuple(pack_types))
     table = state.table
     slot, placed = _probe_insert(table, packed, valid)
-    overflow = state.overflow | torch.any(valid & ~placed)
+    overflow = _or(state.overflow, torch.any(valid & ~placed), inplace)
     live = valid & placed
 
     # capture original key values per slot (idempotent writes: same key -> same value)
     def capture(col, vals):
         sink = col.shape[0] - 1
         idx = torch.where(live, slot, sink).to(torch.int64)
-        return col.index_put((idx,), torch.where(live, vals.to(col.dtype), col[-1]))
+        words = torch.where(live, vals.to(col.dtype), col[-1])
+        return col.index_put_((idx,), words) if inplace else col.index_put((idx,), words)
 
     key_cols = tuple(capture(kc, kv) for kc, kv in zip(state.key_cols, masked_vals))
     state_knulls = tuple(sk if kn is None else capture(sk, kn)
                          for sk, kn in zip(state.key_nulls, key_nulls))
     accs = tuple(
-        agg_update(acc, kind, slot, live, vals_nulls)
+        agg_update(acc, kind, slot, live, vals_nulls, inplace)
         for acc, kind, vals_nulls in zip(state.accs, agg_updates, agg_inputs))
     return GroupByState(table, key_cols, state_knulls, accs, overflow)
 
 
-def agg_update(acc, kind, slot, live, vals_nulls):
-    """One scatter update of a [capacity+1] accumulator; masked rows go to the sink."""
+def agg_update(acc, kind, slot, live, vals_nulls, inplace: bool = False):
+    """One scatter update of a [capacity+1] accumulator; masked rows go to the
+    sink.  ``inplace``: into ``acc``, which it returns."""
     vals, nulls = vals_nulls if vals_nulls is not None else (None, None)
     mask = live if (nulls is None or vals is None) else (live & ~nulls)
     sink = acc.shape[0] - 1
     idx = torch.where(mask, slot, sink).to(torch.int64)
     zero = torch.zeros((), dtype=acc.dtype, device=acc.device)
+    add = acc.index_add_ if inplace else acc.index_add
     if kind == "count_star":
-        return acc.index_add(0, idx, live.to(acc.dtype))
+        return add(0, idx, live.to(acc.dtype))
     if kind == "count":
-        return acc.index_add(0, idx, mask.to(acc.dtype))
+        return add(0, idx, mask.to(acc.dtype))
     if kind in ("sum", "sum_hi32", "sum_lo32", "sum_sq"):
         if kind == "sum_hi32":
             v = vals >> 32
@@ -307,13 +329,13 @@ def agg_update(acc, kind, slot, live, vals_nulls):
         else:
             v = vals
         v = torch.broadcast_to(v, mask.shape).to(acc.dtype)
-        return acc.index_add(0, idx, torch.where(mask, v, zero))
+        return add(0, idx, torch.where(mask, v, zero))
     if kind in ("min", "max"):
         ext = _extreme(acc.dtype, +1 if kind == "min" else -1)
         v = torch.broadcast_to(vals, mask.shape).to(acc.dtype)
         v = torch.where(mask, v, torch.full((), ext, dtype=acc.dtype, device=acc.device))
-        return acc.scatter_reduce(0, idx, v, "amin" if kind == "min" else "amax",
-                                  include_self=True)
+        red = acc.scatter_reduce_ if inplace else acc.scatter_reduce
+        return red(0, idx, v, "amin" if kind == "min" else "amax", include_self=True)
     raise NotImplementedError(kind)
 
 

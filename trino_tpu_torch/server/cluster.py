@@ -719,6 +719,8 @@ class WorkerServer:
         token = self.scheduler.new_token(tid)
         ex = self._checkout_executor(query_key=xdir, token=token)
         ex.page_cache = req.get("page_cache")
+        # the statement's coalescing width, shipped in every task request
+        ex.dispatch_batch = req.get("dispatch_batch")
         # pooled executors keep stats across tasks: drop this fragment's
         # stale ones and stamp its fragment-relative paths and estimates
         for nid in _subtree_ids(node):
@@ -801,6 +803,7 @@ class WorkerServer:
                 else:
                     self._running_queries[xdir] = nq
             ex.page_cache = None
+            ex.dispatch_batch = None  # per-task settings: the executor is pooled
             # the executor goes back to the pool: no producer of a failed
             # task may race the next task's scan
             ex.close_producers()
@@ -1276,10 +1279,20 @@ class ClusterCoordinator:
     def _execute_plan_cluster(self, plan, sess):
         import shutil
 
-        from ..engine import _effective_page_cache
+        from ..engine import _effective_dispatch_batch, _effective_page_cache
 
         local = self._local
         with self._query_lock:  # overrides are executor state
+            # the session's coalescing width, or the advisor's correction of
+            # it: the coordinator's local finish runs at it and every task
+            # request ships it (queries serialize on the lock)
+            self._dispatch_batch = _effective_dispatch_batch(sess)
+            adec = getattr(self.engine._thread_accounting, "adaptive", None)
+            if adec is not None and adec.get("verdict") == "replan":
+                k = (adec.get("corrections") or {}).get("dispatch_batch")
+                if k:
+                    self._dispatch_batch = int(k)
+            local.dispatch_batch = self._dispatch_batch
             self._page_cache = _effective_page_cache(sess)
             local.page_cache = self._page_cache
             # the root span execute_sql opened: tasks ship it, harvest
@@ -1796,7 +1809,8 @@ class ClusterCoordinator:
         frag_id, frag_blob = self._next_fragment_blob(frag)
         req = {"task_id": tid, "fragment_id": frag_id, "kind": "fragment", "attempt": 0,
                "exchange_dir": exchange_dir, "output": "stream", "n_readers": n_readers,
-               "trace": self._trace_ctx(), "page_cache": getattr(self, "_page_cache", None)}
+               "trace": self._trace_ctx(), "page_cache": getattr(self, "_page_cache", None),
+               "dispatch_batch": getattr(self, "_dispatch_batch", None)}
         if sources:
             req["stream_sources"] = sources
         last_err = None
@@ -1938,7 +1952,9 @@ class ClusterCoordinator:
             return pickle.dumps({"task_id": tid, "fragment_id": frag_id, "kind": kind,
                                  "attempt": attempt, "exchange_dir": exchange_dir,
                                  "trace": self._trace_ctx(),
-                                 "page_cache": getattr(self, "_page_cache", None), **extra})
+                                 "page_cache": getattr(self, "_page_cache", None),
+                                 "dispatch_batch": getattr(self, "_dispatch_batch", None),
+                                 **extra})
 
         def ship(w):
             if w.url not in frag_sent:

@@ -673,6 +673,10 @@ class CoordinatorServer:
                 "to host.",
                 "# TYPE trino_tpu_host_bytes_pulled_total counter",
                 f"trino_tpu_host_bytes_pulled_total {ct.host_bytes_pulled}",
+                "# HELP trino_tpu_coalesced_splits_total Splits executed "
+                "inside coalesced multi-split dispatches.",
+                "# TYPE trino_tpu_coalesced_splits_total counter",
+                f"trino_tpu_coalesced_splits_total {ct.coalesced_splits}",
                 # chaos runs: fault-injector firings charged to statements,
                 # and task retries: the fault-tolerant executor's retry loop
                 # and the cluster coordinator's re-dispatches, both folded

@@ -154,13 +154,23 @@ def _device_of(columns) -> torch.device:
 _CONSTS = threading.local()
 
 
+def current_params() -> tuple:
+    """The parameter slots bound on this thread (``bind_params``), or ()."""
+    return getattr(_PARAM_TLS, "values", None) or ()
+
+
 @contextlib.contextmanager
-def device_constants(count=None):
+def device_constants(count=None, cache=None, scalars=False):
     """A query's scope for numpy constants: each one is copied to the device
     once (keyed by the array's identity, which the scope keeps alive) and
-    ``count(nbytes)`` is called for each copy."""
+    ``count(nbytes)`` is called for each copy.  ``cache`` (a dict the caller
+    keeps) holds the copies past the scope; ``scalars`` also keeps each
+    scalar constant's device copy there, keyed by its expression: a CUDA
+    graph capture may copy nothing from the host, so the scan-fused runners
+    evaluate their body once before capture in such a scope, and the
+    captured graph reads the copies that the cache keeps alive."""
     old = getattr(_CONSTS, "scope", None)
-    _CONSTS.scope = ({}, count)
+    _CONSTS.scope = ({} if cache is None else cache, count, scalars)
     try:
         yield
     finally:
@@ -172,7 +182,7 @@ def device_array(value: np.ndarray, device) -> torch.Tensor:
     scope = getattr(_CONSTS, "scope", None)
     if scope is None:
         return torch.as_tensor(value, device=device)
-    cache, count = scope
+    cache, count, _ = scope
     dev = torch.device(device)
     key = (id(value), dev.type, dev.index or 0)
     hit = cache.get(key)
@@ -196,6 +206,15 @@ def _evaluate(expr, columns, null_masks, device):
         if expr.value is None:
             return (torch.zeros((), dtype=dt, device=device),
                     torch.ones((), dtype=torch.bool, device=device))
+        scope = getattr(_CONSTS, "scope", None)
+        if scope is not None and scope[2]:
+            dev = torch.device(device)
+            key = ("scalar", id(expr), dev.type, dev.index or 0)
+            hit = scope[0].get(key)
+            if hit is None:
+                hit = scope[0][key] = (expr, torch.tensor(expr.value, dtype=dt,
+                                                          device=device))
+            return hit[1], None
         return torch.tensor(expr.value, dtype=dt, device=device), None
     if isinstance(expr, FieldRef):
         return columns[expr.index], null_masks[expr.index]

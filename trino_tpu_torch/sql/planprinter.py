@@ -68,7 +68,7 @@ def format_plan(node: P.PlanNode, stats: dict = None, counters=None,
             f"Device boundary: {counters.device_dispatches} dispatches, "
             f"{counters.host_transfers} host transfers, "
             f"{counters.host_bytes_pulled} bytes pulled, "
-            f"{getattr(counters, 'coalesced_splits', 0)} splits coalesced")
+            f"{counters.coalesced_splits} splits coalesced")
         # chaos runs are self-describing: injected faults and the retries
         # they forced ride the boundary summary (zero = line unchanged)
         fi = getattr(counters, "faults_injected", 0)
